@@ -1,7 +1,11 @@
 """Chip smoke test of the PyTorch port: build the CUDA kernels, check each
 against its plain PyTorch version on the card, serve three volumes through
-the port's HTTP server with the flagship UNet, and check the folded forward
-on the card against the plain CPU forward.
+the port's HTTP server with the flagship UNet, check the folded forward on
+the card against the plain CPU forward, then train: the weight-gradient
+kernels and both autograd Functions against their plain versions,
+``train()`` with the flagship defaults on synthetic phantoms, step time and
+learning on one fixed batch, and one f32 train step on the card against the
+CPU.
 
     python3 chip_smoke.py
 
@@ -13,8 +17,10 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import gzip
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -35,7 +41,16 @@ KERNELS = {
                    "segmantic_tpu/ops/phase_gemm.py:266,327"),
     "blend": ("segmantic_tpu_torch/csrc/blend.cu",
               "segmantic_tpu/ops/pallas_blend.py:115"),
+    "fused_conv_dw": ("segmantic_tpu_torch/csrc/fused_conv_dw.cu",
+                      "segmantic_tpu/ops/pallas_conv.py:289"),
+    "phase_conv_dw": ("segmantic_tpu_torch/csrc/phase_conv_dw.cu",
+                      "segmantic_tpu/ops/phase_gemm.py:430,518"),
 }
+TRAIN_PATCH = (96, 96, 96)
+TRAIN_BATCH = 8  # batch_size 2 x num_samples 4, the train() defaults
+# NIfTI-1 datatype codes
+_NIFTI_DTYPES = {2: "u1", 4: "<i2", 8: "<i4", 16: "<f4", 64: "<f8", 256: "i1",
+                 512: "<u2", 768: "<u4", 1024: "<i8"}
 
 
 def _fail(msg: str) -> None:
@@ -146,6 +161,334 @@ def check_kernels(torch):
     return results
 
 
+def _counters():
+    from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
+
+    return {"fused_conv": fused_conv.counter, "phase_conv": phase_conv.counter,
+            "blend": blend.counter, "fused_conv_dw": fused_conv.dw_counter,
+            "phase_conv_dw": phase_conv.dw_counter}
+
+
+def check_train_kernels(torch):
+    """The two weight-gradient kernels and both autograd Functions against
+    their plain versions at the train step's shapes (batch 8), f32 and bf16.
+
+    Limits: the dw kernels 1e-3 * max|ref| in f32 and with bf16 inputs (sums
+    over up to 7 M positions in another order, TF32 off; with bf16 inputs
+    both sides sum the same exactly upcast values in f32); the autograd
+    Functions 1e-3 in f32 and 2e-2 in bf16 (their output and dx round to
+    bf16). Returns {kernel: {"max_abs_err", "ms", "plain_ms"}}, times summed
+    over shapes (bf16 inputs; the plain version is cuDNN's f32 wgrad on the
+    upcast inputs, TF32 off) and the largest bf16 error."""
+    from segmantic_tpu_torch.ops import fused_conv, phase_conv
+    from segmantic_tpu_torch.ops.fast_conv import depth_to_space
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def compare(name, got, want, dtype, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        tol = limit * ref
+        ok = err <= tol
+        print(f"  {name} {str(dtype)[6:]}: max|d| {err:.3e} (limit {tol:.3e} = "
+              f"{limit:g} * max|ref| {ref:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{name} {dtype} disagrees with its plain version")
+        return err
+
+    results = {}
+    cases = [
+        ("fused_conv_dw", f"x{(TRAIN_BATCH, 48, 48, 48, 16)}->16",
+         (TRAIN_BATCH, 48, 48, 48, 16), 16),
+        ("fused_conv_dw", f"x{(TRAIN_BATCH, 24, 24, 24, 32)}->32",
+         (TRAIN_BATCH, 24, 24, 24, 32), 32),
+        ("fused_conv_dw", f"x{(TRAIN_BATCH, 6, 6, 6, 128)}->256",
+         (TRAIN_BATCH, 6, 6, 6, 128), 256),
+        ("phase_conv_dw", f"p{(TRAIN_BATCH, 48, 48, 48, 64)} C=8",
+         (TRAIN_BATCH, 48, 48, 48, 64), 64),
+        ("phase_conv_dw", f"p{(TRAIN_BATCH, 24, 24, 24, 128)} C=16",
+         (TRAIN_BATCH, 24, 24, 24, 128), 128),
+    ]
+    for name, label, x_shape, co in cases:
+        kernel, plain = ((fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain)
+                         if name == "fused_conv_dw"
+                         else (phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain))
+        x32 = randn(*x_shape)
+        dy32 = randn(*x_shape[:4], co)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            err = compare(f"{name} {label}", kernel(x, dy), plain(x, dy), dtype, 1e-3)
+        ms = _median_ms(torch, lambda: kernel(x, dy))
+        pms = _median_ms(torch, lambda: plain(x, dy))
+        # context, not the plain version: cuDNN's wgrad straight on the bf16
+        # (full-resolution) tensors, tensor cores allowed, output in bf16
+        if name == "fused_conv_dw":
+            xc, dyc, ci = x, dy, x_shape[-1]
+        else:
+            ci = x_shape[-1] // 8
+            xc, dyc = depth_to_space(x, ci), depth_to_space(dy, co // 8)
+        cms = _median_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc.permute(0, 4, 1, 2, 3), (dyc.shape[-1], ci, 3, 3, 3),
+            dyc.permute(0, 4, 1, 2, 3), padding=1))
+        print(f"    bf16 time: kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms; "
+              f"for context cuDNN bf16 wgrad {cms:.4f} ms")
+        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+
+    def grads(fn, *args):
+        args = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*args)
+        out.backward(torch.ones_like(out) * 0.01 + 0.1 * out.detach().sin())
+        return [out] + [a.grad for a in args]
+
+    functions = [
+        ("conv3d_grad", fused_conv.conv3d_grad, fused_conv.conv3d_plain,
+         (TRAIN_BATCH, 24, 24, 24, 32), (3, 3, 3, 32, 32)),
+        ("phase_conv_grad", phase_conv.phase_conv_grad, phase_conv.phase_conv_plain,
+         (TRAIN_BATCH, 24, 24, 24, 128), (3, 3, 3, 16, 16)),
+    ]
+    for name, fn, plain, x_shape, w_shape in functions:
+        x32 = randn(*x_shape)
+        w32 = randn(*w_shape, scale=(27 * w_shape[3]) ** -0.5)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = grads(fn, x32.to(dtype), w32.to(dtype))
+            want = grads(plain, x32.to(dtype), w32.to(dtype))
+            for part, a, b in zip(("out", "dx", "dw"), got, want):
+                compare(f"{name} {part} x{x_shape}", a, b, dtype,
+                        2e-2 if dtype == torch.bfloat16 else 1e-3)
+    return results
+
+
+def write_nifti(path: Path, data, affine) -> None:
+    """data (i, j, k) and its 4x4 RAS affine as a gzipped single-file NIfTI-1
+    (sform), written here so the script holds the port's NIfTI I/O against
+    an independent codec."""
+    import numpy as np
+
+    code = {np.dtype(v): k for k, v in _NIFTI_DTYPES.items()}[data.dtype]
+    hdr = bytearray(348)
+    struct.pack_into("<i", hdr, 0, 348)
+    struct.pack_into("<8h", hdr, 40, 3, *data.shape, 1, 1, 1, 1)
+    struct.pack_into("<2h", hdr, 70, code, 8 * data.dtype.itemsize)
+    struct.pack_into("<8f", hdr, 76, 1.0, *np.linalg.norm(affine[:3, :3], axis=0),
+                     1.0, 1.0, 1.0, 1.0)
+    struct.pack_into("<2f", hdr, 108, 352.0, 1.0)  # vox_offset, scl_slope
+    struct.pack_into("<h", hdr, 254, 1)  # sform_code
+    struct.pack_into("<12f", hdr, 280, *np.asarray(affine, np.float64)[:3].ravel())
+    hdr[344:348] = b"n+1\0"
+    payload = bytes(hdr) + bytes(4) + np.asarray(data).tobytes(order="F")
+    path.write_bytes(gzip.compress(payload, compresslevel=1))
+
+
+def read_nifti(path: Path):
+    """A little-endian NIfTI-1 file with an sform and no intensity scaling
+    (what the port writes) -> (data (i, j, k), 4x4 affine)."""
+    import numpy as np
+
+    blob = path.read_bytes()
+    if blob[:2] == b"\x1f\x8b":
+        blob = gzip.decompress(blob)
+    ndim, *dims = struct.unpack_from("<8h", blob, 40)
+    slope, inter = struct.unpack_from("<2f", blob, 112)
+    if (struct.unpack_from("<i", blob, 0)[0] != 348 or blob[344:347] != b"n+1"
+            or struct.unpack_from("<h", blob, 254)[0] <= 0
+            or slope not in (0.0, 1.0) or inter != 0.0):
+        _fail(f"{path.name}: not a plain single-file NIfTI-1 with an sform")
+    dtype = np.dtype(_NIFTI_DTYPES[struct.unpack_from("<h", blob, 70)[0]])
+    shape = tuple(dims[:ndim])
+    data = np.frombuffer(blob, dtype, int(np.prod(shape)),
+                         int(struct.unpack_from("<f", blob, 108)[0]))
+    affine = np.eye(4)
+    affine[:3] = np.reshape(struct.unpack_from("<12f", blob, 280), (3, 4))
+    return data.reshape(shape, order="F"), affine
+
+
+def spacing_affine(spacing, origin=(0.0, 0.0, 0.0)):
+    """Axis-aligned 4x4 affine with the given voxel spacing and origin."""
+    import numpy as np
+
+    aff = np.diag([*map(float, spacing), 1.0])
+    aff[:3, 3] = origin
+    return aff
+
+
+def labelled_phantom(shape, seed: int):
+    """Nested ellipsoids: label k inside the k-th shell (8 classes), image
+    100 * k plus noise; returns (image f32, label u8) arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij"))
+    lbl = np.zeros(shape, np.uint8)
+    for k, radius in enumerate((0.9, 0.75, 0.62, 0.5, 0.38, 0.27, 0.16)):
+        center = rng.uniform(-0.05, 0.05, 3)[:, None, None, None]
+        lbl[(((grid - center) / radius) ** 2).sum(0) < 1.0] = k + 1
+    img = (100.0 * lbl + 20.0 * rng.standard_normal(shape)).astype(np.float32)
+    return img, lbl
+
+
+def fixed_batch(torch, n: int, seed: int):
+    """n z-scored 96^3 patches of 128^3 phantoms with their labels (host)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images, labels = [], []
+    for i in range(n):
+        img, lbl = labelled_phantom((128, 128, 128), seed + i)
+        s = rng.integers(0, 33, 3)
+        crop = tuple(slice(a, a + 96) for a in s)
+        im = img[crop]
+        images.append(((im - im.mean()) / im.std())[..., None])
+        labels.append(lbl[crop])
+    return (torch.from_numpy(np.stack(images).astype(np.float32)),
+            torch.from_numpy(np.stack(labels).astype(np.uint8)))
+
+
+def run_train(torch, work: Path):
+    """train() with the flagship defaults on 4 + 1 phantoms, then step time,
+    memory and learning on one fixed 8 x 96^3 bf16 batch."""
+    import numpy as np
+
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import (
+        SegmentationModel, make_train_step, train,
+    )
+
+    for sub in ("image", "label"):
+        (work / sub).mkdir(parents=True)
+    for i in range(5):
+        img, lbl = labelled_phantom((128, 128, 128), 10 + i)
+        write_nifti(work / "image" / f"case{i}.nii.gz", img, np.eye(4))
+        write_nifti(work / "label" / f"case{i}.nii.gz", lbl, np.eye(4))
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    result = train(image_dir=work / "image", labels_dir=work / "label",
+                   output_dir=work / "run", num_classes=NUM_CLASSES, max_epochs=2,
+                   device="cuda", seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
+              f"{rec['train_voxels_per_sec']:.4g} voxels/s (cold), {rec['seconds']:.2f} s")
+    print(f"  train(): {seconds:.1f} s for 2 epochs of 2 steps + validation; "
+          f"launches {launches}")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    ckpts = sorted(p.name for p in (work / "run").glob("*.ckpt"))
+    print(f"  checkpoints: {ckpts}; best {result.best_checkpoint.name if result.best_checkpoint else None}")
+    if len(result.history) != 2 or not finite:
+        _fail("train() history is not 2 finite epochs")
+    if not (work / "run" / "last.ckpt").exists() or result.best_checkpoint is None \
+            or not result.best_checkpoint.exists():
+        _fail("train() did not write last.ckpt and a best checkpoint")
+    if min(launches.values()) <= 0:
+        _fail(f"a kernel of the training path was never launched: {launches}")
+
+    # one fixed batch: warm step time, throughput, peak memory, learning
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
+    module = model.module.train().requires_grad_(True)
+    opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+    step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+                           mixed_precision=True)
+    image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    image, label = image.cuda(), label.cuda()
+    loss_hist = [step(image, label).item() for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(17):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(image, label)
+        end.record()
+        loss_hist.append(loss.item())
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ms = statistics.median(times)
+    voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
+    print(f"  fixed batch {TRAIN_BATCH}x96^3 bf16, Adam lr 1e-3: warm step median {ms:.2f} ms "
+          f"(min {min(times):.2f}, max {max(times):.2f}, CUDA events over 17 steps), "
+          f"{voxels / ms * 1e3:.4g} labelled voxels/s, peak device memory {peak:.0f} MiB")
+    print(f"  loss over 20 steps: {[round(v, 5) for v in loss_hist]}")
+    if not all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0] - 1e-3:
+        _fail("the loss did not fall over 20 steps on a fixed batch")
+    return launches, {"step_ms": ms, "voxels_per_s": voxels / ms * 1e3, "peak_mib": peak}
+
+
+def train_parity(torch):
+    """One train step (flips off, TF32 off) from the same weights and batch,
+    batch 2 at full width, three times: f32 on the card with the kernels, f32
+    on the CPU with the plain versions, and f64 on the CPU (the plain
+    versions take f64 there), the reference both f32 runs are judged by. SGD
+    at lr 0 leaves the weights as they were and the gradients in place.
+
+    Limits, against the f64 step: loss 1e-5 relative; BN running statistics
+    1e-4 * max|ref| of each buffer; each gradient tensor k within
+    2 * e_cpu[k] + 1e-3 * max(max|g64[k]|, 1e-2 * max over all tensors of
+    max|g64|), where e_cpu[k] is the CPU f32 step's own distance from f64.
+    The first term is the rounding that f32 arithmetic brings to that tensor
+    whatever computes it (behind a BatchNorm's backward it reaches ~1e-3 of
+    the tensor's scale); the floor keeps the conv biases that feed a
+    BatchNorm, whose true gradient is zero, from being judged against
+    rounding noise."""
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    image, label = fixed_batch(torch, 2, 40)
+    out = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=2, device=device)
+        module = model.module.to(dtype).train().requires_grad_(True)
+        opt = torch.optim.SGD(module.parameters(), lr=0.0)
+        step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+                               mixed_precision=False)
+        t0 = time.perf_counter()
+        loss = step(image.to(device, dtype), label.to(device)).item()
+        print(f"  {device} {str(dtype)[6:]}: loss {loss:.9f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        out[device, dtype] = (loss, {k: p.grad.cpu().double()
+                                     for k, p in module.named_parameters()},
+                              {k: b.cpu().double() for k, b in module.named_buffers()})
+    (lg, gg, bg) = out["cuda", torch.float32]
+    (_, gc, _) = out["cpu", torch.float32]
+    (l64, g64, b64) = out["cpu", torch.float64]
+    rel = abs(lg - l64) / abs(l64)
+    floor = 1e-2 * max(g.abs().max().item() for g in g64.values())
+    rows = []
+    for k, ref in g64.items():
+        e_card = (gg[k] - ref).abs().max().item()
+        e_cpu = (gc[k] - ref).abs().max().item()
+        lim = 2 * e_cpu + 1e-3 * max(ref.abs().max().item(), floor)
+        rows.append((e_card / lim, k, e_card, e_cpu, lim))
+    rows.sort(reverse=True)
+    worst_b = max(((bg[k] - b64[k]).abs().max().item() / b64[k].abs().max().item(), k)
+                  for k in b64)
+    print(f"  card vs f64: loss rel diff {rel:.3e} (limit 1e-5); worst BN statistic "
+          f"{worst_b[0]:.3e} of max|ref| at {worst_b[1]} (limit 1e-4); gradients "
+          f"(floor 1e-2 * max|g64| = {floor:.3e}), the 8 nearest their limits:")
+    for ratio, k, e_card, e_cpu, lim in rows[:8]:
+        print(f"    {k}: card {e_card:.3e}, CPU f32 {e_cpu:.3e} from f64; limit "
+              f"{lim:.3e}; {ratio:.3f} of it")
+    print(f"  {sum(r[0] <= 1.0 for r in rows)} of {len(rows)} gradient tensors within "
+          f"their limits; card nearer f64 than the CPU for "
+          f"{sum(r[2] <= r[3] for r in rows)}")
+    if not (rel <= 1e-5 and worst_b[0] <= 1e-4 and rows[0][0] <= 1.0):
+        _fail("f32 train-step parity, card vs the f64 step")
+
+
 def make_checkpoint(torch, path: Path):
     """The flagship UNet from torch.Generator seed 0, with non-trivial BN
     running statistics, written as an STPUCKP1 checkpoint."""
@@ -165,11 +508,9 @@ def make_checkpoint(torch, path: Path):
     model.save(path)
 
 
-def phantom(shape, seed: int, affine):
-    """Nested ellipsoids of distinct intensities over low-level noise."""
+def phantom(shape, seed: int):
+    """Nested ellipsoids of distinct intensities over low-level noise (f32)."""
     import numpy as np
-
-    from segmantic_tpu.core.volume import Volume
 
     rng = np.random.default_rng(seed)
     grid = np.stack(np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij"))
@@ -178,25 +519,22 @@ def phantom(shape, seed: int, affine):
         center = rng.uniform(-0.1, 0.1, 3)[:, None, None, None]
         inside = (((grid - center) / radius) ** 2).sum(0) < 1.0
         img[inside] = 100.0 * (k + 1) + 5.0 * rng.standard_normal(inside.sum())
-    return Volume(data=img[None], affine=affine)
+    return img
 
 
 def serve_requests(torch, ckpt: Path, work: Path):
     import numpy as np
 
-    from segmantic_tpu.core.volume import affine_from_spacing_origin
-    from segmantic_tpu.io.nifti import read_volume, write_volume
-    from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
     from segmantic_tpu_torch.serve import InferenceSession, make_server
 
-    lps = affine_from_spacing_origin((0.8, 0.9, 1.1), (10.0, -20.0, 5.0))
+    lps = spacing_affine((0.8, 0.9, 1.1), (10.0, -20.0, 5.0))
     lps[:2] *= -1
     cases = [
-        ("phantom_a", phantom((256, 256, 176), 1, affine_from_spacing_origin((1.0, 1.0, 1.2)))),
-        ("phantom_b", phantom((256, 256, 176), 2, affine_from_spacing_origin((0.9, 0.9, 1.0)))),
+        ("phantom_a", phantom((256, 256, 176), 1), spacing_affine((1.0, 1.0, 1.2))),
+        ("phantom_b", phantom((256, 256, 176), 2), spacing_affine((0.9, 0.9, 1.0))),
         # LPS: flipped on the way in and back on the way out; no axis is a
         # multiple of the window stride, so the last windows snap to the edges
-        ("lps", phantom((200, 168, 150), 3, lps)),
+        ("lps", phantom((200, 168, 150), 3), lps),
     ]
     session = InferenceSession(ckpt, device="cuda")
     server = make_server(session, host="127.0.0.1", port=0)
@@ -210,11 +548,11 @@ def serve_requests(torch, ckpt: Path, work: Path):
         print(f"  GET /v1/health -> {health}")
         if health != {"status": "ok"}:
             _fail("health check")
-        for c in (fused_conv.counter, phase_conv.counter, blend.counter):
+        for c in _counters().values():
             c.reset()
-        for name, vol in cases:
+        for name, img, affine in cases:
             path = work / f"{name}.nii.gz"
-            write_volume(path, vol)
+            write_nifti(path, img, affine)
             req = urllib.request.Request(f"{base}/v1/segment", data=path.read_bytes(),
                                          method="POST")
             t0 = time.perf_counter()
@@ -224,15 +562,13 @@ def serve_requests(torch, ckpt: Path, work: Path):
             seconds.append(dt)
             out = work / f"{name}_pred.nii.gz"
             out.write_bytes(body)
-            pred = read_volume(out)
-            labels = pred.numpy()
-            ok = (status == 200 and pred.spatial_shape == vol.spatial_shape
-                  and np.allclose(pred.affine, vol.affine, atol=1e-4)
+            labels, pred_affine = read_nifti(out)
+            affine_ok = np.allclose(pred_affine, affine, atol=1e-4)
+            ok = (status == 200 and labels.shape == img.shape and affine_ok
                   and labels.min() >= 0 and labels.max() < NUM_CLASSES)
             counts = np.bincount(labels.astype(np.int64).ravel(), minlength=NUM_CLASSES)
-            print(f"  POST {name} {vol.spatial_shape}: HTTP {status}, {dt:.3f} s, "
-                  f"grid {pred.spatial_shape}, affine match "
-                  f"{np.allclose(pred.affine, vol.affine, atol=1e-4)}, "
+            print(f"  POST {name} {img.shape}: HTTP {status}, {dt:.3f} s, "
+                  f"grid {labels.shape}, affine match {affine_ok}, "
                   f"labels per class {counts.tolist()}")
             if not ok:
                 _fail(f"request {name}: bad response")
@@ -242,10 +578,9 @@ def serve_requests(torch, ckpt: Path, work: Path):
         server.server_close()
     if thread.is_alive():
         _fail("server thread did not stop")
-    launches = {"fused_conv": fused_conv.counter.count,
-                "phase_conv": phase_conv.counter.count, "blend": blend.counter.count}
+    launches = {name: c.count for name, c in _counters().items()}
     print(f"  launches during the requests: {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("fused_conv", "phase_conv", "blend")) <= 0:
         _fail(f"a kernel of the path was never launched: {launches}")
     return seconds, launches, session
 
@@ -258,7 +593,7 @@ def parity(torch, ckpt: Path, session):
     from segmantic_tpu_torch.infer.executor import make_eval_forward
     from segmantic_tpu_torch.train.trainer import SegmentationModel
 
-    vol = phantom((192, 96, 96), 4, np.eye(4)).numpy()[0]
+    vol = phantom((192, 96, 96), 4)
     vol = (vol - vol.mean()) / vol.std()
     windows = np.stack([vol[0:96], vol[96:192], vol[48:144], vol[24:120]])[..., None]
     x = torch.from_numpy(windows.astype(np.float32))
@@ -316,6 +651,9 @@ def main() -> None:
     print("[kernels] each kernel vs its plain version on the card "
           "(cudnn.allow_tf32=False, matmul precision 'highest')")
     measured = check_kernels(torch)
+    print("[train-kernels] weight-gradient kernels and autograd Functions vs their "
+          "plain versions, batch 8")
+    measured.update(check_train_kernels(torch))
 
     print("[serve] flagship UNet (16-32-64-128-256, 8 classes, roi 96^3, "
           "sw-batch 4, overlap 0.25) through the HTTP server")
@@ -327,12 +665,22 @@ def main() -> None:
         print(f"  seconds per request: {[round(s, 3) for s in seconds]}")
         print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
         parity(torch, ckpt, session)
+        del session
+        print("[train] train() with the flagship defaults (96^3 patches, batch 2 x 4 "
+              "samples, bf16, Adam 1e-4, phase Dice, roi-160 validation, top-3 ckpts) "
+              "on 4 + 1 phantoms of 128^3, 8 classes")
+        train_launches, train_numbers = run_train(torch, work / "train")
+        print("[train-parity] one f32 train step, batch 2 x 96^3: card vs CPU")
+        train_parity(torch)
 
     if any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules):
         _fail("JAX was imported")
+    print(f"launches: serve {launches}, train {train_launches}; train step "
+          f"{train_numbers}")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": measured[name]["max_abs_err"],
+         "launches": launches[name] + train_launches[name],
+         "max_abs_err": measured[name]["max_abs_err"],
          "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"]}
         for name, (src, replaces) in KERNELS.items()
     ]

@@ -8,7 +8,11 @@
 // CC input channels and the 3x3 x CC x COT weight slice are staged in shared
 // memory as f32, and every thread accumulates PW consecutive W positions x 4
 // output channels in f32 registers (each input row of PW+2 values serves all
-// three dx taps). The epilogue applies y = acc * scale + shift, then
+// three dx taps). Each (plane, channel chunk) step sums its 9 * CC products
+// into a fresh partial that is then added to the total, so no f32 chain is
+// longer than 9 * CC terms plus one add per step (a single chain of 27 * C
+// terms, 6,912 at C = 256, lost accuracy visibly in the train step's
+// gradients). The epilogue applies y = acc * scale + shift, then
 // none / relu / prelu, and stores in the output type.
 //
 // Where each voxel lives is the Layout policy's business, so the phase
@@ -117,6 +121,11 @@ conv3_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
         ws[tap][c][co] = v;
       }
       __syncthreads();
+      float part[PW][4];
+#pragma unroll
+      for (int j = 0; j < PW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
 #pragma unroll 2
       for (int c = 0; c < cn; ++c) {
 #pragma unroll
@@ -129,14 +138,18 @@ conv3_kernel(const Tin* __restrict__ x, const Tin* __restrict__ w,
             const float4 wv = *reinterpret_cast<const float4*>(&ws[dy * 3 + dx][c][cg * 4]);
 #pragma unroll
             for (int j = 0; j < PW; ++j) {
-              acc[j][0] = fmaf(row[j + dx], wv.x, acc[j][0]);
-              acc[j][1] = fmaf(row[j + dx], wv.y, acc[j][1]);
-              acc[j][2] = fmaf(row[j + dx], wv.z, acc[j][2]);
-              acc[j][3] = fmaf(row[j + dx], wv.w, acc[j][3]);
+              part[j][0] = fmaf(row[j + dx], wv.x, part[j][0]);
+              part[j][1] = fmaf(row[j + dx], wv.y, part[j][1]);
+              part[j][2] = fmaf(row[j + dx], wv.z, part[j][2]);
+              part[j][3] = fmaf(row[j + dx], wv.w, part[j][3]);
             }
           }
         }
       }
+#pragma unroll
+      for (int j = 0; j < PW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
       __syncthreads();
     }
   }

@@ -34,9 +34,6 @@ from ..models.unet import BN_EPS, ConvUnit, ResidualUnit, UNet
 from ..ops import fast_conv, fused_conv, phase_conv
 
 _RELU_MODES = {"PRELU": "prelu", "RELU": "relu"}
-# phase-channel bound of the phase stages (8 * out_feats), as the JAX
-# package's default SEGMANTIC_PHASE_MAX: the head and the next stage
-_PHASE_MAX = 128
 
 
 def executor_supported(model) -> bool:
@@ -48,19 +45,6 @@ def executor_supported(model) -> bool:
         and model.up_kernel_size == 3
         and model.norm in ("BATCH", "NONE")
         and model.act in ("PRELU", "RELU")
-    )
-
-
-def phase_stage_ok(model: UNet, out_feats: int, strides: int) -> bool:
-    """Run this decoder stage in phase space? (``models/unet.py::
-    phase_stage_ok`` of the JAX package, without its environment knobs.)"""
-    return (
-        model.num_res_units > 0
-        and model.dropout == 0.0
-        and strides == 2
-        and model.kernel_size == 3
-        and model.up_kernel_size == 3
-        and 8 * out_feats <= _PHASE_MAX
     )
 
 
@@ -250,7 +234,7 @@ def _build_stages(model: UNet, compute_dtype):
     for level, units in zip(reversed(range(len(strides))), model.decoder()):
         is_top = level == 0
         feats = model.out_channels if is_top else model.channels[level - 1]
-        if phase_stage_ok(model, feats, strides[level]):
+        if model.phase_stage_ok(feats, strides[level]):
             up.append(_PhaseStage(units[0], units[1], compute_dtype, is_top))
             continue
         conv = _prepare(units[0], compute_dtype, conv_only=is_top and nres == 0)

@@ -1,4 +1,5 @@
-"""Residual 3D UNet as torch modules, with the plain math of the eval forward.
+"""Residual 3D UNet as torch modules: the training forward and the plain
+eval math.
 
 Port of ``segmantic_tpu/models/unet.py`` (MONAI-UNet topology: stride-2
 residual encoder, transposed-conv decoder with skip concatenation, residual
@@ -8,9 +9,18 @@ like the flax auto-names (``ResidualUnit_i``, ``ConvUnit_j``, ``Conv_0``,
 the flax path it came from; :func:`from_flax_variables` and
 :func:`to_flax_variables` convert between the two.
 
-``UNet.forward`` is the plain eval math at full resolution: channel-last
-(B, D, H, W, C) in and out, XLA-SAME padding, running BatchNorm statistics.
-The folded, kernel-backed serving forward is
+``UNet.forward`` runs the JAX module's graph: channel-last (B, D, H, W, C) in
+and out, XLA-SAME padding, parameters cast to the input's dtype at use, and
+the narrow top decoder stages in subpixel phase space (``phase_stage_ok``),
+optionally returning the top stage's phase-major logits (``phase_logits``).
+In ``train()`` mode BatchNorm normalises by the batch statistics (in f32,
+biased variance) and updates the running statistics as flax does; in
+``eval()`` mode it uses the running statistics. Every stride-1 3^3 conv goes
+through :func:`..ops.fused_conv.conv3d_grad` and every phase-space conv
+through :func:`..ops.phase_conv.phase_conv_grad` (the hand-written kernels on
+the card, their plain versions on the CPU); strided convs, conv-transposes
+and 1x1 projections are ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX
+package leaves them to XLA. The folded, kernel-backed serving forward is
 :mod:`segmantic_tpu_torch.infer.executor`, tested against this one.
 """
 
@@ -23,7 +33,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fast_conv import conv3d_same
+from ..ops.fast_conv import (
+    conv3d_same, depth_to_space, space_to_depth, subpixel_phase_conv, tile_phase,
+)
+from ..ops.fused_conv import at_least_f32, conv3d_grad
+from ..ops.phase_conv import phase_conv_grad
 
 __all__ = [
     "UNet", "ResidualUnit", "ConvUnit", "Conv", "ConvTranspose", "BatchNorm",
@@ -31,6 +45,10 @@ __all__ = [
 ]
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's; torch's momentum 0.1
+# phase-channel bound of the phase stages (8 * out_feats): the JAX package's
+# default SEGMANTIC_PHASE_MAX, the head and the next stage
+PHASE_MAX = 128
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -55,8 +73,16 @@ class Conv(nn.Module):
     def dhwio(self) -> torch.Tensor:
         return self.weight.permute(2, 3, 4, 1, 0)
 
-    def forward(self, x):
-        return conv3d_same(x, self.dhwio(), self.bias.to(x.dtype), self.stride)
+    def forward(self, x, phase: bool = False):
+        """``phase``: x is a phase-major tensor (B, *S, 8*C) and the conv runs
+        on the volume it stands for (same parameters)."""
+        w = self.dhwio().to(x.dtype)
+        b = self.bias.to(x.dtype)
+        if phase:
+            return phase_conv_grad(x, w) + tile_phase(b)
+        if self.stride == 1 and w.shape[:3] == (3, 3, 3):
+            return conv3d_grad(x, w) + b
+        return conv3d_same(x, w, b, self.stride)
 
 
 class ConvTranspose(nn.Module):
@@ -82,7 +108,13 @@ class ConvTranspose(nn.Module):
         """The kernel as flax stores it: (k, k, k, Ci, Co), unflipped."""
         return self.weight.flip(2, 3, 4).permute(2, 3, 4, 0, 1)
 
-    def forward(self, x):
+    def forward(self, x, phase_out: bool = False):
+        """``phase_out``: return the phase-major tensor (B, *S, 8*Co) of the
+        2x-upsampled output at input resolution (subpixel factorisation,
+        stride 2 kernel 3 only)."""
+        if phase_out:
+            y = subpixel_phase_conv(x, self.dhwio().to(x.dtype))
+            return y + tile_phase(self.bias.to(x.dtype))
         n = x.shape[1:4]
         s = self.stride
         y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
@@ -92,7 +124,15 @@ class ConvTranspose(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last (channel) axis, eps 1e-5."""
+    """BatchNorm over the last (channel) axis, eps 1e-5, as flax computes it.
+
+    Training: mean and variance of the batch in f32 or wider (``E[x^2] - E[x]^2``,
+    clipped at 0: the biased variance), normalisation in f32, output in x's
+    dtype, and the running statistics updated in place as
+    ``0.9 * old + 0.1 * batch`` with the biased variance (torch's
+    ``F.batch_norm`` would use the unbiased one). ``groups > 1``: x is
+    phase-major (…, groups * C) and the statistics are per true channel over
+    the phases (the JAX ``Norm.phase_groups``)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -101,10 +141,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + BN_EPS)
-        y = (x.float() - self.running_mean) * (inv * self.weight) + self.bias
-        return y.to(x.dtype)
+    def forward(self, x, groups: int = 1):
+        shape = x.shape
+        if groups > 1:
+            x = x.reshape(shape[:-1] + (groups, shape[-1] // groups))
+        xf = at_least_f32(x)
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
+        return y.to(x.dtype).reshape(shape)
 
 
 class PReLU(nn.Module):
@@ -146,12 +199,18 @@ class ConvUnit(nn.Module):
     def norm(self) -> Optional[BatchNorm]:
         return getattr(self, "Norm_0", None)
 
-    def forward(self, x):
-        x = self.conv(x)
+    def forward(self, x, phase: str = ""):
+        """``phase``: '' the ordinary layout; 'out' (transposed only) emits a
+        phase tensor; 'both' consumes and emits one (the JAX ConvUnit's
+        modes). Norm statistics stay per true channel either way."""
+        if self.transposed:
+            x = self.conv(x, phase_out=phase in ("out", "both"))
+        else:
+            x = self.conv(x, phase=phase in ("in", "both"))
         if self.conv_only:
             return x
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, groups=8 if phase else 1)
         if self.act == "PRELU":
             return self.PReLU_0(x)
         return torch.clamp_min(x, 0)
@@ -189,10 +248,11 @@ class ResidualUnit(nn.Module):
     def projection(self) -> Optional[Conv]:
         return getattr(self, "Conv_0", None)
 
-    def forward(self, x):
+    def forward(self, x, phase: bool = False):
+        """``phase``: phase tensor in and out (stride 1, identity shortcut)."""
         y = x
         for unit in self.units():
-            y = unit(y)
+            y = unit(y, phase="both" if phase else "")
         residual = x if self.projection is None else self.projection(x)
         return y + residual
 
@@ -228,7 +288,7 @@ class UNet(nn.Module):
         self.num_res_units = num_res_units
         self.norm = norm.upper()
         self.act = act.upper()
-        self.dropout = dropout  # eval only: dropout is the identity
+        self.dropout = dropout  # eval only: dropout is the identity (training raises)
         self.kernel_size = kernel_size
         self.up_kernel_size = up_kernel_size
 
@@ -283,9 +343,34 @@ class UNet(nn.Module):
         step = 2 if self.num_res_units > 0 else 1
         return [rest[i:i + step] for i in range(0, len(rest), step)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def phase_stage_ok(self, out_feats: int, strides: int) -> bool:
+        """Run this decoder stage in subpixel phase space? The JAX package's
+        ``models/unet.py::phase_stage_ok`` for 3D, without its environment
+        knobs (the train graph and the eval executor both consult it)."""
+        return (
+            self.num_res_units > 0
+            and self.dropout == 0.0
+            and strides == 2
+            and self.kernel_size == 3
+            and self.up_kernel_size == 3
+            and 8 * out_feats <= PHASE_MAX
+        )
+
+    def phase_top_ok(self) -> bool:
+        """Does the top decoder stage run in phase space? (Decidable from the
+        configuration; the train step's phase-major Dice consults it.)"""
+        return self.phase_stage_ok(self.out_channels, self.strides[0])
+
+    def forward(self, x: torch.Tensor, phase_logits: bool = False) -> torch.Tensor:
+        """Logits (N, D, H, W, classes). With ``phase_logits`` the output
+        stays phase-major at half resolution, (N, D/2, H/2, W/2, 8*classes),
+        ``depth_to_space`` of which is the ordinary output (even sizes)."""
         if x.ndim != 5:
             raise ValueError(f"expected (N, D, H, W, C) input, got {tuple(x.shape)}")
+        if self.training and self.dropout > 0:
+            raise NotImplementedError(
+                "training with dropout > 0 is not ported yet (ROADMAP Queue 1: "
+                "train() extras)")
         enc = self.encoder()
         skips = []
         y = x
@@ -295,8 +380,22 @@ class UNet(nn.Module):
         y = enc[-1](y)
         for level, units in zip(reversed(range(len(self.strides))), self.decoder()):
             y = torch.cat([skips[level], y], dim=-1)
+            is_top = level == 0
+            feats = self.out_channels if is_top else self.channels[level - 1]
+            if self.phase_stage_ok(feats, self.strides[level]):
+                up, ru = units
+                y = ru(up(y, phase="out"), phase=True)
+                if is_top and phase_logits:
+                    return y
+                y = depth_to_space(y, feats)
+                continue
             for unit in units:
                 y = unit(y)
+        if phase_logits:
+            if any(s % 2 for s in y.shape[1:4]):
+                raise ValueError("phase_logits=True requires even output spatial "
+                                 f"dims, got {tuple(y.shape[1:4])}")
+            y = space_to_depth(y)
         return y
 
 

@@ -40,7 +40,11 @@ _SIGNATURES = {
     "segk_fused_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_phase_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_blend": [_P, _P, _P, _P] + [_I] * 13 + [_P],
+    "segk_fused_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "segk_phase_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "segk_conv3_dw_workspace": [_I] * 6,
 }
+_RESTYPES = {"segk_conv3_dw_workspace": ctypes.c_longlong}  # others: c_int error codes
 
 
 class LaunchCounter:
@@ -128,7 +132,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 
@@ -139,6 +143,11 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def query(name: str, *args) -> int:
+    """Call one host-only C entry point (no stream) and return its value."""
+    return getattr(library(), name)(*args)
 
 
 def check_cuda(t: torch.Tensor, name: str) -> None:

@@ -1,12 +1,19 @@
-"""Fused stride-1 SAME 3^3 convolution with the folded-norm epilogue.
+"""Fused stride-1 SAME 3^3 convolution with the folded-norm epilogue, and
+its gradients.
 
-Port of ``segmantic_tpu/ops/pallas_conv.py`` (``conv3d_pallas`` and the
-kernel it launches, ``conv3d_packed_p``): the same function on plain
-channel-last tensors, without the TPU's batch-into-lanes packing.
+Port of ``segmantic_tpu/ops/pallas_conv.py``: ``conv3d_pallas`` and the
+kernel it launches (``conv3d_packed_p``), the weight gradient
+``conv3d_packed_dw`` and the differentiable ``conv3d_packed``; the same
+functions on plain channel-last tensors, without the TPU's batch-into-lanes
+packing.
 
-``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` for tensors on a
-CUDA device and runs :func:`conv3d_plain`, the plain PyTorch version, for
-tensors on the CPU.
+``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` and
+``conv3d_dw`` the kernel ``csrc/fused_conv_dw.cu`` for tensors on a CUDA
+device; for tensors on the CPU they run :func:`conv3d_plain` and
+:func:`conv3d_dw_plain`, the plain PyTorch versions. :func:`conv3d_grad` is
+the ``torch.autograd.Function`` over both: forward and input gradient on the
+conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
+spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 """
 
 from __future__ import annotations
@@ -18,10 +25,30 @@ import torch.nn.functional as F
 
 from . import _cuda
 
-__all__ = ["conv3d", "conv3d_plain", "counter", "RELU_MODES"]
+__all__ = [
+    "conv3d", "conv3d_plain", "conv3d_dw", "conv3d_dw_plain", "conv3d_grad",
+    "counter", "dw_counter", "RELU_MODES",
+]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
 counter = _cuda.LaunchCounter("fused_conv")
+dw_counter = _cuda.LaunchCounter("fused_conv_dw")
+
+
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, or in its own dtype where that is wider (float64 on the CPU:
+    the plain versions serve as an f64 reference)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def check_dtype(t: torch.Tensor, name: str) -> None:
+    """Kernels take f32 or bf16; the plain versions also take f64 on the CPU."""
+    if t.dtype in (torch.float32, torch.bfloat16):
+        return
+    if t.dtype == torch.float64 and t.device.type == "cpu":
+        return
+    raise TypeError(f"{name} must be float32 or bfloat16 (float64 on the CPU), "
+                    f"got {t.dtype}")
 
 
 def _epilogue_vectors(co: int, bias, scale, shift, device):
@@ -45,15 +72,15 @@ def activation(y: torch.Tensor, relu_mode: str, alpha) -> torch.Tensor:
 def conv3d_plain(x, weights, bias=None, scale=None, shift=None, alpha=None,
                  relu_mode: str = "none", out_dtype=None) -> torch.Tensor:
     """Plain PyTorch version: ``F.conv3d`` in x's dtype, then the same
-    epilogue as the kernel in f32.
+    epilogue as the kernel in f32 (f64 for f64 input).
 
     x (B, D, H, W, C); weights (3, 3, 3, C, CO) DHWIO; returns (B, D, H, W, CO)
     in ``out_dtype`` (default: x's dtype)."""
     out_dtype = out_dtype or x.dtype
     co = weights.shape[-1]
-    y = F.conv3d(
+    y = at_least_f32(F.conv3d(
         x.permute(0, 4, 1, 2, 3), weights.permute(4, 3, 0, 1, 2), padding=1,
-    ).permute(0, 2, 3, 4, 1).float()
+    ).permute(0, 2, 3, 4, 1))
     s, t = _epilogue_vectors(co, bias, scale, shift, x.device)
     y = y * s + t
     return activation(y, relu_mode, alpha).to(out_dtype)
@@ -64,8 +91,7 @@ def check_args(x, weights, relu_mode, alpha, out_dtype, weight_shape):
         raise ValueError(f"relu_mode must be one of {sorted(RELU_MODES)}")
     if relu_mode == "prelu" and alpha is None:
         raise ValueError("relu_mode='prelu' needs alpha")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    check_dtype(x, "x")
     if weights.dtype != x.dtype:
         raise TypeError(f"weights dtype {weights.dtype} != x dtype {x.dtype}")
     if out_dtype not in (x.dtype, torch.float32):
@@ -122,3 +148,86 @@ def conv3d(
                  relu_mode, out, (b, d, h, w))
     counter.count += 1
     return out
+
+
+def conv3d_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight gradient, in f32 (f64 for f64
+    input): ``torch.nn.grad.conv3d_weight`` on the upcasts of x
+    (B, D, H, W, C) and dy (B, D, H, W, CO); returns (3, 3, 3, C, CO) DHWIO."""
+    c, co = x.shape[-1], dy.shape[-1]
+    dw = torch.nn.grad.conv3d_weight(
+        at_least_f32(x.permute(0, 4, 1, 2, 3)), (co, c, 3, 3, 3),
+        at_least_f32(dy.permute(0, 4, 1, 2, 3)), padding=1,
+    )
+    return dw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def check_dw_args(x, dy) -> None:
+    check_dtype(x, "x")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy dtype {dy.dtype} != x dtype {x.dtype}")
+    if x.shape[:4] != dy.shape[:4]:
+        raise ValueError(f"x and dy cover different grids: {tuple(x.shape)} vs "
+                         f"{tuple(dy.shape)}")
+
+
+def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tensor:
+    """Shared launch of the two dw kernels (dense and phase layouts): the
+    per-split partials go to a workspace sized by the C side's plan."""
+    for t, name in ((x, "x"), (dy, "dy")):
+        _cuda.check_cuda(t, name)
+    b, d, h, w = full_dims
+    n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
+    ws = torch.empty(n, dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+    _cuda.launch(entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                 b, d, h, w, c, co, int(x.dtype == torch.bfloat16))
+    return out
+
+
+def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of the stride-1 SAME 3^3 conv:
+    ``dw[t, ci, co] = sum_{b,p} x[b, p+t-1, ci] * dy[b, p, co]``, f32
+    accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
+    dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU)."""
+    if x.ndim != 5 or dy.ndim != 5:
+        raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")
+    check_dw_args(x, dy)
+    if x.device.type == "cpu":
+        return conv3d_dw_plain(x, dy)
+    out = launch_conv3_dw("segk_fused_conv3_dw", x, dy, tuple(x.shape[:4]),
+                          x.shape[-1], dy.shape[-1])
+    dw_counter.count += 1
+    return out
+
+
+def flip_io(w: torch.Tensor) -> torch.Tensor:
+    """Weights of the input gradient of a SAME stride-1 conv: spatial flip,
+    in/out swap (``pallas_conv._packed_bwd``, ``phase_gemm._flip_io``)."""
+    return w.flip(0, 1, 2).transpose(-1, -2).contiguous()
+
+
+class _Conv3dGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return conv3d(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d(dy, flip_io(w), out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_dw(x, dy).to(w.dtype)
+        return dx, dw
+
+
+def conv3d_grad(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-1 SAME 3^3 conv without epilogue (the port of
+    ``pallas_conv.conv3d_packed``): x (B, D, H, W, C), w (3, 3, 3, C, CO) in
+    x's dtype. Add the bias outside, as the JAX package does."""
+    return _Conv3dGrad.apply(x, w)

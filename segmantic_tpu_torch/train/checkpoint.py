@@ -1,6 +1,7 @@
 """Single-file checkpoints in the JAX package's ``STPUCKP1`` format.
 
-Port of ``segmantic_tpu/train/checkpoint.py`` (save/load): ``STPUCKP1``
+Port of ``segmantic_tpu/train/checkpoint.py`` (save/load, the
+``epoch=E-val_loss=L-val_dice=D.ckpt`` names and ``TopKCheckpoints``): ``STPUCKP1``
 magic, u64 little-endian header length, JSON header
 ({"hparams", "metrics", "has_opt_state"}), then the msgpack of
 ``{"variables": ...}`` exactly as ``flax.serialization.to_bytes`` writes it
@@ -15,7 +16,7 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -66,3 +67,34 @@ def load_checkpoint(path: Path) -> Dict[str, Any]:
         "hparams": header["hparams"],
         "metrics": header["metrics"],
     }
+
+
+def checkpoint_filename(epoch: int, val_loss: float, val_dice: float) -> str:
+    return f"epoch={epoch}-val_loss={val_loss:.2f}-val_dice={val_dice:.4f}.ckpt"
+
+
+class TopKCheckpoints:
+    """Keep the best-k checkpoints by val_dice (deletes evicted files)."""
+
+    def __init__(self, output_dir: Path, k: int = 3):
+        self.output_dir = Path(output_dir)
+        self.k = k
+        self.kept: List[Tuple[float, Path]] = []
+
+    def update(self, epoch: int, val_loss: float, val_dice: float,
+               variables: Dict[str, Any], hparams: Dict[str, Any]) -> Optional[Path]:
+        if len(self.kept) >= self.k and val_dice <= min(d for d, _ in self.kept):
+            return None
+        path = self.output_dir / checkpoint_filename(epoch, val_loss, val_dice)
+        save_checkpoint(path, variables, hparams,
+                        metrics={"epoch": epoch, "val_loss": val_loss, "val_dice": val_dice})
+        self.kept.append((val_dice, path))
+        self.kept.sort(key=lambda t: -t[0])
+        while len(self.kept) > self.k:
+            _, evicted = self.kept.pop()
+            evicted.unlink(missing_ok=True)
+        return path
+
+    @property
+    def best(self) -> Optional[Path]:
+        return self.kept[0][1] if self.kept else None

@@ -9,6 +9,9 @@ has only PyTorch; ``tests/conftest.py`` imports JAX, so skip it there:
 Tolerances: f32 1e-4 * max|ref| (summation order over up to 27 * 256 terms,
 TF32 off for the plain version); bf16 2e-2 * max|ref| (the plain version
 rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
+The weight gradients sum over every position (up to ~10^5 terms here): f32
+1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
+bit-equal (fixed-order reduction).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
 pytestmark = pytest.mark.cuda
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+DW_DTYPES = [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)]
 
 
 @pytest.fixture
@@ -105,3 +109,77 @@ def test_blend_bit_equal(cuda, starts):
     torch.cuda.synchronize()
     assert blend.counter.count == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+@pytest.mark.parametrize("shape,co", [
+    ((2, 5, 7, 9, 3), 5),  # ragged tiles, C and CO below a chunk
+    ((4, 12, 12, 12, 16), 16),
+    ((2, 6, 6, 6, 128), 256),  # the bottom stage: many outputs, few positions
+    ((2, 16, 20, 24, 32), 32),  # several position tiles per split
+])
+def test_fused_conv_dw(cuda, shape, co, dtype, tol):
+    g = torch.Generator().manual_seed(4)
+    x = _randn(g, *shape).to(dtype)
+    dy = _randn(g, *shape[:4], co).to(dtype)
+    fused_conv.dw_counter.reset()
+    got = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.dw_counter.count == 1 and got.dtype == torch.float32
+    assert got.shape == (3, 3, 3, shape[-1], co)
+    _close(got, fused_conv.conv3d_dw_plain(x, dy), tol)
+    assert torch.equal(got, fused_conv.conv3d_dw(x, dy))  # deterministic
+
+
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+@pytest.mark.parametrize("shape,ci,co", [
+    ((1, 3, 4, 5, 24), 3, 5),
+    ((2, 6, 8, 16, 64), 8, 8),  # the top decoder stage's L = 64
+    ((2, 4, 4, 4, 128), 16, 16),  # the second stage's L = 128
+])
+def test_phase_conv_dw(cuda, shape, ci, co, dtype, tol):
+    g = torch.Generator().manual_seed(5)
+    p = _randn(g, *shape).to(dtype)
+    gy = _randn(g, *shape[:4], 8 * co).to(dtype)
+    phase_conv.dw_counter.reset()
+    got = phase_conv.phase_conv_dw(p, gy)
+    assert phase_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, ci, co)
+    _close(got, phase_conv.phase_conv_dw_plain(p, gy), tol)
+    assert torch.equal(got, phase_conv.phase_conv_dw(p, gy))
+
+
+def _grads(fn, *args):
+    args = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*args)
+    g = torch.Generator().manual_seed(9)
+    cot = _randn(g, *out.shape).to(out.dtype)
+    out.backward(cot)
+    return [out] + [a.grad for a in args]
+
+
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_conv3d_grad_function(cuda, dtype, tol):
+    g = torch.Generator().manual_seed(6)
+    x = _randn(g, 2, 8, 10, 12, 16).to(dtype)
+    w = _randn(g, 3, 3, 3, 16, 24, scale=0.05).to(dtype)
+    fused_conv.counter.reset()
+    fused_conv.dw_counter.reset()
+    got = _grads(fused_conv.conv3d_grad, x, w)
+    assert fused_conv.counter.count == 2 and fused_conv.dw_counter.count == 1
+    want = _grads(fused_conv.conv3d_plain, x, w)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _close(a, b, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DW_DTYPES)
+def test_phase_conv_grad_function(cuda, dtype, tol):
+    g = torch.Generator().manual_seed(7)
+    p = _randn(g, 2, 4, 6, 8, 64).to(dtype)
+    w = _randn(g, 3, 3, 3, 8, 8, scale=0.1).to(dtype)
+    phase_conv.counter.reset()
+    phase_conv.dw_counter.reset()
+    got = _grads(phase_conv.phase_conv_grad, p, w)
+    assert phase_conv.counter.count == 2 and phase_conv.dw_counter.count == 1
+    want = _grads(phase_conv.phase_conv_plain, p, w)
+    for a, b in zip(got, want):
+        _close(a, b, tol)
