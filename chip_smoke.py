@@ -2,17 +2,27 @@
 against its plain PyTorch version on the card, serve three volumes through
 the port's HTTP server with the flagship UNet, check the folded forward on
 the card against the plain CPU forward, then train: the weight-gradient
-kernels and both autograd Functions against their plain versions,
-``train()`` with the flagship defaults on synthetic phantoms, step time and
-learning on one fixed batch, and one f32 train step on the card against the
-CPU.
+kernels and both autograd Functions against their plain versions, the
+shear-group and phase-Dice kernels against theirs, ``train()`` with the
+flagship defaults on synthetic phantoms, step time and learning on one fixed
+batch, one f32 train step on the card against the CPU, and ``train()`` with
+the device augmentation (margin patches, rotation + zoom, intensity ops) with
+the augmentation's own time beside the augmented step.
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and the repository checkout around this file.
 Every phase raises on failure; the last line of standard output is
 ``{"ok": true, "device": {...}}`` only when all of them passed. Imports
-nothing of JAX.
+nothing of JAX and nothing of the JAX package.
+
+The line before the last lists every kernel with its launches on the driven
+paths, its error and time against the plain version, the time of one PyTorch
+library call for the same function where there is one, and ``bound_ms``: the
+least time the card could take for the same work, the larger of the bytes the
+function must move (inputs read once, outputs written once) over the memory
+rate and its operations over the peak rate of their type (NVIDIA's H100 SXM
+data sheet, dense).
 """
 
 from __future__ import annotations
@@ -45,7 +55,19 @@ KERNELS = {
                       "segmantic_tpu/ops/pallas_conv.py:289"),
     "phase_conv_dw": ("segmantic_tpu_torch/csrc/phase_conv_dw.cu",
                       "segmantic_tpu/ops/phase_gemm.py:430,518"),
+    "shear_group": ("segmantic_tpu_torch/csrc/shear_group.cu",
+                    "exp/fused_shear_pallas.py:144"),
+    "dice_phase_sums": ("segmantic_tpu_torch/csrc/phase_dice.cu",
+                        "exp/pallas_dice_ab.py:110"),
+    "dice_phase_dx": ("segmantic_tpu_torch/csrc/phase_dice.cu",
+                      "exp/pallas_dice_ab.py:181"),
 }
+# published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+MARGIN_PATCH = (144, 144, 144)  # 96 + 2 * (96 // 4), what the sampler crops
+DICE_EXTENT = 48  # the phase grid of a 96^3 patch
 TRAIN_PATCH = (96, 96, 96)
 TRAIN_BATCH = 8  # batch_size 2 x num_samples 4, the train() defaults
 # NIfTI-1 datatype codes
@@ -75,13 +97,46 @@ def _median_ms(torch, fn, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=None):
+    """Add one timed shape of kernel ``name`` to ``results``: times and bounds
+    sum over a kernel's shapes, the error is the largest. ``nbytes``: every
+    input read once and every output written once; ``ops``: floating-point
+    operations on these inputs, at ``peak`` FLOP/s."""
+    r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                  "library_ms": None})
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bound_ms"] += max(bytes_ms, ops_ms)
+    r["bytes_ms"] += bytes_ms
+    r["ops_ms"] += ops_ms
+    if library_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+    print(f"    bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
+          f" ms, {ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_kernels(torch):
     """Each kernel against its plain version at the serving path's shapes.
 
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}} with times summed over
-    the kernel's shapes (bf16, the serving dtype) and the largest bf16 error."""
+    Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}} with
+    times and bounds summed over the kernel's shapes (bf16, the serving dtype)
+    and the largest bf16 error. The library call beside the convs is cuDNN's
+    bf16 ``conv3d`` (bias only, no scale/shift/PReLU epilogue; for the phase
+    conv on the depth-to-space tensor, the rearrangement not timed)."""
+    import torch.nn.functional as F
+
+    import numpy as np
+
     from segmantic_tpu_torch.infer.sliding_window import window_starts
     from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
+    from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
@@ -91,11 +146,11 @@ def check_kernels(torch):
 
     results = {}
 
-    def record(name, err, ms, plain_ms):
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
+    def cudnn_conv_ms(x, w, bias=None):
+        """cuDNN's conv3d on channel-last x (B, D, H, W, C), w (3, 3, 3, C, CO)."""
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        return _median_ms(torch, lambda: F.conv3d(xc, wc, bias, padding=1))
 
     def compare(name, label, kernel, plain, dtype):
         got, want = kernel(), plain()
@@ -124,8 +179,14 @@ def check_kernels(torch):
             err = compare("fused_conv", label, k, p, dtype)
             if dtype == torch.bfloat16:
                 ms, pms = _median_ms(torch, k), _median_ms(torch, p)
-                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-                record("fused_conv", err, ms, pms)
+                lms = cudnn_conv_ms(x, w, kw["bias"].to(dtype))
+                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"cuDNN conv3d + bias {lms:.4f} ms")
+                positions = x.numel() // shape[-1]
+                _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms,
+                        nbytes=_nbytes(x, w, k(), *(v for v in kw.values() if torch.is_tensor(v))),
+                        ops=2 * 27 * shape[-1] * co * positions, peak=PEAK_BF16,
+                        library_ms=lms)
 
     for shape, c in [((4, 48, 48, 48, 64), 8), ((4, 24, 24, 24, 128), 16)]:
         label = f"p{tuple(shape)} C={c}"
@@ -137,8 +198,13 @@ def check_kernels(torch):
             err = compare("phase_conv", label, k, p, dtype)
             if dtype == torch.bfloat16:
                 ms, pms = _median_ms(torch, k), _median_ms(torch, p)
-                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-                record("phase_conv", err, ms, pms)
+                lms = cudnn_conv_ms(depth_to_space(p_in, c), w)
+                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"cuDNN conv3d at full resolution {lms:.4f} ms")
+                _record(results, "phase_conv", err=err, ms=ms, plain_ms=pms,
+                        nbytes=_nbytes(p_in, w, p_in),  # the output has the input's shape
+                        ops=2 * 27 * c * c * (p_in.numel() // c), peak=PEAK_BF16,
+                        library_ms=lms)
 
     # one chunk of the served grid: 4 overlapping 96^3 windows, 8 classes
     starts = window_starts((256, 256, 176), ROI, 0.25)[:SW_BATCH]
@@ -157,16 +223,24 @@ def check_kernels(torch):
     ms = _median_ms(torch, lambda: blend.accumulate_windows(acc, logits, imp, starts))
     pms = _median_ms(torch, lambda: blend.accumulate_windows_plain(acc, logits, imp, starts))
     print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    record("blend", err, ms, pms)
+    # the accumulator is read and written only where a window lies
+    covered = np.zeros(acc0.shape[:3], bool)
+    for s in np.asarray(starts).reshape(-1, 3):
+        covered[tuple(slice(int(a), int(a) + r) for a, r in zip(s, ROI))] = True
+    _record(results, "blend", err=err, ms=ms, plain_ms=pms,
+            nbytes=_nbytes(logits, imp) + 2 * int(covered.sum()) * NUM_CLASSES * 4,
+            ops=2 * logits.numel(), peak=PEAK_F32)
     return results
 
 
 def _counters():
-    from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
+    from segmantic_tpu_torch.ops import blend, fused_conv, fused_shear, phase_conv, phase_dice
 
     return {"fused_conv": fused_conv.counter, "phase_conv": phase_conv.counter,
             "blend": blend.counter, "fused_conv_dw": fused_conv.dw_counter,
-            "phase_conv_dw": phase_conv.dw_counter}
+            "phase_conv_dw": phase_conv.dw_counter, "shear_group": fused_shear.counter,
+            "dice_phase_sums": phase_dice.sums_counter,
+            "dice_phase_dx": phase_dice.dx_counter}
 
 
 def check_train_kernels(torch):
@@ -177,9 +251,11 @@ def check_train_kernels(torch):
     over up to 7 M positions in another order, TF32 off; with bf16 inputs
     both sides sum the same exactly upcast values in f32); the autograd
     Functions 1e-3 in f32 and 2e-2 in bf16 (their output and dx round to
-    bf16). Returns {kernel: {"max_abs_err", "ms", "plain_ms"}}, times summed
-    over shapes (bf16 inputs; the plain version is cuDNN's f32 wgrad on the
-    upcast inputs, TF32 off) and the largest bf16 error."""
+    bf16). Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}},
+    times summed over shapes (bf16 inputs; the plain version is cuDNN's f32
+    wgrad on the upcast inputs, TF32 off; the library call cuDNN's bf16 wgrad
+    on the bf16 tensors, at full resolution for the phase kernel) and the
+    largest bf16 error."""
     from segmantic_tpu_torch.ops import fused_conv, phase_conv
     from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
@@ -222,11 +298,12 @@ def check_train_kernels(torch):
         dy32 = randn(*x_shape[:4], co)
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            err = compare(f"{name} {label}", kernel(x, dy), plain(x, dy), dtype, 1e-3)
+            got = kernel(x, dy)
+            err = compare(f"{name} {label}", got, plain(x, dy), dtype, 1e-3)
         ms = _median_ms(torch, lambda: kernel(x, dy))
         pms = _median_ms(torch, lambda: plain(x, dy))
-        # context, not the plain version: cuDNN's wgrad straight on the bf16
-        # (full-resolution) tensors, tensor cores allowed, output in bf16
+        # the library call, not the plain version: cuDNN's wgrad straight on the
+        # bf16 (full-resolution) tensors, tensor cores allowed, output in bf16
         if name == "fused_conv_dw":
             xc, dyc, ci = x, dy, x_shape[-1]
         else:
@@ -236,11 +313,10 @@ def check_train_kernels(torch):
             xc.permute(0, 4, 1, 2, 3), (dyc.shape[-1], ci, 3, 3, 3),
             dyc.permute(0, 4, 1, 2, 3), padding=1))
         print(f"    bf16 time: kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms; "
-              f"for context cuDNN bf16 wgrad {cms:.4f} ms")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += pms
+              f"cuDNN bf16 wgrad {cms:.4f} ms")
+        _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                ops=2 * 27 * ci * dyc.shape[-1] * (xc.numel() // ci), peak=PEAK_BF16,
+                library_ms=cms)
 
     def grads(fn, *args):
         args = [a.detach().clone().requires_grad_() for a in args]
@@ -263,6 +339,156 @@ def check_train_kernels(torch):
             for part, a, b in zip(("out", "dx", "dw"), got, want):
                 compare(f"{name} {part} x{x_shape}", a, b, dtype,
                         2e-2 if dtype == torch.bfloat16 else 1e-3)
+    return results
+
+
+def check_aug_kernels(torch):
+    """``shear_group`` against ``shear_group_plain`` for the three rotation
+    groups of the flagship chain (144^3 margin patches to 96^3, rotations up
+    to 0.4 rad, zoom from 0.8), 5 samples with distinct angles and zooms: order
+    1 on bf16 with bf16 weights and order 0 on uint8 labels must equal the
+    plain version bit for bit (two products and one sum have no order to
+    differ in), order 1 in f32 within 1e-6 * max|ref| (the plain version's
+    matrix product may fuse the multiply and add). Each group takes the
+    plain version's output of the group before it. The recorded time is one
+    step's six launches: the bf16 image groups and the uint8 label groups."""
+    from segmantic_tpu_torch.ops import fused_shear, shear_resample
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    samples = 5  # round(0.59 * 8): the subset the default probabilities give
+    passes, divz, extents, groups = shear_resample.chain_plan(
+        MARGIN_PATCH, 3, TRAIN_PATCH, 0.4, 0.8)
+    angles = (torch.rand((samples, 3), generator=g) * 0.8 - 0.4).to(dev)
+    zoom = torch.linspace(0.8, 1.3, samples).to(dev)
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)
+    print(f"  chain {[p[0] for p in passes]}, output extents {extents}")
+    x32 = torch.randn((samples, 1, *MARGIN_PATCH), generator=g).to(dev)
+    labels = torch.randint(0, NUM_CLASSES, (samples, 1, *MARGIN_PATCH), generator=g,
+                           dtype=torch.uint8).to(dev)
+    results = {}
+    for label, x, order, bf16, timed in (("bf16 order 1", x32.bfloat16(), 1, True, True),
+                                         ("f32 order 1", x32, 1, False, False),
+                                         ("u8 order 0", labels, 0, False, True)):
+        for gi, (a_axis, b_axis, specs) in enumerate(groups):
+            c = coef[:, 3 * gi: 3 * gi + 3].contiguous()
+            k = lambda: fused_shear.shear_group(  # noqa: E731
+                x, a_axis, b_axis, c, zoom, specs, order, bf16)
+            p = lambda: fused_shear.shear_group_plain(  # noqa: E731
+                x, a_axis, b_axis, c, zoom, specs, order, bf16)
+            got, want = k(), p()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            exact = torch.equal(got, want)
+            ok = exact if (order == 0 or bf16) else err <= 1e-6 * ref
+            ms, pms = _median_ms(torch, k), _median_ms(torch, p)
+            print(f"  shear_group {label} group {gi} plane ({a_axis},{b_axis}) "
+                  f"{tuple(x.shape)} -> {tuple(got.shape)}: max|d| {err:.3e} of max|ref| "
+                  f"{ref:.3e}, bit-equal {exact} "
+                  f"(limit {'bit-equal' if order == 0 or bf16 else '1e-6 * max|ref|'}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            if got.shape != want.shape or not ok:
+                _fail(f"shear_group {label} group {gi} disagrees with its plain version")
+            if timed:
+                # per pass, two products and a sum per output voxel (order 1)
+                dims, outputs = list(x.shape[2:]), 0
+                for j, (_, _, out_ext) in enumerate(specs):
+                    axis = b_axis if j == 1 else a_axis
+                    dims[axis] = min(out_ext or dims[axis], dims[axis])
+                    outputs += samples * dims[0] * dims[1] * dims[2]
+                _record(results, "shear_group", err=err, ms=ms, plain_ms=pms,
+                        nbytes=_nbytes(x, got, c, zoom), ops=3 * outputs * order,
+                        peak=PEAK_F32)
+            x = want.contiguous()
+    return results
+
+
+def check_dice_kernels(torch):
+    """``dice_phase_sums`` and ``dice_phase_dx`` at the train step's shapes,
+    xp (8, 48, 48, 48, 64) in f32 and bf16 with uint8 labels, against their
+    plain versions (sums 1e-5 relative to each sum's largest entry; dx 1e-3 *
+    max|ref| in f32, 2e-2 in bf16, whose output rounds once), a repeated launch
+    bit-equal, and the loss ``Function`` against autograd through the plain
+    sums (loss 1e-5 relative; gradient as dx). Times are the bf16 ones (the
+    train step's type)."""
+    from segmantic_tpu_torch.ops import phase_dice
+    from segmantic_tpu_torch.train import losses
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(8)
+    shape, n_phase = (TRAIN_BATCH, DICE_EXTENT, DICE_EXTENT, DICE_EXTENT), 8
+    lanes = n_phase * NUM_CLASSES
+    x32 = (torch.randn((*shape, lanes), generator=g) * 2.0).to(dev)
+    yp = torch.randint(0, NUM_CLASSES, (*shape, n_phase), generator=g,
+                       dtype=torch.uint8).to(dev)
+    hot = torch.randn((TRAIN_BATCH, lanes), generator=g).to(dev)
+    cold = torch.randn((TRAIN_BATCH, lanes), generator=g).to(dev)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xp = x32.to(dtype)
+        name = str(dtype)[6:]
+        sums = lambda: phase_dice.dice_phase_sums(xp, yp)  # noqa: E731
+        sums_plain = lambda: phase_dice.dice_phase_sums_plain(xp, yp)  # noqa: E731
+        got, want = sums(), sums_plain()
+        torch.cuda.synchronize()
+        rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, sums()))
+        ok = max(rel) <= 1e-5 and same
+        print(f"  dice_phase_sums {name}: rel diff (intersection, prob sum, count) "
+              f"{[f'{r:.2e}' for r in rel]} (limit 1e-5), repeated launch bit-equal {same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dice_phase_sums {dtype} disagrees with its plain version")
+        dx = lambda: phase_dice.dice_phase_dx(xp, yp, hot, cold)  # noqa: E731
+        dx_plain = lambda: phase_dice.dice_phase_dx_plain(xp, yp, hot, cold)  # noqa: E731
+        got_dx, want_dx = dx(), dx_plain()
+        torch.cuda.synchronize()
+        dx_err = (got_dx.float() - want_dx.float()).abs().max().item()
+        ref = want_dx.float().abs().max().item()
+        limit = 2e-2 if dtype == torch.bfloat16 else 1e-3
+        same = torch.equal(got_dx, dx())
+        ok = dx_err <= limit * ref and same and got_dx.dtype == dtype
+        print(f"  dice_phase_dx {name}: max|d| {dx_err:.3e} (limit {limit:g} * max|ref| "
+              f"{ref:.3e}), repeated launch bit-equal {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dice_phase_dx {dtype} disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            ms, pms = _median_ms(torch, sums), _median_ms(torch, sums_plain)
+            print(f"    bf16 time: sums kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            # per class lane: exp, max, sum, divide, and the three accumulations
+            _record(results, "dice_phase_sums", err=err, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(xp, yp, *got), ops=7 * xp.numel(), peak=PEAK_F32)
+            ms, pms = _median_ms(torch, dx), _median_ms(torch, dx_plain)
+            print(f"    bf16 time: dx kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            _record(results, "dice_phase_dx", err=dx_err, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(xp, yp, hot, cold, got_dx), ops=9 * xp.numel(),
+                    peak=PEAK_F32)
+
+    for dtype, limit in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+        for include_background in (True, False):
+            xp = x32.to(dtype).clone().requires_grad_()
+            loss = losses.dice_loss_phase(xp, yp, include_background=include_background)
+            loss.backward()
+            ref_x = x32.to(dtype).clone().requires_grad_()
+            inter, prob_sum, count = phase_dice.dice_phase_sums_plain(ref_x, yp)
+            first = 0 if include_background else 1
+            dice = (2.0 * inter[:, first:] + 1e-5) / ((prob_sum + count)[:, first:] + 1e-5)
+            ref_loss = (1.0 - dice).mean()
+            ref_loss.backward()
+            torch.cuda.synchronize()
+            rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+            g_err = (xp.grad.float() - ref_x.grad.float()).abs().max().item()
+            g_ref = ref_x.grad.float().abs().max().item()
+            ok = rel <= 1e-5 and g_err <= limit * g_ref and xp.grad.dtype == dtype
+            print(f"  dice_loss_phase {str(dtype)[6:]} include_background="
+                  f"{include_background}: loss {loss.item():.7f} vs {ref_loss.item():.7f} "
+                  f"(rel {rel:.2e}, limit 1e-5), grad max|d| {g_err:.3e} (limit {limit:g} * "
+                  f"max|ref| {g_ref:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"dice_loss_phase {dtype} disagrees with autograd through the "
+                      "plain sums")
     return results
 
 
@@ -334,21 +560,40 @@ def labelled_phantom(shape, seed: int):
     return img, lbl
 
 
-def fixed_batch(torch, n: int, seed: int):
-    """n z-scored 96^3 patches of 128^3 phantoms with their labels (host)."""
+def fixed_batch(torch, n: int, seed: int, size: int = 96, volume: int = 128):
+    """n z-scored size^3 patches of volume^3 phantoms with their labels (host)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     images, labels = [], []
     for i in range(n):
-        img, lbl = labelled_phantom((128, 128, 128), seed + i)
-        s = rng.integers(0, 33, 3)
-        crop = tuple(slice(a, a + 96) for a in s)
+        img, lbl = labelled_phantom((volume,) * 3, seed + i)
+        s = rng.integers(0, volume - size + 1, 3)
+        crop = tuple(slice(a, a + size) for a in s)
         im = img[crop]
         images.append(((im - im.mean()) / im.std())[..., None])
         labels.append(lbl[crop])
     return (torch.from_numpy(np.stack(images).astype(np.float32)),
             torch.from_numpy(np.stack(labels).astype(np.uint8)))
+
+
+def warm_steps(torch, step, image, label):
+    """3 warm-up steps, then 17 timed ones (CUDA events) on one fixed batch:
+    (median ms, the 17 times, the 20 losses, peak device MiB)."""
+    loss_hist = [step(image, label).item() for _ in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(17):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(image, label)
+        end.record()
+        loss_hist.append(loss.item())
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    return statistics.median(times), times, loss_hist, peak
 
 
 def run_train(torch, work: Path):
@@ -392,8 +637,10 @@ def run_train(torch, work: Path):
     if not (work / "run" / "last.ckpt").exists() or result.best_checkpoint is None \
             or not result.best_checkpoint.exists():
         _fail("train() did not write last.ckpt and a best checkpoint")
-    if min(launches.values()) <= 0:
+    if min(n for name, n in launches.items() if name != "shear_group") <= 0:
         _fail(f"a kernel of the training path was never launched: {launches}")
+    if launches["shear_group"]:
+        _fail("the shear kernel ran without the spatial augmentation")
 
     # one fixed batch: warm step time, throughput, peak memory, learning
     model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
@@ -402,21 +649,7 @@ def run_train(torch, work: Path):
     step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
                            mixed_precision=True)
     image, label = fixed_batch(torch, TRAIN_BATCH, 20)
-    image, label = image.cuda(), label.cuda()
-    loss_hist = [step(image, label).item() for _ in range(3)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(17):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        loss = step(image, label)
-        end.record()
-        loss_hist.append(loss.item())
-        times.append(start.elapsed_time(end))
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    ms = statistics.median(times)
+    ms, times, loss_hist, peak = warm_steps(torch, step, image.cuda(), label.cuda())
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
     print(f"  fixed batch {TRAIN_BATCH}x96^3 bf16, Adam lr 1e-3: warm step median {ms:.2f} ms "
           f"(min {min(times):.2f}, max {max(times):.2f}, CUDA events over 17 steps), "
@@ -425,6 +658,91 @@ def run_train(torch, work: Path):
     if not all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0] - 1e-3:
         _fail("the loss did not fall over 20 steps on a fixed batch")
     return launches, {"step_ms": ms, "voxels_per_s": voxels / ms * 1e3, "peak_mib": peak}
+
+
+def run_train_aug(torch, data: Path, out: Path):
+    """train() with the device augmentation on the phantoms of ``data``
+    (144^3 margin patches, 5 of 8 samples through the shear chain, intensity
+    ops, flips, Gibbs and spike on 2 of 8 each), then the augmentation alone
+    and the whole augmented step on one fixed 8 x 144^3 margin batch."""
+    import numpy as np
+
+    from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import (
+        SegmentationModel, make_train_step, train,
+    )
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    result = train(image_dir=data / "image", labels_dir=data / "label", output_dir=out,
+                   num_classes=NUM_CLASSES, max_epochs=2, augment_spatial=True,
+                   augment_intensity=True, seed=0)  # device: the default, the card
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
+              f"{rec['train_voxels_per_sec']:.4g} voxels/s (cold), {rec['seconds']:.2f} s")
+    print(f"  train(augment_spatial=True, augment_intensity=True): {seconds:.1f} s for 2 "
+          f"epochs of 2 steps + validation; launches {launches}")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    history = json.loads((out / "history.json").read_text())
+    if len(result.history) != 2 or len(history) != 2 or not finite:
+        _fail("augmented train() history is not 2 finite epochs, written to history.json")
+    if not (out / "last.ckpt").exists():
+        _fail("augmented train() did not write last.ckpt")
+    if min(launches.values()) <= 0:
+        _fail(f"a kernel of the augmented training path was never launched: {launches}")
+    steps = 4
+    if launches["shear_group"] != 6 * steps or launches["dice_phase_sums"] != steps \
+            or launches["dice_phase_dx"] != steps:
+        _fail(f"expected 6 shear-group launches (3 image, 3 label) and one of each Dice "
+              f"kernel per step over {steps} steps: {launches}")
+
+    # one fixed margin batch: the augmentation alone, then the whole step
+    cfg = AugmentConfig(spatial=True, intensity=True)
+    image, label = fixed_batch(torch, TRAIN_BATCH, 60, size=MARGIN_PATCH[0], volume=160)
+    image, label = image.to(torch.bfloat16).cuda(), label.cuda()  # as train() uploads
+    gen = torch.Generator().manual_seed(3)
+    out_i, out_l = augment_batch(image, label, gen, cfg, TRAIN_PATCH)
+    torch.cuda.synchronize()
+    classes_in = set(label.unique().tolist())
+    ok = (tuple(out_i.shape) == (TRAIN_BATCH, *TRAIN_PATCH, 1) and out_i.dtype == image.dtype
+          and tuple(out_l.shape) == (TRAIN_BATCH, *TRAIN_PATCH) and out_l.dtype == label.dtype
+          and bool(torch.isfinite(out_i.float()).all())
+          and set(out_l.unique().tolist()) <= classes_in)
+    print(f"  augment_batch {tuple(image.shape)} {str(image.dtype)[6:]} -> "
+          f"{tuple(out_i.shape)} {str(out_i.dtype)[6:]}, labels {tuple(out_l.shape)} "
+          f"{str(out_l.dtype)[6:]} with classes {sorted(set(out_l.unique().tolist()))}: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail("augment_batch output: shape, type, finiteness or label values")
+    aug_ms = _median_ms(torch, lambda: augment_batch(image, label, gen, cfg, TRAIN_PATCH),
+                        n=20)
+    spatial_ms = _median_ms(torch, lambda: augment_batch(
+        image, label, gen, AugmentConfig(spatial=True, flip_prob=0.0), TRAIN_PATCH), n=20)
+
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
+    module = model.module.train().requires_grad_(True)
+    opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+    step = make_train_step(module, opt, cfg, TRAIN_PATCH, mixed_precision=True,
+                           generator=torch.Generator().manual_seed(4))
+    ms, times, loss_hist, peak = warm_steps(torch, step, image, label)
+    voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
+    print(f"  fixed margin batch {TRAIN_BATCH}x144^3 bf16: augmentation alone median "
+          f"{aug_ms:.2f} ms (rotation + zoom and crop alone {spatial_ms:.2f} ms; CUDA "
+          f"events over 20 draws, host draws included), augmented warm step median "
+          f"{ms:.2f} ms (min {min(times):.2f}, max {max(times):.2f}, 17 steps), "
+          f"{voxels / ms * 1e3:.4g} labelled voxels/s, peak device memory {peak:.0f} MiB")
+    print(f"  loss over 20 augmented steps: {[round(v, 5) for v in loss_hist]}")
+    if not all(np.isfinite(loss_hist)) or not min(loss_hist[-5:]) < loss_hist[0] - 1e-3:
+        _fail("the loss did not fall over 20 augmented steps on a fixed margin batch")
+    return launches, {"augment_ms": aug_ms, "spatial_ms": spatial_ms, "step_ms": ms,
+                      "voxels_per_s": voxels / ms * 1e3, "peak_mib": peak}
 
 
 def train_parity(torch):
@@ -654,6 +972,12 @@ def main() -> None:
     print("[train-kernels] weight-gradient kernels and autograd Functions vs their "
           "plain versions, batch 8")
     measured.update(check_train_kernels(torch))
+    print("[aug-kernels] the shear-group kernel vs its plain version, three groups of the "
+          "144^3 -> 96^3 chain, 5 samples")
+    measured.update(check_aug_kernels(torch))
+    print("[dice-kernels] the phase-Dice kernels vs their plain versions, "
+          "xp (8,48,48,48,64), and the loss Function vs autograd")
+    measured.update(check_dice_kernels(torch))
 
     print("[serve] flagship UNet (16-32-64-128-256, 8 classes, roi 96^3, "
           "sw-batch 4, overlap 0.25) through the HTTP server")
@@ -672,16 +996,25 @@ def main() -> None:
         train_launches, train_numbers = run_train(torch, work / "train")
         print("[train-parity] one f32 train step, batch 2 x 96^3: card vs CPU")
         train_parity(torch)
+        print("[train-aug] train(augment_spatial=True, augment_intensity=True) with the "
+              "flagship defaults (144^3 margin patches -> 96^3) on the same phantoms")
+        aug_launches, aug_numbers = run_train_aug(torch, work / "train", work / "run_aug")
 
-    if any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules):
-        _fail("JAX was imported")
-    print(f"launches: serve {launches}, train {train_launches}; train step "
-          f"{train_numbers}")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
+    if loaded:
+        _fail(f"JAX or the JAX package was imported: {loaded[:5]}")
+    print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}; "
+          f"train step {train_numbers}; augmented {aug_numbers}")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name] + train_launches[name],
+         "launches": launches[name] + train_launches[name] + aug_launches[name],
          "max_abs_err": measured[name]["max_abs_err"],
-         "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"]}
+         "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
+         "bound_ms": measured[name]["bound_ms"],
+         "bound_by": ("bytes" if measured[name]["bytes_ms"] >= measured[name]["ops_ms"]
+                      else "operations"),
+         "library_ms": measured[name]["library_ms"]}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

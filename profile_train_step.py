@@ -1,8 +1,11 @@
 """Where the time of one training step of the PyTorch port goes on the card:
 the flagship UNet (16-32-64-128-256, 8 classes) on one fixed 8 x 96^3 bf16
-batch, Adam, the phase-major Dice, as ``train()`` runs it by default.
+batch, Adam, the phase-major Dice, as ``train()`` runs it by default; with
+``--augment`` the step ``train(augment_spatial=True, augment_intensity=True)``
+runs, on one fixed 8 x 144^3 bf16 margin batch (rotation + zoom through the
+shear-group kernel, intensity ops, flips, Gibbs and spike).
 
-    python3 profile_train_step.py [--steps 3]
+    python3 profile_train_step.py [--steps 3] [--augment]
 
 Prints the card's name and power limit; forward + loss, backward and the
 optimizer step timed apart (CUDA events, median of 10); the whole step
@@ -10,8 +13,8 @@ through ``make_train_step`` (median of 10); then, over ``--steps`` steps
 under ``torch.profiler``, the device kernel time per step by group, the busy
 share (kernel time over the unprofiled step, and over the profiled steps'
 span on CUDA events) and the largest kernels; and the peak device memory.
-Needs one CUDA device and ``nvcc``; imports nothing of JAX. Raises if the
-profiler records no device time.
+Needs one CUDA device and ``nvcc``; imports nothing of JAX and nothing of
+the JAX package. Raises if the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ ROOT = Path(__file__).resolve().parent
 BATCH, PATCH, NUM_CLASSES = 8, (96, 96, 96), 8
 # (group, substrings of the kernel name), first match wins
 GROUPS = [
+    ("shear-group kernel (augmentation)", ("shear_group_kernel",)),
+    ("Dice kernels (sums, finalize, dx)", ("dice_sums", "dice_dx_kernel")),
+    ("FFTs (Gibbs, spike)", ("fft",)),
     ("dw kernels (fused_conv_dw, phase_conv_dw)", ("conv3_dw_kernel",)),
     ("dw reduce", ("dw_reduce_kernel",)),
     ("conv kernels fwd+dx (fused_conv, phase_conv)", ("conv3_kernel",)),
@@ -33,9 +39,9 @@ GROUPS = [
      ("xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
     ("GEMMs", ("gemm", "cutlass")),
     ("optimizer", ("multi_tensor_apply", "adam")),
-    ("reductions (BN stats, Dice sums)", ("reduce_kernel", "welford", "batch_norm")),
+    ("reductions (BN stats)", ("reduce_kernel", "welford", "batch_norm")),
     ("copies / layout", ("copy", "memcpy", "memset", "cat", "transpose", "permute", "index")),
-    ("elementwise (BN, PReLU, casts, Dice)", ("elementwise",)),
+    ("elementwise (BN, PReLU, casts, intensity ops)", ("elementwise",)),
 ]
 
 
@@ -58,6 +64,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--augment", action="store_true",
+                        help="profile the augmented step on a 8 x 144^3 margin batch")
     args = parser.parse_args()
 
     import torch
@@ -68,7 +76,7 @@ def main() -> None:
     from chip_smoke import fixed_batch
     from segmantic_tpu_torch.ops import _cuda
     from segmantic_tpu_torch.ops.fast_conv import space_to_depth
-    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
     from segmantic_tpu_torch.train.losses import dice_loss_phase
     from segmantic_tpu_torch.train.optim import make_optimizer
     from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
@@ -103,10 +111,19 @@ def main() -> None:
     print(f"forward+loss {fwd:.2f} ms, backward {fwd_bwd - fwd:.2f} ms (forward + "
           f"backward {fwd_bwd:.2f}), optimizer {adam:.2f} ms (CUDA events, median of 10)")
 
-    step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), PATCH,
-                           mixed_precision=True)
+    cfg = AugmentConfig(flip_prob=0.0)
+    if args.augment:  # the margin batch, uploaded in bf16 as train() does
+        cfg = AugmentConfig(spatial=True, intensity=True)
+        image32, label = fixed_batch(torch, BATCH, 60, size=144, volume=160)
+        image32, label = image32.to(torch.bfloat16).cuda(), label.cuda()
+        gen = torch.Generator().manual_seed(3)
+        aug = median_ms(torch, lambda: augment_batch(image32, label, gen, cfg, PATCH))
+        print(f"augmentation alone {aug:.2f} ms (8 x 144^3 -> 96^3, median of 10 draws)")
+    step = make_train_step(module, opt, cfg, PATCH, mixed_precision=True,
+                           generator=torch.Generator().manual_seed(4))
     step_ms = median_ms(torch, lambda: step(image32, label))
-    print(f"whole step via make_train_step {step_ms:.2f} ms (median of 10), "
+    print(f"whole {'augmented ' if args.augment else ''}step via make_train_step "
+          f"{step_ms:.2f} ms (median of 10), "
           f"{BATCH * 96 ** 3 / step_ms * 1e3:.4g} labelled voxels/s")
 
     torch.cuda.synchronize()

@@ -33,8 +33,8 @@ def train_config(config_file: Optional[Path], print_defaults: bool) -> None:
     ``segmantic_tpu_torch.train.trainer.train`` (``device`` defaults to
     'cuda', which fails where CUDA is not available).
     """
-    from segmantic_tpu.utils import config
-    from segmantic_tpu.utils.schema import (
+    from ..utils import config
+    from ..utils.schema import (
         default_args_from_signature, validate_against_signature,
     )
 

@@ -1,7 +1,6 @@
 """Host volume cache + class-balanced patch batch sampler.
 
-Port of ``segmantic_tpu/data/cache.py`` (numpy code, but the JAX package's
-``data`` import pulls in jax). The deterministic preprocessing runs once per
+Port of ``segmantic_tpu/data/cache.py``. The deterministic preprocessing runs once per
 volume into host RAM, with a per-class voxel index so class-balanced crop
 centers are O(1) to sample. Each training step then samples ``num_samples``
 patch centers per chosen volume by class ratio, crops the patches (numpy
@@ -22,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from segmantic_tpu.core.volume import Volume
+from ..core.volume import Volume
 
 from ..transforms.base import Compose, Sample
 
@@ -101,16 +100,20 @@ def _crop_with_pad(data: np.ndarray, start: Sequence[int], size: Sequence[int]) 
 
 
 class PatchSampler:
-    """Class-balanced patch batches from a VolumeCache: image (B, *patch, C)
-    float32 and label (B, *patch) uint8 (int32 above 256 classes). Centers
+    """Class-balanced margin-patch batches from a VolumeCache: image
+    (B, *margin_size, C) float32 and label (B, *margin_size) uint8 (int32
+    above 256 classes), with margin_size = patch_size + 2 * margin. Centers
     fall on foreground classes with equal weight (the JAX package's default
-    ratios); the margin the JAX sampler adds for spatial augmentation comes
-    with that augmentation."""
+    ratios). The margin feeds the rotation + zoom on the device, so that
+    patch borders come from real data: the patch window is clamped inside the
+    volume and only the margin may hang outside, zero padded."""
 
     def __init__(self, cache: VolumeCache, patch_size: Sequence[int], batch_size: int,
-                 num_samples: int = 4, seed: int = 0):
+                 num_samples: int = 4, margin: int = 0, seed: int = 0):
         self.cache = cache
         self.patch_size = list(patch_size)
+        self.margin = margin
+        self.margin_size = [p + 2 * margin for p in self.patch_size]
         self.batch_size = batch_size
         self.num_samples = num_samples
         self.num_classes = cache.num_classes
@@ -143,12 +146,12 @@ class PatchSampler:
                         st = -((p - s) // 2)
                     else:  # keep the patch window inside the volume
                         st = min(max(center[a] - p // 2, 0), s - p)
-                    start.append(st)
+                    start.append(st - self.margin)
                 picks.append((vol, start))
         images, labels = [], []
         for vol, start in picks:
-            images.append(_crop_with_pad(vol.image.numpy(), start, self.patch_size))
-            labels.append(_crop_with_pad(vol.label.numpy(), start, self.patch_size)[0])
+            images.append(_crop_with_pad(vol.image.numpy(), start, self.margin_size))
+            labels.append(_crop_with_pad(vol.label.numpy(), start, self.margin_size)[0])
         image_b = np.moveaxis(np.stack(images).astype(np.float32), 1, -1)  # channel-last
         label_dtype = np.uint8 if self.num_classes <= 256 else np.int32
         return image_b, np.stack(labels).astype(label_dtype)

@@ -35,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
     "segk_fused_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "segk_fused_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "segk_phase_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "segk_conv3_dw_workspace": [_I] * 6,
+    "segk_shear_group": [_P] * 6 + [_I] * 7 + [_P],
+    "segk_dice_phase_sums": [_P] * 4 + [_I] * 4 + [_L, _I, _I, _P],
+    "segk_dice_phase_dx": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
 }
 _RESTYPES = {"segk_conv3_dw_workspace": ctypes.c_longlong}  # others: c_int error codes
 

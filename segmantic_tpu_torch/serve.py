@@ -23,7 +23,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Sequence
 
-from segmantic_tpu.io.nifti import read_volume, write_volume
+from .io.nifti import read_volume, write_volume
 
 from .infer.predict import segment_volume
 from .train.trainer import SegmentationModel, make_val_forward

@@ -11,7 +11,9 @@ production configuration (softmax + integer labels) is a
 ``torch.autograd.Function`` with the closed-form backward of the JAX
 package's custom VJP: the forward keeps only the logits, the labels and the
 per-(batch, class) sums, and the backward recomputes the softmax in one
-sweep instead of holding the f32 probabilities across the boundary.
+sweep instead of holding the f32 probabilities across the boundary. On
+phase-major logits (the train step's case) both sweeps are the hand-written
+kernels of ``ops/phase_dice.py`` on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops import phase_dice
 from ..ops.fused_conv import at_least_f32
 
 __all__ = ["dice_loss", "dice_loss_phase", "dice_ce_loss"]
@@ -56,16 +59,10 @@ class _DiceInt(torch.autograd.Function):
     def backward(ctx, g):
         logits, labels, inter, denom = ctx.saved_tensors
         smooth_nr, smooth_dr = ctx.smooth
-        # loss = mean over (n, c) of 1 - (2I + snr) / (D + sdr):
         #   dL/dI = -(g / cells) * 2 / (D + sdr)
         #   dL/dD = +(g / cells) * (2I + snr) / (D + sdr)^2
-        inv = 1.0 / (denom + smooth_dr)
-        scale = g / inter.numel()
-        d_inter = -scale * 2.0 * inv
-        d_denom = scale * (2.0 * inter + smooth_nr) * inv * inv
-        if not ctx.include_background:  # class 0 received no gradient
-            d_inter = F.pad(d_inter, (1, 0))
-            d_denom = F.pad(d_denom, (1, 0))
+        d_inter, d_denom = _dice_cotangents(g, inter, denom, ctx.include_background,
+                                            smooth_nr, smooth_dr)
         bshape = (logits.shape[0],) + (1,) * (logits.ndim - 2) + (logits.shape[-1],)
         d_inter, d_denom = d_inter.reshape(bshape), d_denom.reshape(bshape)
         # one sweep: recompute probs, dprobs = dI * onehot + dD, softmax vjp
@@ -74,6 +71,53 @@ class _DiceInt(torch.autograd.Function):
         inner = (probs * d_probs).sum(-1, keepdim=True)
         d_logits = (probs * (d_probs - inner)).to(logits.dtype)
         return d_logits, None, None, None, None
+
+
+def _dice_cotangents(g, inter, denom, include_background, smooth_nr, smooth_dr):
+    """dL/d(intersection) and dL/d(denominator), (B, C) each, of
+    loss = mean over (n, c) of 1 - (2I + snr) / (D + sdr); class 0 padded
+    back in (it received no gradient) where the background was excluded."""
+    inv = 1.0 / (denom + smooth_dr)
+    scale = g / inter.numel()
+    d_inter = -scale * 2.0 * inv
+    d_denom = scale * (2.0 * inter + smooth_nr) * inv * inv
+    if not include_background:
+        d_inter = F.pad(d_inter, (1, 0))
+        d_denom = F.pad(d_denom, (1, 0))
+    return d_inter, d_denom
+
+
+class _DicePhase(torch.autograd.Function):
+    """:class:`_DiceInt` on phase-major logits (B, *S/2, P * C) and labels
+    (B, *S/2, P), from the two sweeps of ``ops/phase_dice.py``: the forward is
+    ``dice_phase_sums`` plus the (B, C) Dice arithmetic, the backward the
+    per-lane hot / cold values plus ``dice_phase_dx``
+    (``losses._dice_phase_fwd`` / ``_dice_phase_bwd`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, xp, yp, include_background, smooth_nr, smooth_dr):
+        inter, prob_sum, count = phase_dice.dice_phase_sums(xp, yp)
+        denom = prob_sum + count
+        if not include_background:
+            inter, denom = inter[:, 1:], denom[:, 1:]
+        dice = (2.0 * inter + smooth_nr) / (denom + smooth_dr)
+        ctx.save_for_backward(xp, yp, inter, denom)
+        ctx.include_background = include_background
+        ctx.smooth = (smooth_nr, smooth_dr)
+        return (1.0 - dice).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, yp, inter, denom = ctx.saved_tensors
+        d_inter, d_denom = _dice_cotangents(g, inter, denom, ctx.include_background,
+                                            *ctx.smooth)
+        # per-lane values, lane = phase * C + c. d_inter and d_denom have
+        # opposite signs: they are summed in f32 before any select, or a
+        # near-perfect Dice would cancel at the width of the logits
+        n_phase = yp.shape[-1]
+        hot = (d_inter + d_denom).repeat(1, n_phase)
+        cold = d_denom.repeat(1, n_phase)
+        return phase_dice.dice_phase_dx(xp, yp, hot, cold), None, None, None, None
 
 
 def _dice_reference(logits, labels, include_background, smooth_nr, smooth_dr,
@@ -120,11 +164,16 @@ def dice_loss_phase(
     """:func:`dice_loss` on the UNet's phase-major logits.
 
     Dice sums are invariant to permuting voxels, so
-    ``dice_loss_phase(s2d(logits), s2d(labels)) == dice_loss(logits, labels)``:
-    the phases become one more spatial axis, (N, *S/2, 8, C), and the closed
-    form of :func:`dice_loss` applies per phase voxel. (The JAX package's
+    ``dice_loss_phase(s2d(logits), s2d(labels)) == dice_loss(logits, labels)``.
+    The production case (softmax, integer labels) takes the two streaming
+    sweeps of ``ops/phase_dice.py``, kernels on the card. (The JAX package's
     matmul-segmented formulation exists to keep the TPU's lanes dense; it
-    computes the same sums and gradients.)"""
+    computes the same sums and gradients.) Otherwise the phases become one
+    more spatial axis, (N, *S/2, 8, C), of :func:`dice_loss`."""
+    integer = not (phase_labels.dtype.is_floating_point or phase_labels.dtype == torch.bool)
+    if apply_softmax and phase_labels.ndim == phase_logits.ndim and integer:
+        return _DicePhase.apply(phase_logits, phase_labels, include_background,
+                                float(smooth_nr), float(smooth_dr))
     n_phase = phase_labels.shape[-1]
     num_classes = phase_logits.shape[-1] // n_phase
     logits = phase_logits.reshape(phase_logits.shape[:-1] + (n_phase, num_classes))

@@ -7,8 +7,11 @@ and ``train`` with the JAX package's keyword signature plus ``device``.
 
 - Deterministic preprocessing runs once per volume into a host RAM cache
   with per-class crop indices (``data/cache.py``); each step a background
-  thread crops the next class-balanced batch of patches.
-- The train step runs on ``device``: flips, then the UNet forward and
+  thread crops the next class-balanced batch of patches (margin patches
+  under ``augment_spatial``).
+- The train step runs on ``device``: the augmentation (``train/augment.py``:
+  rotation + zoom through the shear-group kernel, intensity ops, flips), then
+  the UNet forward and
   backward with explicit casts like the JAX step (bf16 image and weights cast
   at use under ``mixed_precision``, f32 master parameters, f32 BatchNorm
   statistics; no autocast), the phase-major Dice, and the optimizer update.
@@ -36,8 +39,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from segmantic_tpu.data.dataset import PairedDataSet
-from segmantic_tpu.utils.json import PathEncoder
+from ..data.dataset import PairedDataSet
+from ..utils.json import PathEncoder
 
 from ..data.cache import PatchSampler, PrefetchLoader, VolumeCache
 from ..image.labels import load_decathlon_tissuelist, load_tissue_list
@@ -256,23 +259,32 @@ def _resolve_num_classes(num_classes: int, tissue_list: Optional[Path], datalist
 def make_train_step(module: UNet, optimizer: torch.optim.Optimizer,
                     aug_cfg: AugmentConfig, patch_size: Sequence[int],
                     mixed_precision: bool, generator: Optional[torch.Generator] = None):
-    """``step(image, label) -> loss``: flips, forward, phase-major Dice,
-    backward and the optimizer update, in place on ``module`` (parameters and
-    BatchNorm running statistics) and ``optimizer``.
+    """``step(image, label) -> loss``: augmentation, forward, phase-major
+    Dice, backward and the optimizer update, in place on ``module``
+    (parameters and BatchNorm running statistics) and ``optimizer``.
 
-    image (B, *patch, C) and label (B, *patch) on the module's device; the
-    image is augmented in f32 and, under ``mixed_precision``, fed to the model
-    in bf16. Returns the loss as a 0-d device tensor (no synchronisation).
+    image (B, *margin patch, C) and label (B, *margin patch) on the module's
+    device, the margin patch being the sampler's (the patch itself without
+    spatial augmentation). The image is augmented in f32, except that a bf16
+    image whose first augmentation is the bf16 interpolation is not upcast
+    for it, and under ``mixed_precision`` it is fed to the model in bf16.
+    Returns the loss as a 0-d device tensor (no synchronisation).
     The Dice consumes the top phase stage's phase-major logits directly when
     that stage runs in phase space and the patch is even (exact: Dice sums
     are invariant to permuting voxels)."""
-    aug_cfg.check_ported()
+    # bf16 interpolation only when the step computes in bf16 anyway (the cast
+    # after the augmentation would round as much)
+    aug_cfg = dataclasses.replace(
+        aug_cfg, interp_bf16=aug_cfg.interp_bf16 and mixed_precision)
     patch_size = tuple(int(p) for p in patch_size)
     use_phase_logits = module.phase_top_ok() and all(p % 2 == 0 for p in patch_size)
 
     def step(image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         module.train()
-        image, label = augment_batch(at_least_f32(image), label, generator, aug_cfg)
+        if not (aug_cfg.spatial and aug_cfg.interp_bf16
+                and image.dtype == torch.bfloat16):
+            image = at_least_f32(image)
+        image, label = augment_batch(image, label, generator, aug_cfg, patch_size)
         if mixed_precision:
             image = image.to(torch.bfloat16)
         optimizer.zero_grad(set_to_none=True)
@@ -325,14 +337,11 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
-def _check_ported(*, preprocessing, augmentation, augment_spatial, augment_intensity,
-                  arch, model_parallel, accumulate_steps, remat, zero_optimizer,
-                  profile_dir, val_blend_mode) -> None:
+def _check_ported(*, preprocessing, augmentation, arch, model_parallel, accumulate_steps,
+                  remat, zero_optimizer, profile_dir, val_blend_mode) -> None:
     if preprocessing or augmentation:
         raise _not_ported("config-driven preprocessing/augmentation pipelines",
                           "transforms/registry.py")
-    if augment_spatial or augment_intensity:
-        AugmentConfig(spatial=augment_spatial, intensity=augment_intensity).check_ported()
     if (arch or "unet").lower() != "unet":
         raise _not_ported(f"arch={arch!r}", "models/segresnet.py, models/unetr.py")
     if model_parallel != 1 or zero_optimizer:
@@ -393,11 +402,9 @@ def train(
     the history. Same keywords as the JAX package's ``train`` (``gpu_ids`` is
     accepted for config compatibility; the device is ``device``, which must
     exist: ``"cuda"`` without CUDA raises)."""
-    _check_ported(preprocessing=preprocessing, augmentation=augmentation,
-                  augment_spatial=augment_spatial, augment_intensity=augment_intensity,
-                  arch=arch, model_parallel=model_parallel,
-                  accumulate_steps=accumulate_steps, remat=remat,
-                  zero_optimizer=zero_optimizer, profile_dir=profile_dir,
+    _check_ported(preprocessing=preprocessing, augmentation=augmentation, arch=arch,
+                  model_parallel=model_parallel, accumulate_steps=accumulate_steps,
+                  remat=remat, zero_optimizer=zero_optimizer, profile_dir=profile_dir,
                   val_blend_mode=val_blend_mode)
     device = resolve_device(device)
     optimizer_cfg = dict(DEFAULT_OPTIMIZER)
@@ -440,13 +447,16 @@ def train(
                               cache_rate=cache_rate)
     val_cache = VolumeCache(dataset.validation_files(), pre, num_classes,
                             cache_rate=cache_rate)
+    # the margin feeds the rotation + zoom on the device (real-data borders)
+    margin = max(patch_size) // 4 if augment_spatial else 0
     sampler = PatchSampler(train_cache, patch_size=patch_size,
                            batch_size=batch_size * num_samples,
-                           num_samples=num_samples, seed=seed)
+                           num_samples=num_samples, margin=margin, seed=seed)
 
     # --- step --------------------------------------------------------------
     opt = make_optimizer(module.parameters(), optimizer_cfg)
-    train_step = make_train_step(module, opt, AugmentConfig(), patch_size, mixed_precision,
+    aug_cfg = AugmentConfig(spatial=augment_spatial, intensity=augment_intensity)
+    train_step = make_train_step(module, opt, aug_cfg, patch_size, mixed_precision,
                                  generator=torch.Generator().manual_seed(seed))
     scheduler = LRScheduler(optimizer_cfg["lr"], scheduler_cfg)
     ckpts = TopKCheckpoints(output_dir, k=3)
@@ -462,7 +472,10 @@ def train(
             epoch_loss = 0.0
             for _ in range(steps_per_epoch):
                 image_b, label_b = loader.next()
-                image_d = torch.from_numpy(image_b).to(device, non_blocking=True)
+                image_t = torch.from_numpy(image_b)
+                if mixed_precision:  # halves the upload; the step computes in bf16
+                    image_t = image_t.to(torch.bfloat16)
+                image_d = image_t.to(device, non_blocking=True)
                 label_d = torch.from_numpy(label_b).to(device, non_blocking=True)
                 epoch_loss += float(train_step(image_d, label_d))
             epoch_loss /= steps_per_epoch

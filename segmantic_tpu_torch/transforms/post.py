@@ -13,9 +13,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from segmantic_tpu.core.orientation import inverse_orientation_op, invert_orientation
-from segmantic_tpu.core.volume import Volume
-from segmantic_tpu.io.nifti import write_volume
+from ..core.orientation import inverse_orientation_op, invert_orientation
+from ..core.volume import Volume
+from ..io.nifti import write_volume
 
 from ..ops.resample import grid_matrix, resample_affine_np
 from .base import MapTransform, Sample

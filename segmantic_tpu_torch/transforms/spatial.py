@@ -4,9 +4,9 @@ Port of ``segmantic_tpu/transforms/spatial.py`` (``LoadImaged``,
 ``Orientationd``, ``NormalizeIntensityd``, ``CropForegroundd``, ``Spacingd``,
 ``EnsureTyped``): the same numpy code with the same applied-ops log, which
 ``post.Invertd`` replays to map predictions back to the input grid. The
-Volume container, NIfTI I/O and orientation helpers are the JAX package's own
-jax-free modules, imported as they are; ``Spacingd`` prefers the native C++
-resampler (``segmantic_tpu.native``) exactly as the JAX code does.
+Volume container, NIfTI I/O and orientation helpers are the port's own copies
+(``core/``, ``io/``); ``Spacingd`` takes the native C++ resampler
+(``native.py``) when the library is available, as the JAX code does.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ from typing import Sequence
 
 import numpy as np
 
-from segmantic_tpu.core import orientation as orient
-from segmantic_tpu.core.volume import Volume
-from segmantic_tpu.io.nifti import read_volume
+from ..core import orientation as orient
+from ..core.volume import Volume
+from ..io.nifti import read_volume
 
+from .. import native
 from ..ops.resample import grid_matrix, output_affine_for_spacing, resample_affine_np
 from .base import MapTransform, Sample
 
@@ -185,20 +186,16 @@ class Spacingd(MapTransform):
 
     @staticmethod
     def _resample(data: np.ndarray, m: np.ndarray, out_shape, order: int) -> np.ndarray:
-        """Prefer the multithreaded native resampler on the cache-build hot
-        path (float32, 3D); exact numpy fallback elsewhere."""
-        if data.ndim - 1 == 3:
-            try:
-                from segmantic_tpu import native
-
-                out = native.resample_affine(
-                    data.astype(np.float32), m, out_shape, order=order
-                )
-                return out if np.issubdtype(data.dtype, np.floating) else out.astype(
-                    data.dtype
-                )
-            except Exception:
-                pass
+        """The multithreaded native resampler on the cache-build hot path
+        (float32, 3D) when the library is available; the numpy resampler
+        otherwise (same result)."""
+        if data.ndim - 1 == 3 and native.available():
+            out = native.resample_affine(
+                data.astype(np.float32), m, out_shape, order=order
+            )
+            return out if np.issubdtype(data.dtype, np.floating) else out.astype(
+                data.dtype
+            )
         return resample_affine_np(data, m, out_shape, order=order)
 
 

@@ -1,0 +1,255 @@
+"""The port's own host-side base modules against the JAX package's.
+
+``segmantic_tpu_torch`` imports nothing of ``segmantic_tpu``: it keeps its own
+copies of the numpy-only modules it needs (``core/volume``,
+``core/orientation``, ``io/nifti``, ``utils/*``, ``data/dataset``, the
+``native`` resampler binding). Here each copy gets the same inputs as its
+original and must give the same results (exactly: the same numpy code), NIfTI
+files written by one package are read by the other, and every module of the
+port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
+"""
+
+from __future__ import annotations
+
+import json
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import segmantic_tpu_torch
+from segmantic_tpu import native as jnative
+from segmantic_tpu.core import orientation as jorient
+from segmantic_tpu.core import volume as jvolume
+from segmantic_tpu.data import dataset as jdataset
+from segmantic_tpu.io import nifti as jnifti
+from segmantic_tpu.utils import config as jconfig
+from segmantic_tpu.utils import file_iterators as jfiles
+from segmantic_tpu.utils import schema as jschema
+from segmantic_tpu.utils.json import PathEncoder as JPathEncoder
+from segmantic_tpu_torch import native
+from segmantic_tpu_torch.core import orientation as orient
+from segmantic_tpu_torch.core import volume
+from segmantic_tpu_torch.data import dataset
+from segmantic_tpu_torch.io import nifti
+from segmantic_tpu_torch.ops.resample import resample_affine_np
+from segmantic_tpu_torch.transforms.spatial import Spacingd
+from segmantic_tpu_torch.utils import config, file_iterators, schema
+from segmantic_tpu_torch.utils.json import PathEncoder
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _oblique_affine(rng):
+    """Spacing, a flip, an axis swap and a small rotation: not axis aligned."""
+    aff = volume.affine_from_spacing_origin((0.8, 1.1, 1.5), (10.0, -20.0, 5.0))
+    t = 0.1
+    rot = np.array([[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0], [0, 0, 1.0]])
+    aff[:3, :3] = rot @ aff[:3, :3][:, [1, 0, 2]] * np.array([-1.0, 1.0, 1.0])
+    return aff
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8, np.int16])
+@pytest.mark.parametrize("suffix", [".nii.gz", ".nii"])
+def test_nifti_round_trip_each_way(tmp_path, dtype, suffix):
+    """A file written by either package is read by both to the same voxels
+    and affine; both packages write the same bytes."""
+    rng = np.random.default_rng(0)
+    data = (rng.standard_normal((1, 7, 9, 11)) * 50).astype(dtype)
+    aff = _oblique_affine(rng)
+    by_port, by_jax = tmp_path / f"port{suffix}", tmp_path / f"jax{suffix}"
+    nifti.write_volume(by_port, volume.Volume(data=data, affine=aff))
+    jnifti.write_volume(by_jax, jvolume.Volume(data=data, affine=aff.copy()))
+    for path in (by_port, by_jax):
+        got, want = nifti.read_volume(path), jnifti.read_volume(path)
+        assert got.data.dtype == want.data.dtype == dtype
+        np.testing.assert_array_equal(got.data, data)
+        np.testing.assert_array_equal(got.data, want.data)
+        np.testing.assert_array_equal(got.affine, want.affine)
+        np.testing.assert_allclose(got.affine, aff, atol=1e-5)
+    if suffix == ".nii":  # the JAX package may gzip with its native codec
+        assert by_port.read_bytes() == by_jax.read_bytes()
+    arr, aff2 = nifti.read_nifti(by_jax)
+    jarr, jaff2 = jnifti.read_nifti(by_jax)
+    np.testing.assert_array_equal(arr, jarr)
+    np.testing.assert_array_equal(aff2, jaff2)
+
+
+def test_volume_matches():
+    rng = np.random.default_rng(1)
+    data = rng.standard_normal((2, 5, 6, 7)).astype(np.float32)
+    aff = _oblique_affine(rng)
+    got, want = volume.Volume(data=data, affine=aff), jvolume.Volume(data=data, affine=aff)
+    for name in ("spatial_shape", "spacing", "origin", "ndim", "num_channels"):
+        if hasattr(want, name):
+            np.testing.assert_array_equal(np.asarray(getattr(got, name)),
+                                          np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_array_equal(
+        volume.affine_from_spacing_origin((1.0, 2.0, 3.0), (4.0, 5.0, 6.0)),
+        jvolume.affine_from_spacing_origin((1.0, 2.0, 3.0), (4.0, 5.0, 6.0)))
+    assert sorted(n for n in dir(volume.Volume) if not n.startswith("_")) == sorted(
+        n for n in dir(jvolume.Volume) if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("target", ["RAS", "LPS", "PIR", "SAL"])
+def test_orientation_ops_match(target):
+    rng = np.random.default_rng(2)
+    data = rng.standard_normal((1, 5, 6, 7)).astype(np.float32)
+    aff = _oblique_affine(rng)
+    assert orient.axcodes(aff) == jorient.axcodes(aff)
+    np.testing.assert_array_equal(orient.io_orientation(aff), jorient.io_orientation(aff))
+    assert orient.parse_axcodes(target) == jorient.parse_axcodes(target)
+    got_d, got_a, perm, flips = orient.reorient_to_axcodes(data, aff, target)
+    want_d, want_a, jperm, jflips = jorient.reorient_to_axcodes(data, aff, target)
+    assert (perm, flips) == (jperm, jflips) == orient.orientation_ops(aff, 3, target)
+    np.testing.assert_array_equal(got_d, want_d)
+    np.testing.assert_array_equal(got_a, want_a)
+    assert orient.axcodes(got_a) == tuple(target)
+    back, back_aff = orient.invert_orientation(got_d, perm, flips, aff)
+    jback, jback_aff = jorient.invert_orientation(want_d, jperm, jflips, aff)
+    np.testing.assert_array_equal(back, jback)
+    np.testing.assert_array_equal(back, data)
+    np.testing.assert_array_equal(back_aff, jback_aff)
+    again, _ = orient.inverse_orientation_op(got_d, got_a, aff, target)
+    jagain, _ = jorient.inverse_orientation_op(want_d, want_a, aff, target)
+    np.testing.assert_array_equal(again, jagain)
+    np.testing.assert_array_equal(again, data)
+
+
+@pytest.fixture()
+def paired_files(tmp_path):
+    for sub, stems in (("image", ["a", "b", "c", "d", "e", "f", "orphan"]),
+                       ("label", ["a", "b", "c", "d", "e", "f"])):
+        (tmp_path / sub).mkdir()
+        for stem in stems:
+            (tmp_path / sub / f"{stem}.nii.gz").write_bytes(b"x")
+    return tmp_path
+
+
+def test_paired_dataset_pairs_and_splits_like_the_original(paired_files):
+    kw = dict(image_dir=paired_files / "image", labels_dir=paired_files / "label",
+              valid_split=0.34, random_seed=5)
+    got, want = dataset.PairedDataSet(**kw), jdataset.PairedDataSet(**kw)
+    for split in ("training_files", "validation_files", "test_files"):
+        assert list(getattr(got, split)()) == list(getattr(want, split)()), split
+    assert len(got.training_files()) + len(got.validation_files()) == 6  # orphan dropped
+    for case in got.training_files():
+        assert Path(case["image"]).name == Path(case["label"]).name
+    assert json.loads(got.dump_dataset()) == json.loads(want.dump_dataset())
+    assert dataset.kfold_split(7, 3) == jdataset.kfold_split(7, 3)
+    # a datalist written by one package is loaded by the other
+    doc = paired_files / "datalist.json"
+    doc.write_text(want.dump_dataset())
+    loaded = dataset.PairedDataSet.load_from_json(doc)
+    assert list(loaded.training_files()) == list(
+        jdataset.PairedDataSet.load_from_json(doc).training_files())
+
+
+def test_utils_match(paired_files, tmp_path):
+    globs = [paired_files / "image" / "*.nii.gz", paired_files / "label" / "*.nii.gz"]
+    assert file_iterators.find_matching_files(globs, verbose=False) == \
+        jfiles.find_matching_files(globs, verbose=False)
+
+    def fn(a: int, out: Path = Path("x"), files: Path = None, n: int = 3):
+        pass
+
+    assert schema.default_args_from_signature(fn) == jschema.default_args_from_signature(fn)
+    args = {"a": 1, "out": "y", "files": ["p", "q"]}
+    assert schema.validate_against_signature(args, fn) == \
+        jschema.validate_against_signature(args, fn) == \
+        {"a": 1, "out": Path("y"), "files": [Path("p"), Path("q")]}
+    with pytest.raises(ValueError, match="Unexpected argument"):
+        schema.validate_against_signature({"typo": 1}, fn)
+    obj = {"a": [1, 2.5], "b": {"c": "d"}, "e": None}
+    for is_json in (True, False):
+        text = config.dumps(obj, is_json=is_json)
+        assert text == jconfig.dumps(obj, is_json=is_json)
+        assert config.loads(text, is_json=is_json) == obj
+    for name in ("cfg.json", "cfg.yml"):
+        config.dump(obj, tmp_path / name)
+        assert config.load(tmp_path / name) == jconfig.load(tmp_path / name) == obj
+    doc = {"p": Path("a/b")}
+    assert json.dumps(doc, cls=PathEncoder) == json.dumps(doc, cls=JPathEncoder)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_native_resampler_matches_numpy_and_the_original(order):
+    """``Spacingd._resample`` asks ``native.available()`` and takes the native
+    resampler or the numpy one by that answer; both give the same volume
+    (1e-4 absolute: float32 coordinates in the library, float64 in numpy)."""
+    assert native.available() == jnative.available()
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((1, 9, 10, 11)).astype(np.float32)
+    m = np.concatenate([np.diag([0.7, 0.9, 1.2]), [[0.3], [-0.2], [0.5]]], axis=1)  # (3, 4)
+    plain = resample_affine_np(data, m, (12, 11, 9), order=order)
+    got = Spacingd._resample(data, m, (12, 11, 9), order)
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    if not native.available():
+        np.testing.assert_array_equal(got, plain)
+        return
+    np.testing.assert_array_equal(got, native.resample_affine(data, m, (12, 11, 9), order=order))
+    np.testing.assert_array_equal(got, jnative.resample_affine(data, m, (12, 11, 9), order=order))
+    if order == 1:
+        np.testing.assert_allclose(got, plain, atol=1e-4)
+    else:  # nearest picks may differ only where a coordinate lands on a tie
+        assert (got != plain).mean() < 0.01
+
+
+def test_native_unavailable_takes_the_numpy_resampler(monkeypatch):
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "resample_affine",
+                        lambda *a, **k: pytest.fail("native resampler called"))
+    data = np.random.default_rng(4).standard_normal((1, 6, 6, 6)).astype(np.float32)
+    m = np.eye(3, 4)
+    np.testing.assert_array_equal(Spacingd._resample(data, m, (6, 6, 6), 1),
+                                  resample_affine_np(data, m, (6, 6, 6), order=1))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        segmantic_tpu_torch.__path__, "segmantic_tpu_torch."))
+
+
+def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
+    names = _port_modules()
+    for pkg in ("core.volume", "io.nifti", "utils.config", "data.dataset", "native",
+                "ops.fused_shear", "ops.phase_dice", "ops.shear_resample", "train.augment"):
+        assert f"segmantic_tpu_torch.{pkg}" in names
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        for name in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"):
+            sys.modules[name] = None  # import raises ImportError
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {names!r}:
+            importlib.import_module(name)
+        loaded = [m for m, mod in sys.modules.items() if mod is not None
+                  and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu")]
+        print("OK", loaded)
+    """)
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "OK []"
+
+
+def test_no_port_source_imports_the_jax_package():
+    """No ``import`` statement of the port, the smoke script or the profile
+    script names ``segmantic_tpu`` or jax (comments and citations may)."""
+    import ast
+
+    files = list((REPO / "segmantic_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "profile_train_step.py"]
+    banned = {"segmantic_tpu", "jax", "jaxlib", "flax", "optax"}
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = {(node.module or "").split(".")[0]}
+            else:
+                continue
+            assert not roots & banned, f"{path.relative_to(REPO)}:{node.lineno}"

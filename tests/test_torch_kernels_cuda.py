@@ -12,6 +12,12 @@ rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
 bit-equal (fixed-order reduction).
+The shear group does two products and one sum per output: order 0 and the
+bf16-weight mode are bit-equal to the plain version, f32 within 1e-6 *
+max|ref| (the plain version's matrix product may fuse the multiply and add).
+The Dice sums run over up to ~10^5 voxels in another order: 1e-5 relative;
+the Dice cotangent 1e-5 * max|ref| in f32 and 2e-2 in bf16 (one rounding of
+the output); repeated launches are bit-equal.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
+from segmantic_tpu_torch.ops import (
+    blend, fused_conv, fused_shear, phase_conv, phase_dice, shear_resample,
+)
+from segmantic_tpu_torch.train import losses
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +192,136 @@ def test_phase_conv_grad_function(cuda, dtype, tol):
     want = _grads(phase_conv.phase_conv_plain, p, w)
     for a, b in zip(got, want):
         _close(a, b, tol)
+
+
+def _group_inputs(g, full, out_shape, samples, channels, dtype, cuda):
+    """A batch, per-sample coefficients and the three groups' specs of the
+    chain for ``full`` -> ``out_shape`` at the augmentation's default bounds."""
+    passes, divz, _, groups = shear_resample.chain_plan(full, 3, out_shape, 0.4, 0.8)
+    angles = (torch.rand((samples, 3), generator=g) * 0.8 - 0.4).to(cuda)
+    zoom = (torch.rand((samples,), generator=g) * 0.5 + 0.8).to(cuda)
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)
+    if dtype.is_floating_point:
+        x = _randn(g, samples, channels, *full).to(dtype)
+    else:
+        x = torch.randint(0, 9, (samples, channels, *full), generator=g).to(cuda, dtype)
+    return x, coef, zoom, groups
+
+
+@pytest.mark.parametrize("dtype,order,bf16", [
+    (torch.float32, 1, False), (torch.float32, 1, True), (torch.bfloat16, 1, True),
+    (torch.float32, 0, False), (torch.uint8, 0, False), (torch.int32, 0, False),
+])
+@pytest.mark.parametrize("full,out_shape", [
+    ((20, 22, 24), (12, 12, 14)),  # shrinking windows, folded zoom
+    ((15, 18, 17), None),  # full frame, odd extents
+    ((40, 40, 40), (26, 26, 26)),
+])
+def test_shear_group(cuda, full, out_shape, dtype, order, bf16):
+    g = torch.Generator().manual_seed(10)
+    x, coef, zoom, groups = _group_inputs(g, full, out_shape, 3, 2, dtype, cuda)
+    for i, (a_axis, b_axis, specs) in enumerate(groups):
+        c = coef[:, 3 * i: 3 * i + 3].contiguous()
+        fused_shear.counter.reset()
+        got = fused_shear.shear_group(x, a_axis, b_axis, c, zoom, specs, order, bf16)
+        torch.cuda.synchronize()
+        assert fused_shear.counter.count == 1
+        want = fused_shear.shear_group_plain(x, a_axis, b_axis, c, zoom, specs, order, bf16)
+        assert got.shape == want.shape and got.dtype == want.dtype == dtype
+        if order == 0 or bf16:
+            assert torch.equal(got, want), (i, (got.float() - want.float()).abs().max())
+        else:
+            _close(got, want, 1e-6)
+        assert torch.equal(got, fused_shear.shear_group(x, a_axis, b_axis, c, zoom, specs,
+                                                        order, bf16))
+        x = want.contiguous()  # the next group's input, as the chain hands it on
+
+
+def test_shear_group_refuses(cuda):
+    g = torch.Generator().manual_seed(11)
+    x, coef, zoom, groups = _group_inputs(g, (8, 8, 8), None, 2, 1, torch.uint8, cuda)
+    a_axis, b_axis, specs = groups[0]
+    with pytest.raises(TypeError):  # order 1 on an integer type
+        fused_shear.shear_group(x, a_axis, b_axis, coef[:, :3].contiguous(), zoom, specs, 1)
+    with pytest.raises(TypeError):
+        fused_shear.shear_group(x.to(torch.float64), a_axis, b_axis,
+                                coef[:, :3].contiguous(), zoom, specs, 0)
+
+
+def _dice_inputs(g, shape, n_phase, classes, dtype, cuda):
+    xp = _randn(g, *shape, n_phase * classes, scale=2.0).to(dtype)
+    yp = torch.randint(0, classes, (*shape, n_phase), generator=g).to(cuda, torch.uint8)
+    return xp, yp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_phase,classes", [
+    ((2, 6, 8, 10), 8, 8),  # the flagship's lanes: one 16-byte load per voxel in bf16
+    ((3, 5, 7, 9), 8, 5),  # classes below a power of two
+    ((1, 9, 11), 4, 3),  # 2D phases
+    ((2, 24, 24, 24), 8, 16),  # several blocks per sample
+    ((1, 3, 4, 5), 8, 32),
+])
+def test_dice_phase_sums(cuda, shape, n_phase, classes, dtype):
+    g = torch.Generator().manual_seed(12)
+    xp, yp = _dice_inputs(g, shape, n_phase, classes, dtype, cuda)
+    phase_dice.sums_counter.reset()
+    got = phase_dice.dice_phase_sums(xp, yp)
+    torch.cuda.synchronize()
+    assert phase_dice.sums_counter.count == 1
+    want = phase_dice.dice_phase_sums_plain(xp, yp)
+    for a, b in zip(got, want):
+        assert a.shape == (shape[0], classes) and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[2], want[2])  # label counts are whole numbers
+    again = phase_dice.dice_phase_sums(xp, yp)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,n_phase,classes", [
+    ((2, 6, 8, 10), 8, 8), ((3, 5, 7, 9), 8, 5), ((1, 9, 11), 4, 3),
+    ((2, 24, 24, 24), 8, 16), ((1, 3, 4, 5), 8, 32),
+])
+def test_dice_phase_dx(cuda, shape, n_phase, classes, dtype, tol):
+    g = torch.Generator().manual_seed(13)
+    xp, yp = _dice_inputs(g, shape, n_phase, classes, dtype, cuda)
+    hot = _randn(g, shape[0], n_phase * classes)
+    cold = _randn(g, shape[0], n_phase * classes)
+    phase_dice.dx_counter.reset()
+    got = phase_dice.dice_phase_dx(xp, yp, hot, cold)
+    assert phase_dice.dx_counter.count == 1 and got.dtype == dtype and got.shape == xp.shape
+    _close(got, phase_dice.dice_phase_dx_plain(xp, yp, hot, cold), tol)
+    assert torch.equal(got, phase_dice.dice_phase_dx(xp, yp, hot, cold))
+
+
+def test_dice_phase_refuses(cuda):
+    g = torch.Generator().manual_seed(14)
+    xp, yp = _dice_inputs(g, (1, 2, 2, 2), 8, 33, torch.float32, cuda)
+    with pytest.raises(ValueError, match="classes"):
+        phase_dice.dice_phase_sums(xp, yp)
+    xp, yp = _dice_inputs(g, (1, 2, 2, 2), 8, 4, torch.float64, cuda)
+    with pytest.raises(TypeError):
+        phase_dice.dice_phase_sums(xp, yp)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("include_background", [True, False])
+def test_dice_loss_phase_function(cuda, dtype, tol, include_background):
+    """The loss and its gradient through the kernels against autograd through
+    the plain softmax Dice on the same phase voxels."""
+    g = torch.Generator().manual_seed(15)
+    xp, yp = _dice_inputs(g, (2, 6, 6, 6), 8, 8, dtype, cuda)
+    xp.requires_grad_()
+    phase_dice.sums_counter.reset()
+    phase_dice.dx_counter.reset()
+    loss = losses.dice_loss_phase(xp, yp, include_background=include_background)
+    loss.backward()
+    assert phase_dice.sums_counter.count == 1 and phase_dice.dx_counter.count == 1
+    ref_x = xp.detach().clone().requires_grad_()
+    onehot = torch.nn.functional.one_hot(yp.long(), 8).float()
+    ref = losses.dice_loss(ref_x.reshape(2, 6, 6, 6, 8, 8), onehot,
+                           include_background=include_background)
+    ref.backward()
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
+    _close(xp.grad, ref_x.grad, tol)

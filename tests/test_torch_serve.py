@@ -180,20 +180,21 @@ def test_http_round_trip(ckpt, tmp_path):
 
 
 def test_serves_with_jax_blocked(ckpt, tmp_path):
-    """A process in which ``import jax`` (and flax, optax) fails still loads
+    """A process in which ``import jax`` (and flax, optax, segmantic_tpu) fails still loads
     the checkpoint and answers one request."""
     payload = tmp_path / "in.nii.gz"
     _nifti(payload, seed=4)
     script = textwrap.dedent(f"""
         import sys
-        for name in ("jax", "jaxlib", "flax", "optax"):
+        for name in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"):
             sys.modules[name] = None  # import raises ImportError
         sys.path.insert(0, {str(REPO)!r})
         from pathlib import Path
         from segmantic_tpu_torch.serve import InferenceSession
         session = InferenceSession(Path({str(ckpt)!r}), sw_batch_size=2, device="cpu")
         out = session.segment_bytes(Path({str(payload)!r}).read_bytes())
-        loaded = [m for m in ("jax", "flax", "optax") if sys.modules.get(m) is not None]
+        loaded = [m for m, mod in sys.modules.items() if mod is not None
+                  and m.split(".")[0] in ("jax", "flax", "optax", "segmantic_tpu")]
         print("OK", len(out), loaded)
     """)
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,

@@ -9,17 +9,23 @@ on ``device="cpu"`` and writes ``Dataset.json``, ``history.json``,
 absolute + 1e-3 relative). The patch sampler gives the JAX package's batches
 for one seed (exactly); validation, the confusion matrix and the flips
 agree with the JAX functions; the CLI subcommands train; training runs with
-jax unimportable; unported options raise naming the ROADMAP.
+jax unimportable; unported options raise naming the ROADMAP. With the
+augmentation: the sampler's margin patches equal the JAX sampler's, ``train``
+runs with ``augment_spatial`` and ``augment_intensity``, and one train step
+with injected augmentation parameters gives the JAX step's loss on the same
+augmented batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import textwrap
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,13 +36,17 @@ from segmantic_tpu.data import cache as jcache
 from segmantic_tpu.data.dataset import PairedDataSet
 from segmantic_tpu.io.nifti import write_volume
 from segmantic_tpu.metrics import overlap as joverlap
+from segmantic_tpu.train import augment as jaug
+from segmantic_tpu.train import optim as joptim
 from segmantic_tpu.train import trainer as jtrainer
 from segmantic_tpu.transforms import intensity_ops as jiops
 from segmantic_tpu_torch.data import cache
 from segmantic_tpu_torch.metrics import overlap
-from segmantic_tpu_torch.train import checkpoint, trainer
+from segmantic_tpu_torch.train import augment as taug
+from segmantic_tpu_torch.train import checkpoint, optim, trainer
 from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
 from segmantic_tpu_torch.transforms import intensity_ops
+from tests.test_torch_augment import _jax_replay
 from tests.test_torch_unet_slice import _flax_variables
 
 REPO = Path(__file__).resolve().parent.parent
@@ -139,6 +149,107 @@ def test_patch_sampler_matches_jax_sampler(phantoms):
     assert not loader._thread.is_alive()
 
 
+@pytest.mark.parametrize("margin", [4, 12])
+def test_patch_sampler_margin_matches_jax_sampler(phantoms, margin):
+    """Margin patches: the same picks (one seed), the window grown by
+    ``margin`` on each side, zeros only where the margin hangs outside the
+    volume (margin 12 does on every 24-voxel axis); the center of a margin
+    patch is the plain patch of the same pick."""
+    _, dataset, _ = phantoms
+    files = dataset.training_files()
+    port = cache.VolumeCache(files, trainer.default_preprocessing(["image", "label"]), 4)
+    ref = jcache.VolumeCache(files, jtrainer.default_preprocessing(["image", "label"]), 4)
+    kw = dict(batch_size=6, num_samples=3, seed=7)
+    sp = cache.PatchSampler(port, (16, 16, 16), margin=margin, **kw)
+    sj = jcache.PatchSampler(ref, (16, 16, 16), margin=margin, image_wire_dtype=np.float32,
+                             **kw)
+    plain = cache.PatchSampler(port, (16, 16, 16), **kw)
+    size = 16 + 2 * margin
+    assert sp.margin_size == sj.margin_size == [size] * 3
+    inner = (slice(None),) + (slice(margin, margin + 16),) * 3
+    for _ in range(3):
+        (pi, pl), (ji, jl), (ci, cl) = sp.sample_batch(), sj.sample_batch(), plain.sample_batch()
+        assert pi.shape == (6, size, size, size, 1) and pl.shape == (6, size, size, size)
+        assert pi.dtype == np.float32 and pl.dtype == np.uint8
+        np.testing.assert_array_equal(pi, ji)
+        np.testing.assert_array_equal(pl, jl)
+        np.testing.assert_array_equal(pi[inner], ci)
+        np.testing.assert_array_equal(pl[inner], cl)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(augment_spatial=True), dict(augment_intensity=True),
+    dict(augment_spatial=True, augment_intensity=True),
+], ids=lambda kw: "+".join(kw))
+def test_train_with_augmentation_runs(phantoms, tmp_path, kw):
+    """``train`` with the device augmentation on the CPU (the plain shear
+    chain): finite history, checkpoints written. The margin (16 // 4 = 4) makes
+    24-voxel margin patches of the 16-voxel patch."""
+    root, _, _ = phantoms
+    result = trainer.train(image_dir=root / "image", labels_dir=root / "label",
+                           output_dir=tmp_path, max_epochs=2, device="cpu", **SMALL, **kw)
+    history = json.loads((tmp_path / "history.json").read_text())
+    assert len(history) == 2 == len(result.history)
+    for rec in history:
+        assert all(np.isfinite(v) for v in rec.values())
+    assert (tmp_path / "last.ckpt").exists() and result.best_checkpoint.exists()
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True], ids=["f32", "bf16"])
+def test_augmented_train_step_matches_jax_step(monkeypatch, mixed_precision):
+    """One train step on a margin batch with the augmentation's parameters
+    injected, against the JAX step on the batch the JAX package's pieces
+    augment with the same parameters. f32: the loss within the step test's
+    tolerance (1e-4 absolute + 1e-3 relative), updated parameters likewise;
+    bf16 (``interp_bf16`` interpolation, bf16 model): loss within 2e-2."""
+    rng = np.random.default_rng(11)
+    grid = np.stack(np.meshgrid(*[np.linspace(-1, 1, 24)] * 3, indexing="ij"))
+    labels = np.stack([
+        ((((grid - rng.uniform(-0.2, 0.2, 3)[:, None, None, None]) ** 2).sum(0) < r)
+         .astype(np.uint8) * k) for r, k in ((0.5, 1), (0.3, 2), (0.6, 3), (0.4, 1))])
+    images = (labels[..., None] + 0.3 * rng.standard_normal((4, 24, 24, 24, 1))).astype(
+        np.float32)
+    cfg = AugmentConfig(spatial=True, intensity=True, flip_prob=0.5, contrast_prob=0.5,
+                        hist_shift_prob=0.5, bias_prob=0.5)
+    # the step couples interp_bf16 to mixed_precision, as the JAX trainer does
+    eff = dataclasses.replace(cfg, interp_bf16=mixed_precision)
+    params = taug.draw_params(torch.Generator().manual_seed(12), cfg, 4, 3)
+    assert len(params.spatial_index) == 2 and len(params.gibbs_index) == 1
+    aug_i, aug_l = _jax_replay(images, labels, params, eff, (16, 16, 16))
+
+    module = jtrainer.UNet(spatial_dims=3, in_channels=1, out_channels=4,
+                           channels=(4, 8, 16), strides=(2, 2))
+    variables = _flax_variables(module, seed=6)
+    opt_cfg = {"optimizer": "SGD", "lr": 0.1, "momentum": 0.9}
+    tx = joptim.make_optimizer(opt_cfg)
+    jstep = jtrainer.make_train_step(module, tx, jaug.AugmentConfig(flip_prob=0.0),
+                                     (16, 16, 16), mixed_precision=mixed_precision)
+    jparams = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    jstats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
+    new_params, _, _, want_loss = jstep(jparams, jstats, tx.init(jparams), jnp.asarray(aug_i),
+                                        jnp.asarray(aug_l), jax.random.key(0))
+
+    model = trainer.SegmentationModel.create(num_classes=4, channels=(4, 8, 16),
+                                             strides=(2, 2), device="cpu")
+    model.module.load_state_dict({
+        k: torch.from_numpy(np.array(v))
+        for k, v in trainer.from_flax_variables(variables).items()})
+    net = model.module.train().requires_grad_(True)
+    step = trainer.make_train_step(net, optim.make_optimizer(net.parameters(), opt_cfg), cfg,
+                                   (16, 16, 16), mixed_precision=mixed_precision)
+    monkeypatch.setattr(taug, "draw_params", lambda *a, **k: params)
+    loss = step(torch.from_numpy(images), torch.from_numpy(labels))
+    if mixed_precision:
+        np.testing.assert_allclose(loss.item(), float(want_loss), atol=2e-2)
+        return
+    np.testing.assert_allclose(loss.item(), float(want_loss), atol=1e-4, rtol=1e-3)
+    got = trainer.to_flax_variables(net.state_dict())["params"]
+    flat = lambda tree: jax.tree_util.tree_leaves_with_path(tree)  # noqa: E731
+    for (path, leaf), (_, mine) in zip(flat(jax.tree_util.tree_map(np.asarray, new_params)),
+                                       flat(got)):
+        np.testing.assert_allclose(mine, leaf, atol=2e-4, rtol=1e-3, err_msg=str(path))
+
+
 def test_prefetch_loader_raises_the_samplers_error():
     class Broken:
         def sample_batch(self):
@@ -208,7 +319,6 @@ def test_flip_matches_jax_and_augment_batch_flips_image_with_label():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(augment_spatial=True), dict(augment_intensity=True),
     dict(preprocessing={"a": 1}), dict(augmentation={"a": 1}),
     dict(model_parallel=2), dict(zero_optimizer=True), dict(accumulate_steps=2),
     dict(remat=True), dict(profile_dir="p"), dict(arch="segresnet"),
@@ -271,12 +381,12 @@ def test_cli_train_config_trains(phantoms, tmp_path):
 
 
 def test_trains_with_jax_blocked(phantoms, tmp_path):
-    """A process in which ``import jax`` (and flax, optax) fails trains one
+    """A process in which ``import jax`` (and flax, optax, segmantic_tpu) fails trains one
     epoch and writes its checkpoint."""
     root, _, _ = phantoms
     script = textwrap.dedent(f"""
         import sys
-        for name in ("jax", "jaxlib", "flax", "optax"):
+        for name in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"):
             sys.modules[name] = None  # import raises ImportError
         sys.path.insert(0, {str(REPO)!r})
         from pathlib import Path
@@ -285,7 +395,8 @@ def test_trains_with_jax_blocked(phantoms, tmp_path):
                     labels_dir=Path({str(root / "label")!r}),
                     output_dir=Path({str(tmp_path / "out")!r}), max_epochs=1,
                     device="cpu", **{SMALL!r})
-        loaded = [m for m in ("jax", "flax", "optax") if sys.modules.get(m) is not None]
+        loaded = [m for m, mod in sys.modules.items() if mod is not None
+                  and m.split(".")[0] in ("jax", "flax", "optax", "segmantic_tpu")]
         print("OK", len(res.history), loaded)
     """)
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
