@@ -97,6 +97,22 @@ def _median_ms(torch, fn, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(torch, fn, n: int = 10, launches: int = 10) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, median over ``n`` replays (CUDA events) per call. No host gap
+    lies between the kernels, so a call that takes the card less time than its
+    Python wrapper takes the host is still timed on the card; every kernel the
+    call launches counts. The inputs stay in the L2 cache between replays
+    (timed warm, as on the path, where the layer before has just written them)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return _median_ms(torch, graph.replay, n=n) / launches
+
+
 def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=None):
     """Add one timed shape of kernel ``name`` to ``results``: times and bounds
     sum over a kernel's shapes, the error is the largest. ``nbytes``: every
@@ -129,7 +145,12 @@ def check_kernels(torch):
     times and bounds summed over the kernel's shapes (bf16, the serving dtype)
     and the largest bf16 error. The library call beside the convs is cuDNN's
     bf16 ``conv3d`` (bias only, no scale/shift/PReLU epilogue; for the phase
-    conv on the depth-to-space tensor, the rearrangement not timed)."""
+    conv on the depth-to-space tensor, the rearrangement not timed). The convs
+    are timed by CUDA-graph replay (``_graph_ms``): on tensor cores a call
+    takes the card less time than its wrapper takes the host. Each bf16 conv
+    shape also prints its launch plan with the tile fill (>= 0.75 or the phase
+    fails) and repeats its launch bit for bit; ragged and odd-channel shapes
+    run once each, untimed."""
     import torch.nn.functional as F
 
     import numpy as np
@@ -150,7 +171,7 @@ def check_kernels(torch):
         """cuDNN's conv3d on channel-last x (B, D, H, W, C), w (3, 3, 3, C, CO)."""
         xc = x.permute(0, 4, 1, 2, 3)
         wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        return _median_ms(torch, lambda: F.conv3d(xc, wc, bias, padding=1))
+        return _graph_ms(torch, lambda: F.conv3d(xc, wc, bias, padding=1))
 
     def compare(name, label, kernel, plain, dtype):
         got, want = kernel(), plain()
@@ -166,22 +187,40 @@ def check_kernels(torch):
             _fail(f"{name} {label} {dtype} disagrees with its plain version")
         return err
 
-    for shape, co in [((4, 48, 48, 48, 16), 16), ((4, 24, 24, 24, 32), 32)]:
+    def fill_of(dims, c, co):
+        p = fused_conv.plan(dims, c, co, 2, sms)
+        return (f"brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile {p.nt}, "
+                f"{p.nbricks} bricks x {p.n_tiles} N tiles, tile fill {p.fill:.3f}"), p.fill
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    # the six stride-1 3^3 convs of one 4 x 96^3 window batch of the flagship UNet
+    dense_shapes = [((4, 48, 48, 48, 16), 16), ((4, 24, 24, 24, 32), 32),
+                    ((4, 12, 12, 12, 64), 64), ((4, 6, 6, 6, 128), 128),
+                    ((4, 6, 6, 6, 128), 256), ((4, 6, 6, 6, 256), 256)]
+    for shape, co in dense_shapes:
         label = f"x{tuple(shape)}->{co}"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, bf16):
             x = randn(*shape).to(dtype)
             w = randn(3, 3, 3, shape[-1], co, scale=(27 * shape[-1]) ** -0.5).to(dtype)
             kw = dict(bias=randn(co, scale=0.1), scale=randn(co).abs() + 0.5,
                       shift=randn(co, scale=0.1), alpha=torch.tensor([0.25], device=dev),
                       relu_mode="prelu")
-            k = lambda: fused_conv.conv3d(x, w, **kw)  # noqa: E731
+            cache = {}  # the packed weights, kept as the executor keeps them
+            k = lambda: fused_conv.conv3d(x, w, packed_cache=cache, **kw)  # noqa: E731
             p = lambda: fused_conv.conv3d_plain(x, w, **kw)  # noqa: E731
             err = compare("fused_conv", label, k, p, dtype)
-            if dtype == torch.bfloat16:
-                ms, pms = _median_ms(torch, k), _median_ms(torch, p)
+            if dtype == bf16:
+                if not torch.equal(k(), k()):
+                    _fail(f"fused_conv {label}: a repeated bf16 launch is not bit-equal")
+                plan_text, fill = fill_of(tuple(shape[:4]), shape[-1], co)
+                ms, pms = _graph_ms(torch, k), _graph_ms(torch, p)
                 lms = cudnn_conv_ms(x, w, kw["bias"].to(dtype))
-                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                      f"cuDNN conv3d + bias {lms:.4f} ms")
+                print(f"    bf16, repeated launch bit-equal; {plan_text}")
+                print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
+                      f"plain {pms:.4f} ms, cuDNN conv3d + bias {lms:.4f} ms")
+                if fill < 0.75:
+                    _fail(f"fused_conv {label}: tile fill {fill:.3f} < 0.75")
                 positions = x.numel() // shape[-1]
                 _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms,
                         nbytes=_nbytes(x, w, k(), *(v for v in kw.values() if torch.is_tensor(v))),
@@ -190,21 +229,60 @@ def check_kernels(torch):
 
     for shape, c in [((4, 48, 48, 48, 64), 8), ((4, 24, 24, 24, 128), 16)]:
         label = f"p{tuple(shape)} C={c}"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, bf16):
             p_in = randn(*shape).to(dtype)
             w = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(dtype)
-            k = lambda: phase_conv.phase_conv(p_in, w)  # noqa: E731
+            cache = {}
+            k = lambda: phase_conv.phase_conv(p_in, w, packed_cache=cache)  # noqa: E731
             p = lambda: phase_conv.phase_conv_plain(p_in, w)  # noqa: E731
             err = compare("phase_conv", label, k, p, dtype)
-            if dtype == torch.bfloat16:
-                ms, pms = _median_ms(torch, k), _median_ms(torch, p)
+            if dtype == bf16:
+                if not torch.equal(k(), k()):
+                    _fail(f"phase_conv {label}: a repeated bf16 launch is not bit-equal")
+                full = (shape[0],) + tuple(2 * v for v in shape[1:4])
+                plan_text, fill = fill_of(full, c, c)
+                # the plain version uploads its selection tensor: not capturable,
+                # and long enough (> 1 ms) that the host does not pace it
+                ms, pms = _graph_ms(torch, k), _median_ms(torch, p)
                 lms = cudnn_conv_ms(depth_to_space(p_in, c), w)
-                print(f"    bf16 time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                      f"cuDNN conv3d at full resolution {lms:.4f} ms")
+                print(f"    bf16, repeated launch bit-equal; {plan_text}")
+                print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
+                      f"cuDNN conv3d at full resolution {lms:.4f} ms; plain {pms:.4f} ms "
+                      f"(eager calls)")
+                if fill < 0.75:
+                    _fail(f"phase_conv {label}: tile fill {fill:.3f} < 0.75")
                 _record(results, "phase_conv", err=err, ms=ms, plain_ms=pms,
                         nbytes=_nbytes(p_in, w, p_in),  # the output has the input's shape
                         ops=2 * 27 * c * c * (p_in.numel() // c), peak=PEAK_BF16,
                         library_ms=lms)
+
+    # ragged shapes, untimed: extents that are a multiple of no brick, CO = 5
+    # (scalar stores), C = 24 (a chunk padded to 32), bf16 -> f32 output, and
+    # bf16 with C = 3 (no 16-byte channel vector: the CUDA-core body by the
+    # wrapper's shape rule), each one launch
+    for name, shape, c, co in [("fused_conv", (2, 20, 22, 26, 24), 24, 5),
+                               ("fused_conv", (2, 20, 22, 26, 16), 16, 8),
+                               ("fused_conv", (2, 5, 7, 9, 3), 3, 5),
+                               ("phase_conv", (2, 10, 11, 13, 8 * 24), 24, 5),
+                               ("phase_conv", (1, 5, 7, 9, 8 * 8), 8, 16),
+                               ("phase_conv", (1, 3, 4, 5, 8 * 3), 3, 3)]:
+        x = randn(*shape).to(bf16)
+        w = randn(3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(bf16)
+        kw = dict(bias=randn(co, scale=0.1), scale=randn(co).abs() + 0.5,
+                  shift=randn(co, scale=0.1), alpha=torch.tensor([0.25], device=dev),
+                  relu_mode="prelu")
+        mod, fn, plain = ((fused_conv, fused_conv.conv3d, fused_conv.conv3d_plain)
+                          if name == "fused_conv"
+                          else (phase_conv, phase_conv.phase_conv, phase_conv.phase_conv_plain))
+        body = "tensor-core" if fused_conv.takes_tensor_cores(x, c) else "CUDA-core"
+        for out_dtype in (bf16, torch.float32):
+            before = mod.counter.count
+            compare(name, f"ragged {tuple(shape)} C={c}->{co} out {str(out_dtype)[6:]} "
+                          f"({body} body)",
+                    lambda: fn(x, w, out_dtype=out_dtype, **kw),
+                    lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
+            if mod.counter.count != before + 1:
+                _fail(f"{name} ragged {shape}: expected one launch")
 
     # one chunk of the served grid: 4 overlapping 96^3 windows, 8 classes
     starts = window_starts((256, 256, 176), ROI, 0.25)[:SW_BATCH]
@@ -231,6 +309,52 @@ def check_kernels(torch):
             nbytes=_nbytes(logits, imp) + 2 * int(covered.sum()) * NUM_CLASSES * 4,
             ops=2 * logits.numel(), peak=PEAK_F32)
     return results
+
+
+def report_conv_build(lib: Path) -> None:
+    """What ptxas reports for the tensor-core conv kernels (registers and
+    spills per instantiation, from the build log beside the library) and, where
+    the toolkit has ``cuobjdump``, how many tensor-core (HMMA) and asynchronous
+    copy (LDGSTS) instructions their SASS holds. Spills fail nothing."""
+    import re
+    import shutil
+
+    log = lib.with_name(lib.stem + ".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    found = []
+    for i, line in enumerate(lines):
+        m = re.search(r"conv3_mma_kernel.*?(Dense|Phase)LayoutELi(\d+)ELi(\d+)", line)
+        if not m or "Compiling" not in line:
+            continue
+        text = " ".join(lines[i + 1: i + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.findall(r"(\d+) bytes spill", text)
+        found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)),
+                      int(regs.group(1)) if regs else -1, sum(map(int, spill))))
+    if not found:
+        _fail("the build log holds no ptxas report for conv3_mma_kernel")
+    print(f"  ptxas, conv3_mma_kernel<layout, CK, NT>: {len(found)} instantiations, registers "
+          f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
+          f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
+          + ", ".join(f"{lay[0]}{ck}x{nt}:{regs}" for lay, ck, nt, regs, _ in sorted(found)))
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("  cuobjdump not found: SASS not inspected")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, inside = {"HMMA": 0, "LDGSTS": 0, "LDSM": 0}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "conv3_mma_kernel" in line
+        elif inside:
+            for key in counts:
+                if f" {key}." in line or f" {key} " in line:
+                    counts[key] += 1
+    print(f"  SASS of the conv3_mma_kernel instantiations: {counts['HMMA']} HMMA (tensor-core "
+          f"mma), {counts['LDSM']} LDSM (ldmatrix), {counts['LDGSTS']} LDGSTS (cp.async)")
+    if not counts["HMMA"] or not counts["LDGSTS"]:
+        _fail("the tensor-core conv kernels hold no HMMA or no LDGSTS instruction")
 
 
 def _counters():
@@ -812,7 +936,8 @@ def make_checkpoint(torch, path: Path):
     running statistics, written as an STPUCKP1 checkpoint."""
     from segmantic_tpu_torch.train.trainer import SegmentationModel
 
-    model = SegmentationModel.create(num_classes=NUM_CLASSES, spatial_size=ROI, seed=0)
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, spatial_size=ROI, seed=0,
+                                     device="cpu")
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for name, buf in model.module.named_buffers():
@@ -903,6 +1028,32 @@ def serve_requests(torch, ckpt: Path, work: Path):
     return seconds, launches, session
 
 
+def device_seconds_per_volume(torch, session) -> float:
+    """The sliding window alone on one z-scored 256 x 256 x 176 phantom already
+    on the host as an array: upload in bf16, 48 windows in 12 chunks through the
+    eval forward, blend; host clock around a run that ends in a synchronise,
+    median of 5 after one warm-up."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
+
+    vol = phantom((256, 256, 176), 5)
+    vol = ((vol - vol.mean()) / vol.std())[..., None].astype(np.float32)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = sliding_window_inference(
+            vol, ROI, SW_BATCH, session.val_forward, overlap=0.25,
+            num_classes=NUM_CLASSES, device="cuda", wire_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if tuple(logits.shape) != (256, 256, 176, NUM_CLASSES) or not bool(
+            torch.isfinite(logits).all()):
+        _fail("sliding window on the card: shape or finiteness of the logits")
+    return statistics.median(times[1:])
+
+
 def parity(torch, ckpt: Path, session):
     """One 4 x 96^3 window batch: folded forward on the card (kernels, f32;
     TF32 is off since main) vs the same forward on the CPU (plain, f32)."""
@@ -960,6 +1111,7 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _cuda.build()
     print(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    report_conv_build(lib)
 
     # f32 comparisons hold the plain versions to full f32: cuDNN would use
     # TF32 for f32 convs by default
@@ -987,6 +1139,9 @@ def main() -> None:
         make_checkpoint(torch, ckpt)
         seconds, launches, session = serve_requests(torch, ckpt, work)
         print(f"  seconds per request: {[round(s, 3) for s in seconds]}")
+        print(f"  sliding window on the card, one 256x256x176 volume (upload, 12 chunks of "
+              f"4 x 96^3, blend): {device_seconds_per_volume(torch, session):.4f} s "
+              f"(host clock to a synchronise, median of 5)")
         print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
         parity(torch, ckpt, session)
         del session

@@ -34,7 +34,7 @@ GROUPS = [
     ("FFTs (Gibbs, spike)", ("fft",)),
     ("dw kernels (fused_conv_dw, phase_conv_dw)", ("conv3_dw_kernel",)),
     ("dw reduce", ("dw_reduce_kernel",)),
-    ("conv kernels fwd+dx (fused_conv, phase_conv)", ("conv3_kernel",)),
+    ("conv kernels fwd+dx (fused_conv, phase_conv)", ("conv3_kernel", "conv3_mma_kernel")),
     ("cuDNN convs (strided, transposed, 1x1)",
      ("xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
     ("GEMMs", ("gemm", "cutlass")),

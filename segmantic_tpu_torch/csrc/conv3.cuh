@@ -50,6 +50,10 @@ struct DenseLayout {
                                                    int D, int H, int W, int C) {
     return ((((int64_t)b * D + z) * H + y) * W + x) * C + c;
   }
+  // The same within one sample, in 32 bits (the caller checks D*H*W*C < 2^31).
+  __device__ static __forceinline__ int inner(int z, int y, int x, int c, int H, int W, int C) {
+    return ((z * H + y) * W + x) * C + c;
+  }
 };
 
 // Phase-major (B, D/2, H/2, W/2, 8*C): full-resolution voxel (z, y, x) sits in
@@ -61,6 +65,10 @@ struct PhaseLayout {
     const int ph = ((z & 1) << 2) | ((y & 1) << 1) | (x & 1);
     return ((((int64_t)b * (D >> 1) + (z >> 1)) * (H >> 1) + (y >> 1)) * (W >> 1) +
             (x >> 1)) * (8 * C) + ph * C + c;
+  }
+  __device__ static __forceinline__ int inner(int z, int y, int x, int c, int H, int W, int C) {
+    const int ph = ((z & 1) << 2) | ((y & 1) << 1) | (x & 1);
+    return ((((z >> 1) * (H >> 1) + (y >> 1)) * (W >> 1) + (x >> 1)) * 8 + ph) * C + c;
   }
 };
 

@@ -9,16 +9,21 @@
 // block-diagonal weight matrix to fill its matrix unit; none of that layout
 // exists here.
 //
-// What bounds it on the card: at the slice's shapes (48^3 x 16 and 24^3 x 32
-// per window, up to 6^3 x 256 at the bottom) each input byte feeds 27 * CO
-// multiply-adds, so the conv is compute-bound; without tensor cores the ceiling
-// is the SMs' f32 FMA rate, far below the bf16 tensor-core peak.
-// What the design does about it: the halo tile and the weight slice live in
-// shared memory, so device memory is read about three times per input plane
-// instead of 27 times (no im2col), and each thread keeps a 4 x 4
-// position x channel tile in registers so one shared-memory read feeds several
-// FMAs. Moving the inner product onto wgmma is left to a later change.
-#include "conv3.cuh"
+// What bounds it on the card: per window the slice runs 48^3 x 16 (28 MB
+// moved for 6.1 GFLOP: bytes), 24^3 x 32 (operations, just above the ridge)
+// and, at the bottom of the UNet, 12^3 x 64 down to 6^3 x 256 (operations and
+// the weights' bytes; few positions, so filling the M rows and the 132 SMs is
+// the difficulty). On CUDA cores the ceiling was the f32 FMA rate and the
+// staging a scalar gather.
+// What the design does about it: bf16 input runs the tensor-core body of
+// conv3_mma.cuh (segk_fused_conv3_mma): mma.sync m16n8k16 fed by ldmatrix
+// from a 3-D halo brick staged once by 16-byte cp.async into a ring of
+// buffers, weights pre-packed and resident, brick shape picked per launch so
+// that 12^3 and 6^3 fill the rows, 16-byte stores of whole channel vectors.
+// f32 input keeps the CUDA-core body of conv3.cuh (segk_fused_conv3), which
+// agrees with the CPU to ~1e-6 where TF32 would not; bf16 input whose channel
+// count is no multiple of 8 (no 16-byte channel vector) takes it too.
+#include "conv3_mma.cuh"
 
 extern "C" int segk_fused_conv3(const void* x, const void* w, const float* scale,
                                 const float* shift, const float* alpha, int relu_mode,
@@ -26,4 +31,15 @@ extern "C" int segk_fused_conv3(const void* x, const void* w, const float* scale
                                 int in_bf16, int out_bf16, void* stream) {
   return segk::launch_conv3<segk::DenseLayout>(x, w, scale, shift, alpha, relu_mode, out, B,
                                                D, H, W, C, CO, in_bf16, out_bf16, stream);
+}
+
+extern "C" int segk_fused_conv3_mma(const void* x, const void* wp, const float* scale,
+                                    const float* shift, const float* alpha, int relu_mode,
+                                    void* out, int B, int D, int H, int W, int C, int CO,
+                                    int out_bf16, int td, int th, int tw, int warps, int nt,
+                                    int ck, int stages, int resident, int grid_x,
+                                    int smem_bytes, void* stream) {
+  return segk::launch_conv3_mma<segk::DenseLayout>(
+      x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C, CO, out_bf16, td, th, tw,
+      warps, nt, ck, stages, resident, grid_x, smem_bytes, stream);
 }

@@ -16,14 +16,19 @@
 // folding: one kernel serves L = 64 and L = 128.
 //
 // What bounds it on the card: the top decoder stage is 96^3 x 8 -> 8 per
-// window at full resolution, i.e. few channels per voxel; each staged input
-// value feeds only 27 * 8 FMAs and the phase-major addresses make the halo
-// loads strided (a full-resolution row alternates between two phase groups).
-// What the design does about it: the halo tile is staged once per input plane
-// in shared memory as f32, the output-channel tile shrinks to 8 so no thread
-// idles on padding channels, and the same register tiling as fused_conv keeps
-// the FMA units busy.
-#include "conv3.cuh"
+// window at full resolution (113 MB moved for 6.1 GFLOP at batch 4) and the
+// second 48^3 x 16 -> 16: bytes, both. A voxel's channel vector is 16 or 32
+// contiguous bytes in the phase-major tensor too, and the 8 phases of one
+// block voxel share a 128- or 256-byte line.
+// What the design does about it: bf16 input runs the tensor-core body of
+// conv3_mma.cuh (segk_phase_conv3_mma), the same code as fused_conv with the
+// PhaseLayout address map: each 16-byte piece of the halo brick is one
+// cp.async at the mapped address (neighbouring lanes take neighbouring phases
+// of one line), C = 8 pairs two taps into one k16 step, and the epilogue
+// stores each voxel's whole channel vector at its mapped address. f32 input,
+// and bf16 input with C no multiple of 8, keep the CUDA-core body of
+// conv3.cuh (segk_phase_conv3).
+#include "conv3_mma.cuh"
 
 extern "C" int segk_phase_conv3(const void* p, const void* w, const float* scale,
                                 const float* shift, const float* alpha, int relu_mode,
@@ -31,4 +36,15 @@ extern "C" int segk_phase_conv3(const void* p, const void* w, const float* scale
                                 int in_bf16, int out_bf16, void* stream) {
   return segk::launch_conv3<segk::PhaseLayout>(p, w, scale, shift, alpha, relu_mode, out, B,
                                                D2, H2, W2, C, CO, in_bf16, out_bf16, stream);
+}
+
+extern "C" int segk_phase_conv3_mma(const void* p, const void* wp, const float* scale,
+                                    const float* shift, const float* alpha, int relu_mode,
+                                    void* out, int B, int D2, int H2, int W2, int C, int CO,
+                                    int out_bf16, int td, int th, int tw, int warps, int nt,
+                                    int ck, int stages, int resident, int grid_x,
+                                    int smem_bytes, void* stream) {
+  return segk::launch_conv3_mma<segk::PhaseLayout>(
+      p, wp, scale, shift, alpha, relu_mode, out, B, D2, H2, W2, C, CO, out_bf16, td, th, tw,
+      warps, nt, ck, stages, resident, grid_x, smem_bytes, stream);
 }

@@ -58,6 +58,8 @@ class _Conv:
     shift: Optional[torch.Tensor]
     alpha: Optional[torch.Tensor]  # (1,) f32 PReLU slope
     relu_mode: str  # none | relu | prelu
+    # the kernels' packed copies of w (serving weights are constant)
+    packed: dict = dataclasses.field(default_factory=dict)
 
     def epilogue(self, y: torch.Tensor, tile: bool = False) -> torch.Tensor:
         """Folded norm + activation on a conv output (bias already added),
@@ -93,6 +95,7 @@ def _kernel_conv(x: torch.Tensor, c: _Conv):
     return fused_conv.conv3d(
         x.contiguous(), c.w, bias=c.bias, scale=c.scale,
         shift=c.shift, alpha=c.alpha, relu_mode=c.relu_mode, out_dtype=x.dtype,
+        packed_cache=c.packed,
     )
 
 
@@ -178,7 +181,7 @@ class _PhaseStage:
         for c, w in zip(self.convs, self.weights):
             yp = phase_conv.phase_conv(
                 yp, w, bias=c.bias, scale=c.scale, shift=c.shift, alpha=c.alpha,
-                relu_mode=c.relu_mode, out_dtype=yp.dtype,
+                relu_mode=c.relu_mode, out_dtype=yp.dtype, packed_cache=c.packed,
             )
         if not self.fold_identity:
             yp = yp + ph

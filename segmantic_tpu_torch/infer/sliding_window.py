@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import blend
+from ..ops._cuda import resolve_device
 
 __all__ = ["window_starts", "gaussian_importance", "sliding_window_inference"]
 
@@ -82,13 +83,14 @@ def sliding_window_inference(
     predictor: Callable,  # (B, *roi, C) -> (B, *roi, num_classes) f32
     overlap: float = 0.25,
     num_classes: Optional[int] = None,
-    device="cpu",
+    device="cuda",
     wire_dtype: Optional[torch.dtype] = None,
     mesh=None,
     shard_volume: bool = False,
 ) -> torch.Tensor:
     """Tiled inference over a 3D volume with Gaussian blending; returns
-    (*spatial, num_classes) blended logits (f32, on ``device``). The volume
+    (*spatial, num_classes) blended logits (f32, on ``device``: the card
+    unless the caller asks for the CPU; CUDA without a card raises). The volume
     is zero-padded up to the roi where it is smaller (and the result cropped
     back)."""
     if mesh is not None or shard_volume:
@@ -99,7 +101,7 @@ def sliding_window_inference(
     nd = len(roi_size)
     if nd != 3:
         raise NotImplementedError("the port's sliding window is 3D only")
-    device = torch.device(device)
+    device = resolve_device(device)
     n_cls_est = num_classes if num_classes else 8
     est = int(np.prod(volume.shape[:nd])) * 4 * (n_cls_est + 2)
     if est > _STREAM_BYTES:

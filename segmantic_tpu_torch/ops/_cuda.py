@@ -40,6 +40,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "segk_fused_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_phase_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
+    "segk_fused_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
+    "segk_phase_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_blend": [_P, _P, _P, _P] + [_I] * 13 + [_P],
     "segk_fused_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
     "segk_phase_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
@@ -152,6 +154,19 @@ def launch(name: str, *args) -> None:
 def query(name: str, *args) -> int:
     """Call one host-only C entry point (no stream) and return its value."""
     return getattr(library(), name)(*args)
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; asking for CUDA without CUDA raises (the port
+    never moves to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available "
+            "(torch.cuda.is_available() is False); pass device='cpu' explicitly "
+            "to run on the CPU"
+        )
+    return device
 
 
 def check_cuda(t: torch.Tensor, name: str) -> None:

@@ -14,11 +14,23 @@ device; for tensors on the CPU they run :func:`conv3d_plain` and
 the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
+
+The conv kernel has two bodies, chosen by :func:`takes_tensor_cores` from the
+input's type and channel count. bf16 input whose channel count is a multiple
+of 8 runs the tensor-core body (``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo
+brick staged by ``cp.async``) with the launch geometry of :func:`plan` and the
+weights packed by :func:`pack_weights`. f32 input keeps the CUDA-core body
+(``csrc/conv3.cuh``), whose f32 FMAs agree with the CPU to ~1e-6 where TF32
+would not; bf16 input with any other channel count (no 16-byte channel vector
+to stage) takes it too. Either way the wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+import itertools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +39,8 @@ from . import _cuda
 
 __all__ = [
     "conv3d", "conv3d_plain", "conv3d_dw", "conv3d_dw_plain", "conv3d_grad",
-    "counter", "dw_counter", "RELU_MODES",
+    "counter", "dw_counter", "RELU_MODES", "ConvPlan", "plan", "pack_weights",
+    "unpack_weights", "takes_tensor_cores",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -51,11 +64,19 @@ def check_dtype(t: torch.Tensor, name: str) -> None:
                     f"got {t.dtype}")
 
 
+@functools.lru_cache(maxsize=None)
+def _unit_vectors(co: int, device):
+    """(ones, zeros) of co f32 values on device, made once: never written to."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.ones(co, **f32), torch.zeros(co, **f32)
+
+
 def _epilogue_vectors(co: int, bias, scale, shift, device):
     """(conv + bias) * scale + shift == conv * scale + (bias * scale + shift)."""
     f32 = dict(dtype=torch.float32, device=device)
-    s = torch.ones(co, **f32) if scale is None else scale.to(**f32).reshape(co)
-    t = torch.zeros(co, **f32) if shift is None else shift.to(**f32).reshape(co)
+    ones, zeros = _unit_vectors(co, device)
+    s = ones if scale is None else scale.to(**f32).reshape(co)
+    t = zeros if shift is None else shift.to(**f32).reshape(co)
     if bias is not None:
         t = bias.to(**f32).reshape(co) * s + t
     return s.contiguous(), t.contiguous()
@@ -100,25 +121,214 @@ def check_args(x, weights, relu_mode, alpha, out_dtype, weight_shape):
         raise ValueError(f"weights shape {tuple(weights.shape)} != {weight_shape}")
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
+_SMS = 132  # streaming multiprocessors of an H100
+
+
+def takes_tensor_cores(x: torch.Tensor, c: int) -> bool:
+    """The shape rule between the two bodies of the conv kernel, for input x
+    of a conv over c input channels (``weights.shape[-2]``; a phase-major
+    tensor carries 8 * c lanes): bf16 input whose channel vector is a whole
+    number of 16-byte pieces (c % 8 == 0) runs the tensor-core body; f32 input
+    and every other bf16 channel count run the CUDA-core body."""
+    return x.dtype == torch.bfloat16 and c % 8 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Launch geometry of the tensor-core conv body, as the C entry point
+    takes it. One block of ``warps`` warps multiplies ``32 * warps`` M rows,
+    of which the ``td * th * tw`` positions of its brick are real, by ``nt``
+    output channels, in ``nchunks`` channel chunks of ``ck``."""
+
+    td: int
+    th: int
+    tw: int
+    warps: int
+    nt: int  # output channels per block
+    ck: int  # input channels per staged chunk
+    nchunks: int
+    n_tiles: int  # blocks along the output channels (grid.y)
+    stages: int  # ring buffers of staged input (and weight) chunks
+    resident: bool  # the block's whole weight slab stays in shared memory
+    grid_x: int  # persistent blocks walking the bricks
+    smem_bytes: int
+    nbricks: int
+    fill: float  # real output positions / M rows multiplied
+
+
+def _pitch(n: int) -> int:
+    """Shared-memory bytes between rows of n bf16 values (``mma_pitch``)."""
+    return 16 if n == 8 else 2 * n + 16
+
+
+def _chunking(c: int) -> Tuple[int, int, int]:
+    """(ck, nchunks, K rows per chunk). C = 8 pairs two taps into one k16
+    step: 28 taps of 8 rows, the last all zero."""
+    if c == 8:
+        return 8, 1, 224
+    ck = 16 if c == 16 else 32
+    return ck, -(-c // ck), 27 * ck
+
+
+def _smem_bytes(ck, krows, nt, brick, warps, nchunks, stages, resident, out_bytes) -> int:
+    td, th, tw = brick
+    a_bytes = (td + 2) * (th + 2) * (tw + 2) * _pitch(ck)
+    w_bytes = krows * _pitch(nt)
+    o_bytes = warps * 32 * (nt * out_bytes + 16)
+    tables = 128 + -(-((td + 2) * (th + 2) * (tw + 2) + warps * 32) * 4 // 16) * 16
+    return (tables + stages * (a_bytes + (0 if resident else w_bytes))
+            + (nchunks * w_bytes if resident else 0) + o_bytes)
+
+
+_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (2, 3, 4, 6, 8), (4, 6, 8, 12, 16))
+           if 32 < b[0] * b[1] * b[2] <= 256]
+
+
+def _candidates(dims, c: int, co: int, out_bytes: int, sms: int):
+    """Every (cost key, ConvPlan) :func:`plan` chooses among."""
+    b, d, h, w = dims
+    ck, nchunks, krows = _chunking(c)
+    for nt in (8, 16, 32):
+        if nt > 8 and nt >= 2 * co:
+            continue  # a tile more than half padding columns
+        n_tiles = -(-co // nt)
+        if n_tiles > 65535:
+            continue
+        for brick in _BRICKS:
+            td, th, tw = brick
+            rows = td * th * tw
+            warps = -(-rows // 32)
+            nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+            if nbricks >= 2 ** 31:
+                continue
+            fill = b * d * h * w / (nbricks * warps * 32)
+            # resident weights pay where a block needs the whole slab at once
+            # (one chunk) or walks several bricks with it
+            keep = (True, False) if nchunks == 1 or nbricks * n_tiles > 2 * sms else (False,)
+            # one chunk: the ring only runs ahead across bricks, where more blocks
+            # on a multiprocessor did more than a third stage (H100, measured)
+            depth = (2,) if nchunks == 1 else (3, 2)
+            choice = None
+            for resident, stages in itertools.product(keep, depth):
+                smem = _smem_bytes(ck, krows, nt, brick, warps, nchunks, stages, resident,
+                                   out_bytes)
+                if smem <= SMEM_LIMIT:
+                    choice = (resident, stages, smem)
+                    break
+            if choice is None:
+                continue
+            resident, stages, smem = choice
+            per_sm = min(SMEM_LIMIT // smem, 2048 // (warps * 32))
+            halo = (td + 2) * (th + 2) * (tw + 2)
+            staged = halo * ck * nchunks + (0 if resident else krows * nt * nchunks)
+            # a block's cycles on one multiprocessor, roughly (fitted to an H100):
+            # the k16 steps are bound by ldmatrix traffic, 1024 bytes of input
+            # rows and 32 * nt of weights per warp and step at 128 bytes a
+            # cycle (rows that wrap inside a group of 8 collide on banks); the
+            # staging moves ~8 values a cycle; few warps hide no latency
+            steps = warps * (krows // 16) * nchunks * (8 + nt / 4) * (1.0 if tw % 8 == 0 else 1.1)
+            cycles = (steps + staged / 8) * max(1.0, 4 / (warps * per_sm))
+            blocks = nbricks * n_tiles
+            rounds = blocks / sms if blocks >= 4 * sms else -(-blocks // sms)
+            yield (fill < 0.75, rounds * cycles, -fill), ConvPlan(
+                td=td, th=th, tw=tw, warps=warps, nt=nt, ck=ck, nchunks=nchunks,
+                n_tiles=n_tiles, stages=stages, resident=resident,
+                grid_x=min(nbricks, -(-sms * per_sm // n_tiles)), smem_bytes=smem,
+                nbricks=nbricks, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(dims: Tuple[int, int, int, int], c: int, co: int, out_bytes: int = 2,
+         sms: int = _SMS) -> ConvPlan:
+    """The brick, N tile and ring of one launch of the tensor-core body for a
+    (B, D, H, W) grid of output positions (full resolution for the phase
+    layout), C input and CO output channels, ``out_bytes`` per output value.
+
+    Among the bricks of a fixed list and N tiles of 8, 16 or 32 it takes the
+    cheapest by a rough count of a block's cycles (the shared-memory traffic
+    of its k16 steps on all its M rows, padding included, plus the values it
+    stages) times the rounds the blocks need on ``sms`` multiprocessors, among
+    those whose M rows are at least 75% real output positions where any is. The weights stay
+    resident where a block needs the whole slab at once (one chunk) or walks
+    several bricks with it, if they fit; the ring has 3 stages where there
+    are several chunks and they fit, else 2."""
+    if c % 8:
+        raise ValueError(f"the tensor-core conv body needs C % 8 == 0, got C = {c}")
+    found = min(_candidates(dims, c, co, out_bytes, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
+def pack_weights(weights: torch.Tensor, nt: int) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, C, CO), C % 8 == 0, in the order the
+    tensor-core body reads: (N tiles, chunks, K rows, nt) with K row
+    ``tap * ck + ci`` inside a chunk of ck input channels, CO padded with zero
+    columns to a multiple of nt and C with zero rows to a multiple of ck; for
+    C = 8 one chunk of 28 taps x 8 rows whose last tap is zero (K = 216 padded
+    to a multiple of 16 here, not in the input)."""
+    c, co = weights.shape[-2:]
+    ck, nchunks, krows = _chunking(c)
+    n_tiles = -(-co // nt)
+    w = weights.reshape(27, c, co)
+    pad_c, pad_co = nchunks * ck - c, n_tiles * nt - co
+    if pad_c or pad_co:
+        w = F.pad(w, (0, pad_co, 0, pad_c))
+    # (tap, chunk, ci, tile, n) -> (tile, chunk, tap, ci, n)
+    w = w.reshape(27, nchunks, ck, n_tiles, nt).permute(3, 1, 0, 2, 4)
+    w = w.reshape(n_tiles, nchunks, 27 * ck, nt)
+    if krows != 27 * ck:
+        w = F.pad(w, (0, 0, 0, krows - 27 * ck))
+    return w.contiguous()
+
+
+def unpack_weights(packed: torch.Tensor, c: int, co: int) -> torch.Tensor:
+    """Inverse of :func:`pack_weights`: the DHWIO weights (3, 3, 3, c, co)."""
+    n_tiles, nchunks, _, nt = packed.shape
+    ck = _chunking(c)[0]
+    w = packed[:, :, :27 * ck].reshape(n_tiles, nchunks, 27, ck, nt)
+    w = w.permute(2, 1, 3, 0, 4).reshape(27, nchunks * ck, n_tiles * nt)
+    return w[:, :c, :co].reshape(3, 3, 3, c, co).contiguous()
+
+
 def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
-                 out, full_dims) -> None:
-    """Shared launch of the two conv3 kernels (dense and phase layouts)."""
+                 out, full_dims, packed_cache: Optional[dict] = None) -> None:
+    """Shared launch of the two conv3 kernels (dense and phase layouts):
+    ``entry`` on its CUDA-core body, or ``entry + "_mma"`` on the tensor-core
+    body where :func:`takes_tensor_cores` says so. ``packed_cache`` keeps the
+    packed weights between calls with constant weights (serving), keyed by the
+    N tile."""
     for t, name in ((x, "x"), (weights, "weights"), (out, "out")):
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
-    if b * d > 65535:  # one grid row per (b, d) plane: CUDA's grid.z limit
-        raise ValueError(f"batch * depth = {b * d} exceeds 65535 planes")
-    co = weights.shape[-1]
+    c, co = weights.shape[-2:]
     s, t = _epilogue_vectors(co, bias, scale, shift, x.device)
     a = None
     if relu_mode == "prelu":
         a = alpha.to(device=x.device, dtype=torch.float32).reshape(1).contiguous()
-    _cuda.launch(
-        entry, x.data_ptr(), weights.data_ptr(), s.data_ptr(), t.data_ptr(),
-        None if a is None else a.data_ptr(), RELU_MODES[relu_mode], out.data_ptr(),
-        b, d, h, w, weights.shape[-2], co,
-        int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
-    )
+    head = (x.data_ptr(), s.data_ptr(), t.data_ptr(),
+            None if a is None else a.data_ptr(), RELU_MODES[relu_mode], out.data_ptr(),
+            b, d, h, w, c, co)
+    if not takes_tensor_cores(x, c):
+        if b * d > 65535:  # one grid row per (b, d) plane: CUDA's grid.z limit
+            raise ValueError(f"batch * depth = {b * d} exceeds 65535 planes")
+        _cuda.launch(entry, head[0], weights.data_ptr(), *head[1:],
+                     int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16))
+        return
+    if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
+        raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
+                         "exceeds 2^31 values")
+    p = plan((b, d, h, w), c, co, out.element_size(),
+             torch.cuda.get_device_properties(x.device).multi_processor_count)
+    packed = None if packed_cache is None else packed_cache.get(p.nt)
+    if packed is None:
+        packed = pack_weights(weights, p.nt)
+        if packed_cache is not None:
+            packed_cache[p.nt] = packed
+    _cuda.launch(entry + "_mma", head[0], packed.data_ptr(), *head[1:],
+                 int(out.dtype == torch.bfloat16), p.td, p.th, p.tw, p.warps, p.nt, p.ck,
+                 p.stages, int(p.resident), p.grid_x, p.smem_bytes)
 
 
 def conv3d(
@@ -130,10 +340,13 @@ def conv3d(
     alpha: Optional[torch.Tensor] = None,  # (1,) PReLU slope
     relu_mode: str = "none",  # none | relu | prelu
     out_dtype: Optional[torch.dtype] = None,
+    packed_cache: Optional[dict] = None,  # see launch_conv3; constant weights only
 ) -> torch.Tensor:
     """Fused stride-1 SAME 3^3 conv: y = (conv(x) + bias) * scale + shift,
     then the activation. f32 accumulation; bf16 or f32 in, out in
-    ``out_dtype`` (x's dtype or f32)."""
+    ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
+    C % 8 == 0 runs the tensor-core body, anything else the CUDA-core body
+    (:func:`takes_tensor_cores`); one launch either way."""
     out_dtype = out_dtype or x.dtype
     if x.ndim != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
@@ -145,7 +358,7 @@ def conv3d(
     b, d, h, w, _ = x.shape
     out = torch.empty((b, d, h, w, co), dtype=out_dtype, device=x.device)
     launch_conv3("segk_fused_conv3", x, weights, bias, scale, shift, alpha,
-                 relu_mode, out, (b, d, h, w))
+                 relu_mode, out, (b, d, h, w), packed_cache)
     counter.count += 1
     return out
 

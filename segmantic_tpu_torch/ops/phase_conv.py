@@ -12,7 +12,9 @@ same epilogue as :mod:`.fused_conv` (bias, folded-norm scale/shift,
 activation).
 
 ``phase_conv`` launches ``csrc/phase_conv.cu`` and ``phase_conv_dw``
-``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors;
+``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors,
+the conv on the tensor-core body for bf16 input with Ci % 8 == 0 and on the
+CUDA-core body otherwise (``fused_conv.takes_tensor_cores``);
 CPU tensors run :func:`phase_conv_plain` and :func:`phase_conv_dw_plain`.
 :func:`phase_conv_grad` is the ``torch.autograd.Function`` over both.
 """
@@ -60,6 +62,7 @@ def phase_conv(
     alpha: Optional[torch.Tensor] = None,
     relu_mode: str = "none",
     out_dtype: Optional[torch.dtype] = None,
+    packed_cache: Optional[dict] = None,  # see fused_conv.launch_conv3
 ) -> torch.Tensor:
     """Phase-major (B, D, H, W, 8*Co) tensor of the 3^3 SAME conv of the
     volume ``p`` stands for, then ``(+ bias) * scale + shift`` and the
@@ -75,7 +78,7 @@ def phase_conv(
     b, d, h, wd, _ = p.shape
     out = torch.empty((b, d, h, wd, 8 * co), dtype=out_dtype, device=p.device)
     launch_conv3("segk_phase_conv3", p, w, bias, scale, shift, alpha, relu_mode,
-                 out, (b, 2 * d, 2 * h, 2 * wd))
+                 out, (b, 2 * d, 2 * h, 2 * wd), packed_cache)
     counter.count += 1
     return out
 

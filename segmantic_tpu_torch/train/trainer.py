@@ -48,6 +48,7 @@ from ..infer.sliding_window import sliding_window_inference
 from ..metrics.overlap import confusion_matrix, dice_from_confusion
 from ..models.unet import UNet, from_flax_variables, to_flax_variables
 from ..ops.fast_conv import space_to_depth
+from ..ops._cuda import resolve_device
 from ..ops.fused_conv import at_least_f32
 from ..transforms import spatial as TS
 from ..transforms.base import Compose
@@ -75,19 +76,6 @@ def default_preprocessing(keys: Sequence[str], spacing: Sequence[float] = ()) ->
     if spacing:
         xforms.append(TS.Spacingd(keys=keys, pixdim=list(spacing)))
     return Compose(xforms)
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device; asking for CUDA without CUDA raises (the port
-    never moves to the CPU on its own)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but CUDA is not available "
-            "(torch.cuda.is_available() is False); pass device='cpu' explicitly "
-            "to run on the CPU"
-        )
-    return device
 
 
 @dataclasses.dataclass
@@ -137,10 +125,12 @@ class SegmentationModel:
         arch: str = "unet",
         arch_params: Optional[dict] = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
     ) -> "SegmentationModel":
         """A freshly initialised model (weights from ``torch.Generator(seed)``:
-        the JAX package's initialisers, not its random numbers)."""
+        the JAX package's initialisers, not its random numbers), on ``device``:
+        the card unless the caller asks for the CPU; asking for CUDA where
+        there is none raises."""
         arch = (arch or "unet").lower()
         if arch in ("segresnet", "unetr"):
             raise NotImplementedError(
@@ -174,8 +164,10 @@ class SegmentationModel:
         return SegmentationModel(module=module, hparams=hparams)
 
     @staticmethod
-    def load(path: Path, device="cpu") -> "SegmentationModel":
-        """Rebuild from a ``STPUCKP1`` checkpoint (either package's)."""
+    def load(path: Path, device="cuda") -> "SegmentationModel":
+        """Rebuild from a ``STPUCKP1`` checkpoint (either package's) on
+        ``device``; as in :meth:`create`, the card is the default and asking
+        for it without one raises."""
         ckpt = load_checkpoint(path)
         h = dict(ckpt.get("hparams") or {})
         sidecar = Path(path).with_suffix(".json")

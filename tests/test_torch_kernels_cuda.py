@@ -9,6 +9,8 @@ has only PyTorch; ``tests/conftest.py`` imports JAX, so skip it there:
 Tolerances: f32 1e-4 * max|ref| (summation order over up to 27 * 256 terms,
 TF32 off for the plain version); bf16 2e-2 * max|ref| (the plain version
 rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
+bf16 convs with C % 8 == 0 run the tensor-core body, f32 and the other bf16
+channel counts the CUDA-core body; a repeated conv launch is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
 bit-equal (fixed-order reduction).
@@ -60,6 +62,12 @@ def _close(got, want, tol):
     ((2, 5, 7, 9, 3), 5, "prelu"),  # ragged tiles, C and CO below a tile
     ((4, 12, 12, 12, 64), 64, "relu"),
     ((1, 6, 6, 6, 128), 256, "none"),  # several channel chunks and CO tiles
+    ((4, 6, 6, 6, 128), 128, "prelu"),  # the bottom of the flagship UNet
+    ((4, 6, 6, 6, 128), 256, "prelu"),
+    ((4, 6, 6, 6, 256), 256, "prelu"),
+    ((2, 20, 22, 26, 16), 8, "prelu"),  # extents a multiple of no brick; the head's CO = 8
+    ((2, 20, 22, 26, 24), 5, "relu"),  # a chunk padded to 32 channels, scalar stores
+    ((1, 3, 2, 50, 8), 40, "none"),  # C = 8 pairs taps; CO over two N tiles
 ])
 def test_fused_conv(cuda, shape, co, relu_mode, dtype, tol):
     g = torch.Generator().manual_seed(0)
@@ -71,15 +79,35 @@ def test_fused_conv(cuda, shape, co, relu_mode, dtype, tol):
     got = fused_conv.conv3d(x, w, **kw)
     assert fused_conv.counter.count == 1 and got.dtype == dtype
     _close(got, fused_conv.conv3d_plain(x, w, **kw), tol)
+    assert torch.equal(got, fused_conv.conv3d(x, w, **kw))  # deterministic
+    cache = {}  # the packed weights kept between calls, as the executor keeps them
+    for _ in range(2):
+        assert torch.equal(got, fused_conv.conv3d(x, w, packed_cache=cache, **kw))
+    assert len(cache) == int(fused_conv.takes_tensor_cores(x, shape[-1]))
 
 
-def test_fused_conv_f32_output_from_bf16(cuda):
+@pytest.mark.parametrize("shape,co", [
+    ((2, 8, 8, 8, 16), 16), ((2, 9, 10, 11, 24), 5), ((1, 6, 6, 6, 64), 40),
+])
+def test_fused_conv_f32_output_from_bf16(cuda, shape, co):
     g = torch.Generator().manual_seed(1)
-    x = _randn(g, 2, 8, 8, 8, 16).to(torch.bfloat16)
-    w = _randn(g, 3, 3, 3, 16, 16, scale=0.05).to(torch.bfloat16)
-    got = fused_conv.conv3d(x, w, out_dtype=torch.float32)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, shape[-1], co, scale=0.05).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, co), alpha=torch.tensor([0.2], device=cuda), relu_mode="prelu")
+    got = fused_conv.conv3d(x, w, out_dtype=torch.float32, **kw)
     assert got.dtype == torch.float32
-    _close(got, fused_conv.conv3d_plain(x, w, out_dtype=torch.float32), 1e-2)
+    _close(got, fused_conv.conv3d_plain(x, w, out_dtype=torch.float32, **kw), 1e-2)
+    assert torch.equal(got, fused_conv.conv3d(x, w, out_dtype=torch.float32, **kw))
+
+
+def test_conv_refuses_a_sample_beyond_32_bit_offsets(cuda):
+    """The tensor-core body indexes inside a sample in 32 bits: the wrapper
+    raises before any launch (tensors of that size are never made here)."""
+    x = torch.empty((1, 1, 1, 1, 8), dtype=torch.bfloat16, device=cuda)
+    w = torch.empty((3, 3, 3, 8, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fused_conv.launch_conv3("segk_fused_conv3", x, w, None, None, None, None, "none",
+                                x, (1, 2048, 2048, 64))
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -87,6 +115,10 @@ def test_fused_conv_f32_output_from_bf16(cuda):
     ((1, 3, 4, 5, 24), 3, 3),
     ((2, 6, 8, 16, 64), 8, 8),  # the top decoder stage's L = 64
     ((1, 4, 4, 4, 128), 16, 16),  # the second stage's L = 128
+    ((2, 10, 11, 13, 64), 8, 8),  # full-resolution extents a multiple of no brick
+    ((2, 10, 11, 13, 192), 24, 5),  # a padded chunk, scalar stores
+    ((1, 5, 7, 9, 64), 8, 16),
+    ((1, 3, 3, 3, 512), 64, 40),  # two chunks, two N tiles
 ])
 def test_phase_conv(cuda, shape, ci, co, dtype, tol):
     g = torch.Generator().manual_seed(2)
@@ -98,6 +130,11 @@ def test_phase_conv(cuda, shape, ci, co, dtype, tol):
     got = phase_conv.phase_conv(p, w, **kw)
     assert phase_conv.counter.count == 1
     _close(got, phase_conv.phase_conv_plain(p, w, **kw), tol)
+    assert torch.equal(got, phase_conv.phase_conv(p, w, **kw))  # deterministic
+    if dtype == torch.bfloat16:
+        wide = phase_conv.phase_conv(p, w, out_dtype=torch.float32, **kw)
+        assert wide.dtype == torch.float32
+        _close(wide, phase_conv.phase_conv_plain(p, w, out_dtype=torch.float32, **kw), 1e-2)
 
 
 @pytest.mark.parametrize("starts", [

@@ -113,3 +113,30 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
     assert phase_conv.counter.count == 0
     with pytest.raises(ValueError, match="8\\*C"):
         phase_conv.phase_conv(p[..., :12], w)
+
+
+@pytest.mark.parametrize("batch", [4, 8])
+@pytest.mark.parametrize("p_shape,c", [((48, 48, 48, 64), 8), ((24, 24, 24, 128), 16)],
+                         ids=["L64", "L128"])
+def test_plan_fills_the_rows_at_both_phase_stages(p_shape, c, batch):
+    """The phase kernel plans over the full-resolution grid (96^3 and 48^3):
+    >= 75% real rows, even brick corners never required."""
+    full = (batch,) + tuple(2 * s for s in p_shape[:3])
+    p = fused_conv.plan(full, c, c)
+    assert p.fill >= 0.75 and p.smem_bytes <= fused_conv.SMEM_LIMIT
+    assert p.ck == (8 if c == 8 else 16) and p.nchunks == 1 and p.n_tiles == 1
+    assert 1 <= p.grid_x <= p.nbricks
+
+
+def test_packed_phase_weights_convolve_like_the_true_kernel():
+    """C = 8 (L = 64): pack pads K = 216 to 224; unpacked, the phase conv is
+    unchanged (and so is its dx use with flipped, swapped weights)."""
+    rng = np.random.default_rng(9)
+    p = torch.from_numpy(_rand(rng, (1, 3, 4, 5, 64)))
+    for w in (torch.from_numpy(_rand(rng, (3, 3, 3, 8, 8), 0.1)),):
+        for wk in (w, fused_conv.flip_io(w)):
+            packed = fused_conv.pack_weights(wk, 8)
+            assert tuple(packed.shape) == (1, 1, 224, 8) and not packed[0, 0, 216:].any()
+            back = fused_conv.unpack_weights(packed, 8, 8)
+            assert torch.equal(phase_conv.phase_conv_plain(p, back),
+                               phase_conv.phase_conv_plain(p, wk))

@@ -222,3 +222,29 @@ def test_cli_serve_defaults_to_cuda():
 def test_unported_archs_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SegmentationModel.create(num_classes=2, arch="segresnet")
+
+
+@pytest.mark.parametrize("entry", ["create", "load", "sliding_window"])
+def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch):
+    """``SegmentationModel.create`` / ``.load`` and
+    ``sliding_window_inference`` default to ``device="cuda"`` like ``train``
+    and ``InferenceSession``: without a card they raise, with
+    ``device="cpu"`` they run."""
+    from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
+
+    vol = np.zeros((8, 8, 8, 1), np.float32)
+
+    def predictor(w):
+        return torch.cat([w, -w], dim=-1).float()
+
+    calls = {
+        "create": lambda **kw: SegmentationModel.create(
+            num_classes=2, channels=(4, 8), strides=(2,), **kw).device.type,
+        "load": lambda **kw: SegmentationModel.load(ckpt, **kw).device.type,
+        "sliding_window": lambda **kw: sliding_window_inference(
+            vol, (8, 8, 8), 1, predictor, **kw).device.type,
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    assert calls[entry](device="cpu") == "cpu"

@@ -58,7 +58,7 @@ def test_bf16_wire_matches_jax_wire():
     want = np.asarray(jsw.sliding_window_inference(
         vol, (8, 8, 8), 2, _jax_predictor, wire_dtype=jnp.bfloat16))
     got = sw.sliding_window_inference(vol, (8, 8, 8), 2, _torch_predictor,
-                                      wire_dtype=torch.bfloat16)
+                                      wire_dtype=torch.bfloat16, device="cpu")
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
