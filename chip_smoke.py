@@ -312,49 +312,55 @@ def check_kernels(torch):
 
 
 def report_conv_build(lib: Path) -> None:
-    """What ptxas reports for the tensor-core conv kernels (registers and
-    spills per instantiation, from the build log beside the library) and, where
-    the toolkit has ``cuobjdump``, how many tensor-core (HMMA) and asynchronous
-    copy (LDGSTS) instructions their SASS holds. Spills fail nothing."""
+    """What ptxas reports for the tensor-core kernels (the conv body
+    ``conv3_mma_kernel`` and the weight-gradient body ``conv3_dw_mma_kernel``:
+    registers and spills per instantiation, from the build log beside the
+    library) and, where the toolkit has ``cuobjdump``, how many tensor-core
+    (HMMA), ``ldmatrix`` (LDSM) and asynchronous copy (LDGSTS) opcodes
+    their SASS holds. Spills fail nothing; a kernel without HMMA does."""
     import re
     import shutil
 
+    names = ("conv3_mma_kernel", "conv3_dw_mma_kernel")
     log = lib.with_name(lib.stem + ".log")
     lines = log.read_text().splitlines() if log.exists() else []
-    found = []
-    for i, line in enumerate(lines):
-        m = re.search(r"conv3_mma_kernel.*?(Dense|Phase)LayoutELi(\d+)ELi(\d+)", line)
-        if not m or "Compiling" not in line:
-            continue
-        text = " ".join(lines[i + 1: i + 4])
-        regs = re.search(r"Used (\d+) registers", text)
-        spill = re.findall(r"(\d+) bytes spill", text)
-        found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)),
-                      int(regs.group(1)) if regs else -1, sum(map(int, spill))))
-    if not found:
-        _fail("the build log holds no ptxas report for conv3_mma_kernel")
-    print(f"  ptxas, conv3_mma_kernel<layout, CK, NT>: {len(found)} instantiations, registers "
-          f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
-          f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
-          + ", ".join(f"{lay[0]}{ck}x{nt}:{regs}" for lay, ck, nt, regs, _ in sorted(found)))
+    for name in names:
+        found = []
+        for i, line in enumerate(lines):
+            m = re.search(name + r".*?(Dense|Phase)LayoutELi(\d+)ELi(\d+)", line)
+            if not m or "Compiling" not in line:
+                continue
+            text = " ".join(lines[i + 1: i + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.findall(r"(\d+) bytes spill", text)
+            found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)),
+                          int(regs.group(1)) if regs else -1, sum(map(int, spill))))
+        if not found:
+            _fail(f"the build log holds no ptxas report for {name}")
+        print(f"  ptxas, {name}<layout, CK, NT>: {len(found)} instantiations, registers "
+              f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
+              f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
+              + ", ".join(f"{lay[0]}{ck}x{nt}:{regs}" for lay, ck, nt, regs, _ in sorted(found)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         print("  cuobjdump not found: SASS not inspected")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300).stdout
-    counts, inside = {"HMMA": 0, "LDGSTS": 0, "LDSM": 0}, False
+    counts = {name: {"HMMA": 0, "LDSM": 0, "LDGSTS": 0} for name in names}
+    inside = None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "conv3_mma_kernel" in line
+            inside = next((name for name in names if name in line), None)
         elif inside:
-            for key in counts:
+            for key in counts[inside]:
                 if f" {key}." in line or f" {key} " in line:
-                    counts[key] += 1
-    print(f"  SASS of the conv3_mma_kernel instantiations: {counts['HMMA']} HMMA (tensor-core "
-          f"mma), {counts['LDSM']} LDSM (ldmatrix), {counts['LDGSTS']} LDGSTS (cp.async)")
-    if not counts["HMMA"] or not counts["LDGSTS"]:
-        _fail("the tensor-core conv kernels hold no HMMA or no LDGSTS instruction")
+                    counts[inside][key] += 1
+    for name, c in counts.items():
+        print(f"  SASS of the {name} instantiations: {c['HMMA']} HMMA (tensor-core mma), "
+              f"{c['LDSM']} LDSM (ldmatrix), {c['LDGSTS']} LDGSTS (cp.async)")
+        if not c["HMMA"] or not c["LDSM"] or not c["LDGSTS"]:
+            _fail(f"{name} holds no HMMA, no LDSM or no LDGSTS opcode")
 
 
 def _counters():
@@ -371,20 +377,32 @@ def check_train_kernels(torch):
     """The two weight-gradient kernels and both autograd Functions against
     their plain versions at the train step's shapes (batch 8), f32 and bf16.
 
+    Every dw shape of one flagship step: the six distinct dense ones (eight
+    launches: 24^3 x 32 and 12^3 x 64 run in the encoder and in the decoder)
+    and both phase stages. bf16 goes through the tensor-core body
+    (``csrc/conv3_dw_mma.cuh``), f32 through the CUDA-core body.
+
     Limits: the dw kernels 1e-3 * max|ref| in f32 and with bf16 inputs (sums
     over up to 7 M positions in another order, TF32 off; with bf16 inputs
     both sides sum the same exactly upcast values in f32); the autograd
     Functions 1e-3 in f32 and 2e-2 in bf16 (their output and dx round to
-    bf16). Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}},
-    times summed over shapes (bf16 inputs; the plain version is cuDNN's f32
-    wgrad on the upcast inputs, TF32 off; the library call cuDNN's bf16 wgrad
-    on the bf16 tensors, at full resolution for the phase kernel) and the
-    largest bf16 error."""
-    from segmantic_tpu_torch.ops import fused_conv, phase_conv
+    bf16). Each bf16 shape prints its launch plan and repeats its launch bit
+    for bit. Times are device times by CUDA-graph replay (``_graph_ms``; the
+    workspace comes from the graph's pool): the kernel, the CUDA-core body on
+    the same bf16 tensors (what ran before the tensor-core body), the plain
+    version (cuDNN's f32 wgrad on the upcast inputs, TF32 off) and the library
+    call, cuDNN's bf16 wgrad on the bf16 tensors (at full resolution for the
+    phase kernel, the rearrangement not timed). Returns
+    {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}}, times summed
+    over the distinct shapes and the largest bf16 error. Ragged and
+    odd-channel shapes run once each, untimed."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
     from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
@@ -401,46 +419,116 @@ def check_train_kernels(torch):
             _fail(f"{name} {dtype} disagrees with its plain version")
         return err
 
+    def modules(name):
+        if name == "fused_conv_dw":
+            return fused_conv, fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain
+        return phase_conv, phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain
+
+    def geometry(name, x, dy):
+        """(full-resolution dims, true C, true CO) of one dw call."""
+        if name == "fused_conv_dw":
+            return tuple(x.shape[:4]), x.shape[-1], dy.shape[-1]
+        full = (x.shape[0],) + tuple(2 * v for v in x.shape[1:4])
+        return full, x.shape[-1] // 8, dy.shape[-1] // 8
+
+    def plan_text(dims, c, co):
+        p = fused_conv.dw_plan(dims, c, co, sms)
+        return p, (f"brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, {p.splits} splits, "
+                   f"{p.grid[0] * p.grid[1]} blocks of {p.warps} warps, K fill {p.fill:.3f}, "
+                   f"workspace {p.workspace * 4 / 1e6:.2f} MB, "
+                   f"{'one launch' if p.splits == 1 else 'kernel + reduce'}")
+
+    def cuda_core_ms(name, x, dy):
+        """The CUDA-core body on the same tensors, by its C entry point."""
+        (b, d, h, w), c, co = geometry(name, x, dy)
+        entry = "segk_fused_conv3_dw" if name == "fused_conv_dw" else "segk_phase_conv3_dw"
+        ws = torch.empty(_cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co),
+                         dtype=torch.float32, device=dev)
+        out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=dev)
+        return _graph_ms(torch, lambda: _cuda.launch(
+            entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(), b, d, h, w, c,
+            co, int(x.dtype == bf16)))
+
     results = {}
+    B = TRAIN_BATCH
+    # (kernel, stored shape of x, stored channels of dy, launches per step)
     cases = [
-        ("fused_conv_dw", f"x{(TRAIN_BATCH, 48, 48, 48, 16)}->16",
-         (TRAIN_BATCH, 48, 48, 48, 16), 16),
-        ("fused_conv_dw", f"x{(TRAIN_BATCH, 24, 24, 24, 32)}->32",
-         (TRAIN_BATCH, 24, 24, 24, 32), 32),
-        ("fused_conv_dw", f"x{(TRAIN_BATCH, 6, 6, 6, 128)}->256",
-         (TRAIN_BATCH, 6, 6, 6, 128), 256),
-        ("phase_conv_dw", f"p{(TRAIN_BATCH, 48, 48, 48, 64)} C=8",
-         (TRAIN_BATCH, 48, 48, 48, 64), 64),
-        ("phase_conv_dw", f"p{(TRAIN_BATCH, 24, 24, 24, 128)} C=16",
-         (TRAIN_BATCH, 24, 24, 24, 128), 128),
+        ("fused_conv_dw", (B, 48, 48, 48, 16), 16, 1),
+        ("fused_conv_dw", (B, 24, 24, 24, 32), 32, 2),
+        ("fused_conv_dw", (B, 12, 12, 12, 64), 64, 2),
+        ("fused_conv_dw", (B, 6, 6, 6, 128), 128, 1),
+        ("fused_conv_dw", (B, 6, 6, 6, 128), 256, 1),
+        ("fused_conv_dw", (B, 6, 6, 6, 256), 256, 1),
+        ("phase_conv_dw", (B, 48, 48, 48, 64), 64, 1),  # L = 64: 96^3 x 8 -> 8
+        ("phase_conv_dw", (B, 24, 24, 24, 128), 128, 1),  # L = 128: 48^3 x 16 -> 16
     ]
-    for name, label, x_shape, co in cases:
-        kernel, plain = ((fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain)
-                         if name == "fused_conv_dw"
-                         else (phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain))
+    for name, x_shape, co, per_step in cases:
+        mod, kernel, plain = modules(name)
         x32 = randn(*x_shape)
         dy32 = randn(*x_shape[:4], co)
-        for dtype in (torch.float32, torch.bfloat16):
+        dims, c_true, co_true = geometry(name, x32, dy32)
+        label = (f"x{x_shape}->{co}" if name == "fused_conv_dw"
+                 else f"p{x_shape} C={c_true}") + f" ({per_step} per step)"
+        for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
+            if fused_conv.takes_dw_tensor_cores(x, c_true, co_true) != (dtype == bf16):
+                _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
+            before = mod.dw_counter.count
             got = kernel(x, dy)
+            if mod.dw_counter.count != before + 1:
+                _fail(f"{name} {label}: expected one counted launch")
             err = compare(f"{name} {label}", got, plain(x, dy), dtype, 1e-3)
-        ms = _median_ms(torch, lambda: kernel(x, dy))
-        pms = _median_ms(torch, lambda: plain(x, dy))
+        if not torch.equal(got, kernel(x, dy)):
+            _fail(f"{name} {label}: a repeated bf16 launch is not bit-equal")
+        p, text = plan_text(dims, c_true, co_true)
+        print(f"    bf16, repeated launch bit-equal; {text}")
+        if p.fill < 0.75:
+            _fail(f"{name} {label}: K fill {p.fill:.3f} < 0.75")
+        ms = _graph_ms(torch, lambda: kernel(x, dy))
+        oms = cuda_core_ms(name, x, dy)
+        # the plain f32 wgrad takes up to ~0.1 s at the top stages: fewer replays
+        slow = x.numel() > 2 ** 25
+        pms = _graph_ms(torch, lambda: plain(x, dy), n=3 if slow else 10,
+                        launches=1 if slow else 10)
         # the library call, not the plain version: cuDNN's wgrad straight on the
         # bf16 (full-resolution) tensors, tensor cores allowed, output in bf16
         if name == "fused_conv_dw":
-            xc, dyc, ci = x, dy, x_shape[-1]
+            xc, dyc = x, dy
         else:
-            ci = x_shape[-1] // 8
-            xc, dyc = depth_to_space(x, ci), depth_to_space(dy, co // 8)
-        cms = _median_ms(torch, lambda: torch.nn.grad.conv3d_weight(
-            xc.permute(0, 4, 1, 2, 3), (dyc.shape[-1], ci, 3, 3, 3),
+            xc, dyc = depth_to_space(x, c_true), depth_to_space(dy, co_true)
+        cms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc.permute(0, 4, 1, 2, 3), (co_true, c_true, 3, 3, 3),
             dyc.permute(0, 4, 1, 2, 3), padding=1))
-        print(f"    bf16 time: kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms; "
-              f"cuDNN bf16 wgrad {cms:.4f} ms")
+        print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, CUDA-core "
+              f"body {oms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
         _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
-                ops=2 * 27 * ci * dyc.shape[-1] * (xc.numel() // ci), peak=PEAK_BF16,
+                ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
                 library_ms=cms)
+
+    # odd shapes, untimed, bf16: extents that are a multiple of no brick; CO = 24
+    # (a padded or a third N tile); C = 12 and CO = 20 (no 16-byte channel vector:
+    # the CUDA-core body by the rule); one brick, so one split and no reduce
+    # launch; a phase shape with ragged full-resolution bricks
+    odd = [("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
+           ("fused_conv_dw", (2, 10, 11, 13, 12), 16), ("fused_conv_dw", (2, 5, 7, 9, 16), 20),
+           ("fused_conv_dw", (1, 6, 6, 6, 8), 8), ("phase_conv_dw", (1, 5, 7, 9, 8 * 8), 8 * 16),
+           ("phase_conv_dw", (2, 10, 11, 13, 8 * 24), 8 * 8)]
+    for name, x_shape, co in odd:
+        mod, kernel, plain = modules(name)
+        x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
+        dims, c_true, co_true = geometry(name, x, dy)
+        tensor_cores = fused_conv.takes_dw_tensor_cores(x, c_true, co_true)
+        if tensor_cores != (c_true % 8 == 0 and co_true % 8 == 0):
+            _fail(f"{name} {x_shape}->{co}: the rule between the bodies")
+        text = plan_text(dims, c_true, co_true)[1] if tensor_cores else "CUDA-core body"
+        before = mod.dw_counter.count
+        got = kernel(x, dy)
+        compare(f"{name} odd {x_shape} C={c_true}->{co_true} ({text})", got, plain(x, dy),
+                bf16, 1e-3)
+        if mod.dw_counter.count != before + 1 or not torch.equal(got, kernel(x, dy)):
+            _fail(f"{name} odd {x_shape}: one counted launch, bit-equal on repeat")
+    if fused_conv.dw_plan((1, 6, 6, 6), 8, 8, sms).splits != 1:
+        _fail("a single brick should take one split (no reduce launch)")
 
     def grads(fn, *args):
         args = [a.detach().clone().requires_grad_() for a in args]

@@ -32,8 +32,8 @@ GROUPS = [
     ("shear-group kernel (augmentation)", ("shear_group_kernel",)),
     ("Dice kernels (sums, finalize, dx)", ("dice_sums", "dice_dx_kernel")),
     ("FFTs (Gibbs, spike)", ("fft",)),
-    ("dw kernels (fused_conv_dw, phase_conv_dw)", ("conv3_dw_kernel",)),
-    ("dw reduce", ("dw_reduce_kernel",)),
+    ("dw kernels (fused_conv_dw, phase_conv_dw)", ("conv3_dw_kernel", "conv3_dw_mma_kernel")),
+    ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
     ("conv kernels fwd+dx (fused_conv, phase_conv)", ("conv3_kernel", "conv3_mma_kernel")),
     ("cuDNN convs (strided, transposed, 1x1)",
      ("xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),

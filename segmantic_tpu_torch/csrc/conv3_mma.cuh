@@ -135,7 +135,8 @@ __device__ __forceinline__ float activate(float y, int relu_mode, float a) {
 struct StepCursor {
   int bx, by, bz, b, chunk;
   int sx, sy, sz, sb;
-  __device__ void init(int first, int stride, const MmaArgs& a) {
+  template <typename Args>  // nbx, nby, nbz, nchunks: MmaArgs, or the dw body's DwMmaArgs
+  __device__ void init(int first, int stride, const Args& a) {
     bx = first % a.nbx, first /= a.nbx;
     by = first % a.nby, first /= a.nby;
     bz = first % a.nbz, b = first / a.nbz;
@@ -144,7 +145,8 @@ struct StepCursor {
     sz = stride % a.nbz, sb = stride / a.nbz;
     chunk = 0;
   }
-  __device__ __forceinline__ void advance(const MmaArgs& a) {
+  template <typename Args>
+  __device__ __forceinline__ void advance(const Args& a) {
     if (++chunk < a.nchunks) return;
     chunk = 0;
     bx += sx;

@@ -11,13 +11,17 @@
 // What bounds it on the card: two regimes meet in one UNet. At the top
 // (48^3 x 16 at batch 8) there are 885 K positions and only 6,912 outputs,
 // so the work is a long contraction; at the bottom (6^3 x 256 -> 256) there
-// are 1,728 positions and 1.77 M outputs. Both are CUDA-core f32 FMA work.
-// What the design does about it (conv3_dw.cuh): output channels and the
+// are 1,728 positions and 1.77 M outputs. bf16 input with C % 8 == 0 and
+// CO % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh, which says what
+// bounds it and what its design does about that); everything else is
+// CUDA-core f32 FMA work.
+// What the CUDA-core design does about it (conv3_dw.cuh): output channels and the
 // three input-plane offsets spread over grid.y and grid.z, and the position
 // tiles over as many splits as it takes to put ~4 blocks on every SM; the
 // per-split partials are summed by a second pass in a fixed order, so the
 // result is deterministic without atomics.
 #include "conv3_dw.cuh"
+#include "conv3_dw_mma.cuh"
 
 extern "C" long long segk_conv3_dw_workspace(int B, int D, int H, int W, int C, int CO) {
   return segk::dw_workspace(segk::dw_plan(B, D, H, W, C, CO), C, CO);
@@ -28,4 +32,13 @@ extern "C" int segk_fused_conv3_dw(const void* x, const void* dy, float* ws, flo
                                    void* stream) {
   return segk::launch_conv3_dw<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO,
                                                   in_bf16, stream);
+}
+
+extern "C" int segk_fused_conv3_dw_mma(const void* x, const void* dy, float* ws, float* out,
+                                       int B, int D, int H, int W, int C, int CO, int td,
+                                       int th, int tw, int ck, int nt, int splits, int stages,
+                                       int smem_bytes, void* stream) {
+  return segk::launch_conv3_dw_mma<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, td,
+                                                      th, tw, ck, nt, splits, stages,
+                                                      smem_bytes, stream);
 }

@@ -23,12 +23,26 @@
 // alternate between two phase groups. What the design does about it: the
 // position tiles split over ~176 blocks per input-plane offset with 16
 // position groups per block, each writing its own partial; the fixed-order
-// second pass sums them deterministically.
+// second pass sums them deterministically. That is the CUDA-core body
+// (conv3_dw.cuh: f32 input, odd channel counts); bf16 input with Ci % 8 == 0
+// and Co % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh), which stages
+// 16-byte channel vectors through the same index map and keeps one partial
+// per split.
 #include "conv3_dw.cuh"
+#include "conv3_dw_mma.cuh"
 
 extern "C" int segk_phase_conv3_dw(const void* p, const void* g, float* ws, float* out,
                                    int B, int D2, int H2, int W2, int C, int CO,
                                    int in_bf16, void* stream) {
   return segk::launch_conv3_dw<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO,
                                                   in_bf16, stream);
+}
+
+extern "C" int segk_phase_conv3_dw_mma(const void* p, const void* g, float* ws, float* out,
+                                       int B, int D2, int H2, int W2, int C, int CO, int td,
+                                       int th, int tw, int ck, int nt, int splits, int stages,
+                                       int smem_bytes, void* stream) {
+  return segk::launch_conv3_dw_mma<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO, td,
+                                                      th, tw, ck, nt, splits, stages,
+                                                      smem_bytes, stream);
 }

@@ -9,8 +9,9 @@ packing.
 
 ``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` and
 ``conv3d_dw`` the kernel ``csrc/fused_conv_dw.cu`` for tensors on a CUDA
-device; for tensors on the CPU they run :func:`conv3d_plain` and
-:func:`conv3d_dw_plain`, the plain PyTorch versions. :func:`conv3d_grad` is
+device (each kernel has two bodies, see below); for tensors on the CPU they
+run :func:`conv3d_plain` and :func:`conv3d_dw_plain`, the plain PyTorch
+versions. :func:`conv3d_grad` is
 the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
@@ -23,6 +24,13 @@ weights packed by :func:`pack_weights`. f32 input keeps the CUDA-core body
 (``csrc/conv3.cuh``), whose f32 FMAs agree with the CPU to ~1e-6 where TF32
 would not; bf16 input with any other channel count (no 16-byte channel vector
 to stage) takes it too. Either way the wrapper launches its kernel or raises.
+
+The dw kernel has two bodies as well, chosen by :func:`takes_dw_tensor_cores`:
+bf16 input with C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
+(``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on ``ldmatrix.trans`` operands, one
+staged halo brick of x and brick of dy per step) with the launch geometry of
+:func:`dw_plan`; f32 input and every other channel count keep the CUDA-core
+body (``csrc/conv3_dw.cuh``), whose plan lives on the C side.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from . import _cuda
 __all__ = [
     "conv3d", "conv3d_plain", "conv3d_dw", "conv3d_dw_plain", "conv3d_grad",
     "counter", "dw_counter", "RELU_MODES", "ConvPlan", "plan", "pack_weights",
-    "unpack_weights", "takes_tensor_cores",
+    "unpack_weights", "takes_tensor_cores", "DwPlan", "dw_plan",
+    "takes_dw_tensor_cores",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -384,17 +393,164 @@ def check_dw_args(x, dy) -> None:
                          f"{tuple(dy.shape)}")
 
 
+def takes_dw_tensor_cores(x: torch.Tensor, c: int, co: int) -> bool:
+    """The shape rule between the two bodies of the dw kernel, for input x of
+    a conv from c to co true channels: bf16 input whose two channel vectors
+    are whole numbers of 16-byte pieces (c % 8 == 0 and co % 8 == 0) runs the
+    tensor-core body; f32 input and every other bf16 channel count run the
+    CUDA-core body."""
+    return x.dtype == torch.bfloat16 and c > 0 and co > 0 and c % 8 == 0 and co % 8 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """Launch geometry of the tensor-core dw body, as the C entry point takes
+    it. A block of ``warps`` warps owns all 27 taps of ``ck`` input channels x
+    ``nt`` output channels and walks the bricks ``split, split + splits, ...``
+    of ``td * th * tw`` output positions, 16 positions to a k16 step."""
+
+    td: int
+    th: int
+    tw: int
+    ck: int  # input channels per block
+    nt: int  # output channels per block
+    n_ci: int  # chunks along C
+    n_co: int  # tiles along CO
+    warps: int
+    taps_per_warp: int  # 3 taps; at ck = 8 two pairs of taps (one m16 each)
+    splits: int  # position splits, one partial each
+    stages: int  # ring buffers of staged bricks
+    grid: Tuple[int, int]  # (splits, n_ci * n_co)
+    smem_bytes: int
+    workspace: int  # f32 values: splits * 27 * C * CO, 0 with one split
+    nbricks: int
+    fill: float  # real positions / K rows multiplied
+
+
+def _dw_smem_bytes(ck: int, nt: int, brick, stages: int) -> int:
+    """``dw_mma_smem_bytes`` of ``csrc/conv3_dw_mma.cuh``."""
+    td, th, tw = brick
+    halo = (td + 2) * (th + 2) * (tw + 2)
+    rows16 = -(-td * th * tw // 16) * 16
+    tables = 128 + -(-(halo + 2 * rows16) * 4 // 16) * 16
+    return tables + stages * (halo * _pitch(ck) + rows16 * _pitch(nt))
+
+
+_DW_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (2, 3, 4, 6, 8, 12),
+                                           (6, 8, 12, 16, 24))
+              if 48 <= b[0] * b[1] * b[2] <= 768]
+_SM_SMEM = 233472  # shared memory of one multiprocessor; a block reserves 1 KB more
+_SM_REGS = 65536
+
+
+def _dw_candidates(dims, c: int, co: int, sms: int):
+    """Every (cost key, DwPlan) :func:`dw_plan` chooses among."""
+    b, d, h, w = dims
+    positions = b * d * h * w
+    n_out = 27 * c * co
+    for ck in ((8,) if c == 8 else tuple(k for k in (16, 32) if k < 2 * c)):
+        warps, tpw, mt = (7, 2, 1) if ck == 8 else (9, 3, ck // 16)
+        n_ci = -(-c // ck)
+        for nt in (8, 16, 32):
+            if nt > 8 and nt >= 2 * co:
+                continue  # a tile more than half padding columns
+            n_co = -(-co // nt)
+            tiles = n_ci * n_co
+            if tiles > 65535:
+                continue
+            nf = nt // 8
+            regs = -(-(48 + tpw * mt * nf * 4) // 8) * 8  # accumulators + the rest (ptxas: 40-168)
+            for brick in _DW_BRICKS:
+                td, th, tw = brick
+                nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+                if nbricks >= 2 ** 31:
+                    continue
+                halo = (td + 2) * (th + 2) * (tw + 2)
+                rows16 = -(-td * th * tw // 16) * 16
+                fill = positions / (nbricks * rows16)
+                stages = 2  # a third cost a resident block and time (H100, measured)
+                smem = _dw_smem_bytes(ck, nt, brick, stages)
+                if smem > SMEM_LIMIT:
+                    continue
+                per_sm = min(_SM_SMEM // (smem + 1024), 2048 // (warps * 32),
+                             _SM_REGS // (warps * 32 * regs))
+                if per_sm < 1:
+                    continue
+                slots = sms * per_sm
+                # a k16 step of a block, in cycles of one multiprocessor: bound by
+                # ldmatrix traffic (32 * nt bytes of dy rows and 512 bytes per m16 of
+                # x rows, per warp, at 128 bytes a cycle; rows that wrap inside a group
+                # of 8 collide on banks) or by the mma themselves
+                step = max(warps * (32 * nt + tpw * mt * 512) / 128 * (1.0 if tw % 8 == 0 else 1.1),
+                           warps * tpw * mt * nf * 1.2)
+                staged = 0.3 * (halo * ck // 8 + rows16 * nt // 8)  # 16-byte pieces
+                for splits in sorted({1, 2, 4, 8, slots // tiles // 2, slots // tiles,
+                                      2 * slots // tiles}):
+                    splits = max(1, min(splits, nbricks))
+                    blocks = tiles * splits
+                    on_sm = -(-blocks // sms)  # blocks of the busiest multiprocessor
+                    hidden = 1 + 4 / (warps * min(per_sm, on_sm))  # few warps hide little
+                    cycles = on_sm * (-(-nbricks // splits) * ((rows16 // 16) * step + staged)
+                                      * hidden + 27 * ck * nt / 16)
+                    cycles += 1500 * -(-on_sm // per_sm)  # a block's first loads, exposed
+                    if splits > 1:  # the second launch: its gap, its chain of loads, its bytes
+                        cycles += 4000 + 150 * -(-splits // (8 if splits >= 16 else 1)) \
+                            + splits * n_out * 4 / 1500
+                    yield (fill < 0.75, cycles, -fill), DwPlan(
+                        td=td, th=th, tw=tw, ck=ck, nt=nt, n_ci=n_ci, n_co=n_co, warps=warps,
+                        taps_per_warp=tpw, splits=splits, stages=stages, grid=(splits, tiles),
+                        smem_bytes=smem, workspace=splits * n_out if splits > 1 else 0,
+                        nbricks=nbricks, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -> DwPlan:
+    """The brick, channel chunk, N tile and position splits of one launch of
+    the tensor-core dw body for a (B, D, H, W) grid of output positions (full
+    resolution for the phase layout), C input and CO output channels.
+
+    Among the bricks of a fixed list, chunks of 16 or 32 input channels (8 at
+    C = 8), N tiles of 8, 16 or 32 and a few split counts it takes the cheapest
+    by a rough count of cycles on the busiest of ``sms`` multiprocessors (the
+    shared-memory traffic or the mma of its blocks' k16 steps, padding rows
+    included, the pieces they stage, and for more than one split the second
+    launch that sums the partials), among those whose K rows are at least 75%
+    real positions where any is."""
+    if c % 8 or co % 8 or c < 8 or co < 8:
+        raise ValueError("the tensor-core dw body needs C % 8 == 0 and CO % 8 == 0, "
+                         f"got C = {c}, CO = {co}")
+    found = min(_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
 def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tensor:
-    """Shared launch of the two dw kernels (dense and phase layouts): the
-    per-split partials go to a workspace sized by the C side's plan."""
+    """Shared launch of the two dw kernels (dense and phase layouts):
+    ``entry + "_mma"`` on the tensor-core body with the geometry of
+    :func:`dw_plan` where :func:`takes_dw_tensor_cores` says so, else ``entry``
+    on the CUDA-core body, whose plan and workspace size the C side computes.
+    With more than one split the partials go to a workspace and a second
+    kernel sums them in a fixed order."""
     for t, name in ((x, "x"), (dy, "dy")):
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
-    n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
-    ws = torch.empty(n, dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
-    _cuda.launch(entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                 b, d, h, w, c, co, int(x.dtype == torch.bfloat16))
+    if not takes_dw_tensor_cores(x, c, co):
+        n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
+        ws = torch.empty(n, dtype=torch.float32, device=x.device)
+        _cuda.launch(entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     b, d, h, w, c, co, int(x.dtype == torch.bfloat16))
+        return out
+    if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
+        raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
+                         "exceeds 2^31 values")
+    p = dw_plan((b, d, h, w), c, co,
+                torch.cuda.get_device_properties(x.device).multi_processor_count)
+    ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 else out
+    _cuda.launch(entry + "_mma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                 b, d, h, w, c, co, p.td, p.th, p.tw, p.ck, p.nt, p.splits, p.stages,
+                 p.smem_bytes)
     return out
 
 
@@ -402,7 +558,9 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Weight gradient of the stride-1 SAME 3^3 conv:
     ``dw[t, ci, co] = sum_{b,p} x[b, p+t-1, ci] * dy[b, p, co]``, f32
     accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
-    dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU)."""
+    dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
+    device bf16 input with C % 8 == 0 and CO % 8 == 0 runs the tensor-core
+    body, anything else the CUDA-core body (:func:`takes_dw_tensor_cores`)."""
     if x.ndim != 5 or dy.ndim != 5:
         raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")
     check_dw_args(x, dy)

@@ -13,7 +13,10 @@ bf16 convs with C % 8 == 0 run the tensor-core body, f32 and the other bf16
 channel counts the CUDA-core body; a repeated conv launch is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
-bit-equal (fixed-order reduction).
+bit-equal (fixed-order reduction). bf16 weight gradients with C % 8 == 0 and
+CO % 8 == 0 run the tensor-core dw body, held to 1e-3 * max|ref| at every dw
+shape of a flagship step (both sides sum the same exactly upcast products in
+f32, in another order); f32 and the other channel counts the CUDA-core body.
 The shear group does two products and one sum per output: order 0 and the
 bf16-weight mode are bit-equal to the plain version, f32 within 1e-6 *
 max|ref| (the plain version's matrix product may fuse the multiply and add).
@@ -29,7 +32,7 @@ import pytest
 import torch
 
 from segmantic_tpu_torch.ops import (
-    blend, fused_conv, fused_shear, phase_conv, phase_dice, shear_resample,
+    _cuda, blend, fused_conv, fused_shear, phase_conv, phase_dice, shear_resample,
 )
 from segmantic_tpu_torch.train import losses
 
@@ -191,6 +194,99 @@ def test_phase_conv_dw(cuda, shape, ci, co, dtype, tol):
     assert phase_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, ci, co)
     _close(got, phase_conv.phase_conv_dw_plain(p, gy), tol)
     assert torch.equal(got, phase_conv.phase_conv_dw(p, gy))
+
+
+# (layout, stored shape of x, stored channels of dy): every dw shape of one
+# flagship train step at batch 8, then ragged and odd ones
+DW_FLAGSHIP = [
+    ("dense", (8, 48, 48, 48, 16), 16), ("dense", (8, 24, 24, 24, 32), 32),
+    ("dense", (8, 12, 12, 12, 64), 64), ("dense", (8, 6, 6, 6, 128), 128),
+    ("dense", (8, 6, 6, 6, 128), 256), ("dense", (8, 6, 6, 6, 256), 256),
+    ("phase", (8, 48, 48, 48, 64), 64),  # L = 64: 96^3 x 8 -> 8
+    ("phase", (8, 24, 24, 24, 128), 128),  # L = 128
+]
+DW_ODD = [
+    ("dense", (2, 20, 22, 26, 16), 16),  # extents a multiple of no brick
+    ("dense", (2, 10, 11, 13, 16), 24),  # CO = 24
+    ("dense", (3, 7, 9, 50, 40), 16),  # C = 40: a chunk padded with zero rows
+    ("dense", (1, 6, 6, 6, 8), 8),  # one brick: one split, no reduce launch
+    ("dense", (2, 5, 7, 9, 8), 32),  # tap pairs, K rows mostly padding
+    ("phase", (1, 5, 7, 9, 64), 128),  # C = 8 -> 16, ragged full-resolution bricks
+    ("phase", (2, 10, 11, 13, 192), 64),  # C = 24 -> 8
+]
+
+
+def _dw_case(layout, shape, co):
+    """(module, kernel, plain, full-resolution dims, true C, true CO)."""
+    if layout == "dense":
+        return (fused_conv, fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain,
+                tuple(shape[:4]), shape[-1], co)
+    full = (shape[0],) + tuple(2 * v for v in shape[1:4])
+    return (phase_conv, phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain,
+            full, shape[-1] // 8, co // 8)
+
+
+@pytest.mark.parametrize("layout,shape,co", DW_FLAGSHIP + DW_ODD)
+def test_dw_tensor_core_body(cuda, layout, shape, co):
+    mod, kernel, plain, dims, c_true, co_true = _dw_case(layout, shape, co)
+    g = torch.Generator().manual_seed(16)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    assert fused_conv.takes_dw_tensor_cores(x, c_true, co_true)
+    mod.dw_counter.reset()
+    got = kernel(x, dy)
+    assert mod.dw_counter.count == 1 and got.dtype == torch.float32
+    assert got.shape == (3, 3, 3, c_true, co_true)
+    _close(got, plain(x, dy), 1e-3)
+    assert torch.equal(got, kernel(x, dy))  # fixed-order partials: bit-equal
+    assert mod.dw_counter.count == 2
+
+
+@pytest.mark.parametrize("shape,co", [((2, 10, 11, 13, 12), 16), ((2, 5, 7, 9, 16), 20)])
+def test_dw_other_channel_counts_keep_the_cuda_core_body(cuda, shape, co):
+    g = torch.Generator().manual_seed(17)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    assert not fused_conv.takes_dw_tensor_cores(x, shape[-1], co)
+    fused_conv.dw_counter.reset()
+    got = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.dw_counter.count == 1
+    _close(got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    assert torch.equal(got, fused_conv.conv3d_dw(x, dy))
+
+
+def test_dw_launcher_refuses_a_plan_with_another_shared_memory_sum(cuda):
+    x = torch.zeros((1, 6, 6, 6, 16), dtype=torch.bfloat16, device=cuda)
+    out = torch.zeros((3, 3, 3, 16, 16), device=cuda)
+    p = fused_conv.dw_plan((1, 6, 6, 6), 16, 16)
+    args = (x.data_ptr(), x.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 6, 6, 6, 16, 16,
+            p.td, p.th, p.tw, p.ck, p.nt, 1, p.stages)
+    _cuda.launch("segk_fused_conv3_dw_mma", *args, p.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_mma", *args, p.smem_bytes + 16)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fused_conv.launch_conv3_dw("segk_fused_conv3_dw", x, x, (1, 2048, 2048, 64), 16, 16)
+
+
+@pytest.mark.parametrize("name", ["conv3d_grad", "phase_conv_grad"])
+def test_bf16_grad_functions_take_the_tensor_core_dw_body(cuda, name):
+    """The Function's weight gradient is the dw wrapper's result rounded to
+    bf16, bit for bit (the launch is deterministic)."""
+    g = torch.Generator().manual_seed(18)
+    if name == "conv3d_grad":
+        mod, fn, dw = fused_conv, fused_conv.conv3d_grad, fused_conv.conv3d_dw
+        x, c, co = _randn(g, 2, 8, 10, 12, 16).to(torch.bfloat16), 16, 24
+    else:
+        mod, fn, dw = phase_conv, phase_conv.phase_conv_grad, phase_conv.phase_conv_dw
+        x, c, co = _randn(g, 2, 4, 6, 8, 64).to(torch.bfloat16), 8, 8
+    w = _randn(g, 3, 3, 3, c, co, scale=0.1).to(torch.bfloat16).requires_grad_()
+    assert fused_conv.takes_dw_tensor_cores(x, c, co)
+    out = fn(x, w)
+    cot = _randn(g, *out.shape).to(torch.bfloat16)
+    mod.dw_counter.reset()
+    out.backward(cot)
+    assert mod.dw_counter.count == 1
+    assert torch.equal(w.grad, dw(x, cot).to(torch.bfloat16))
 
 
 def _grads(fn, *args):
