@@ -143,7 +143,7 @@ def check_kernels(torch):
 
     Returns {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}} with
     times and bounds summed over the kernel's shapes (bf16, the serving dtype)
-    and the largest bf16 error. The library call beside the convs is cuDNN's
+    and the largest bf16 error; the blend's cases are :func:`check_blend`'s. The library call beside the convs is cuDNN's
     bf16 ``conv3d`` (bias only, no scale/shift/PReLU epilogue; for the phase
     conv on the depth-to-space tensor, the rearrangement not timed). The convs
     are timed by CUDA-graph replay (``_graph_ms``): on tensor cores a call
@@ -153,10 +153,7 @@ def check_kernels(torch):
     run once each, untimed."""
     import torch.nn.functional as F
 
-    import numpy as np
-
-    from segmantic_tpu_torch.infer.sliding_window import window_starts
-    from segmantic_tpu_torch.ops import blend, fused_conv, phase_conv
+    from segmantic_tpu_torch.ops import fused_conv, phase_conv
     from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
     dev = torch.device("cuda")
@@ -284,31 +281,153 @@ def check_kernels(torch):
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
 
-    # one chunk of the served grid: 4 overlapping 96^3 windows, 8 classes
-    starts = window_starts((256, 256, 176), ROI, 0.25)[:SW_BATCH]
-    acc0 = randn(256, 256, 176, NUM_CLASSES)
-    logits = randn(SW_BATCH, *ROI, NUM_CLASSES)
-    imp = torch.rand(ROI, generator=g).to(dev)
-    got = blend.accumulate_windows(acc0.clone(), logits, imp, starts)
-    want = blend.accumulate_windows_plain(acc0.clone(), logits, imp, starts)
-    torch.cuda.synchronize()
-    exact = torch.equal(got, want)
-    err = (got - want).abs().max().item()
-    print(f"  blend acc(256,256,176,8) starts {starts}: bit-equal {exact} (max|d| {err})")
-    if not exact:
-        _fail("blend differs from its plain version")
-    acc = acc0.clone()
-    ms = _median_ms(torch, lambda: blend.accumulate_windows(acc, logits, imp, starts))
-    pms = _median_ms(torch, lambda: blend.accumulate_windows_plain(acc, logits, imp, starts))
-    print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    # the accumulator is read and written only where a window lies
-    covered = np.zeros(acc0.shape[:3], bool)
-    for s in np.asarray(starts).reshape(-1, 3):
-        covered[tuple(slice(int(a), int(a) + r) for a, r in zip(s, ROI))] = True
-    _record(results, "blend", err=err, ms=ms, plain_ms=pms,
-            nbytes=_nbytes(logits, imp) + 2 * int(covered.sum()) * NUM_CLASSES * 4,
-            ops=2 * logits.numel(), peak=PEAK_F32)
+    check_blend(torch, results)
     return results
+
+
+def check_blend(torch, results) -> None:
+    """The blend kernel against the sequential loop, bit for bit: the smoke's
+    chunk (the first 4 windows of the 256 x 256 x 176 grid, 8 classes), its
+    first 16 windows (one sw-batch-16 chunk), the last chunk of the 200 x 168 x
+    150 grid (every window snapped to an edge) whole and one window short, 5
+    and 3 classes (the scalar route), 40 windows (two launches of at most
+    ``MAX_WINDOWS``), and the weight map in the same pass. Each case fills the
+    accumulator outside the windows' union with a sentinel that must survive,
+    repeats its launch bit for bit and counts its launches. The 4- and
+    16-window chunks are timed by CUDA-graph replay (which also shows that a
+    call uploads nothing), kernel and plain, each beside the bound of its own
+    union; the recorded entry is the 4-window chunk."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.sliding_window import window_starts
+    from segmantic_tpu_torch.ops import _cuda, blend
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(21)
+    for classes in (NUM_CLASSES, 5):
+        vec, block = blend.launch_shape(classes)
+        threads = block[0] * block[1] * block[2]
+        resident = _cuda.query("segk_blend_blocks_per_sm", vec, threads)
+        print(f"  blend {'float4' if vec == 4 else 'scalar'} route ({classes} classes): block "
+              f"{block} = {threads} threads, {resident} resident blocks per SM "
+              f"({resident * threads // 32} warps), {blend.ROWS} independent loads a thread "
+              f"before the first use")
+        if resident < 2:
+            _fail("the blend kernel leaves fewer than two resident blocks per SM")
+    head, lps = (256, 256, 176), (200, 168, 150)
+    head_starts = np.asarray(window_starts(head, ROI, 0.25))
+    lps_starts = np.asarray(window_starts(lps, ROI, 0.25))
+    sentinel = 12345.0
+    cases = [  # (label, volume, starts, classes, timed)
+        ("the served chunk", head, head_starts[:SW_BATCH], NUM_CLASSES, True),
+        ("a 16-window chunk", head, head_starts[:16], NUM_CLASSES, True),
+        ("last chunk of the 200x168x150 grid", lps, lps_starts[-4:], NUM_CLASSES, False),
+        ("a short last chunk", lps, lps_starts[-3:], NUM_CLASSES, False),
+        ("5 classes", lps, lps_starts[-4:], 5, False),
+        ("3 classes", lps, lps_starts[-4:], 3, False),
+        ("40 windows", head, head_starts[:40], NUM_CLASSES, False),
+    ]
+    imp = torch.rand(ROI, generator=g).to(dev)
+    for label, volume, starts, classes, timed in cases:
+        covered = torch.zeros(volume, dtype=torch.bool, device=dev)
+        for s in starts:
+            covered[tuple(slice(int(a), int(a) + r) for a, r in zip(s, ROI))] = True
+        acc0 = torch.randn((*volume, classes), generator=g).to(dev)
+        acc0[~covered] = sentinel
+        logits = torch.randn((len(starts), *ROI, classes), generator=g).to(dev)
+        vec, block = blend.launch_shape(classes)
+        plan = blend.union_tiles(starts[:blend.MAX_WINDOWS], ROI, (blend.ROWS, block[2], block[1]))
+        before = blend.counter.count
+        got = blend.accumulate_windows(acc0.clone(), logits, imp, starts)
+        launches = blend.counter.count - before
+        want = blend.accumulate_windows_plain(acc0.clone(), logits, imp, starts)
+        again = blend.accumulate_windows(acc0.clone(), logits, imp, starts)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        exact = torch.equal(got, want)
+        outside = bool((got[~covered] == sentinel).all())
+        repeat = torch.equal(got, again)
+        ok = exact and outside and repeat and launches == -(-len(starts) // blend.MAX_WINDOWS)
+        print(f"  blend {label}: acc{tuple(acc0.shape)}, {len(starts)} windows, "
+              f"{'float4' if vec == 4 else 'scalar'} route, block {block}, "
+              f"{len(plan.tiles)} of {int(np.prod(plan.grid))} tiles of "
+              f"{plan.tile} in the union{' (first launch)' if launches > 1 else ''}, "
+              f"{launches} launch{'es' if launches > 1 else ''}: bit-equal {exact} (max|d| "
+              f"{err}), outside the union untouched {outside}, repeated launch bit-equal "
+              f"{repeat} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"blend {label} differs from its plain version")
+        if not timed:
+            continue
+        acc = acc0.clone()
+        ms = _graph_ms(torch, lambda: blend.accumulate_windows(acc, logits, imp, starts))
+        pms = _graph_ms(torch, lambda: blend.accumulate_windows_plain(acc, logits, imp, starts),
+                        launches=3)
+        # the accumulator is read and written only where a window lies
+        nbytes = _nbytes(logits, imp) + 2 * int(covered.sum().item()) * classes * 4
+        print(f"    time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain {pms:.4f} ms; "
+              f"union {int(covered.sum().item())} voxels")
+        into = results if len(starts) == SW_BATCH else {}
+        _record(into, "blend", err=err, ms=ms, plain_ms=pms, nbytes=nbytes,
+                ops=2 * logits.numel(), peak=PEAK_F32)
+
+    # the weight map in the same pass, at the served chunk
+    starts = head_starts[:SW_BATCH]
+    acc0 = torch.randn((*head, NUM_CLASSES), generator=g).to(dev)
+    wacc0 = torch.rand((*head, 1), generator=g).to(dev)
+    logits = torch.randn((SW_BATCH, *ROI, NUM_CLASSES), generator=g).to(dev)
+    got, got_w = acc0.clone(), wacc0.clone()
+    want, want_w = acc0.clone(), wacc0.clone()
+    blend.accumulate_windows(got, logits, imp, starts, got_w)
+    blend.accumulate_windows_plain(want, logits, imp, starts, want_w)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want) and torch.equal(got_w, want_w)
+    ms = _graph_ms(torch, lambda: blend.accumulate_windows(got, logits, imp, starts, got_w))
+    pms = _graph_ms(torch, lambda: blend.accumulate_windows_plain(want, logits, imp, starts,
+                                                                  want_w))
+    print(f"  blend with the weight map in the same pass: acc and wacc bit-equal {ok}; kernel "
+          f"{ms:.4f} ms, plain (8 slice-adds) {pms:.4f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail("blend with the weight map differs from its plain version")
+
+
+def _ptxas_reports(lib: Path, name: str):
+    """[(the "Compiling entry function" line, registers, stack bytes, spill
+    bytes)] of every instantiation of kernel ``name``, from the build log
+    beside the library; fails when the log holds none."""
+    import re
+
+    log = lib.with_name(lib.stem + ".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or name not in line:
+            continue
+        text = " ".join(lines[i + 1: i + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        stack = re.search(r"(\d+) bytes stack frame", text)
+        found.append((line, int(regs.group(1)) if regs else -1,
+                      int(stack.group(1)) if stack else 0,
+                      sum(map(int, re.findall(r"(\d+) bytes spill", text)))))
+    if not found:
+        _fail(f"the build log holds no ptxas report for {name}")
+    return found
+
+
+def report_kernel_build(lib: Path, name: str) -> None:
+    """ptxas' registers, stack and spills of every instantiation of kernel
+    ``name``; spills fail."""
+    import re
+
+    found = _ptxas_reports(lib, name)
+    args = [m.group(1) if (m := re.search(name + r"I(.*?)EEv", line)) else ""
+            for line, _, _, _ in found]
+    print(f"  ptxas, {name}: {len(found)} instantiations, registers "
+          f"{min(f[1] for f in found)}-{max(f[1] for f in found)}, stack bytes "
+          f"{max(f[2] for f in found)}, spill bytes {sum(f[3] for f in found)}; "
+          + ", ".join(f"{a}:{f[1]}" for a, f in zip(args, found)))
+    if sum(f[3] for f in found):
+        _fail(f"{name} spills registers")
 
 
 def report_conv_build(lib: Path) -> None:
@@ -322,21 +441,12 @@ def report_conv_build(lib: Path) -> None:
     import shutil
 
     names = ("conv3_mma_kernel", "conv3_dw_mma_kernel")
-    log = lib.with_name(lib.stem + ".log")
-    lines = log.read_text().splitlines() if log.exists() else []
     for name in names:
         found = []
-        for i, line in enumerate(lines):
+        for line, regs, _, spill in _ptxas_reports(lib, name):
             m = re.search(name + r".*?(Dense|Phase)LayoutELi(\d+)ELi(\d+)", line)
-            if not m or "Compiling" not in line:
-                continue
-            text = " ".join(lines[i + 1: i + 4])
-            regs = re.search(r"Used (\d+) registers", text)
-            spill = re.findall(r"(\d+) bytes spill", text)
-            found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)),
-                          int(regs.group(1)) if regs else -1, sum(map(int, spill))))
-        if not found:
-            _fail(f"the build log holds no ptxas report for {name}")
+            if m:
+                found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)), regs, spill))
         print(f"  ptxas, {name}<layout, CK, NT>: {len(found)} instantiations, registers "
               f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
               f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
@@ -562,9 +672,15 @@ def check_aug_kernels(torch):
     plain version bit for bit (two products and one sum have no order to
     differ in), order 1 in f32 within 1e-6 * max|ref| (the plain version's
     matrix product may fuse the multiply and add). Each group takes the
-    plain version's output of the group before it. The recorded time is one
-    step's six launches: the bf16 image groups and the uint8 label groups."""
-    from segmantic_tpu_torch.ops import fused_shear, shear_resample
+    plain version's output of the group before it, prints its launch plan
+    beside the resident blocks per SM the card counts for it (at least two,
+    or the phase fails) and repeats its launch bit for bit. Times are device
+    times by CUDA-graph replay for the kernel (its wrapper takes the host as
+    long as the kernel takes the card) and eager calls for the plain version
+    (milliseconds long). The recorded time is one step's six launches: the
+    bf16 image groups and the uint8 label groups. Ragged, odd, 2D and int32
+    shapes (and one with lines beyond a warp's registers) run once, untimed."""
+    from segmantic_tpu_torch.ops import _cuda, fused_shear, shear_resample
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(7)
@@ -578,6 +694,22 @@ def check_aug_kernels(torch):
     x32 = torch.randn((samples, 1, *MARGIN_PATCH), generator=g).to(dev)
     labels = torch.randint(0, NUM_CLASSES, (samples, 1, *MARGIN_PATCH), generator=g,
                            dtype=torch.uint8).to(dev)
+    dtype_code = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.int32: 3}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_text(x, a_axis, b_axis, specs, order):
+        p = fused_shear.group_plan(tuple(x.shape[2:]), a_axis, b_axis, tuple(specs), x.dtype,
+                                   x.shape[0] * x.shape[1], x.data_ptr() % 16 == 0, sms)
+        card = _cuda.query("segk_shear_group_blocks_per_sm", dtype_code[x.dtype], p.wc, p.cp,
+                           order, p.threads, p.smem_bytes)
+        text = (f"{p.cp} plane{'s' if p.cp > 1 else ''} {p.passes[0]}x{p.passes[1]} in rows of "
+                f"{p.row_units} units of {p.unit_bytes} B (wc {p.wc}), {p.smem_bytes} B shared, "
+                f"{p.threads} threads, "
+                f"{'a block' if p.block_lines else 'a warp'} per line, grid {p.grid}, 16-byte "
+                f"rows in {p.vec_in} out {p.vec_out}, blocks per SM: plan {p.blocks_per_sm}, "
+                f"card {card}")
+        return p, card, text
+
     results = {}
     for label, x, order, bf16, timed in (("bf16 order 1", x32.bfloat16(), 1, True, True),
                                          ("f32 order 1", x32, 1, False, False),
@@ -593,15 +725,21 @@ def check_aug_kernels(torch):
             err = (got.float() - want.float()).abs().max().item()
             ref = want.float().abs().max().item()
             exact = torch.equal(got, want)
-            ok = exact if (order == 0 or bf16) else err <= 1e-6 * ref
-            ms, pms = _median_ms(torch, k), _median_ms(torch, p)
+            repeat = torch.equal(got, k())
+            ok = (exact if (order == 0 or bf16) else err <= 1e-6 * ref) and repeat
+            plan, card, text = plan_text(x, a_axis, b_axis, specs, order)
+            ms, pms = _graph_ms(torch, k), _median_ms(torch, p)
             print(f"  shear_group {label} group {gi} plane ({a_axis},{b_axis}) "
                   f"{tuple(x.shape)} -> {tuple(got.shape)}: max|d| {err:.3e} of max|ref| "
                   f"{ref:.3e}, bit-equal {exact} "
-                  f"(limit {'bit-equal' if order == 0 or bf16 else '1e-6 * max|ref|'}) "
-                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                  f"(limit {'bit-equal' if order == 0 or bf16 else '1e-6 * max|ref|'}), "
+                  f"repeated launch bit-equal {repeat} {'ok' if ok else 'FAIL'}; kernel "
+                  f"{ms:.4f} ms (CUDA graph replay), plain {pms:.4f} ms (eager)")
+            print(f"    {text}")
             if got.shape != want.shape or not ok:
                 _fail(f"shear_group {label} group {gi} disagrees with its plain version")
+            if min(plan.blocks_per_sm, card) < 2:
+                _fail(f"shear_group {label} group {gi}: fewer than two resident blocks per SM")
             if timed:
                 # per pass, two products and a sum per output voxel (order 1)
                 dims, outputs = list(x.shape[2:]), 0
@@ -612,6 +750,50 @@ def check_aug_kernels(torch):
                 _record(results, "shear_group", err=err, ms=ms, plain_ms=pms,
                         nbytes=_nbytes(x, got, c, zoom), ops=3 * outputs * order,
                         peak=PEAK_F32)
+            x = want.contiguous()
+
+    # odd shapes, untimed: ragged chunks of the third axis, odd extents (no
+    # 16-byte rows), 2D, int32, shrinking windows with the zoom folded in,
+    # lines beyond a warp's registers (a block per line), and an odd count of
+    # planes taken two a block
+    odd = [((20, 22, 24), (12, 12, 14), torch.bfloat16, 1, True),
+           ((15, 18, 17), None, torch.bfloat16, 1, True),
+           ((15, 18, 17), None, torch.uint8, 0, False),
+           ((21, 19, 10), (13, 11, 6), torch.int32, 0, False),
+           ((15, 18, 17), None, torch.float32, 1, False),
+           ((18, 21), (12, 13), torch.float32, 0, False),
+           ((300, 20, 6), None, torch.bfloat16, 1, True),
+           ((133, 20, 24), None, torch.bfloat16, 1, True),  # two planes a block, ragged pair
+           ((133, 20, 24), None, torch.uint8, 0, False)]
+    for full, out_shape, dtype, order, bf16 in odd:
+        n_rot = 3 if len(full) == 3 else 1
+        o_passes, o_divz, _, o_groups = shear_resample.chain_plan(full, n_rot, out_shape, 0.4, 0.8)
+        o_angles = (torch.rand((3, n_rot), generator=g) * 0.8 - 0.4).to(dev)
+        o_zoom = (torch.rand((3,), generator=g) * 0.5 + 0.8).to(dev)
+        o_coef = shear_resample.shear_coefficients(o_angles, o_zoom, o_passes, o_divz)
+        if dtype.is_floating_point:
+            x = torch.randn((3, 2, *full), generator=g).to(dev, dtype)
+        else:
+            x = torch.randint(0, 9, (3, 2, *full), generator=g).to(dev, dtype)
+        for gi, (a_axis, b_axis, specs) in enumerate(o_groups):
+            c = o_coef[:, 3 * gi: 3 * gi + 3].contiguous()
+            before = fused_shear.counter.count
+            got = fused_shear.shear_group(x, a_axis, b_axis, c, o_zoom, specs, order, bf16)
+            want = fused_shear.shear_group_plain(x, a_axis, b_axis, c, o_zoom, specs, order, bf16)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            exact = torch.equal(got, want)
+            ok = (exact if (order == 0 or bf16) else err <= 1e-6 * ref) \
+                and fused_shear.counter.count == before + 1
+            x5 = x if x.ndim == 5 else x.unsqueeze(-1)
+            _, _, text = plan_text(x5, a_axis, b_axis, specs, order)
+            print(f"  shear_group odd {str(dtype)[6:]} order {order} {tuple(x.shape)} -> "
+                  f"{tuple(got.shape)} plane ({a_axis},{b_axis}): max|d| {err:.3e}, bit-equal "
+                  f"{exact} {'ok' if ok else 'FAIL'}; {text}")
+            if got.shape != want.shape or not ok:
+                _fail(f"shear_group odd {dtype} {full} group {gi} disagrees with its plain "
+                      "version")
             x = want.contiguous()
     return results
 
@@ -1116,11 +1298,11 @@ def serve_requests(torch, ckpt: Path, work: Path):
     return seconds, launches, session
 
 
-def device_seconds_per_volume(torch, session) -> float:
+def device_seconds_per_volume(torch, session, sw_batch: int) -> float:
     """The sliding window alone on one z-scored 256 x 256 x 176 phantom already
-    on the host as an array: upload in bf16, 48 windows in 12 chunks through the
-    eval forward, blend; host clock around a run that ends in a synchronise,
-    median of 5 after one warm-up."""
+    on the host as an array: upload in bf16, 48 windows in chunks of
+    ``sw_batch`` through the eval forward, blend; host clock around a run that
+    ends in a synchronise, median of 5 after one warm-up."""
     import numpy as np
 
     from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
@@ -1132,7 +1314,7 @@ def device_seconds_per_volume(torch, session) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = sliding_window_inference(
-            vol, ROI, SW_BATCH, session.val_forward, overlap=0.25,
+            vol, ROI, sw_batch, session.val_forward, overlap=0.25,
             num_classes=NUM_CLASSES, device="cuda", wire_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -1200,6 +1382,8 @@ def main() -> None:
     lib = _cuda.build()
     print(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     report_conv_build(lib)
+    report_kernel_build(lib, "blend_kernel")
+    report_kernel_build(lib, "shear_group_kernel")
 
     # f32 comparisons hold the plain versions to full f32: cuDNN would use
     # TF32 for f32 convs by default
@@ -1213,7 +1397,7 @@ def main() -> None:
           "plain versions, batch 8")
     measured.update(check_train_kernels(torch))
     print("[aug-kernels] the shear-group kernel vs its plain version, three groups of the "
-          "144^3 -> 96^3 chain, 5 samples")
+          "144^3 -> 96^3 chain, 5 samples, each with its launch plan; odd shapes once")
     measured.update(check_aug_kernels(torch))
     print("[dice-kernels] the phase-Dice kernels vs their plain versions, "
           "xp (8,48,48,48,64), and the loss Function vs autograd")
@@ -1227,9 +1411,11 @@ def main() -> None:
         make_checkpoint(torch, ckpt)
         seconds, launches, session = serve_requests(torch, ckpt, work)
         print(f"  seconds per request: {[round(s, 3) for s in seconds]}")
-        print(f"  sliding window on the card, one 256x256x176 volume (upload, 12 chunks of "
-              f"4 x 96^3, blend): {device_seconds_per_volume(torch, session):.4f} s "
-              f"(host clock to a synchronise, median of 5)")
+        for sw_batch in (SW_BATCH, 16):  # the server's default, and the JAX benchmark's
+            print(f"  sliding window on the card, one 256x256x176 volume (upload, "
+                  f"{-(-48 // sw_batch)} chunks of {sw_batch} x 96^3, blend with the weight "
+                  f"map): {device_seconds_per_volume(torch, session, sw_batch):.4f} s "
+                  f"(host clock to a synchronise, median of 5)")
         print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
         parity(torch, ckpt, session)
         del session

@@ -6,7 +6,8 @@ the same separable Gaussian importance map and the same blend, on the
 unaligned grid the JAX package uses off the TPU (no channel padding, no grid
 quantisation). The volume and both accumulators live on the device; each
 chunk of ``sw_batch_size`` windows is gathered, run through the predictor and
-blended by the blend kernel (:mod:`..ops.blend`); the short last chunk is
+blended by the blend kernel (:mod:`..ops.blend`), which adds the importance
+map into the weight map in the same pass; the short last chunk is
 padded by repeating its last window and the duplicates' logits are dropped
 before blending. ``wire_dtype`` (e.g. ``torch.bfloat16``) casts the host
 volume before upload.
@@ -132,7 +133,6 @@ def sliding_window_inference(
         num_classes = predictor(_gather(vol, starts[:1], roi)).shape[-1]
     acc = torch.zeros(padded + (num_classes,), dtype=torch.float32, device=device)
     wacc = torch.zeros(padded + (1,), dtype=torch.float32, device=device)
-    imp = importance[..., None]
 
     for i in range(0, len(starts), sw_batch_size):
         chunk = starts[i:i + sw_batch_size]
@@ -142,9 +142,8 @@ def sliding_window_inference(
         else:
             chunk_run = chunk
         logits = predictor(_gather(vol, chunk_run, roi))[:n]
-        blend.accumulate_windows(acc, logits.float().contiguous(), importance, chunk)
-        for s in chunk:  # weight map: 1/C of the traffic, plain torch
-            wacc[s[0]:s[0] + roi[0], s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]] += imp
+        # one pass adds the logits into acc and the importance into the weight map
+        blend.accumulate_windows(acc, logits.float().contiguous(), importance, chunk, wacc)
 
     out = acc / wacc
     return out[lo[0]:lo[0] + spatial[0], lo[1]:lo[1] + spatial[1], lo[2]:lo[2] + spatial[2]]

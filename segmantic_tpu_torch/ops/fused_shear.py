@@ -9,20 +9,25 @@ production chain needs: per-sample coefficients, the zoom folded into a pass,
 and passes that emit only a center window (``ops/shear_resample.py``).
 
 ``shear_group`` launches ``csrc/shear_group.cu`` for CUDA tensors and runs
-:func:`shear_group_plain` (three ``shear_pass`` calls) for CPU tensors.
+:func:`shear_group_plain` (three ``shear_pass`` calls) for CPU tensors. The
+launch geometry is Python (:func:`group_plan`): a block holds one plane of
+one (sample, channel, chunk of the third axis) in one shared-memory buffer
+and runs the passes in place, a warp per line.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import dataclasses
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _cuda
 from .shear_resample import shear_pass
 
-__all__ = ["shear_group", "shear_group_plain", "counter"]
+__all__ = ["shear_group", "shear_group_plain", "group_plan", "GroupPlan", "counter"]
 
 counter = _cuda.LaunchCounter("shear_group")
 
@@ -31,6 +36,10 @@ PassSpec = Tuple[bool, Optional[int], Optional[int]]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.int32: 3}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may opt into (sm_90)
+_SMEM_PER_SM = 233472  # bytes of shared memory of one SM (sm_90)
+_SMEM_RESERVED = 1024  # what the system keeps of it per resident block
+_THREADS_PER_SM = 2048
+_LANE_OUTPUTS = 8  # outputs of one line a lane keeps in registers (kMaxPerLane)
 
 
 def shear_group_plain(x, a_axis: int, b_axis: int, coef, zoom,
@@ -42,6 +51,133 @@ def shear_group_plain(x, a_axis: int, b_axis: int, coef, zoom,
                        zoom=zoom if use_zoom else None,
                        frame_extent=frame if use_zoom else None)
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """How one group is launched. A block takes the (a, b) planes of one image
+    at ``wc * cp`` neighbours of the third axis: ``wc`` of them packed into
+    units of ``unit_bytes`` where that axis is the memory-minor one, else
+    ``cp`` planes side by side; all share their positions and weights. A
+    plane buffer has ``passes[0]`` rows of ``row_units`` units (padded to an
+    odd number of 32-bit words). ``block_lines``: lines too long for a warp's
+    registers go a block per line through ``scratch_units`` of scratch; else
+    the positions that an output index fixes lie in one f32 table per pass."""
+
+    passes: Tuple[int, ...]  # (n_in, n_other, n_out, use_zoom, frame) per pass
+    out_dims: Tuple[int, int, int]
+    in_strides: Tuple[int, int, int, int]  # elements: a, b, c, image
+    out_strides: Tuple[int, int, int, int]
+    wc: int
+    cp: int
+    unit_bytes: int
+    row_units: int
+    block_lines: bool
+    scratch_units: int
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int  # by shared memory and threads; registers are the card's to count
+    chunks: int  # blocks along the third axis
+    grid: int  # chunks * images
+    vec_in: bool  # 16-byte loads along the rows of x
+    vec_out: bool  # 16-byte stores along the rows of y
+
+
+def _passes(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[PassSpec]):
+    """The passes' extents (15 ints) and the output's spatial dims."""
+    ext = {a_axis: dims[a_axis], b_axis: dims[b_axis]}
+    passes: List[int] = []
+    for j, (use_zoom, frame, out_ext) in enumerate(specs):
+        sheared, other = (b_axis, a_axis) if j == 1 else (a_axis, b_axis)
+        n_in = ext[sheared]
+        n_out = n_in if out_ext is None else min(int(out_ext), n_in)
+        if n_in < 2 or n_out < 1 or (n_in - n_out) % 2:
+            raise ValueError(f"pass {j}: extent {n_in} -> {n_out} is not a center "
+                             "window of the same parity over at least 2 samples")
+        frame = n_in if frame is None else int(frame)
+        passes += [n_in, ext[other], n_out, int(bool(use_zoom)), frame]
+        ext[sheared] = n_out
+    out_dims = list(dims)
+    out_dims[a_axis], out_dims[b_axis] = ext[a_axis], ext[b_axis]
+    return tuple(passes), tuple(out_dims)
+
+
+def _layout(passes, wc: int, cp: int, item: int):
+    """(row_units, block_lines, scratch_units, smem_bytes) of ``cp`` planes of
+    ``wc``-element units."""
+    unit = wc * item
+    longest = max(passes[2], passes[7], passes[12])
+    block_lines = longest > 32 * _LANE_OUTPUTS
+    row_bytes = -(-passes[1] * unit // 4) * 4
+    if (row_bytes // 4) % 2 == 0:  # an odd number of words: columns hit distinct banks
+        row_bytes += 4
+    row_units = row_bytes // unit
+    scratch = cp * longest if block_lines else 0
+    # behind the planes: the scratch lines, or one f32 per output index of each pass
+    behind = scratch * unit if block_lines else 4 * (passes[2] + passes[7] + passes[12])
+    return row_units, block_lines, scratch, cp * passes[0] * row_units * unit + behind
+
+
+def _blocks_by_smem(smem_bytes: int) -> int:
+    return _SMEM_PER_SM // (smem_bytes + _SMEM_RESERVED)
+
+
+@functools.lru_cache(maxsize=64)
+def group_plan(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[PassSpec],
+               dtype: torch.dtype, images: int = 1, aligned: bool = True,
+               sms: int = 132) -> GroupPlan:
+    """The launch plan of one group over ``images`` volumes of spatial extents
+    ``dims`` (three; a 2D plane has a third extent of 1) on a card of ``sms``
+    SMs. ``aligned``: x starts on a 16-byte boundary (y, allocated by the
+    wrapper, does)."""
+    c_axis = 3 - a_axis - b_axis
+    passes, out_dims = _passes(dims, a_axis, b_axis, specs)
+    item = torch.empty((), dtype=dtype).element_size()
+    nc = dims[c_axis]
+
+    def strides(d):
+        st = [d[1] * d[2], d[2], 1]
+        return (st[a_axis], st[b_axis], st[c_axis], d[0] * d[1] * d[2])
+
+    # where the third axis is the memory-minor one a block takes a unit of up
+    # to 4 bytes of it, else two planes: the widest that leaves two blocks on
+    # an SM and two blocks for every SM, else the widest that fits at all
+    widest = max(1, 4 // item) if c_axis == 2 else 1
+    while widest > nc:
+        widest //= 2
+    shapes = [(w, 1) for w in (4, 2) if w <= widest]
+    if widest == 1 and nc > 1:
+        shapes.append((1, 2))
+    shapes.append((1, 1))
+    fits = [wp for wp in shapes if _layout(passes, *wp, item)[3] <= _SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"a {passes[0]} x {passes[1]} plane of {dtype} needs "
+            f"{_layout(passes, 1, 1, item)[3]} bytes of shared memory; a block has {_SMEM_LIMIT}")
+    good = [(w, p) for w, p in fits
+            if _blocks_by_smem(_layout(passes, w, p, item)[3]) >= 2
+            and (p == 1 or images * -(-nc // p) >= 2 * sms)]
+    wc, cp = (good or fits)[0]
+    row_units, block_lines, scratch, smem = _layout(passes, wc, cp, item)
+    by_smem = _blocks_by_smem(smem)
+    threads = 256 if by_smem >= 4 and not block_lines else 512
+    in_st, out_st = strides(dims), strides(out_dims)
+
+    def rows_of_16_bytes(st, width) -> bool:
+        steps = (st[0], st[3]) + ((st[2],) if nc > 1 else ())  # between the rows' starts
+        return (wc == 1 and st[1] == 1 and (width * item) % 16 == 0
+                and all((s * item) % 16 == 0 for s in steps))
+
+    chunks = -(-nc // (wc * cp))
+    return GroupPlan(
+        passes=passes, out_dims=out_dims, in_strides=in_st, out_strides=out_st, wc=wc,
+        cp=cp, unit_bytes=wc * item, row_units=row_units, block_lines=block_lines,
+        scratch_units=scratch, threads=threads, smem_bytes=smem,
+        blocks_per_sm=min(by_smem, _THREADS_PER_SM // threads), chunks=chunks,
+        grid=chunks * images,
+        vec_in=aligned and rows_of_16_bytes(in_st, passes[1]),
+        vec_out=rows_of_16_bytes(out_st, passes[7]),
+    )
 
 
 def shear_group(
@@ -80,47 +216,17 @@ def shear_group(
     _cuda.check_cuda(coef, "coef")
     _cuda.check_cuda(zoom, "zoom")
 
-    c_axis = 3 - a_axis - b_axis
-    dims = list(x.shape[2:])
-    ext = {a_axis: dims[a_axis], b_axis: dims[b_axis]}
-    passes = []
-    for j, (use_zoom, frame, out_ext) in enumerate(specs):
-        sheared, other = (b_axis, a_axis) if j == 1 else (a_axis, b_axis)
-        n_in = ext[sheared]
-        n_out = n_in if out_ext is None else min(int(out_ext), n_in)
-        if n_in < 2 or n_out < 1 or (n_in - n_out) % 2:
-            raise ValueError(f"pass {j}: extent {n_in} -> {n_out} is not a center "
-                             "window of the same parity over at least 2 samples")
-        frame = n_in if frame is None else int(frame)
-        passes += [n_in, ext[other], n_out, int(bool(use_zoom)), frame]
-        ext[sheared] = n_out
-    out_dims = list(dims)
-    out_dims[a_axis], out_dims[b_axis] = ext[a_axis], ext[b_axis]
-
-    def strides(d):
-        st = [d[1] * d[2], d[2], 1]
-        return [st[a_axis], st[b_axis], st[c_axis], d[0] * d[1] * d[2]]
-
-    # a block holds the input plane and pass 0's output in shared memory; where
-    # the third axis is the memory-minor one it takes a chunk of it, at least
-    # 4 bytes wide, as far as the buffers leave room
-    plane_elems = passes[0] * passes[1] + passes[2] * passes[1]
-    item = x.element_size()
-    wc = max(1, 4 // item) if c_axis == 2 else 1
-    wc = min(wc, dims[c_axis])
-    while wc > 1 and plane_elems * wc * item > _SMEM_LIMIT:
-        wc //= 2
-    if plane_elems * wc * item > _SMEM_LIMIT:
-        raise ValueError(
-            f"a {passes[0]} x {passes[1]} plane of {x.dtype} needs "
-            f"{plane_elems * item} bytes of shared memory; a block has {_SMEM_LIMIT}")
-
-    y = torch.empty((x.shape[0], x.shape[1], *out_dims), dtype=x.dtype, device=x.device)
+    images = x.shape[0] * x.shape[1]
+    p = group_plan(tuple(x.shape[2:]), a_axis, b_axis, tuple(map(tuple, specs)), x.dtype, images,
+                   x.data_ptr() % 16 == 0,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    y = torch.empty((x.shape[0], x.shape[1], *p.out_dims), dtype=x.dtype, device=x.device)
     _cuda.launch(
         "segk_shear_group", x.data_ptr(), y.data_ptr(), coef.data_ptr(), zoom.data_ptr(),
-        (ctypes.c_int * 15)(*passes), (ctypes.c_int * 8)(*strides(dims), *strides(out_dims)),
-        _DTYPES[x.dtype], x.shape[0] * x.shape[1], x.shape[1], dims[c_axis], wc, order,
-        int(bool(bf16) and order == 1),
+        (ctypes.c_int * 15)(*p.passes), (ctypes.c_int * 8)(*p.in_strides, *p.out_strides),
+        _DTYPES[x.dtype], images, x.shape[1], x.shape[2 + 3 - a_axis - b_axis], p.wc, p.cp, order,
+        int(bool(bf16) and order == 1), p.row_units, int(p.block_lines), p.threads,
+        int(p.vec_in), int(p.vec_out), p.smem_bytes,
     )
     counter.count += 1
     return y.squeeze(-1) if squeeze else y

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "rotation_matrix", "shear_pass", "scale_pass", "rotate_zoom_shear",
+    "rotation_matrix", "shear_pass", "shear_positions", "scale_pass", "rotate_zoom_shear",
     "center_crop", "shear_coefficients", "chain_plan",
 ]
 
@@ -106,6 +106,26 @@ def _per_sample(v, batch: int, device) -> torch.Tensor:
     return v.expand(batch) if v.ndim == 0 else v
 
 
+def shear_positions(na: int, nb: int, m: int, s: torch.Tensor, zoom=None,
+                    frame_extent: Optional[int] = None) -> torch.Tensor:
+    """Input a-coordinates of a shear pass, (S, M, NB) f32: output index o of
+    the center window of extent ``m`` on line ``b`` reads the line of extent
+    ``na`` at ``[s, o, b]``. ``s`` and ``zoom`` are (S,) f32 tensors."""
+    dev = s.device
+    s = s[:, None, None]
+    b_rel = torch.arange(nb, dtype=torch.float32, device=dev) - _center(nb)
+    o_glob = torch.arange(m, dtype=torch.float32, device=dev) + float((na - m) // 2)
+    if zoom is None:
+        return o_glob[None, :, None] - s * b_rel[None, None, :]
+    z = zoom[:, None, None]
+    frame = na if frame_extent is None else frame_extent
+    off_in = float((frame - na) // 2)
+    c_f = _center(frame)
+    o_full = o_glob + off_in
+    pos_full = (o_full[None, :, None] - c_f) / z + c_f - s * b_rel[None, None, :]
+    return pos_full - off_in
+
+
 def shear_pass(
     x: torch.Tensor, a_axis: int, b_axis: int, s, order: int,
     out_extent: Optional[int] = None, bf16: bool = False,
@@ -127,20 +147,9 @@ def shear_pass(
     na, nb = x.shape[a2], x.shape[b2]
     m = na if out_extent is None else min(out_extent, na)
     dev = x.device
-    s = _per_sample(s, batch, dev)[:, None, None]
-
-    b_rel = torch.arange(nb, dtype=torch.float32, device=dev) - _center(nb)
-    o_glob = torch.arange(m, dtype=torch.float32, device=dev) + float((na - m) // 2)
-    if zoom is None:
-        pos = o_glob[None, :, None] - s * b_rel[None, None, :]  # (S, M, NB)
-    else:
-        z = _per_sample(zoom, batch, dev)[:, None, None]
-        frame = na if frame_extent is None else frame_extent
-        off_in = float((frame - na) // 2)
-        c_f = _center(frame)
-        o_full = o_glob + off_in
-        pos_full = (o_full[None, :, None] - c_f) / z + c_f - s * b_rel[None, None, :]
-        pos = pos_full - off_in
+    pos = shear_positions(
+        na, nb, m, _per_sample(s, batch, dev),
+        None if zoom is None else _per_sample(zoom, batch, dev), frame_extent)
 
     w = _interp_matrix(pos.transpose(1, 2), na, order)  # (S, NB, M, NA_in)
     letters = "cdefgh"[: x.ndim - 1]

@@ -19,7 +19,9 @@ and ``train`` with the JAX package's keyword signature plus ``device``.
   hand-written kernels, forward and backward.
 - Validation: sliding-window inference (roi 160^3) through the folded
   executor + Dice, the LR scheduler stepped per validation epoch, top-3
-  checkpoints by val_dice plus ``last.ckpt``, early stopping.
+  checkpoints by val_dice plus ``last.ckpt``, early stopping; the epoch's
+  scalars go to ``history.json`` and to TensorBoard under ``output_dir/logs``
+  (a warning when no writer package is installed).
 
 Options of the JAX ``train()`` that the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item; nothing is skipped
@@ -345,6 +347,34 @@ def _check_ported(*, preprocessing, augmentation, arch, model_parallel, accumula
         raise _not_ported(f"val_blend_mode={val_blend_mode!r}", "train() extras")
 
 
+_TB_TAGS = ("train_loss", "val_loss", "val_dice", "lr", "train_voxels_per_sec")
+
+
+def _make_tb_writer(output_dir: Path):
+    """TensorBoard writer for ``output_dir/logs`` (``tensorboardX``, else
+    ``torch.utils.tensorboard``), or None with a warning: the scalars are never
+    dropped silently. Both packages are optional, so they are imported here."""
+    logs = str(Path(output_dir) / "logs")
+    errors = []
+    try:
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(logdir=logs)
+    except Exception as err:
+        errors.append(f"tensorboardX: {err}")
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=logs)
+    except Exception as err:
+        errors.append(f"torch.utils.tensorboard: {err}")
+    warnings.warn(
+        f"no TensorBoard writer available ({'; '.join(errors)}) — scalar logs will "
+        "only go to history.json and the console"
+    )
+    return None
+
+
 def train(
     *,
     datalist: Optional[Path] = None,
@@ -457,6 +487,7 @@ def train(
 
     best_dice, best_epoch, since_best = 0.0, -1, 0
     history: List[Dict[str, float]] = []
+    writer = _make_tb_writer(output_dir)
     loader = PrefetchLoader(sampler)
     try:
         for epoch in range(max_epochs):
@@ -498,6 +529,9 @@ def train(
                 "train_voxels_per_sec": voxels_per_sec,
             }
             history.append(record)
+            if writer is not None:
+                for tag in _TB_TAGS:
+                    writer.add_scalar(tag, record[tag], epoch)
             print(f"epoch {epoch}: train_loss={epoch_loss:.4f} val_loss={val_loss:.4f} "
                   f"val_dice={val_dice:.4f} lr={lr:.2e}")
 
@@ -520,6 +554,8 @@ def train(
                 break
     finally:
         loader.stop()
+        if writer is not None:
+            writer.close()
 
     module.eval().requires_grad_(False)
     (output_dir / "history.json").write_text(json.dumps(history, cls=PathEncoder, indent=2))

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from segmantic_tpu_torch.infer.sliding_window import window_starts
 from segmantic_tpu_torch.ops import (
     _cuda, blend, fused_conv, fused_shear, phase_conv, phase_dice, shear_resample,
 )
@@ -158,6 +159,99 @@ def test_blend_bit_equal(cuda, starts):
     torch.cuda.synchronize()
     assert blend.counter.count == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("classes", [8, 5, 3, 4])  # float4 route, scalar route
+@pytest.mark.parametrize("volume,roi,n_windows", [
+    ((82, 82, 64), (32, 32, 24), 16),  # a 16-window chunk
+    ((50, 44, 41), (32, 32, 24), 3),  # a short chunk, every window snapped to an edge
+    ((40, 36, 30), (8, 10, 6), 40),  # more windows than one launch takes
+])
+def test_blend_union_shapes(cuda, volume, roi, n_windows, classes):
+    """Bit-equal to the sequential loop, the accumulator outside the windows'
+    union untouched (a sentinel survives), one launch per MAX_WINDOWS windows,
+    and the weight map in the same pass."""
+    g = torch.Generator().manual_seed(19)
+    grid = np.asarray(window_starts(volume, roi, 0.25))
+    if n_windows <= len(grid):
+        starts = grid[-n_windows:]
+    else:
+        extra = np.stack([torch.randint(0, v - r + 1, (n_windows - len(grid),), generator=g).numpy()
+                          for v, r in zip(volume, roi)], axis=1)
+        starts = np.concatenate([grid, extra])
+    covered = torch.zeros(volume, dtype=torch.bool, device=cuda)
+    for s in starts:
+        covered[tuple(slice(int(a), int(a) + r) for a, r in zip(s, roi))] = True
+    acc = _randn(g, *volume, classes)
+    acc[~covered] = 777.0
+    wacc = torch.rand((*volume, 1), generator=g).to(cuda)
+    logits = _randn(g, len(starts), *roi, classes)
+    imp = torch.rand(roi, generator=g).to(cuda)
+    blend.counter.reset()
+    got, got_w = acc.clone(), wacc.clone()
+    blend.accumulate_windows(got, logits, imp, starts, got_w)
+    assert blend.counter.count == -(-len(starts) // blend.MAX_WINDOWS)
+    want, want_w = acc.clone(), wacc.clone()
+    blend.accumulate_windows_plain(want, logits, imp, starts, want_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_w, want_w)
+    assert bool((got[~covered] == 777.0).all())
+    again = blend.accumulate_windows(acc.clone(), logits, imp, starts)
+    assert torch.equal(again, want)  # repeated, and without the weight map
+
+
+def test_blend_more_channel_units_than_a_block_is_wide(cuda):
+    """136 channels are 34 float4 a voxel: 32 threads side by side, then a loop."""
+    g = torch.Generator().manual_seed(25)
+    roi = (8, 8, 8)
+    starts = np.array([[0, 0, 0], [5, 6, 7], [12, 12, 12]])
+    acc = _randn(g, 20, 20, 20, 136)
+    wacc = torch.rand((20, 20, 20, 1), generator=g).to(cuda)
+    logits = _randn(g, 3, *roi, 136)
+    imp = torch.rand(roi, generator=g).to(cuda)
+    assert blend.launch_shape(136) == (4, (32, 1, 8))
+    want, want_w = acc.clone(), wacc.clone()
+    blend.accumulate_windows_plain(want, logits, imp, starts, want_w)
+    blend.accumulate_windows(acc, logits, imp, starts, wacc)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want) and torch.equal(wacc, want_w)
+
+
+def test_blend_unaligned_views_take_the_scalar_route(cuda):
+    g = torch.Generator().manual_seed(20)
+    roi = (8, 8, 8)
+    starts = np.array([[0, 0, 0], [4, 4, 4]])
+    store = _randn(g, 12 * 12 * 12 * 4 + 1)
+    acc = store[1:].view(12, 12, 12, 4)  # 4 bytes off a 16-byte boundary
+    assert acc.data_ptr() % 16 != 0 and acc.is_contiguous()
+    logits = _randn(g, 2, *roi, 4)
+    imp = torch.rand(roi, generator=g).to(cuda)
+    want = blend.accumulate_windows_plain(acc.clone(), logits, imp, starts)
+    got = blend.accumulate_windows(acc, logits, imp, starts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_blend_is_captured_in_a_cuda_graph(cuda):
+    """A call uploads nothing: it records into a graph and replays."""
+    g = torch.Generator().manual_seed(22)
+    roi = (16, 16, 16)
+    starts = np.array([[0, 0, 0], [8, 8, 8], [16, 16, 16]])
+    acc = _randn(g, 32, 32, 32, 8)
+    logits = _randn(g, 3, *roi, 8)
+    imp = torch.rand(roi, generator=g).to(cuda)
+    want = acc.clone()
+    for _ in range(3):  # the warm-up call, then two replays
+        blend.accumulate_windows_plain(want, logits, imp, starts)
+    blend.accumulate_windows(acc, logits, imp, starts)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        blend.accumulate_windows(acc, logits, imp, starts)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(acc, want)
 
 
 @pytest.mark.parametrize("dtype,tol", DW_DTYPES)
@@ -368,6 +462,94 @@ def test_shear_group(cuda, full, out_shape, dtype, order, bf16):
         assert torch.equal(got, fused_shear.shear_group(x, a_axis, b_axis, c, zoom, specs,
                                                         order, bf16))
         x = want.contiguous()  # the next group's input, as the chain hands it on
+
+
+@pytest.mark.parametrize("dtype,order,bf16", [
+    (torch.float32, 1, False), (torch.bfloat16, 1, True), (torch.float32, 0, False),
+    (torch.bfloat16, 0, False), (torch.uint8, 0, False), (torch.int32, 0, False),
+])
+@pytest.mark.parametrize("full,out_shape", [
+    ((300, 20, 6), None),  # lines beyond a warp's registers: a block per line
+    ((18, 21), (12, 13)),  # 2D
+    ((9, 11, 3), None),  # ragged chunks of the third axis: 3 = 2 + 1 (bf16), 3 of 4 (uint8)
+    ((64, 48, 32), (40, 30, 20)),  # 16-byte rows in and out, shrinking windows
+    ((133, 20, 24), None),  # two planes a block where blocks abound: 133 = 66 pairs + 1
+])
+def test_shear_group_planned_shapes(cuda, full, out_shape, dtype, order, bf16):
+    g = torch.Generator().manual_seed(23)
+    n_rot = 3 if len(full) == 3 else 1
+    passes, divz, _, groups = shear_resample.chain_plan(full, n_rot, out_shape, 0.4, 0.8)
+    angles = (torch.rand((2, n_rot), generator=g) * 0.8 - 0.4).to(cuda)
+    zoom = (torch.rand((2,), generator=g) * 0.5 + 0.8).to(cuda)
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)
+    if dtype.is_floating_point:
+        x = _randn(g, 2, 2, *full).to(dtype)
+    else:
+        x = torch.randint(0, 9, (2, 2, *full), generator=g).to(cuda, dtype)
+    for i, (a_axis, b_axis, specs) in enumerate(groups):
+        c = coef[:, 3 * i: 3 * i + 3].contiguous()
+        fused_shear.counter.reset()
+        got = fused_shear.shear_group(x, a_axis, b_axis, c, zoom, specs, order, bf16)
+        torch.cuda.synchronize()
+        assert fused_shear.counter.count == 1
+        want = fused_shear.shear_group_plain(x, a_axis, b_axis, c, zoom, specs, order, bf16)
+        assert got.shape == want.shape and got.dtype == dtype
+        if order == 0 or bf16:
+            assert torch.equal(got, want), (i, (got.float() - want.float()).abs().max())
+        else:
+            _close(got, want, 1e-6)
+        x = want.contiguous()
+
+
+def test_shear_group_takes_an_unaligned_view(cuda):
+    """x off a 16-byte boundary: element loads, the same result."""
+    g = torch.Generator().manual_seed(24)
+    x, coef, zoom, groups = _group_inputs(g, (16, 16, 16), None, 2, 1, torch.bfloat16, cuda)
+    store = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    view = store[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    a_axis, b_axis, specs = groups[0]
+    c = coef[:, :3].contiguous()
+    got = fused_shear.shear_group(view, a_axis, b_axis, c, zoom, specs, 1, True)
+    assert torch.equal(got, fused_shear.shear_group(x, a_axis, b_axis, c, zoom, specs, 1, True))
+    assert torch.equal(got, fused_shear.shear_group_plain(x, a_axis, b_axis, c, zoom, specs, 1,
+                                                          True))
+
+
+def test_shear_group_plans_leave_two_blocks_per_sm_on_the_card(cuda):
+    """The 144^3 -> 96^3 chain's three groups, every type: the resident blocks
+    per SM the runtime counts (registers included) are at least two and no
+    more than the plan's count by shared memory and threads."""
+    _, _, _, groups = shear_resample.chain_plan((144,) * 3, 3, (96,) * 3, 0.4, 0.8)
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.int32: 3}
+    for dtype, code in codes.items():
+        dims = (144, 144, 144)
+        for a_axis, b_axis, specs in groups:
+            p = fused_shear.group_plan(dims, a_axis, b_axis, specs, dtype, 5)
+            for order in ((0, 1) if dtype.is_floating_point else (0,)):
+                card = _cuda.query("segk_shear_group_blocks_per_sm", code, p.wc, p.cp, order,
+                                   p.threads, p.smem_bytes)
+                assert 2 <= card <= p.blocks_per_sm, (dtype, dims, order, card, p)
+            dims = p.out_dims
+
+
+def test_shear_launcher_refuses_a_plan_with_another_shared_memory_sum(cuda):
+    import ctypes
+
+    x = torch.zeros((1, 1, 16, 16, 16), dtype=torch.bfloat16, device=cuda)
+    y = torch.zeros_like(x)
+    coef, zoom = torch.zeros((1, 3), device=cuda), torch.ones((1,), device=cuda)
+    specs = ((False, None, None),) * 3
+    p = fused_shear.group_plan((16, 16, 16), 1, 2, specs, torch.bfloat16, 1)
+    passes = (ctypes.c_int * 15)(*p.passes)
+    strides = (ctypes.c_int * 8)(*p.in_strides, *p.out_strides)
+    args = (x.data_ptr(), y.data_ptr(), coef.data_ptr(), zoom.data_ptr(), passes, strides,
+            1, 1, 1, 16, p.wc, p.cp, 1, 1, p.row_units, int(p.block_lines), p.threads,
+            int(p.vec_in), int(p.vec_out))
+    _cuda.launch("segk_shear_group", *args, p.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_shear_group", *args, p.smem_bytes + 16)
 
 
 def test_shear_group_refuses(cuda):

@@ -112,6 +112,51 @@ def test_train_writes_history_and_checkpoints(trained):
     assert 1 <= len(kept) <= 3
 
 
+TB_TAGS = {"train_loss", "val_loss", "val_dice", "lr", "train_voxels_per_sec"}
+
+
+def _read_scalars(logs):
+    """{tag: [(step, value), ...]} from the event files under ``logs`` (TFRecord
+    framing: u64 length, u32 crc, payload, u32 crc)."""
+    import struct
+
+    from tensorboardX.proto import event_pb2
+
+    scalars = {}
+    for path in sorted(logs.glob("events.out.tfevents.*")):
+        blob, pos = path.read_bytes(), 0
+        while pos < len(blob):
+            (n,) = struct.unpack_from("<Q", blob, pos)
+            event = event_pb2.Event.FromString(blob[pos + 12: pos + 12 + n])
+            pos += 12 + n + 4
+            for v in event.summary.value:
+                scalars.setdefault(v.tag, []).append((event.step, v.simple_value))
+    return scalars
+
+
+def test_train_writes_the_tensorboard_scalars_of_the_jax_trainer(trained):
+    """The five tags the JAX package's train() writes (trainer.py: add_scalar),
+    one point per epoch, equal to history.json up to the f32 the file stores."""
+    out, result = trained
+    scalars = _read_scalars(out / "logs")
+    assert set(scalars) == TB_TAGS
+    for tag in TB_TAGS:
+        assert [step for step, _ in scalars[tag]] == [0, 1]
+        np.testing.assert_allclose([v for _, v in scalars[tag]],
+                                   [rec[tag] for rec in result.history], rtol=1e-6)
+
+
+def test_train_warns_when_no_tensorboard_writer_can_be_had(phantoms, tmp_path, monkeypatch):
+    root, _, _ = phantoms
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # import raises ImportError
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    with pytest.warns(UserWarning, match="no TensorBoard writer available"):
+        result = trainer.train(image_dir=root / "image", labels_dir=root / "label",
+                               output_dir=tmp_path / "run", max_epochs=1, device="cpu", **SMALL)
+    assert len(result.history) == 1 and (tmp_path / "run" / "last.ckpt").exists()
+    assert not list((tmp_path / "run").glob("logs/events*"))
+
+
 def test_jax_package_loads_the_port_checkpoint(trained):
     out, result = trained
     x = np.random.default_rng(1).standard_normal((1, 16, 16, 16, 1)).astype(np.float32)
