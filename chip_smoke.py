@@ -7,7 +7,9 @@ shear-group and phase-Dice kernels against theirs, ``train()`` with the
 flagship defaults on synthetic phantoms, step time and learning on one fixed
 batch, one f32 train step on the card against the CPU, and ``train()`` with
 the device augmentation (margin patches, rotation + zoom, intensity ops) with
-the augmentation's own time beside the augmented step.
+the augmentation's own time beside the augmented step, and ``train()`` driven
+by ``preprocessing`` / ``augmentation`` config dicts (the host pipeline's
+milliseconds a batch beside the step's).
 
     python3 chip_smoke.py
 
@@ -430,6 +432,36 @@ def report_kernel_build(lib: Path, name: str) -> None:
         _fail(f"{name} spills registers")
 
 
+def report_dice_sass(lib: Path) -> None:
+    """The SASS instruction counts of the flagship instantiations (bf16, 8
+    class lanes) of the two Dice kernels, from the toolkit's ``cuobjdump``:
+    all instructions of the function (the sums' round of four voxels, its
+    one-voxel tail and its epilogue; dx's one voxel), and those of the
+    special-function unit (MUFU: the exponentials and the reciprocal).
+    Fails where the counts cannot be read."""
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        _fail("cuobjdump not found: the Dice kernels' SASS cannot be counted")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    names = ("dice_sums_kernelI13__nv_bfloat16Li8E", "dice_dx_kernelI13__nv_bfloat16Li8E")
+    counts = {name: [0, 0] for name in names}
+    inside = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = next((name for name in names if name in line), None)
+        elif inside and "/*" in line and ";" in line:  # an instruction line
+            counts[inside][0] += 1
+            counts[inside][1] += " MUFU." in line
+    for name, (total, mufu) in counts.items():
+        print(f"  SASS of {name.split('I13')[0]}<bf16, 8>: {total} instructions in the "
+              f"function, {mufu} MUFU")
+        if not total or not mufu:
+            _fail(f"no SASS of {name} in the library")
+
+
 def report_conv_build(lib: Path) -> None:
     """What ptxas reports for the tensor-core kernels (the conv body
     ``conv3_mma_kernel`` and the weight-gradient body ``conv3_dw_mma_kernel``:
@@ -801,15 +833,20 @@ def check_aug_kernels(torch):
 def check_dice_kernels(torch):
     """``dice_phase_sums`` and ``dice_phase_dx`` at the train step's shapes,
     xp (8, 48, 48, 48, 64) in f32 and bf16 with uint8 labels, against their
-    plain versions (sums 1e-5 relative to each sum's largest entry; dx 1e-3 *
-    max|ref| in f32, 2e-2 in bf16, whose output rounds once), a repeated launch
-    bit-equal, and the loss ``Function`` against autograd through the plain
-    sums (loss 1e-5 relative; gradient as dx). Times are the bf16 ones (the
-    train step's type)."""
+    plain versions (sums 1e-5 relative to each sum's largest entry, the counts
+    exact; dx 1e-3 * max|ref| in f32, 2e-2 in bf16, whose output rounds once),
+    a repeated launch bit-equal, one ragged shape (a voxel count that is no
+    multiple of the unroll, of the block or of P), and the loss ``Function``
+    against autograd through the plain sums (loss 1e-5 relative; gradient as
+    dx). Times are the bf16 ones (the train step's type), by CUDA-graph replay
+    (``_graph_ms``: the sums are two launches and two allocations a call, so an
+    eager call times its wrapper; the eager figure is printed once beside it);
+    the plain versions are timed eager."""
     from segmantic_tpu_torch.ops import phase_dice
     from segmantic_tpu_torch.train import losses
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator().manual_seed(8)
     shape, n_phase = (TRAIN_BATCH, DICE_EXTENT, DICE_EXTENT, DICE_EXTENT), 8
     lanes = n_phase * NUM_CLASSES
@@ -818,23 +855,34 @@ def check_dice_kernels(torch):
                        dtype=torch.uint8).to(dev)
     hot = torch.randn((TRAIN_BATCH, lanes), generator=g).to(dev)
     cold = torch.randn((TRAIN_BATCH, lanes), generator=g).to(dev)
+    plan = phase_dice.sums_plan(TRAIN_BATCH, DICE_EXTENT ** 3 * n_phase, NUM_CLASSES, sms)
+    print(f"  dice_phase_sums plan on {sms} SMs: grid ({plan.blocks}, {TRAIN_BATCH}) of "
+          f"{phase_dice.THREADS} threads, {plan.voxels_per_block} voxels a block "
+          f"({plan.voxels_per_block // phase_dice.THREADS} a thread), {plan.unroll} a round")
+
+    def check_sums(xp, yp, label):
+        got = phase_dice.dice_phase_sums(xp, yp)
+        want = phase_dice.dice_phase_sums_plain(xp, yp)
+        torch.cuda.synchronize()
+        rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, phase_dice.dice_phase_sums(xp, yp)))
+        counts = torch.equal(got[2], want[2])
+        ok = max(rel) <= 1e-5 and same and counts
+        print(f"  dice_phase_sums {label}: rel diff (intersection, prob sum, count) "
+              f"{[f'{r:.2e}' for r in rel]} (limit 1e-5), counts exact {counts}, repeated "
+              f"launch bit-equal {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dice_phase_sums {label} disagrees with its plain version")
+        return got, err
+
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         xp = x32.to(dtype)
         name = str(dtype)[6:]
         sums = lambda: phase_dice.dice_phase_sums(xp, yp)  # noqa: E731
         sums_plain = lambda: phase_dice.dice_phase_sums_plain(xp, yp)  # noqa: E731
-        got, want = sums(), sums_plain()
-        torch.cuda.synchronize()
-        rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want)]
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        same = all(torch.equal(a, b) for a, b in zip(got, sums()))
-        ok = max(rel) <= 1e-5 and same
-        print(f"  dice_phase_sums {name}: rel diff (intersection, prob sum, count) "
-              f"{[f'{r:.2e}' for r in rel]} (limit 1e-5), repeated launch bit-equal {same} "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            _fail(f"dice_phase_sums {dtype} disagrees with its plain version")
+        got, err = check_sums(xp, yp, name)
         dx = lambda: phase_dice.dice_phase_dx(xp, yp, hot, cold)  # noqa: E731
         dx_plain = lambda: phase_dice.dice_phase_dx_plain(xp, yp, hot, cold)  # noqa: E731
         got_dx, want_dx = dx(), dx_plain()
@@ -849,16 +897,27 @@ def check_dice_kernels(torch):
         if not ok:
             _fail(f"dice_phase_dx {dtype} disagrees with its plain version")
         if dtype == torch.bfloat16:
-            ms, pms = _median_ms(torch, sums), _median_ms(torch, sums_plain)
-            print(f"    bf16 time: sums kernel {ms:.4f} ms, plain {pms:.4f} ms")
-            # per class lane: exp, max, sum, divide, and the three accumulations
+            ms, pms = _graph_ms(torch, sums), _median_ms(torch, sums_plain)
+            print(f"    bf16 time: sums kernel {ms:.4f} ms by graph replay (sums + finalize; "
+                  f"an eager call {_median_ms(torch, sums):.4f} ms), plain {pms:.4f} ms")
+            # per class lane: exp, max, sum, multiply, and the three accumulations
             _record(results, "dice_phase_sums", err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(xp, yp, *got), ops=7 * xp.numel(), peak=PEAK_F32)
-            ms, pms = _median_ms(torch, dx), _median_ms(torch, dx_plain)
-            print(f"    bf16 time: dx kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            ms, pms = _graph_ms(torch, dx), _median_ms(torch, dx_plain)
+            print(f"    bf16 time: dx kernel {ms:.4f} ms by graph replay (an eager call "
+                  f"{_median_ms(torch, dx):.4f} ms), plain {pms:.4f} ms")
             _record(results, "dice_phase_dx", err=dx_err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(xp, yp, hot, cold, got_dx), ops=9 * xp.numel(),
                     peak=PEAK_F32)
+
+    # ragged: 3 x 37 x 41 x 43 coarse voxels of 8 phases: 521,848 voxels a
+    # sample, no multiple of a round (1024) or of a block's run
+    ragged = (3, 37, 41, 43)
+    xr = (torch.randn((*ragged, lanes), generator=g) * 2.0).to(dev)
+    yr = torch.randint(0, NUM_CLASSES, (*ragged, n_phase), generator=g,
+                       dtype=torch.uint8).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_sums(xr.to(dtype), yr, f"ragged {ragged} {str(dtype)[6:]}")
 
     for dtype, limit in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
         for include_background in (True, False):
@@ -1139,6 +1198,100 @@ def run_train_aug(torch, data: Path, out: Path):
                       "voxels_per_s": voxels / ms * 1e3, "peak_mib": peak}
 
 
+def run_train_config(torch, data: Path, out: Path, step_ms: float):
+    """train() driven by config dicts on the phantoms of ``data``, at the
+    flagship's full width: ``preprocessing`` spells out the default pipeline
+    as ``_target_`` entries with ``@image_key`` / ``@label_key``;
+    ``augmentation`` is a host pipeline (pad, class-balanced crop of 4 x 96^3
+    a volume, flip, rotation, zoom, contrast, Gibbs, one disabled entry, one
+    ``$`` expression), crop first so the numpy resampling acts on patches.
+    The model, the step and validation run on the card (``device`` is left at
+    its default); the pipeline runs on the host, as in the JAX package.
+    Prints the host milliseconds a batch beside ``step_ms``, the warm step of
+    the same 8 x 96^3 bf16 batch shape."""
+    import numpy as np
+
+    from segmantic_tpu_torch.train import trainer
+
+    keys = ["@image_key", "@label_key"]
+    preprocessing = {"_target_": "Compose", "transforms": [
+        {"_target_": "LoadImaged", "keys": keys},
+        {"_target_": "Orientationd", "keys": keys, "axcodes": "RAS"},
+        {"_target_": "NormalizeIntensityd", "keys": "@image_key"},
+        {"_target_": "CropForegroundd", "keys": keys, "source_key": "@label_key"},
+        {"_target_": "EnsureTyped", "keys": keys},
+    ]}
+    size = list(TRAIN_PATCH)
+    augmentation = {"_target_": "Compose", "transforms": [
+        {"_target_": "SpatialPadd", "keys": keys, "spatial_size": size},
+        {"_target_": "RandCropByLabelClassesd", "keys": keys, "label_key": "@label_key",
+         "spatial_size": size, "num_classes": NUM_CLASSES, "num_samples": 4},
+        {"_target_": "RandFlipd", "keys": keys, "prob": 0.5, "spatial_axis": 0},
+        {"_target_": "RandFlipd", "keys": keys, "prob": 0.5, "spatial_axis": 1,
+         "_disabled_": True},
+        {"_target_": "RandRotated", "keys": keys, "prob": 0.25, "range_z": "$3.14159 / 12"},
+        {"_target_": "RandZoomd", "keys": keys, "prob": 0.25, "min_zoom": 0.9,
+         "max_zoom": 1.1},
+        {"_target_": "RandAdjustContrastd", "keys": "@image_key", "prob": 0.5,
+         "gamma": [0.7, 1.5]},
+        {"_target_": "RandGibbsNoised", "keys": "@image_key", "prob": 0.25,
+         "alpha": [0.0, 0.6]},
+    ]}
+    host_ms, shapes = [], []
+    collate = trainer._host_augment_batch
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        batch = collate(*args)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        shapes.append((batch[0].shape, batch[1].shape))
+        return batch
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    trainer._host_augment_batch = timed
+    try:
+        t0 = time.perf_counter()
+        result = trainer.train(image_dir=data / "image", labels_dir=data / "label",
+                               output_dir=out, num_classes=NUM_CLASSES, max_epochs=2,
+                               preprocessing=preprocessing, augmentation=augmentation,
+                               seed=0)  # device: the default, the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        trainer._host_augment_batch = collate
+    launches = {name: c.count for name, c in counters.items()}
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
+              f"{rec['train_voxels_per_sec']:.4g} voxels/s (host augmentation included), "
+              f"{rec['seconds']:.2f} s")
+    print(f"  train(preprocessing=<config>, augmentation=<config>): {seconds:.1f} s for 2 "
+          f"epochs of 2 steps + validation; launches {launches}")
+    print(f"  host augmentation (_host_augment_batch, numpy on the host): "
+          f"{[round(m) for m in host_ms]} ms a batch of {TRAIN_BATCH} x 96^3, median "
+          f"{statistics.median(host_ms):.0f} ms, beside a warm step of {step_ms:.2f} ms on "
+          f"the card")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    history = json.loads((out / "history.json").read_text())
+    if len(result.history) != 2 or len(history) != 2 or not finite:
+        _fail("config-driven train() history is not 2 finite epochs, written to history.json")
+    if not (out / "last.ckpt").exists():
+        _fail("config-driven train() did not write last.ckpt")
+    steps = 4
+    want = ((TRAIN_BATCH, *TRAIN_PATCH, 1), (TRAIN_BATCH, *TRAIN_PATCH))
+    if len(shapes) != steps or any(s != want for s in shapes):
+        _fail(f"the host batches were not {steps} of {want}: {shapes}")
+    if min(n for name, n in launches.items() if name != "shear_group") <= 0:
+        _fail(f"a kernel of the config-driven training path was never launched: {launches}")
+    if launches["shear_group"] or launches["dice_phase_sums"] != steps \
+            or launches["dice_phase_dx"] != steps:
+        _fail(f"expected no shear-group launch (the host augments) and one of each Dice "
+              f"kernel per step over {steps} steps: {launches}")
+    return launches, {"host_augment_ms": statistics.median(host_ms)}
+
+
 def train_parity(torch):
     """One train step (flips off, TF32 off) from the same weights and batch,
     batch 2 at full width, three times: f32 on the card with the kernels, f32
@@ -1384,6 +1537,9 @@ def main() -> None:
     report_conv_build(lib)
     report_kernel_build(lib, "blend_kernel")
     report_kernel_build(lib, "shear_group_kernel")
+    report_kernel_build(lib, "dice_sums_kernel")
+    report_kernel_build(lib, "dice_dx_kernel")
+    report_dice_sass(lib)
 
     # f32 comparisons hold the plain versions to full f32: cuDNN would use
     # TF32 for f32 convs by default
@@ -1428,16 +1584,23 @@ def main() -> None:
         print("[train-aug] train(augment_spatial=True, augment_intensity=True) with the "
               "flagship defaults (144^3 margin patches -> 96^3) on the same phantoms")
         aug_launches, aug_numbers = run_train_aug(torch, work / "train", work / "run_aug")
+        print("[train-config] train(preprocessing=<config>, augmentation=<config>) with the "
+              "flagship defaults: the default preprocessing spelled out as _target_ entries, "
+              "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
+        cfg_launches, cfg_numbers = run_train_config(torch, work / "train", work / "run_cfg",
+                                                     train_numbers["step_ms"])
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
     if loaded:
         _fail(f"JAX or the JAX package was imported: {loaded[:5]}")
-    print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}; "
-          f"train step {train_numbers}; augmented {aug_numbers}")
+    print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}, "
+          f"train-config {cfg_launches}; train step {train_numbers}; augmented "
+          f"{aug_numbers}; config-driven {cfg_numbers}")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name] + train_launches[name] + aug_launches[name],
+         "launches": (launches[name] + train_launches[name] + aug_launches[name]
+                      + cfg_launches[name]),
          "max_abs_err": measured[name]["max_abs_err"],
          "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
          "bound_ms": measured[name]["bound_ms"],

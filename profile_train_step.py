@@ -7,7 +7,8 @@ shear-group kernel, intensity ops, flips, Gibbs and spike).
 
     python3 profile_train_step.py [--steps 3] [--augment]
 
-Prints the card's name and power limit; forward + loss, backward and the
+Prints the card's name and power limit; the two phase-Dice kernels alone at
+the step's shape by CUDA-graph replay; forward + loss, backward and the
 optimizer step timed apart (CUDA events, median of 10); the whole step
 through ``make_train_step`` (median of 10); then, over ``--steps`` steps
 under ``torch.profiler``, the device kernel time per step by group, the busy
@@ -30,7 +31,9 @@ BATCH, PATCH, NUM_CLASSES = 8, (96, 96, 96), 8
 # (group, substrings of the kernel name), first match wins
 GROUPS = [
     ("shear-group kernel (augmentation)", ("shear_group_kernel",)),
-    ("Dice kernels (sums, finalize, dx)", ("dice_sums", "dice_dx_kernel")),
+    ("Dice sums kernel", ("dice_sums_kernel",)),
+    ("Dice sums finalize", ("dice_sums_finalize",)),
+    ("Dice dx kernel", ("dice_dx_kernel",)),
     ("FFTs (Gibbs, spike)", ("fft",)),
     ("dw kernels (fused_conv_dw, phase_conv_dw)", ("conv3_dw_kernel", "conv3_dw_mma_kernel")),
     ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
@@ -73,7 +76,8 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         sys.exit("profile_train_step: needs a CUDA device")
-    from chip_smoke import fixed_batch
+    from chip_smoke import _graph_ms, fixed_batch
+    from segmantic_tpu_torch.ops import phase_dice
     from segmantic_tpu_torch.ops import _cuda
     from segmantic_tpu_torch.ops.fast_conv import space_to_depth
     from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
@@ -100,6 +104,14 @@ def main() -> None:
 
     def forward():
         return dice_loss_phase(module(image, phase_logits=True), target)
+
+    with torch.no_grad():
+        xp = module(image, phase_logits=True)
+    hot, cold = (torch.randn((BATCH, xp.shape[-1]), device="cuda") for _ in range(2))
+    print(f"Dice kernels alone, xp {tuple(xp.shape)} {str(xp.dtype)[6:]}, CUDA-graph replay "
+          f"(median of 10 replays of 10 calls): sums + finalize "
+          f"{_graph_ms(torch, lambda: phase_dice.dice_phase_sums(xp, target)):.4f} ms, dx "
+          f"{_graph_ms(torch, lambda: phase_dice.dice_phase_dx(xp, target, hot, cold)):.4f} ms")
 
     def backward():
         opt.zero_grad(set_to_none=True)

@@ -20,14 +20,32 @@
 // (8 phases, at most 128 lanes, whole row blocks) are gone: any voxel count,
 // any P, up to 32 classes.
 //
-// What bounds them on the card: device-memory bytes (sums reads xp and yp
-// once; dx reads them once and writes dx once; ~40 operations per voxel). What
-// the design does about it: one pass each, 16-byte accesses, f32 only in
-// registers. The sums are reduced without atomics: each thread accumulates its
-// voxels in registers, a block reduces by warp shuffles and a fixed-order sum
-// over its warps and writes one partial per block; a second kernel sums the
-// partials of each (sample, sum, class) in a fixed order, so a repeated launch
-// is bit-equal.
+// What bounds them on the card: dx the device-memory bytes (it reads xp and
+// yp once and writes dx once, and runs within ~1.25x of their time); sums
+// reads the same once and writes nothing, and is bound by the instructions it
+// issues per voxel, not by its bytes: its time did not move with the unroll
+// or the blocks per SM (any version without spills), and fell by a fifth with
+// the cheaper exponential. The compares, integer counts and bf16 unpacking
+// run at half the f32 rate, the eight exponentials and the reciprocal on the
+// quarter-rate special-function unit. What the design does about it: one pass
+// each, 16-byte accesses, f32 only in registers, one reciprocal per voxel and
+// a multiply per class (as the Pallas kernel's ``1.0 / z``), never a division
+// per class, ex2.approx on a pre-scaled difference for the exponential.
+//
+// sums: a grid sized to the card (the plan of ops/phase_dice.py::sums_plan: a
+// few blocks per SM, each block a contiguous run of one sample's voxels), so
+// the block epilogue (24 warp reductions at 8 classes) is paid once per ~70
+// voxels of a thread and there is one wave and no tail. A thread strides over
+// its block's run by the block width; it takes ``unroll`` voxels a round, all
+// loads issued before the arithmetic, so several 16-byte loads are in flight
+// per thread. The label counts are integers. No atomics: a thread accumulates
+// in registers, a block reduces by warp shuffles and a fixed-order sum over
+// its warps and writes one partial per block; a second kernel sums the few
+// hundred partials of each (sample, sum, class) in a fixed order, so a
+// repeated launch is bit-equal.
+//
+// dx: one voxel a thread a round at full occupancy; the phase (voxel index
+// mod P) advances by a fixed step, so no modulo is taken per voxel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -86,20 +104,30 @@ __device__ __forceinline__ void store_voxel(T* p, int C, const float (&v)[CP]) {
     if (c < C) from_f(v[c], p + c);
 }
 
-// v: logits in, probabilities out (f32, max-shifted).
+// The exponential is the card's ex2.approx on the difference scaled by
+// log2(e): 2 ulp, and three instructions (subtract, scale, MUFU.EX2) where
+// expf adds its range reduction.
+__device__ __forceinline__ float exp_of(float d) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d * 1.4426950408889634f));
+  return r;
+}
+
+// v: logits in; out: e[c] = exp(v[c] - max) in v, returns the correctly
+// rounded 1 / sum_c e[c]. The probabilities are e[c] * r: one reciprocal per
+// voxel (z lies in [1, CP], never the slow path), a multiply per class.
 template <int CP>
-__device__ __forceinline__ void softmax(float (&v)[CP]) {
+__device__ __forceinline__ float softmax_terms(float (&v)[CP]) {
   float m = v[0];
 #pragma unroll
   for (int c = 1; c < CP; ++c) m = fmaxf(m, v[c]);
   float z = 0.f;
 #pragma unroll
   for (int c = 0; c < CP; ++c) {
-    v[c] = expf(v[c] - m);
+    v[c] = exp_of(v[c] - m);
     z += v[c];
   }
-#pragma unroll
-  for (int c = 0; c < CP; ++c) v[c] = __fdiv_rn(v[c], z);
+  return __frcp_rn(z);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -108,63 +136,130 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// partial[b][blk][3][CP]: intersection, probability sum and label count of the
-// block's voxels [blk * vpb, (blk + 1) * vpb) of sample b.
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// voxels a thread takes per round, all loaded before any arithmetic: four
+// 16-byte loads in flight at 8 bf16 classes; fewer where a voxel's lanes
+// already fill the registers. ops/phase_dice.py::sums_plan holds the same rule.
+template <int CP>
+struct SumsUnroll {
+  static constexpr int value = CP <= 8 ? 4 : (CP == 16 ? 2 : 1);
+};
+
+// partial[b][blk][3][CP]: intersection and probability sum (f32) and label
+// count (int32 bits) of the block's voxels [blk * vpb, (blk + 1) * vpb) of
+// sample b. A thread visits v0 + tid, v0 + tid + kThreads, ... in that order.
 template <typename T, int CP>
-__global__ void dice_sums_kernel(const T* __restrict__ x, const uint8_t* __restrict__ y,
-                                 float* __restrict__ partial, int C, int64_t nvox, int vpb) {
+__global__ void __launch_bounds__(kThreads, CP <= 8 ? 3 : 1)
+dice_sums_kernel(const T* __restrict__ x, const uint8_t* __restrict__ y,
+                 float* __restrict__ partial, int C, int64_t nvox, int64_t vpb) {
+  constexpr int U = SumsUnroll<CP>::value;
   __shared__ float warp_part[kThreads / 32][3 * CP];
   const int b = blockIdx.y, blk = blockIdx.x, tid = threadIdx.x;
   const int64_t v0 = (int64_t)blk * vpb;
   const int64_t v1 = (v0 + vpb < nvox) ? v0 + vpb : nvox;
   const T* xb = x + (int64_t)b * nvox * C;
   const uint8_t* yb = y + (int64_t)b * nvox;
-  float acc[3 * CP];
+  float inter[CP], sump[CP];
+  int cnt[CP];
 #pragma unroll
-  for (int i = 0; i < 3 * CP; ++i) acc[i] = 0.f;
-  for (int64_t v = v0 + tid; v < v1; v += kThreads) {
-    float p[CP];
-    load_voxel<T, CP>(xb + v * C, C, p);
-    softmax<CP>(p);
-    const int lab = yb[v];
+  for (int c = 0; c < CP; ++c) {
+    inter[c] = 0.f;
+    sump[c] = 0.f;
+    cnt[c] = 0;
+  }
+  auto add = [&](float (&e)[CP], int lab) {
+    const float r = softmax_terms<CP>(e);
 #pragma unroll
     for (int c = 0; c < CP; ++c) {
-      const bool hit = c == lab;
-      acc[c] += hit ? p[c] : 0.f;
-      acc[CP + c] += p[c];
-      acc[2 * CP + c] += hit ? 1.f : 0.f;
+      const float p = e[c] * r;
+      sump[c] += p;
+      if (c == lab) {
+        inter[c] += p;
+        cnt[c] += 1;
+      }
     }
-  }
+  };
+  int64_t v = v0 + tid;
+  for (; v + (U - 1) * kThreads < v1; v += U * kThreads) {
+    float e[U][CP];
+    int lab[U];
 #pragma unroll
-  for (int i = 0; i < 3 * CP; ++i) {
-    const float s = warp_sum(acc[i]);
-    if ((tid & 31) == 0) warp_part[tid >> 5][i] = s;
+    for (int u = 0; u < U; ++u) load_voxel<T, CP>(xb + (v + u * kThreads) * C, C, e[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) lab[u] = yb[v + u * kThreads];
+#pragma unroll
+    for (int u = 0; u < U; ++u) add(e[u], lab[u]);
+  }
+  for (; v < v1; v += kThreads) {
+    float e[CP];
+    load_voxel<T, CP>(xb + v * C, C, e);
+    add(e, yb[v]);
+  }
+  const int w = tid >> 5;
+  const bool lead = (tid & 31) == 0;
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    const float si = warp_sum(inter[c]);
+    const float sp = warp_sum(sump[c]);
+    const int sc = warp_sum(cnt[c]);
+    if (lead) {
+      warp_part[w][c] = si;
+      warp_part[w][CP + c] = sp;
+      warp_part[w][2 * CP + c] = __int_as_float(sc);
+    }
   }
   __syncthreads();
   if (tid < 3 * CP) {
-    float s = 0.f;
+    float out;
+    if (tid < 2 * CP) {
+      out = 0.f;
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_part[w][tid];
-    partial[((int64_t)b * gridDim.x + blk) * 3 * CP + tid] = s;
+      for (int i = 0; i < kThreads / 32; ++i) out += warp_part[i][tid];
+    } else {
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < kThreads / 32; ++i) n += __float_as_int(warp_part[i][tid]);
+      out = __int_as_float(n);
+    }
+    partial[((int64_t)b * gridDim.x + blk) * 3 * CP + tid] = out;
   }
 }
 
 // out[k][b][c] = sum over the blocks of sample b, one warp per output, each
-// lane a fixed strided subset, then the shuffle tree: a fixed order.
+// lane a fixed strided subset, then the shuffle tree: a fixed order. The
+// counts (k == 2) are summed as integers and converted once.
 __global__ void dice_sums_finalize(const float* __restrict__ partial, float* __restrict__ out,
                                    int B, int C, int CP, int nblk) {
   const int o = blockIdx.x, lane = threadIdx.x;
   const int c = o % C, k = (o / C) % 3, b = o / (3 * C);
-  float s = 0.f;
-  for (int i = lane; i < nblk; i += 32) s += partial[(((int64_t)b * nblk + i) * 3 + k) * CP + c];
-  s = warp_sum(s);
-  if (lane == 0) out[((int64_t)k * B + b) * C + c] = s;
+  const float* p = partial + ((int64_t)b * nblk * 3 + k) * CP + c;
+  float r;
+  if (k < 2) {
+    float s = 0.f;
+    for (int i = lane; i < nblk; i += 32) s += p[(int64_t)i * 3 * CP];
+    r = warp_sum(s);
+  } else {
+    int n = 0;
+    for (int i = lane; i < nblk; i += 32) n += __float_as_int(p[(int64_t)i * 3 * CP]);
+    r = (float)warp_sum(n);
+  }
+  if (lane == 0) out[((int64_t)k * B + b) * C + c] = r;
 }
 
+// Six blocks of kThreads resident per SM up to 8 class lanes (40 registers a
+// thread): the sweep is bound by bytes in flight, and holding the thread's
+// hot / cold lanes in registers or taking two voxels a round cost more in
+// occupancy than they saved in instructions (timed on the card).
 template <typename T, int CP>
-__global__ void dice_dx_kernel(const T* __restrict__ x, const uint8_t* __restrict__ y,
-                               const float* __restrict__ hot, const float* __restrict__ cold,
-                               T* __restrict__ dx, int C, int P, int64_t nvox, int vpb) {
+__global__ void __launch_bounds__(kThreads, CP <= 8 ? 6 : 1)
+dice_dx_kernel(const T* __restrict__ x, const uint8_t* __restrict__ y,
+               const float* __restrict__ hot, const float* __restrict__ cold,
+               T* __restrict__ dx, int C, int P, int64_t nvox, int vpb) {
   extern __shared__ float lanes[];  // hot[L], cold[L] of this sample
   const int b = blockIdx.y, tid = threadIdx.x, L = P * C;
   for (int i = tid; i < L; i += kThreads) {
@@ -177,27 +272,35 @@ __global__ void dice_dx_kernel(const T* __restrict__ x, const uint8_t* __restric
   const T* xb = x + (int64_t)b * nvox * C;
   T* db = dx + (int64_t)b * nvox * C;
   const uint8_t* yb = y + (int64_t)b * nvox;
+  // the phase v % P: one 64-bit modulo a thread, then a step of kThreads % P
+  int ph = (int)((v0 + tid) % P);
+  const int step = kThreads % P;
   for (int64_t v = v0 + tid; v < v1; v += kThreads) {
-    float p[CP], d[CP];
-    load_voxel<T, CP>(xb + v * C, C, p);
-    softmax<CP>(p);
+    float e[CP];
+    load_voxel<T, CP>(xb + v * C, C, e);
+    const float r = softmax_terms<CP>(e);
     const int lab = yb[v];
-    const int base = (int)(v % P) * C;
+    const float* h = lanes + ph * C;
+    float d[CP];
     float inner = 0.f;
 #pragma unroll
     for (int c = 0; c < CP; ++c) {
-      d[c] = (c < C) ? ((c == lab) ? lanes[base + c] : lanes[L + base + c]) : 0.f;
-      inner += p[c] * d[c];
+      e[c] *= r;
+      d[c] = (c < C) ? ((c == lab) ? h[c] : h[L + c]) : 0.f;
+      inner += e[c] * d[c];
     }
 #pragma unroll
-    for (int c = 0; c < CP; ++c) p[c] = p[c] * (d[c] - inner);
-    store_voxel<T, CP>(db + v * C, C, p);
+    for (int c = 0; c < CP; ++c) e[c] = e[c] * (d[c] - inner);
+    store_voxel<T, CP>(db + v * C, C, e);
+    ph += step;
+    if (ph >= P) ph -= P;
   }
 }
 
 template <typename T, int CP>
 int launch_sums(const void* x, const uint8_t* y, float* partial, float* out, int B, int C,
-                int64_t nvox, int vpb, int nblk, cudaStream_t s) {
+                int64_t nvox, int64_t vpb, int nblk, int unroll, cudaStream_t s) {
+  if (unroll != SumsUnroll<CP>::value) return (int)cudaErrorInvalidValue;  // another plan
   dice_sums_kernel<T, CP><<<dim3(nblk, B), kThreads, 0, s>>>(static_cast<const T*>(x), y,
                                                              partial, C, nvox, vpb);
   cudaError_t err = cudaGetLastError();
@@ -237,16 +340,18 @@ int launch_dx(const void* x, const uint8_t* y, const float* hot, const float* co
   return (int)cudaErrorInvalidValue;
 
 // x (B, nvox, C) of dtype 0 f32 or 1 bf16; y (B, nvox) uint8; partial
-// (B, nblk, 3, cp) f32 scratch with cp = C rounded up to a power of two
+// (B, nblk, 3, cp) 4-byte scratch with cp = C rounded up to a power of two
 // (2 .. 32); out (3, B, C) f32: intersection, probability sum, label count.
-// Each block takes vpb voxels of one sample; nblk = ceil(nvox / vpb).
+// Each block takes vpb voxels of one sample, nblk = ceil(nvox / vpb), and
+// unroll voxels a round: the plan of ops/phase_dice.py::sums_plan, refused
+// when its unroll is not the kernel's.
 extern "C" int segk_dice_phase_sums(const void* x, const void* y, float* partial, float* out,
-                                    int dtype, int B, int C, int cp, long long nvox, int vpb,
-                                    int nblk, void* stream) {
+                                    int dtype, int B, int C, int cp, long long nvox,
+                                    long long vpb, int nblk, int unroll, void* stream) {
   if (B <= 0 || nvox <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* yy = static_cast<const uint8_t*>(y);
-#define SEGK_SUMS(T, CP) launch_sums<T, CP>(x, yy, partial, out, B, C, nvox, vpb, nblk, s)
+#define SEGK_SUMS(T, CP) launch_sums<T, CP>(x, yy, partial, out, B, C, nvox, vpb, nblk, unroll, s)
   SEGK_DICE_DISPATCH(SEGK_SUMS)
 #undef SEGK_SUMS
 }

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],
     "segk_shear_group_blocks_per_sm": [_I] * 6,
-    "segk_dice_phase_sums": [_P] * 4 + [_I] * 4 + [_L, _I, _I, _P],
+    "segk_dice_phase_sums": [_P] * 4 + [_I] * 4 + [_L, _L, _I, _I, _P],
     "segk_dice_phase_dx": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
 }
 _RESTYPES = {"segk_conv3_dw_workspace": ctypes.c_longlong}  # others: c_int error codes

@@ -10,11 +10,17 @@ Phase-major logits ``xp`` (B, *S/2, P * C) hold P fine voxels of C class
 logits per coarse voxel, lane = phase * C + c; ``yp`` (B, *S/2, P) holds their
 integer labels. Both wrappers launch ``csrc/phase_dice.cu`` for CUDA tensors
 and run their ``_plain`` version for CPU tensors (f32, or f64 for f64 logits).
+
+The sums kernel's launch geometry is :func:`sums_plan`: a grid sized to the
+card, each block a contiguous run of one sample's voxels, each thread striding
+over the run by the block's width.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -23,13 +29,14 @@ from . import _cuda
 from .fused_conv import at_least_f32
 
 __all__ = ["dice_phase_sums", "dice_phase_sums_plain", "dice_phase_dx",
-           "dice_phase_dx_plain", "sums_counter", "dx_counter"]
+           "dice_phase_dx_plain", "sums_counter", "dx_counter", "SumsPlan", "sums_plan"]
 
 sums_counter = _cuda.LaunchCounter("dice_phase_sums")
 dx_counter = _cuda.LaunchCounter("dice_phase_dx")
 
 MAX_CLASSES = 32  # the kernels keep one voxel's class lanes in registers
-_VOXELS_PER_BLOCK = 2048
+THREADS = 256  # kThreads of csrc/phase_dice.cu
+_DX_VOXELS_PER_BLOCK = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,8 +77,38 @@ def dice_phase_dx_plain(xp, yp, hot, cold) -> torch.Tensor:
     return (probs * (d_probs - inner)).reshape(xp.shape).to(xp.dtype)
 
 
+@dataclass(frozen=True)
+class SumsPlan:
+    """Launch geometry of the sums kernel for one (batch, voxels, classes)."""
+    unroll: int            # voxels a thread loads before it computes
+    blocks: int            # blocks per sample: the grid is (blocks, batch)
+    voxels_per_block: int  # a multiple of THREADS * unroll; the last block is ragged
+
+
+def lanes_padded(num_classes: int) -> int:
+    """The class lanes a voxel takes in registers: a power of two, 2 .. 32."""
+    return max(2, 1 << (num_classes - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=64)
+def sums_plan(batch: int, nvox: int, num_classes: int, sms: int) -> SumsPlan:
+    """One wave of blocks on a card of ``sms`` SMs: the kernel keeps three
+    blocks of THREADS resident per SM up to 8 class lanes and one beyond, so
+    the grid holds at most that many, shared evenly among the samples. A block
+    takes whole rounds (THREADS * unroll voxels) of one sample, so every thread
+    of a full block runs the unrolled loop only; the block epilogue is paid
+    once per ``voxels_per_block / THREADS`` voxels of a thread."""
+    cp = lanes_padded(num_classes)
+    unroll = 4 if cp <= 8 else 2 if cp == 16 else 1  # SumsUnroll of the kernel
+    resident = 3 if cp <= 8 else 1
+    want = max(1, resident * sms // max(batch, 1))
+    tile = THREADS * unroll
+    vpb = -(-(-(-nvox // want)) // tile) * tile
+    return SumsPlan(unroll, -(-nvox // vpb), vpb)
+
+
 def _prepare(xp, yp):
-    """Checks of a CUDA call; returns (uint8 labels, B, nvox, P, C, cp, nblk)."""
+    """Checks of a CUDA call; returns (uint8 labels, B, nvox, P, C, cp)."""
     batch, nvox, n_phase, num_classes = _geometry(xp, yp)
     if xp.dtype not in _DTYPES:
         raise TypeError(f"the Dice kernels take float32 or bfloat16 logits, got {xp.dtype}")
@@ -85,9 +122,7 @@ def _prepare(xp, yp):
         raise ValueError("phase logits must be 16-byte aligned")
     yp = yp.to(torch.uint8).contiguous()  # class ids < 32 fit; a no-op for uint8 labels
     _cuda.check_cuda(yp, "phase labels")
-    cp = max(2, 1 << (num_classes - 1).bit_length())
-    nblk = -(-nvox // _VOXELS_PER_BLOCK)
-    return yp, batch, nvox, n_phase, num_classes, cp, nblk
+    return yp, batch, nvox, n_phase, num_classes, lanes_padded(num_classes)
 
 
 def dice_phase_sums(xp: torch.Tensor, yp: torch.Tensor):
@@ -97,12 +132,15 @@ def dice_phase_sums(xp: torch.Tensor, yp: torch.Tensor):
     partials go to a workspace and are summed in a fixed order."""
     if xp.device.type == "cpu":
         return dice_phase_sums_plain(xp, yp)
-    yp, batch, nvox, _, num_classes, cp, nblk = _prepare(xp, yp)
-    partial = torch.empty((batch, nblk, 3, cp), dtype=torch.float32, device=xp.device)
+    yp, batch, nvox, _, num_classes, cp = _prepare(xp, yp)
+    plan = sums_plan(batch, nvox, num_classes,
+                     torch.cuda.get_device_properties(xp.device).multi_processor_count)
+    partial = torch.empty((batch, plan.blocks, 3, cp), dtype=torch.float32,
+                          device=xp.device)
     out = torch.empty((3, batch, num_classes), dtype=torch.float32, device=xp.device)
     _cuda.launch("segk_dice_phase_sums", xp.data_ptr(), yp.data_ptr(), partial.data_ptr(),
                  out.data_ptr(), _DTYPES[xp.dtype], batch, num_classes, cp, nvox,
-                 _VOXELS_PER_BLOCK, nblk)
+                 plan.voxels_per_block, plan.blocks, plan.unroll)
     sums_counter.count += 1
     return out[0], out[1], out[2]
 
@@ -114,7 +152,7 @@ def dice_phase_dx(xp: torch.Tensor, yp: torch.Tensor, hot: torch.Tensor,
     elsewhere: the softmax-Dice cotangent, the softmax recomputed in f32."""
     if xp.device.type == "cpu":
         return dice_phase_dx_plain(xp, yp, hot, cold)
-    yp, batch, nvox, n_phase, num_classes, cp, nblk = _prepare(xp, yp)
+    yp, batch, nvox, n_phase, num_classes, cp = _prepare(xp, yp)
     lanes = n_phase * num_classes
     if hot.shape != (batch, lanes) or cold.shape != (batch, lanes):
         raise ValueError(f"hot and cold must be ({batch}, {lanes}), got "
@@ -126,6 +164,6 @@ def dice_phase_dx(xp: torch.Tensor, yp: torch.Tensor, hot: torch.Tensor,
     dx = torch.empty_like(xp)
     _cuda.launch("segk_dice_phase_dx", xp.data_ptr(), yp.data_ptr(), hot.data_ptr(),
                  cold.data_ptr(), dx.data_ptr(), _DTYPES[xp.dtype], batch, num_classes,
-                 n_phase, cp, nvox, _VOXELS_PER_BLOCK, nblk)
+                 n_phase, cp, nvox, _DX_VOXELS_PER_BLOCK, -(-nvox // _DX_VOXELS_PER_BLOCK))
     dx_counter.count += 1
     return dx

@@ -8,7 +8,10 @@ and ``train`` with the JAX package's keyword signature plus ``device``.
 - Deterministic preprocessing runs once per volume into a host RAM cache
   with per-class crop indices (``data/cache.py``); each step a background
   thread crops the next class-balanced batch of patches (margin patches
-  under ``augment_spatial``).
+  under ``augment_spatial``). A ``preprocessing`` config replaces the default
+  pipeline; an ``augmentation`` config replaces the sampler by the user's
+  Compose, run per step on the host in numpy (``_host_augment_batch``), as
+  in the JAX package.
 - The train step runs on ``device``: the augmentation (``train/augment.py``:
   rotation + zoom through the shear-group kernel, intensity ops, flips), then
   the UNet forward and
@@ -54,6 +57,7 @@ from ..ops._cuda import resolve_device
 from ..ops.fused_conv import at_least_f32
 from ..transforms import spatial as TS
 from ..transforms.base import Compose
+from ..transforms.registry import build_pipeline
 from .augment import AugmentConfig, augment_batch
 from .checkpoint import TopKCheckpoints, load_checkpoint, save_checkpoint
 from .losses import dice_loss, dice_loss_phase
@@ -331,11 +335,8 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
-def _check_ported(*, preprocessing, augmentation, arch, model_parallel, accumulate_steps,
-                  remat, zero_optimizer, profile_dir, val_blend_mode) -> None:
-    if preprocessing or augmentation:
-        raise _not_ported("config-driven preprocessing/augmentation pipelines",
-                          "transforms/registry.py")
+def _check_ported(*, arch, model_parallel, accumulate_steps, remat, zero_optimizer,
+                  profile_dir, val_blend_mode) -> None:
     if (arch or "unet").lower() != "unet":
         raise _not_ported(f"arch={arch!r}", "models/segresnet.py, models/unetr.py")
     if model_parallel != 1 or zero_optimizer:
@@ -423,10 +424,15 @@ def train(
     """Train a residual UNet on ``device``; returns the best checkpoint and
     the history. Same keywords as the JAX package's ``train`` (``gpu_ids`` is
     accepted for config compatibility; the device is ``device``, which must
-    exist: ``"cuda"`` without CUDA raises)."""
-    _check_ported(preprocessing=preprocessing, augmentation=augmentation, arch=arch,
-                  model_parallel=model_parallel, accumulate_steps=accumulate_steps,
-                  remat=remat, zero_optimizer=zero_optimizer, profile_dir=profile_dir,
+    exist: ``"cuda"`` without CUDA raises). ``preprocessing`` and
+    ``augmentation`` are ``_target_`` configs (``transforms/registry.py``):
+    the first replaces the default preprocessing that fills the volume cache;
+    the second runs per step on the host in numpy, as in the JAX package, and
+    feeds the step on ``device`` (``augment_spatial`` / ``augment_intensity``
+    are the augmentation on the device)."""
+    _check_ported(arch=arch, model_parallel=model_parallel,
+                  accumulate_steps=accumulate_steps, remat=remat,
+                  zero_optimizer=zero_optimizer, profile_dir=profile_dir,
                   val_blend_mode=val_blend_mode)
     device = resolve_device(device)
     optimizer_cfg = dict(DEFAULT_OPTIMIZER)
@@ -464,7 +470,7 @@ def train(
         raise ValueError("provide either datalist or image_dir+labels_dir")
     (output_dir / "Dataset.json").write_text(dataset.dump_dataset())
 
-    pre = default_preprocessing(["image", "label"], spacing)
+    pre = build_pipeline(preprocessing) or default_preprocessing(["image", "label"], spacing)
     train_cache = VolumeCache(dataset.training_files(), pre, num_classes,
                               cache_rate=cache_rate)
     val_cache = VolumeCache(dataset.validation_files(), pre, num_classes,
@@ -474,6 +480,8 @@ def train(
     sampler = PatchSampler(train_cache, patch_size=patch_size,
                            batch_size=batch_size * num_samples,
                            num_samples=num_samples, margin=margin, seed=seed)
+
+    host_augment = build_pipeline(augmentation)  # user-config path (host)
 
     # --- step --------------------------------------------------------------
     opt = make_optimizer(module.parameters(), optimizer_cfg)
@@ -488,13 +496,18 @@ def train(
     best_dice, best_epoch, since_best = 0.0, -1, 0
     history: List[Dict[str, float]] = []
     writer = _make_tb_writer(output_dir)
-    loader = PrefetchLoader(sampler)
+    loader = PrefetchLoader(sampler) if host_augment is None else None
     try:
         for epoch in range(max_epochs):
             t0 = time.time()
             epoch_loss = 0.0
-            for _ in range(steps_per_epoch):
-                image_b, label_b = loader.next()
+            for step_i in range(steps_per_epoch):
+                if loader is not None:
+                    image_b, label_b = loader.next()
+                else:
+                    image_b, label_b = _host_augment_batch(
+                        train_cache, host_augment, batch_size, num_samples, seed, epoch,
+                        step_i)
                 image_t = torch.from_numpy(image_b)
                 if mixed_precision:  # halves the upload; the step computes in bf16
                     image_t = image_t.to(torch.bfloat16)
@@ -553,7 +566,8 @@ def train(
                 print(f"early stopping at epoch {epoch} (patience {early_stop_patience})")
                 break
     finally:
-        loader.stop()
+        if loader is not None:
+            loader.stop()
         if writer is not None:
             writer.close()
 
@@ -562,3 +576,32 @@ def train(
     return TrainResult(output_dir=output_dir, best_checkpoint=ckpts.best,
                        best_val_dice=best_dice, best_val_epoch=best_epoch,
                        history=history, model=model)
+
+
+def _host_augment_batch(
+    cache: VolumeCache,
+    augment: Compose,
+    batch_size: int,
+    num_samples: int,
+    seed: int,
+    epoch: int,
+    step: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Config-driven augmentation path: run the user's Compose per volume on
+    the host, collate the patches: (f32 images channel-last, int32 labels).
+    The generator is seeded by (seed, epoch, step), so a batch is a function of
+    those three and the cache."""
+    rng = np.random.default_rng((seed, epoch, step))
+    images, labels = [], []
+    for _ in range(batch_size):
+        idx = int(rng.integers(len(cache)))
+        vol = cache[idx]
+        sample = {"image": vol.image, "label": vol.label}
+        out = augment(sample, rng)
+        items = out if isinstance(out, list) else [out]
+        for item in items:
+            images.append(np.moveaxis(item["image"].numpy(), 0, -1))
+            labels.append(item["label"].numpy()[0])
+    image_b = np.stack(images).astype(np.float32)
+    label_b = np.stack(labels).astype(np.int32)
+    return image_b, label_b

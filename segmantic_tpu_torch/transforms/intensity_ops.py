@@ -4,7 +4,8 @@ Port of ``segmantic_tpu/transforms/intensity_ops.py``. The JAX functions take
 one channel-first sample and are ``vmap``-ped over the batch; here the batch
 axis is written out: every op but :func:`flip` takes ``(S, C, *spatial)`` with
 one parameter set per sample (leading axis ``S``) and applies sample ``i``'s
-parameters to sample ``i``. All take explicit parameters (no random numbers
+parameters to sample ``i``; :func:`zscore` takes one channel-first sample, as
+the JAX function does. All take explicit parameters (no random numbers
 inside), compute in f32 (f64 for f64 input) and return the input's dtype.
 Statistics "of the sample" (min, max, the k-space maximum) run over all
 channels and voxels of one sample, as in the JAX code.
@@ -22,7 +23,7 @@ from ..ops.fused_conv import at_least_f32
 __all__ = [
     "flip", "adjust_contrast", "histogram_shift", "random_control_points",
     "polynomial_bias_field", "num_bias_coeff", "bias_field", "gibbs_noise",
-    "kspace_spike",
+    "kspace_spike", "zscore",
 ]
 
 
@@ -186,3 +187,19 @@ def kspace_spike(x: torch.Tensor, loc_frac, intensity_factor) -> torch.Tensor:
     d_re, d_im = spike_val - k_re, -k_im
     nprod = float(math.prod(x.shape[2:]))
     return (xf + (d_re * cosp - d_im * sinp) / nprod).to(x.dtype)
+
+
+def zscore(x: torch.Tensor, channel_wise: bool = True, nonzero: bool = False) -> torch.Tensor:
+    """Z-score of one channel-first sample (C, *spatial): per channel or over
+    the whole sample, over all voxels or the nonzero ones only (the zeros then
+    stay zero). Population variance; the deviation is clamped at 1e-7."""
+    dims = tuple(range(1, x.ndim)) if channel_wise else tuple(range(x.ndim))
+    if nonzero:
+        mask = (x != 0).to(x.dtype)
+        count = mask.sum(dims, keepdim=True).clamp_min(1.0)
+        mean = (x * mask).sum(dims, keepdim=True) / count
+        var = (((x - mean) * mask) ** 2).sum(dims, keepdim=True) / count
+        return torch.where(mask > 0, (x - mean) / var.sqrt().clamp_min(1e-7), x)
+    mean = x.mean(dims, keepdim=True)
+    std = x.std(dims, correction=0, keepdim=True)
+    return (x - mean) / std.clamp_min(1e-7)

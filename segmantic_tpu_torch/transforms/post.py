@@ -1,9 +1,11 @@
 """Post-processing dict-transforms of the serving path (host numpy).
 
-Port of ``segmantic_tpu/transforms/post.py`` (``AsDiscreted``, ``Invertd``,
-``SaveImaged``): argmax over channels, inversion of the deterministic
+Port of ``segmantic_tpu/transforms/post.py`` (``AsDiscreted``, ``MapLabels``,
+``MapLabelsd``, ``Invertd``, ``SaveImaged``): argmax over channels, integer
+relabelling through a lookup table, inversion of the deterministic
 preprocessing by replaying its applied-ops log backwards (spacing, crop, pad,
-orientation), and NIfTI output. The ensemble combiners are not ported yet.
+orientation), and NIfTI output. The ensemble combiners (``MeanEnsembled``,
+``VoteEnsembled``, ``SelectBestEnsembled``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +44,34 @@ class AsDiscreted(MapTransform):
                     [(lab == c) for c in range(self.to_onehot)]
                 ).astype(np.float32)
             out[key] = vol.with_data(data)
+        return out
+
+
+class MapLabels:
+    """LUT-based integer relabel (array-level)."""
+
+    def __init__(self, mapping: Dict[int, int]):
+        self.lookup = np.zeros((max(mapping.keys()) + 1,), dtype=np.int64)
+        for k, v in mapping.items():
+            self.lookup[k] = v
+
+    def __call__(self, img):
+        if isinstance(img, Volume):
+            return img.with_data(self.lookup[img.numpy().astype(np.int64)])
+        return self.lookup[np.asarray(img).astype(np.int64)]
+
+
+class MapLabelsd(MapTransform):
+    """Dict wrapper for :class:`MapLabels`."""
+
+    def __init__(self, mapping: Dict[int, int], keys, allow_missing_keys: bool = False):
+        super().__init__(keys)
+        self.converter = MapLabels(mapping)
+
+    def __call__(self, sample: Sample) -> Sample:
+        out = dict(sample)
+        for key in self.present_keys(sample):
+            out[key] = self.converter(sample[key])
         return out
 
 

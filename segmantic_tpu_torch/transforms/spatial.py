@@ -1,18 +1,25 @@
-"""Spatial dict-transforms of the deterministic preprocessing (host numpy).
+"""Spatial dict-transforms: load, orient, crop, pad, resample, random geometry
+(host numpy).
 
-Port of ``segmantic_tpu/transforms/spatial.py`` (``LoadImaged``,
-``Orientationd``, ``NormalizeIntensityd``, ``CropForegroundd``, ``Spacingd``,
-``EnsureTyped``): the same numpy code with the same applied-ops log, which
-``post.Invertd`` replays to map predictions back to the input grid. The
-Volume container, NIfTI I/O and orientation helpers are the port's own copies
-(``core/``, ``io/``); ``Spacingd`` takes the native C++ resampler
-(``native.py``) when the library is available, as the JAX code does.
+Port of ``segmantic_tpu/transforms/spatial.py``: the deterministic
+preprocessing (``LoadImaged``, ``Orientationd``, ``NormalizeIntensityd``,
+``CropForegroundd``, ``Spacingd``, ``EnsureTyped``, ``SpatialPadd``) with the
+applied-ops log that ``post.Invertd`` replays to map predictions back to the
+input grid, and the random geometry of a config-driven augmentation
+(``RandCropByLabelClassesd``, ``RandFlipd``, ``RandRotated``, ``RandZoomd``),
+which draws from the ``numpy.random.Generator`` it is called with: the same
+numpy code, so the same crops, flips and resampled voxels from the same
+generator. The Volume container, NIfTI I/O and orientation helpers are the
+port's own copies (``core/``, ``io/``); ``Spacingd`` takes the native C++
+resampler (``native.py``) when the library is available, as the JAX code does.
+The rotations and zooms resample whole volumes or patches with numpy on the
+host; ``train(augment_spatial=True)`` is the fast path on the card.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -21,8 +28,9 @@ from ..core.volume import Volume
 from ..io.nifti import read_volume
 
 from .. import native
+from ..image.processing import pad
 from ..ops.resample import grid_matrix, output_affine_for_spacing, resample_affine_np
-from .base import MapTransform, Sample
+from .base import MapTransform, RandMapTransform, Sample
 
 
 class LoadImaged(MapTransform):
@@ -212,4 +220,229 @@ class EnsureTyped(MapTransform):
             vol: Volume = sample[key]
             dtype = np.int32 if key in self.label_keys else np.float32
             out[key] = vol.with_data(vol.numpy().astype(dtype))
+        return out
+
+
+class SpatialPadd(MapTransform):
+    """Center-pad up to ``spatial_size`` (no-op for axes already large enough)."""
+
+    def __init__(self, keys, spatial_size: Sequence[int], value: float = 0):
+        super().__init__(keys)
+        self.spatial_size = list(spatial_size)
+        self.value = value
+
+    def __call__(self, sample: Sample) -> Sample:
+        out = dict(sample)
+        for key in self.present_keys(sample):
+            vol: Volume = sample[key]
+            padded = pad(vol, self.spatial_size, self.value)
+            if padded is not vol:
+                padded.applied_ops.append(
+                    {
+                        "op": "pad",
+                        "pre_shape": list(vol.spatial_shape),
+                        "pre_affine": vol.affine.copy(),
+                    }
+                )
+            out[key] = padded
+        return out
+
+
+def sample_class_centers(
+    label: np.ndarray,
+    num_classes: int,
+    ratios: Sequence[float],
+    num_samples: int,
+    spatial_size: Sequence[int],
+    rng: np.random.Generator,
+    class_indices: Optional[List[np.ndarray]] = None,
+) -> List[List[int]]:
+    """Sample patch centers by class ratio; clamp so patches fit in bounds.
+
+    ``class_indices`` may be precomputed (flat indices per class) — the host
+    volume cache stores these to avoid rescanning the label map every step.
+    """
+    shape = label.shape[1:]
+    nd = len(shape)
+    if class_indices is None:
+        flat = label.reshape(label.shape[0], -1)[0]
+        class_indices = [np.flatnonzero(flat == c) for c in range(num_classes)]
+    ratios = np.asarray(ratios, np.float64)
+    avail = np.array([len(ci) > 0 for ci in class_indices])
+    weights = np.where(avail, ratios, 0.0)
+    if weights.sum() == 0:
+        weights = avail.astype(np.float64)
+    weights = weights / weights.sum()
+
+    centers = []
+    lo = [s // 2 for s in spatial_size[:nd]]
+    hi = [shape[a] - (spatial_size[a] - spatial_size[a] // 2) for a in range(nd)]
+    for _ in range(num_samples):
+        cls = rng.choice(num_classes, p=weights)
+        pick = class_indices[cls][rng.integers(len(class_indices[cls]))]
+        center = list(np.unravel_index(pick, shape))
+        center = [int(np.clip(center[a], lo[a], max(hi[a], lo[a]))) for a in range(nd)]
+        centers.append(center)
+    return centers
+
+
+class RandCropByLabelClassesd(RandMapTransform):
+    """Class-balanced random patch sampling: one sample → ``num_samples``
+    patches centered on voxels of ratio-sampled classes."""
+
+    def __init__(
+        self,
+        keys,
+        label_key: str,
+        spatial_size: Sequence[int],
+        num_classes: int,
+        num_samples: int = 1,
+        ratios: Optional[Sequence[float]] = None,
+    ):
+        super().__init__(keys, prob=1.0)
+        self.label_key = label_key
+        self.spatial_size = list(spatial_size)
+        self.num_classes = num_classes
+        self.num_samples = num_samples
+        self.ratios = (
+            list(ratios)
+            if ratios is not None
+            else [0 if c == 0 else 1 for c in range(num_classes)]
+        )
+
+    def __call__(self, sample: Sample, rng: np.random.Generator) -> List[Sample]:
+        label: Volume = sample[self.label_key]
+        nd = label.ndim_spatial
+        size = self.spatial_size[:nd]
+        centers = sample_class_centers(
+            label.numpy(), self.num_classes, self.ratios, self.num_samples, size, rng,
+            class_indices=sample.get("_class_indices"),
+        )
+        results = []
+        for center in centers:
+            item = dict(sample)
+            for key in self.present_keys(sample):
+                vol: Volume = sample[key]
+                start = [center[a] - size[a] // 2 for a in range(nd)]
+                sl = [slice(None)] + [slice(s, s + size[a]) for a, s in enumerate(start)]
+                data = np.ascontiguousarray(vol.numpy()[tuple(sl)])
+                aff = vol.affine.copy()
+                aff[:3, 3] = aff[:3, 3] + aff[:3, :nd] @ np.asarray(start, np.float64)
+                item[key] = vol.with_data(data, aff)
+            results.append(item)
+        return results
+
+
+class RandFlipd(RandMapTransform):
+    """Flip along one spatial axis with probability ``prob``."""
+
+    def __init__(self, keys, prob: float = 0.1, spatial_axis: int = 0):
+        super().__init__(keys, prob)
+        self.spatial_axis = spatial_axis
+
+    def __call__(self, sample: Sample, rng: np.random.Generator) -> Sample:
+        if not self.should_apply(rng):
+            return sample
+        out = dict(sample)
+        for key in self.present_keys(sample):
+            vol: Volume = sample[key]
+            out[key] = vol.with_data(
+                np.ascontiguousarray(np.flip(vol.numpy(), axis=self.spatial_axis + 1))
+            )
+        return out
+
+
+def _rotation_matrix(nd: int, axis: int, angle: float) -> np.ndarray:
+    rot = np.eye(nd)
+    if nd == 2:
+        a, b = 0, 1
+    else:
+        a, b = [d for d in range(3) if d != axis]
+    c, s = np.cos(angle), np.sin(angle)
+    rot[a, a], rot[a, b], rot[b, a], rot[b, b] = c, -s, s, c
+    return rot
+
+
+def rotate_volume(vol: Volume, axis: int, angle: float, order: int) -> Volume:
+    """Rotate about the volume center (keep_size, zero padding)."""
+    nd = vol.ndim_spatial
+    rot = _rotation_matrix(nd, axis, angle)
+    center = (np.asarray(vol.spatial_shape, np.float64) - 1) / 2
+    m = np.zeros((nd, nd + 1))
+    m[:, :nd] = rot
+    m[:, nd] = center - rot @ center
+    data = resample_affine_np(vol.numpy(), m, vol.spatial_shape, order=order)
+    return vol.with_data(data)
+
+
+def zoom_volume(vol: Volume, factors: Sequence[float], order: int) -> Volume:
+    """Zoom about the center, keeping the original array size (MONAI
+    keep_size semantics: zoom>1 magnifies and crops, zoom<1 shrinks and pads)."""
+    nd = vol.ndim_spatial
+    center = (np.asarray(vol.spatial_shape, np.float64) - 1) / 2
+    m = np.zeros((nd, nd + 1))
+    for a in range(nd):
+        m[a, a] = 1.0 / factors[a]
+        m[a, nd] = center[a] - center[a] / factors[a]
+    data = resample_affine_np(vol.numpy(), m, vol.spatial_shape, order=order)
+    return vol.with_data(data)
+
+
+class RandRotated(RandMapTransform):
+    """Random rotation about one axis, angle ~ U(-range, range) radians."""
+
+    def __init__(
+        self,
+        keys,
+        prob: float = 0.1,
+        range_x: float = 0.0,
+        range_y: float = 0.0,
+        range_z: float = 0.0,
+        label_keys: Sequence[str] = ("label",),
+    ):
+        super().__init__(keys, prob)
+        self.ranges = {0: range_x, 1: range_y, 2: range_z}
+        self.label_keys = set(label_keys)
+
+    def __call__(self, sample: Sample, rng: np.random.Generator) -> Sample:
+        if not self.should_apply(rng):
+            return sample
+        out = dict(sample)
+        angles = {
+            ax: float(rng.uniform(-r, r)) for ax, r in self.ranges.items() if r > 0
+        }
+        for key in self.present_keys(sample):
+            vol: Volume = sample[key]
+            order = 0 if key in self.label_keys else 1
+            for ax, ang in angles.items():
+                vol = rotate_volume(vol, ax, ang, order)
+            out[key] = vol
+        return out
+
+
+class RandZoomd(RandMapTransform):
+    """Random isotropic zoom ~ U(min_zoom, max_zoom), keep_size."""
+
+    def __init__(
+        self,
+        keys,
+        prob: float = 0.1,
+        min_zoom: float = 0.9,
+        max_zoom: float = 1.1,
+        label_keys: Sequence[str] = ("label",),
+    ):
+        super().__init__(keys, prob)
+        self.min_zoom = min_zoom
+        self.max_zoom = max_zoom
+        self.label_keys = set(label_keys)
+
+    def __call__(self, sample: Sample, rng: np.random.Generator) -> Sample:
+        if not self.should_apply(rng):
+            return sample
+        factor = float(rng.uniform(self.min_zoom, self.max_zoom))
+        out = dict(sample)
+        for key in self.present_keys(sample):
+            vol: Volume = sample[key]
+            order = 0 if key in self.label_keys else 1
+            out[key] = zoom_volume(vol, [factor] * vol.ndim_spatial, order)
         return out

@@ -3,7 +3,8 @@
 ``segmantic_tpu_torch`` imports nothing of ``segmantic_tpu``: it keeps its own
 copies of the numpy-only modules it needs (``core/volume``,
 ``core/orientation``, ``io/nifti``, ``utils/*``, ``data/dataset``, the
-``native`` resampler binding). Here each copy gets the same inputs as its
+``native`` resampler binding, ``image/processing.py::pad``,
+``transforms/base.py``, ``transforms/registry.py``). Here each copy gets the same inputs as its
 original and must give the same results (exactly: the same numpy code), NIfTI
 files written by one package are read by the other, and every module of the
 port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
@@ -26,7 +27,10 @@ from segmantic_tpu import native as jnative
 from segmantic_tpu.core import orientation as jorient
 from segmantic_tpu.core import volume as jvolume
 from segmantic_tpu.data import dataset as jdataset
+from segmantic_tpu.image import processing as jprocessing
 from segmantic_tpu.io import nifti as jnifti
+from segmantic_tpu.transforms import base as jbase
+from segmantic_tpu.transforms import registry as jregistry
 from segmantic_tpu.utils import config as jconfig
 from segmantic_tpu.utils import file_iterators as jfiles
 from segmantic_tpu.utils import schema as jschema
@@ -35,8 +39,10 @@ from segmantic_tpu_torch import native
 from segmantic_tpu_torch.core import orientation as orient
 from segmantic_tpu_torch.core import volume
 from segmantic_tpu_torch.data import dataset
+from segmantic_tpu_torch.image import processing
 from segmantic_tpu_torch.io import nifti
 from segmantic_tpu_torch.ops.resample import resample_affine_np
+from segmantic_tpu_torch.transforms import base, registry
 from segmantic_tpu_torch.transforms.spatial import Spacingd
 from segmantic_tpu_torch.utils import config, file_iterators, schema
 from segmantic_tpu_torch.utils.json import PathEncoder
@@ -209,6 +215,66 @@ def test_native_unavailable_takes_the_numpy_resampler(monkeypatch):
                                   resample_affine_np(data, m, (6, 6, 6), order=1))
 
 
+@pytest.mark.parametrize("shape,target", [((5, 6, 7), (8, 6, 9)), ((5, 6), (7, 7)),
+                                          ((9, 9, 9), (4, 4, 4))])
+def test_pad_matches(shape, target):
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((2, *shape)).astype(np.float32)
+    aff = _oblique_affine(rng)
+    got = processing.pad(volume.Volume(data=data, affine=aff), target, value=-1.0)
+    want = jprocessing.pad(jvolume.Volume(data=data, affine=aff.copy()), target, value=-1.0)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.affine, want.affine)
+
+
+class _Fan:
+    """A random stand-in transform: fans a sample out to ``n`` with one draw each."""
+
+    is_random = True
+
+    def __init__(self, n):
+        self.n = n
+
+    def __call__(self, sample, rng):
+        return [dict(sample, draw=float(rng.random()), copy=i) for i in range(self.n)]
+
+
+@pytest.mark.parametrize("mod", [base, jbase], ids=["port", "jax"])
+def test_compose_copy_behaves_as_the_original(mod):
+    tag = lambda s: dict(s, tagged=True)  # noqa: E731
+    pipe = mod.Compose([tag, None, mod.Compose([_Fan(2), _Fan(3)])],
+                       rng=np.random.default_rng(7))
+    flat = pipe.flatten()
+    assert len(pipe.transforms) == 2 and len(flat.transforms) == 3 and flat.rng is pipe.rng
+    out = flat({"x": 1}, np.random.default_rng(1))
+    ref = np.random.default_rng(1)
+    firsts = [ref.random() for _ in range(2)]
+    assert len(out) == 6 and all(o["tagged"] for o in out)
+    assert [o["copy"] for o in out] == [0, 1, 2, 0, 1, 2]
+    assert out[0]["draw"] not in firsts  # the second fan-out overwrote the first's draw
+    det, rand = flat.split_deterministic()
+    assert det.transforms == [tag] and len(rand.transforms) == 2
+    assert mod.Compose([tag])({"x": 1}) == {"x": 1, "tagged": True}
+    assert mod.MapTransform("a").keys == ["a"]
+    assert mod.MapTransform(["a", "b"]).present_keys({"b": 0, "c": 1}) == ["b"]
+    assert mod.RandMapTransform("a", 0.3).prob == 0.3 and mod.RandMapTransform.is_random
+
+
+def test_registry_copy_resolves_values_as_the_original():
+    context = {"image_key": "img", "size": [4, "@n"], "n": 7}
+    for value in ("@image_key", "@size", "$n * 2 + size[0]", "plain", 3.5,
+                  {"a": "@n", "b": ["$n - 1", ("x", "@image_key")]},
+                  "$import math; math.floor(2.5) + n"):
+        assert registry._resolve_value(value, context) == jregistry._resolve_value(value, context)
+    assert registry._resolve_value("@size", context) == [4, 7]
+    assert registry._eval_expr("import os.path; os.path.basename('a/b')", {}) == "b"
+    with pytest.raises(NameError):  # no builtins beyond the context
+        registry._eval_expr("open('x')", {})
+    assert registry.build_transform("$n + 1", context) == 8
+    assert registry._resolve_target("pathlib.PurePosixPath") is jregistry._resolve_target(
+        "pathlib.PurePosixPath")
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         segmantic_tpu_torch.__path__, "segmantic_tpu_torch."))
@@ -217,7 +283,9 @@ def _port_modules():
 def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
     names = _port_modules()
     for pkg in ("core.volume", "io.nifti", "utils.config", "data.dataset", "native",
-                "ops.fused_shear", "ops.phase_dice", "ops.shear_resample", "train.augment"):
+                "ops.fused_shear", "ops.phase_dice", "ops.shear_resample", "train.augment",
+                "image.processing", "transforms.registry", "transforms.intensity",
+                "transforms.base"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys

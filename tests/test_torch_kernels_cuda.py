@@ -20,7 +20,9 @@ f32, in another order); f32 and the other channel counts the CUDA-core body.
 The shear group does two products and one sum per output: order 0 and the
 bf16-weight mode are bit-equal to the plain version, f32 within 1e-6 *
 max|ref| (the plain version's matrix product may fuse the multiply and add).
-The Dice sums run over up to ~10^5 voxels in another order: 1e-5 relative;
+The Dice sums run over up to ~10^5 voxels in another order, with the card's
+approximate exponential (2 ulp) and one reciprocal a voxel: 1e-5 relative, the
+label counts exact;
 the Dice cotangent 1e-5 * max|ref| in f32 and 2e-2 in bf16 (one rounding of
 the output); repeated launches are bit-equal.
 """
@@ -591,6 +593,71 @@ def test_dice_phase_sums(cuda, shape, n_phase, classes, dtype):
     assert torch.equal(got[2], want[2])  # label counts are whole numbers
     again = phase_dice.dice_phase_sums(xp, yp)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_phase", [1, 4, 8])
+@pytest.mark.parametrize("classes", [2, 3, 8, 32])
+def test_dice_phase_ragged(cuda, classes, n_phase, dtype):
+    """A voxel count that is no multiple of the unroll or of a block's run,
+    several blocks per sample, every phase count and lane width: sums and dx."""
+    g = torch.Generator().manual_seed(16)
+    shape = (3, 37, 41, 5)  # 7585 coarse voxels a sample
+    xp, yp = _dice_inputs(g, shape, n_phase, classes, dtype, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = phase_dice.sums_plan(3, 7585 * n_phase, classes, sms)
+    assert (7585 * n_phase) % (phase_dice.THREADS * plan.unroll) != 0
+    got = phase_dice.dice_phase_sums(xp, yp)
+    want = phase_dice.dice_phase_sums_plain(xp, yp)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+    assert torch.equal(got[2], want[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, phase_dice.dice_phase_sums(xp, yp)))
+    hot = _randn(g, 3, n_phase * classes)
+    cold = _randn(g, 3, n_phase * classes)
+    dx = phase_dice.dice_phase_dx(xp, yp, hot, cold)
+    _close(dx, phase_dice.dice_phase_dx_plain(xp, yp, hot, cold),
+           1e-5 if dtype == torch.float32 else 2e-2)
+
+
+def test_dice_sums_launcher_refuses_a_plan_with_another_unroll(cuda):
+    g = torch.Generator().manual_seed(19)
+    xp, yp = _dice_inputs(g, (1, 4, 4, 4), 8, 8, torch.float32, cuda)
+    partial = torch.empty((1, 1, 3, 8), device=cuda)
+    out = torch.empty((3, 1, 8), device=cuda)
+    with pytest.raises(RuntimeError, match="segk_dice_phase_sums"):
+        _cuda.launch("segk_dice_phase_sums", xp.data_ptr(), yp.data_ptr(), partial.data_ptr(),
+                     out.data_ptr(), 0, 1, 8, 8, 512, 1024, 1, 3)
+
+
+def test_dice_phase_dx_takes_a_phase_count_the_block_is_no_multiple_of(cuda):
+    """P = 3: a thread's phase changes from voxel to voxel."""
+    g = torch.Generator().manual_seed(17)
+    xp, yp = _dice_inputs(g, (2, 11, 13, 17), 3, 5, torch.float32, cuda)
+    hot, cold = _randn(g, 2, 15), _randn(g, 2, 15)
+    _close(phase_dice.dice_phase_dx(xp, yp, hot, cold),
+           phase_dice.dice_phase_dx_plain(xp, yp, hot, cold), 1e-5)
+
+
+def test_dice_kernels_are_captured_in_a_cuda_graph(cuda):
+    """The sums allocate their scratch and result inside the call: both
+    record into a graph, and a replay sees new logits in the same storage."""
+    g = torch.Generator().manual_seed(18)
+    xp, yp = _dice_inputs(g, (2, 12, 12, 12), 8, 8, torch.bfloat16, cuda)
+    hot, cold = _randn(g, 2, 64), _randn(g, 2, 64)
+    phase_dice.dice_phase_sums(xp, yp)
+    phase_dice.dice_phase_dx(xp, yp, hot, cold)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sums = phase_dice.dice_phase_sums(xp, yp)
+        dx = phase_dice.dice_phase_dx(xp, yp, hot, cold)
+    xp.copy_(_randn(g, *xp.shape, scale=2.0))
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(sums, phase_dice.dice_phase_sums(xp, yp)):
+        assert torch.equal(a, b)
+    assert torch.equal(dx, phase_dice.dice_phase_dx(xp, yp, hot, cold))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])

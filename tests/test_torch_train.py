@@ -364,7 +364,6 @@ def test_flip_matches_jax_and_augment_batch_flips_image_with_label():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(preprocessing={"a": 1}), dict(augmentation={"a": 1}),
     dict(model_parallel=2), dict(zero_optimizer=True), dict(accumulate_steps=2),
     dict(remat=True), dict(profile_dir="p"), dict(arch="segresnet"),
     dict(val_blend_mode="constant"),
