@@ -9,7 +9,10 @@ batch, one f32 train step on the card against the CPU, and ``train()`` with
 the device augmentation (margin patches, rotation + zoom, intensity ops) with
 the augmentation's own time beside the augmented step, and ``train()`` driven
 by ``preprocessing`` / ``augmentation`` config dicts (the host pipeline's
-milliseconds a batch beside the step's).
+milliseconds a batch beside the step's); then evaluate: ``predict()`` with
+labels and metrics on two phantoms, ``ensemble_creator()`` in its three
+modes over three checkpoints, and ``cross_validate()`` over two folds
+trained in subprocesses of the port's CLI.
 
     python3 chip_smoke.py
 
@@ -72,6 +75,12 @@ MARGIN_PATCH = (144, 144, 144)  # 96 + 2 * (96 // 4), what the sampler crops
 DICE_EXTENT = 48  # the phase grid of a 96^3 patch
 TRAIN_PATCH = (96, 96, 96)
 TRAIN_BATCH = 8  # batch_size 2 x num_samples 4, the train() defaults
+DEVICE = "cuda"  # the evaluation phases' device (a CPU rehearsal sets "cpu")
+EVAL_SHAPE = (256, 256, 176)  # the evaluation phases' phantoms, a head MRI's grid
+EVAL_KERNELS = ("fused_conv", "phase_conv", "blend")  # the eval forward's and the blend
+CLASS_NAMES = {"Background": 0, **{f"tissue{k}": k for k in range(1, 8)}}
+CV_SIZE = 128
+CV_SCENARIO = {"num_classes": 8, "max_epochs": 1, "device": "cuda"}  # flagship defaults
 # NIfTI-1 datatype codes
 _NIFTI_DTYPES = {2: "u1", 4: "<i2", 8: "<i4", 16: "<f4", 64: "<f8", 256: "i1",
                  512: "<u2", 768: "<u4", 1024: "<i8"}
@@ -1354,14 +1363,14 @@ def train_parity(torch):
         _fail("f32 train-step parity, card vs the f64 step")
 
 
-def make_checkpoint(torch, path: Path):
-    """The flagship UNet from torch.Generator seed 0, with non-trivial BN
+def make_checkpoint(torch, path: Path, seed: int = 0, metrics=None):
+    """The flagship UNet from torch.Generator ``seed``, with non-trivial BN
     running statistics, written as an STPUCKP1 checkpoint."""
     from segmantic_tpu_torch.train.trainer import SegmentationModel
 
-    model = SegmentationModel.create(num_classes=NUM_CLASSES, spatial_size=ROI, seed=0,
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, spatial_size=ROI, seed=seed,
                                      device="cpu")
-    g = torch.Generator().manual_seed(1)
+    g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, buf in model.module.named_buffers():
             if name.endswith("running_var"):
@@ -1371,7 +1380,7 @@ def make_checkpoint(torch, path: Path):
         for name, p in model.module.named_parameters():
             if "Norm_0" in name:
                 p.add_(0.1 * torch.randn(p.shape, generator=g))
-    model.save(path)
+    model.save(path, metrics)
 
 
 def phantom(shape, seed: int):
@@ -1511,6 +1520,229 @@ def parity(torch, ckpt: Path, session):
     print("  f32 parity ok (limit 1e-3 * max|ref|, >= 99.9% argmax agreement)")
 
 
+def _reset_counters():
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    return counters
+
+
+def _windows(shape, roi, overlap: float) -> int:
+    from segmantic_tpu_torch.infer.sliding_window import window_starts
+
+    return len(window_starts([max(s, r) for s, r in zip(shape, roi)], roi, overlap))
+
+
+def _labelled_cases(work: Path, names, shape, seed: int, spacing=(1.0, 1.0, 1.0)):
+    """``labelled_phantom`` volumes written as image / label NIfTI pairs under
+    ``work``; returns (image paths, label paths)."""
+    for sub in ("image", "label"):
+        (work / sub).mkdir(parents=True, exist_ok=True)
+    images, labels = [], []
+    for i, name in enumerate(names):
+        img, lbl = labelled_phantom(shape, seed + i)
+        affine = spacing_affine(spacing, (float(i), -2.0 * i, 0.5 * i))
+        images.append(work / "image" / f"{name}.nii.gz")
+        labels.append(work / "label" / f"{name}.nii.gz")
+        write_nifti(images[-1], img, affine)
+        write_nifti(labels[-1], lbl, affine)
+    return images, labels
+
+
+def run_predict(torch, ckpt: Path, work: Path):
+    """predict() with labels on two labelled 256x256x176 phantoms on the card:
+    per-case Dice and stage seconds, launches against the window count; each
+    saved label map bit-equal to segment_volume's for the same volume, each
+    confusion matrix (the port's, counted on the card) equal to a numpy
+    bincount of the two maps, the Dice and metrics predict reports derived
+    from that matrix, and mean_dice.txt two lines plus the mean."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.predict import predict, segment_volume
+    from segmantic_tpu_torch.metrics.overlap import (
+        confusion_matrix, confusion_matrix_metrics, dice_from_confusion,
+    )
+    from segmantic_tpu_torch.train.trainer import (
+        SegmentationModel, default_preprocessing, make_val_forward,
+    )
+
+    images, labels = _labelled_cases(work, ["scan_a", "scan_b"], EVAL_SHAPE, 60,
+                                     spacing=(1.0, 1.0, 1.2))
+    out = work / "pred"
+    print("  confusion plots off (save_confusion_plots=False): the card's host may lack "
+          "matplotlib")
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    results = predict(ckpt, images, labels, output_dir=out, tissue_dict=CLASS_NAMES,
+                      device=DEVICE, save_confusion_plots=False)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+
+    model = SegmentationModel.load(ckpt, device=DEVICE)
+    forward = make_val_forward(model.module)
+    pre = default_preprocessing(["image", "label"])
+    chunks = 0
+    for res, image, label in zip(results, images, labels):
+        pred, sample = segment_volume(model, {"image": image, "label": label},
+                                      val_forward=forward, pre=pre)
+        shape = sample["image"].spatial_shape
+        n_win = _windows(shape, model.spatial_size, 0.25)
+        chunks += -(-n_win // SW_BATCH)
+        print(f"  {image.name}: dice {res.dice:.5f}; preprocessed {tuple(shape)} (cropped to "
+              f"the label's foreground), {n_win} windows; seconds "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
+        saved, _ = read_nifti(res.saved_to)
+        ref = pred.numpy()[0]
+        if saved.shape != ref.shape or not np.array_equal(saved, ref):
+            _fail(f"{res.saved_to.name}: the saved map differs from segment_volume's")
+        true = read_nifti(label)[0].astype(np.int64)
+        ours = saved.astype(np.int64)
+        cm = np.bincount(true.ravel() * NUM_CLASSES + ours.ravel(),
+                         minlength=NUM_CLASSES ** 2).reshape(NUM_CLASSES, NUM_CLASSES)
+        card = confusion_matrix(NUM_CLASSES, torch.from_numpy(true).to(DEVICE),
+                                torch.from_numpy(ours).to(DEVICE))
+        metrics = confusion_matrix_metrics(cm)
+        ok = (np.array_equal(card.cpu().numpy(), cm) and cm.sum() == true.size
+              and np.array_equal(res.per_class_dice, dice_from_confusion(cm))
+              and all(np.array_equal(res.metrics[k], metrics[k]) for k in metrics))
+        print(f"    saved map == segment_volume's bit for bit; confusion matrix on the card "
+              f"== numpy bincount, sums to {cm.sum()} voxels: {ok}")
+        if not ok:
+            _fail(f"{image.name}: confusion matrix or the metrics derived from it")
+    lines = (out / "mean_dice.txt").read_text().splitlines()
+    mean = float(np.mean([r.dice for r in results]))
+    if lines != [f"{r.dice:.6f}" for r in results] + [f"mean\t{mean:.6f}"]:
+        _fail(f"mean_dice.txt is not two lines plus the mean: {lines}")
+    print(f"  predict(): {seconds:.2f} s for 2 cases; mean_dice.txt {lines}; launches "
+          f"{launches}")
+    if launches["blend"] != chunks or min(launches[k] for k in EVAL_KERNELS) <= 0:
+        _fail(f"expected {chunks} blend launches (one a chunk) and every eval kernel: "
+              f"{launches}")
+    return launches, {"seconds": seconds, "chunks": chunks}
+
+
+def run_ensemble(torch, work: Path):
+    """ensemble_creator() in mean, vote and select_best over three flagship
+    checkpoints (seeds 0, 1, 2, named by checkpoint_filename) on one labelled
+    phantom: seconds per case per mode, the sliding window's seconds per
+    model; then three copies of one checkpoint, where vote and select_best
+    must be bit-equal and mean agree with them on >= 99.99% of voxels."""
+    import shutil
+
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.ensemble import ensemble_creator, ensemble_evaluate
+    from segmantic_tpu_torch.train.checkpoint import checkpoint_filename
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, default_preprocessing
+    from segmantic_tpu_torch.utils import config
+
+    images, labels = _labelled_cases(work / "data", ["scan_e"], EVAL_SHAPE, 70)
+    models_dir, copies_dir = work / "models", work / "copies"
+    models_dir.mkdir(parents=True)
+    copies_dir.mkdir()
+    ckpts, copies = [], []
+    for seed, dice in enumerate((0.8125, 0.75, 0.78125)):
+        ckpts.append(models_dir / checkpoint_filename(seed, 0.5, dice))
+        make_checkpoint(torch, ckpts[-1], seed=seed, metrics={"val_dice": dice})
+        copies.append(copies_dir / checkpoint_filename(seed, 0.5, dice))
+        shutil.copyfile(ckpts[0], copies[-1])
+    yml = work / "candidates.yml"
+    config.dump({f"tissue{k}": (k - 1) % 3 for k in range(1, NUM_CLASSES)}, yml)
+
+    models = [SegmentationModel.load(c, device=DEVICE) for c in ckpts]
+    sample = default_preprocessing(["image", "label"])({"image": images[0], "label": labels[0]})
+    n_win = _windows(sample["image"].spatial_shape, ROI, 0.5)
+    per_model = []
+    for model in models:
+        ensemble_evaluate([model], sample, ROI)  # warm
+        t0 = time.perf_counter()
+        ensemble_evaluate([model], sample, ROI)  # ends in the logits' copy to the host
+        per_model.append(time.perf_counter() - t0)
+    print(f"  preprocessed {tuple(sample['image'].spatial_shape)}, {n_win} windows at overlap "
+          f"0.5; sliding window (upload f32, windows, blend, logits to the host) per model: "
+          f"{[round(s, 4) for s in per_model]} s")
+    del models
+
+    launches, seconds, maps = {}, {}, {}
+    for tag, files in (("", ckpts), ("copies ", copies)):
+        for mode in ("mean", "vote", "select_best"):
+            counters = _reset_counters()
+            t0 = time.perf_counter()
+            saved = ensemble_creator(files, images, labels, output_dir=work / f"{tag}{mode}",
+                                     tissue_dict=CLASS_NAMES, combination_mode=mode,
+                                     candidate_per_tissue_path=yml, device=DEVICE)
+            seconds[tag + mode] = time.perf_counter() - t0
+            got = {name: c.count for name, c in counters.items()}
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+            lbl, _ = read_nifti(saved[0])
+            maps[tag + mode] = lbl
+            print(f"  {tag}{mode}: {saved[0].name} {lbl.shape}, {seconds[tag + mode]:.2f} s "
+                  f"for the case; labels per class "
+                  f"{np.bincount(lbl.astype(np.int64).ravel(), minlength=NUM_CLASSES).tolist()};"
+                  f" launches {got}")
+            chunks = 3 * -(-n_win // SW_BATCH)
+            if got["blend"] != chunks or min(got[k] for k in EVAL_KERNELS) <= 0:
+                _fail(f"{tag}{mode}: expected {chunks} blend launches (3 models) and every "
+                      f"eval kernel: {got}")
+    same = np.array_equal(maps["copies vote"], maps["copies select_best"])
+    agree = float((maps["copies mean"] == maps["copies vote"]).mean())
+    print(f"  three copies of one checkpoint: vote == select_best bit for bit {same}; mean "
+          f"agrees on {100 * agree:.5f}% of voxels (limit 99.99%)")
+    if not same or agree < 0.9999:
+        _fail("ensemble of three copies: vote / select_best / mean disagree")
+    return launches, seconds
+
+
+def run_cross_validate(torch, work: Path):
+    """cross_validate() on four 128^3 labelled phantoms plus one test phantom:
+    one scenario config (flagship defaults, max_epochs 1, device cuda), two
+    folds trained one after the other in subprocesses of the port's CLI, then
+    predict() on the card with each fold's checkpoints. Launches are this
+    process's (the evaluation); the folds' training runs in the subprocesses."""
+    import numpy as np
+
+    from segmantic_tpu_torch.image.labels import save_tissue_list
+    from segmantic_tpu_torch.train.cross_validate import cross_validate
+    from segmantic_tpu_torch.utils import config
+
+    _labelled_cases(work / "data", [f"case{i}" for i in range(4)], (CV_SIZE,) * 3, 80)
+    _labelled_cases(work / "test", ["held_out"], (CV_SIZE,) * 3, 90)
+    save_tissue_list({k: v for k, v in CLASS_NAMES.items() if v}, work / "tissues.txt")
+    (work / "configs").mkdir(parents=True)
+    config.dump(CV_SCENARIO, work / "configs" / "flagship.yml")
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    runs = cross_validate(image_dir=work / "data" / "image", labels_dir=work / "data" / "label",
+                          tissue_list=work / "tissues.txt", output_dir=work / "cv",
+                          config_files_dir=work / "configs",
+                          test_image_dir=work / "test" / "image",
+                          test_labels_dir=work / "test" / "label", num_splits=2,
+                          device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    for run in runs:
+        ckpts = sorted(p.name for p in run.fold_dir.glob("*.ckpt"))
+        lines = ((run.fold_dir / "mean_dice.txt").read_text().splitlines()
+                 if (run.fold_dir / "mean_dice.txt").exists() else [])
+        print(f"  fold {run.fold_dir.name}: training subprocess exit {run.returncode}, "
+              f"{run.train_seconds:.1f} s; evaluation {run.eval_seconds:.1f} s; checkpoints "
+              f"{ckpts}; mean_dice.txt {lines}")
+        evaluated = [c for c in ckpts if c != "last.ckpt"]
+        if run.returncode != 0 or not evaluated or "last.ckpt" not in ckpts:
+            _fail(f"fold {run.fold_dir.name}: training failed or wrote no checkpoints")
+        if len(lines) != 2 or not np.isfinite(float(lines[0])) \
+                or not (run.fold_dir / "held_out.nii.gz").exists():
+            _fail(f"fold {run.fold_dir.name}: predict did not evaluate its checkpoint")
+    print(f"  cross_validate(): {seconds:.1f} s for {len(runs)} folds; launches of the "
+          f"evaluation {launches}")
+    if len(runs) != 2 or min(launches[k] for k in EVAL_KERNELS) <= 0:
+        _fail(f"expected two folds and every eval kernel in the evaluation: {launches}")
+    return launches, {"seconds": seconds,
+                      "train_s": [round(r.train_seconds, 3) for r in runs],
+                      "eval_s": [round(r.eval_seconds, 3) for r in runs]}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1589,18 +1821,30 @@ def main() -> None:
               "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
         cfg_launches, cfg_numbers = run_train_config(torch, work / "train", work / "run_cfg",
                                                      train_numbers["step_ms"])
+        print("[predict] predict(test_labels=...) with the flagship checkpoint on two labelled "
+              "256x256x176 phantoms (roi 96^3, sw-batch 4, overlap 0.25, bf16)")
+        pred_launches, pred_numbers = run_predict(torch, ckpt, work / "predict")
+        print("[ensemble] ensemble_creator() in mean, vote and select_best over three flagship "
+              "checkpoints on one labelled 256x256x176 phantom (roi 96^3, overlap 0.5)")
+        ens_launches, ens_numbers = run_ensemble(torch, work / "ensemble")
+        print("[cross-validate] cross_validate() on four 128^3 phantoms plus one test "
+              "phantom, one flagship scenario (max_epochs 1, device cuda), 2 folds")
+        cv_launches, cv_numbers = run_cross_validate(torch, work / "cv")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
     if loaded:
         _fail(f"JAX or the JAX package was imported: {loaded[:5]}")
     print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}, "
-          f"train-config {cfg_launches}; train step {train_numbers}; augmented "
-          f"{aug_numbers}; config-driven {cfg_numbers}")
+          f"train-config {cfg_launches}, predict {pred_launches}, ensemble {ens_launches}, "
+          f"cross-validate {cv_launches}; train step {train_numbers}; augmented "
+          f"{aug_numbers}; config-driven {cfg_numbers}; predict {pred_numbers}; ensemble "
+          f"seconds {ens_numbers}; cross-validate {cv_numbers}")
+    paths = (launches, train_launches, aug_launches, cfg_launches, pred_launches,
+             ens_launches, cv_launches)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": (launches[name] + train_launches[name] + aug_launches[name]
-                      + cfg_launches[name]),
+         "launches": sum(path[name] for path in paths),
          "max_abs_err": measured[name]["max_abs_err"],
          "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
          "bound_ms": measured[name]["bound_ms"],

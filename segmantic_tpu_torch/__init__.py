@@ -6,7 +6,9 @@ and its channel-last public layouts; the Pallas kernels on the ported paths
 are hand-written CUDA kernels for Hopper (``csrc/``), each with a plain
 PyTorch version that runs for CPU tensors.
 
-Ported so far: the serving path (``segmantic-unet-torch serve``).
+Ported so far: serving, single-device training and evaluation (the
+``serve``, ``train``, ``train-config``, ``predict``, ``ensemble-predict`` and
+``cross-validate`` subcommands of ``segmantic-unet-torch``).
 """
 
 __version__ = "0.1.0"

@@ -6,11 +6,18 @@ only the entry point the port calls: the multithreaded affine resample that
 ``transforms.spatial.Spacingd`` uses when the cache is built. The library is
 built with ``make`` on first use when a compiler is there; callers ask
 :func:`available` and take the numpy implementation when it is not.
+
+Processes that start together (test workers) build at most one at a time,
+under an exclusive ``flock`` on ``native/.build.lock``, and the library is
+linked to a temporary name and renamed into place, so no process loads a
+half-written file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -20,9 +27,37 @@ import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 _LIB_PATH = _NATIVE_DIR / "libsegmantic_native.so"
+_BUILD_LOCK = _NATIVE_DIR / ".build.lock"
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
+
+
+def _build() -> None:
+    """Build the library unless it is there, one process at a time: link to
+    a temporary name, then rename it onto ``_LIB_PATH``."""
+    with open(_BUILD_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if _LIB_PATH.exists():
+                return
+            tmp = f".{_LIB_PATH.name}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["make", "-s", f"TARGET={tmp}"], cwd=_NATIVE_DIR,
+                               check=True, capture_output=True)
+                os.replace(_NATIVE_DIR / tmp, _LIB_PATH)
+            finally:
+                (_NATIVE_DIR / tmp).unlink(missing_ok=True)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _stamp():
+    try:
+        st = _LIB_PATH.stat()
+        return st.st_ino, st.st_size, st.st_mtime_ns
+    except FileNotFoundError:
+        return None
 
 
 def _load() -> ctypes.CDLL:
@@ -34,12 +69,18 @@ def _load() -> ctypes.CDLL:
             raise RuntimeError("native library unavailable")
         try:
             if not _LIB_PATH.exists():
-                subprocess.run(
-                    ["make", "-s"], cwd=_NATIVE_DIR, check=True, capture_output=True
-                )
-            lib = ctypes.CDLL(str(_LIB_PATH))
+                _build()
         except (OSError, subprocess.CalledProcessError) as e:
             _load_failed = True
+            raise RuntimeError(f"native library unavailable: {e}") from e
+        before = _stamp()
+        try:
+            lib = ctypes.CDLL(str(_LIB_PATH))
+        except OSError as e:
+            # a file that changed while it was loaded (another process was
+            # still writing it) may load on the next call: no caching then
+            if _stamp() == before:
+                _load_failed = True
             raise RuntimeError(f"native library unavailable: {e}") from e
         lib.resample_affine_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float),

@@ -1,7 +1,8 @@
 """Single-file checkpoints in the JAX package's ``STPUCKP1`` format.
 
 Port of ``segmantic_tpu/train/checkpoint.py`` (save/load, the
-``epoch=E-val_loss=L-val_dice=D.ckpt`` names and ``TopKCheckpoints``): ``STPUCKP1``
+``epoch=E-val_loss=L-val_dice=D.ckpt`` names, ``parse_val_dice`` that reads
+them back for the ``mean`` ensemble's weights, and ``TopKCheckpoints``): ``STPUCKP1``
 magic, u64 little-endian header length, JSON header
 ({"hparams", "metrics", "has_opt_state"}), then the msgpack of
 ``{"variables": ...}`` exactly as ``flax.serialization.to_bytes`` writes it
@@ -14,6 +15,7 @@ turns them into a torch ``state_dict``.
 from __future__ import annotations
 
 import json
+import re
 import struct
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -51,16 +53,20 @@ def save_checkpoint(
         f.write(blob)
 
 
+def _parse_header(raw: bytes, path: Path) -> Tuple[Dict[str, Any], int]:
+    if raw[:8] != _MAGIC:
+        raise ValueError(f"{path}: not a segmantic-tpu checkpoint")
+    (hlen,) = struct.unpack("<Q", raw[8:16])
+    return json.loads(raw[16:16 + hlen].decode()), hlen
+
+
 def load_checkpoint(path: Path) -> Dict[str, Any]:
     """-> {"variables": nested dict of numpy arrays, "hparams", "metrics"}.
 
     An optimizer state stored by the JAX trainer is skipped (serving does
     not need it)."""
     raw = Path(path).read_bytes()
-    if raw[:8] != _MAGIC:
-        raise ValueError(f"{path}: not a segmantic-tpu checkpoint")
-    (hlen,) = struct.unpack("<Q", raw[8:16])
-    header = json.loads(raw[16:16 + hlen].decode())
+    header, hlen = _parse_header(raw, path)
     payload = msgpack.unpackb(raw[16 + hlen:])
     return {
         "variables": payload["variables"],
@@ -71,6 +77,24 @@ def load_checkpoint(path: Path) -> Dict[str, Any]:
 
 def checkpoint_filename(epoch: int, val_loss: float, val_dice: float) -> str:
     return f"epoch={epoch}-val_loss={val_loss:.2f}-val_dice={val_dice:.4f}.ckpt"
+
+
+_DICE_RE = re.compile(r"val_dice=([0-9]*\.?[0-9]+)")
+
+
+def parse_val_dice(path: Path) -> Optional[float]:
+    """Parse val_dice from a checkpoint filename (ensemble weighting), else
+    from the metrics stored in the checkpoint; None when neither has it."""
+    m = _DICE_RE.search(Path(path).name)
+    if m:
+        return float(m.group(1))
+    try:  # fall back to the metrics in the header
+        with open(path, "rb") as f:
+            head = f.read(16)
+            head += f.read(struct.unpack("<Q", head[8:16])[0])
+        return float(_parse_header(head, path)[0]["metrics"]["val_dice"])
+    except (OSError, ValueError, KeyError, TypeError, struct.error):
+        return None
 
 
 class TopKCheckpoints:

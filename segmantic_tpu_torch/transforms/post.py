@@ -4,14 +4,14 @@ Port of ``segmantic_tpu/transforms/post.py`` (``AsDiscreted``, ``MapLabels``,
 ``MapLabelsd``, ``Invertd``, ``SaveImaged``): argmax over channels, integer
 relabelling through a lookup table, inversion of the deterministic
 preprocessing by replaying its applied-ops log backwards (spacing, crop, pad,
-orientation), and NIfTI output. The ensemble combiners (``MeanEnsembled``,
-``VoteEnsembled``, ``SelectBestEnsembled``) are not ported yet.
+orientation), NIfTI output, and the ensemble combiners (``MeanEnsembled``,
+``VoteEnsembled``, ``SelectBestEnsembled``) of ``ensemble_creator``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -180,3 +180,87 @@ class SaveImaged(MapTransform):
             write_volume(self.output_dir / name, out_vol)
             vol.meta["saved_to"] = str(self.output_dir / name)
         return sample
+
+
+# ---------------------------------------------------------------------------
+# Ensemble combination
+# ---------------------------------------------------------------------------
+
+
+def _stack_preds(sample: Sample, keys: Sequence[str]) -> "tuple[np.ndarray, Volume]":
+    vols = [sample[k] for k in keys]
+    arr = np.stack([v.numpy() for v in vols])  # (E, C, *spatial)
+    return arr, vols[0]
+
+
+class MeanEnsembled(MapTransform):
+    """Weighted mean of model outputs (weights e.g. from val-dice)."""
+
+    def __init__(self, keys, output_key: str, weights: Optional[Sequence[float]] = None):
+        super().__init__(keys)
+        self.output_key = output_key
+        self.weights = None if weights is None else np.asarray(weights, np.float32)
+
+    def __call__(self, sample: Sample) -> Sample:
+        out = dict(sample)
+        arr, first = _stack_preds(sample, self.keys)
+        if self.weights is not None:
+            w = self.weights.reshape((-1,) + (1,) * (arr.ndim - 1))
+            mean = (arr * w).sum(axis=0) / self.weights.sum()
+        else:
+            mean = arr.mean(axis=0)
+        out[self.output_key] = first.with_data(mean)
+        return out
+
+
+class VoteEnsembled(MapTransform):
+    """Majority vote over discrete (argmaxed or one-hot) predictions."""
+
+    def __init__(self, keys, output_key: str, num_classes: Optional[int] = None):
+        super().__init__(keys)
+        self.output_key = output_key
+        self.num_classes = num_classes
+
+    def __call__(self, sample: Sample) -> Sample:
+        out = dict(sample)
+        arr, first = _stack_preds(sample, self.keys)
+        if arr.shape[1] > 1:  # one-hot: mean then argmax
+            votes = arr.mean(axis=0)
+            result = np.argmax(votes, axis=0, keepdims=True)
+        else:
+            n = self.num_classes or int(arr.max()) + 1
+            labels = arr[:, 0].astype(np.int64)  # (E, *spatial)
+            onehot = np.stack([(labels == c).sum(axis=0) for c in range(n)])
+            result = np.argmax(onehot, axis=0)[None]
+        out[self.output_key] = first.with_data(result)
+        return out
+
+
+class SelectBestEnsembled(MapTransform):
+    """Per-tissue best-model merge: for each tissue id, take that tissue's
+    voxels from the model chosen in ``label_model_dict`` (tissue_id -> model
+    index)."""
+
+    def __init__(self, keys, output_key: str, label_model_dict: Dict[int, int]):
+        super().__init__(keys)
+        self.output_key = output_key
+        self.label_model_dict = {int(k): int(v) for k, v in label_model_dict.items()}
+
+    def __call__(self, sample: Sample) -> Sample:
+        out = dict(sample)
+        arr, first = _stack_preds(sample, self.keys)
+        has_ch_dim = arr.shape[1] > 1
+        if has_ch_dim:  # one-hot -> discrete
+            arr = np.argmax(arr, axis=1, keepdims=True)
+        result = np.zeros(arr.shape[1:], dtype=arr.dtype)
+        for tissue_id, model_id in self.label_model_dict.items():
+            best = arr[model_id]
+            result[best == tissue_id] = tissue_id
+        if has_ch_dim:
+            num_classes = max(self.label_model_dict.keys()) + 1
+            lab = result[0].astype(np.int64)
+            result = np.stack([(lab == c) for c in range(num_classes)]).astype(
+                np.float32
+            )
+        out[self.output_key] = first.with_data(result)
+        return out

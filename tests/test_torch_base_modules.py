@@ -2,9 +2,10 @@
 
 ``segmantic_tpu_torch`` imports nothing of ``segmantic_tpu``: it keeps its own
 copies of the numpy-only modules it needs (``core/volume``,
-``core/orientation``, ``io/nifti``, ``utils/*``, ``data/dataset``, the
-``native`` resampler binding, ``image/processing.py::pad``,
-``transforms/base.py``, ``transforms/registry.py``). Here each copy gets the same inputs as its
+``core/orientation``, ``io/nifti``, ``utils/*``, ``data/dataset``,
+``data/datalist``, ``image/labels``, the ``native`` resampler binding,
+``image/processing.py::pad``, ``transforms/base.py``,
+``transforms/registry.py``, ``viz/plots``). Here each copy gets the same inputs as its
 original and must give the same results (exactly: the same numpy code), NIfTI
 files written by one package are read by the other, and every module of the
 port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
@@ -13,10 +14,12 @@ port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
 from __future__ import annotations
 
 import json
+import os
 import pkgutil
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -26,7 +29,9 @@ import segmantic_tpu_torch
 from segmantic_tpu import native as jnative
 from segmantic_tpu.core import orientation as jorient
 from segmantic_tpu.core import volume as jvolume
+from segmantic_tpu.data import datalist as jdatalist
 from segmantic_tpu.data import dataset as jdataset
+from segmantic_tpu.image import labels as jlabels
 from segmantic_tpu.image import processing as jprocessing
 from segmantic_tpu.io import nifti as jnifti
 from segmantic_tpu.transforms import base as jbase
@@ -35,17 +40,19 @@ from segmantic_tpu.utils import config as jconfig
 from segmantic_tpu.utils import file_iterators as jfiles
 from segmantic_tpu.utils import schema as jschema
 from segmantic_tpu.utils.json import PathEncoder as JPathEncoder
+from segmantic_tpu.viz import plots as jplots
 from segmantic_tpu_torch import native
 from segmantic_tpu_torch.core import orientation as orient
 from segmantic_tpu_torch.core import volume
-from segmantic_tpu_torch.data import dataset
-from segmantic_tpu_torch.image import processing
+from segmantic_tpu_torch.data import datalist, dataset
+from segmantic_tpu_torch.image import labels, processing
 from segmantic_tpu_torch.io import nifti
 from segmantic_tpu_torch.ops.resample import resample_affine_np
 from segmantic_tpu_torch.transforms import base, registry
 from segmantic_tpu_torch.transforms.spatial import Spacingd
 from segmantic_tpu_torch.utils import config, file_iterators, schema
 from segmantic_tpu_torch.utils.json import PathEncoder
+from segmantic_tpu_torch.viz import plots
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -186,8 +193,9 @@ def test_utils_match(paired_files, tmp_path):
 def test_native_resampler_matches_numpy_and_the_original(order):
     """``Spacingd._resample`` asks ``native.available()`` and takes the native
     resampler or the numpy one by that answer; both give the same volume
-    (1e-4 absolute: float32 coordinates in the library, float64 in numpy)."""
-    assert native.available() == jnative.available()
+    (1e-4 absolute: float32 coordinates in the library, float64 in numpy).
+    The original library binding is compared where it loaded in this process:
+    its loader may lose a race with a concurrent build and say no."""
     rng = np.random.default_rng(3)
     data = rng.standard_normal((1, 9, 10, 11)).astype(np.float32)
     m = np.concatenate([np.diag([0.7, 0.9, 1.2]), [[0.3], [-0.2], [0.5]]], axis=1)  # (3, 4)
@@ -198,11 +206,60 @@ def test_native_resampler_matches_numpy_and_the_original(order):
         np.testing.assert_array_equal(got, plain)
         return
     np.testing.assert_array_equal(got, native.resample_affine(data, m, (12, 11, 9), order=order))
-    np.testing.assert_array_equal(got, jnative.resample_affine(data, m, (12, 11, 9), order=order))
+    if jnative.available():
+        np.testing.assert_array_equal(
+            got, jnative.resample_affine(data, m, (12, 11, 9), order=order))
     if order == 1:
         np.testing.assert_allclose(got, plain, atol=1e-4)
     else:  # nearest picks may differ only where a coordinate lands on a tie
         assert (got != plain).mean() < 0.01
+
+
+def test_native_build_is_atomic_under_concurrent_loaders(tmp_path):
+    """Six processes, started in two waves, on a ``native/`` without the
+    library, with a compiler that writes its output in two parts a second
+    apart (as a slow linker would): one builds it (under the lock, linked to
+    a temporary name and renamed into place), and every one loads it, the
+    second wave too, which finds the build under way; no temporary file is
+    left."""
+    native_dir = tmp_path / "native"
+    native_dir.mkdir()
+    for name in ("Makefile", "segmantic_native.cpp"):
+        (native_dir / name).write_bytes((REPO / "native" / name).read_bytes())
+    slow_cxx = tmp_path / "slow-cxx"
+    slow_cxx.write_text(textwrap.dedent("""\
+        #!/bin/sh
+        out=""; prev=""
+        for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+        g++ "$@" -o "$out.whole" || exit 1
+        head -c 4096 "$out.whole" > "$out"; sleep 1; cat "$out.whole" > "$out"
+        rm -f "$out.whole"
+    """))
+    slow_cxx.chmod(0o755)
+    script = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        sys.path.insert(0, {str(REPO)!r})
+        from segmantic_tpu_torch import native
+        d = Path({str(native_dir)!r})
+        native._NATIVE_DIR, native._BUILD_LOCK = d, d / ".build.lock"
+        native._LIB_PATH = d / "libsegmantic_native.so"
+        print(native.available())
+    """)
+    env = dict(os.environ, CXX=str(slow_cxx))
+    procs = []
+    for wave in range(2):
+        procs += [subprocess.Popen([sys.executable, "-c", script], stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True, env=env)
+                  for _ in range(3)]
+        deadline = time.monotonic() + 120
+        while wave == 0 and time.monotonic() < deadline and not any(
+                p.name.endswith((".so", ".tmp")) for p in native_dir.iterdir()):
+            time.sleep(0.05)  # the second wave starts once the first is linking
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert [o.strip() for o, _ in outs] == ["True"] * 6, [e for _, e in outs]
+    assert sorted(p.name for p in native_dir.iterdir()) == [
+        ".build.lock", "Makefile", "libsegmantic_native.so", "segmantic_native.cpp"]
 
 
 def test_native_unavailable_takes_the_numpy_resampler(monkeypatch):
@@ -225,6 +282,71 @@ def test_pad_matches(shape, target):
     want = jprocessing.pad(jvolume.Volume(data=data, affine=aff.copy()), target, value=-1.0)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     np.testing.assert_array_equal(got.affine, want.affine)
+
+
+@pytest.mark.parametrize("key,base_dir", [("test", None), ("training", None),
+                                          ("test", "elsewhere")])
+def test_datalist_copy_matches(tmp_path, key, base_dir):
+    doc = tmp_path / "sub" / "datalist.json"
+    doc.parent.mkdir()
+    doc.write_text(json.dumps({
+        "training": [{"image": "img/a.nii.gz", "label": "lbl/a.nii.gz"},
+                     {"image": str(tmp_path / "abs.nii.gz"), "label": "lbl/b.nii.gz"}],
+        "test": ["img/c.nii.gz", {"image": "img/d.nii.gz"}]}))
+    base = tmp_path / base_dir if base_dir else None
+    got = datalist.load_decathlon_datalist(doc, data_list_key=key, base_dir=base)
+    assert got == jdatalist.load_decathlon_datalist(doc, data_list_key=key, base_dir=base)
+    assert got[0]["image"].parent.parent == (base or doc.parent)
+    with pytest.raises(KeyError, match="no section 'validation'"):
+        datalist.load_decathlon_datalist(doc, data_list_key="validation")
+
+
+def test_labels_copy_matches(tmp_path):
+    tissues = {"Background": 0, "Bone": 1, "Fat": 2, "Skin": 3, "Bone_marrow": 4}
+    mapper = lambda name: name.split("_")[0]  # noqa: E731
+    got_map, got_lut = labels.build_tissue_mapping(tissues, mapper)
+    want_map, want_lut = jlabels.build_tissue_mapping(tissues, mapper)
+    assert got_map == want_map and got_lut.dtype == want_lut.dtype == np.uint16
+    np.testing.assert_array_equal(got_lut, want_lut)
+    for label in range(1, 5):
+        assert labels.default_tissue_color(label, 4) == jlabels.default_tissue_color(label, 4)
+    with pytest.raises(ValueError):
+        labels.default_tissue_color(0, 4)
+    named = {k: v for k, v in tissues.items() if v}
+    labels.save_tissue_list(named, tmp_path / "port.txt")
+    jlabels.save_tissue_list(named, tmp_path / "jax.txt")
+    labels.save_tissue_list(named, tmp_path / "gray.txt", lambda name: (0.5, 0.5, 0.5))
+    assert (tmp_path / "port.txt").read_text() == (tmp_path / "jax.txt").read_text()
+    for name in ("port.txt", "gray.txt"):
+        path = tmp_path / name
+        assert labels.load_tissue_list(path) == jlabels.load_tissue_list(path) == tissues
+        assert labels.load_tissue_colors(path) == jlabels.load_tissue_colors(path)
+    assert labels.load_tissue_colors(tmp_path / "gray.txt")[3] == (0.5, 0.5, 0.5)
+    with pytest.raises(KeyError, match="duplicate"):
+        labels.save_tissue_list({"A": 1, "B": 1}, tmp_path / "dup.txt")
+
+
+def test_plots_copy_matches(tmp_path):
+    labels.save_tissue_list({"A": 1, "B": 2, "C": 3}, tmp_path / "tissues.txt")
+    np.testing.assert_array_equal(plots.make_tissue_cmap(tmp_path / "tissues.txt").colors,
+                                  jplots.make_tissue_cmap(tmp_path / "tissues.txt").colors)
+    np.testing.assert_array_equal(plots.make_random_cmap(6, seed=3).colors,
+                                  jplots.make_random_cmap(6, seed=3).colors)
+    cm = np.array([[50, 2, 0], [3, 20, 1], [0, 0, 0]])
+    plots.plot_confusion_matrix(cm, ["bg", "A", "B"], tmp_path / "port" / "cm.png", title="x")
+    jplots.plot_confusion_matrix(cm, ["bg", "A", "B"], tmp_path / "jax" / "cm.png", title="x")
+    for side in ("port", "jax"):
+        assert (tmp_path / side / "cm.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_plots_without_matplotlib(tmp_path, monkeypatch):
+    monkeypatch.setattr(plots, "_HAS_MPL", False)
+    for call in (lambda: plots.make_random_cmap(3), lambda: plots.make_tissue_cmap("x")):
+        with pytest.raises(RuntimeError, match="matplotlib unavailable"):
+            call()
+    with pytest.warns(UserWarning, match="matplotlib unavailable"):
+        plots.plot_confusion_matrix(np.eye(2), ["a", "b"], tmp_path / "cm.png")
+    assert not (tmp_path / "cm.png").exists()
 
 
 class _Fan:
@@ -285,7 +407,9 @@ def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
     for pkg in ("core.volume", "io.nifti", "utils.config", "data.dataset", "native",
                 "ops.fused_shear", "ops.phase_dice", "ops.shear_resample", "train.augment",
                 "image.processing", "transforms.registry", "transforms.intensity",
-                "transforms.base"):
+                "transforms.base", "data.datalist", "image.labels", "viz.plots",
+                "metrics.overlap", "infer.predict", "infer.ensemble",
+                "train.cross_validate", "commands.unet_cli"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys

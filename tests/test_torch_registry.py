@@ -4,8 +4,7 @@ The cases of ``tests/transforms/test_registry.py`` through both registries
 (each builds its own package's classes; the results are compared exactly, the
 code under them being numpy): build from config, ``_disabled_`` and empty
 configs, ``@`` references, ``$import`` expressions, dotted targets. The two
-registries hold the same names but for the three ensemble combiners, which the
-port does not have yet; ``EnsureChannelFirstd`` aliases ``EnsureTyped``.
+registries hold the same names; ``EnsureChannelFirstd`` aliases ``EnsureTyped``.
 """
 
 from __future__ import annotations
@@ -20,8 +19,6 @@ from segmantic_tpu_torch.transforms import base, intensity, post, registry, spat
 
 BOTH = [(registry, Volume, "segmantic_tpu_torch"), (jregistry, JVolume, "segmantic_tpu")]
 IDS = ["port", "jax"]
-# the ensemble combiners of transforms/post.py are not ported yet
-NOT_PORTED = {"MeanEnsembled", "VoteEnsembled", "SelectBestEnsembled"}
 
 
 def _registries():
@@ -31,15 +28,14 @@ def _registries():
     return registry.TRANSFORM_REGISTRY, jregistry.TRANSFORM_REGISTRY
 
 
-def test_registries_hold_the_same_names_but_for_the_ensemble_combiners():
+def test_registries_hold_the_same_names():
     port, ref = _registries()
-    assert set(ref) - set(port) == NOT_PORTED
-    assert set(port) - set(ref) == set()
+    assert set(port) == set(ref)
     for name in ("LoadImaged", "SpatialPadd", "RandCropByLabelClassesd", "RandFlipd",
                  "RandRotated", "RandZoomd", "RandAdjustContrastd", "RandHistogramShiftd",
                  "RandBiasFieldd", "RandGibbsNoised", "RandKSpaceSpikeNoised",
                  "ScaleIntensityd", "NyulNormalize", "MapLabels", "MapLabelsd", "Invertd",
-                 "Compose"):
+                 "MeanEnsembled", "VoteEnsembled", "SelectBestEnsembled", "Compose"):
         assert name in port, name
 
 

@@ -224,15 +224,39 @@ def test_unported_archs_name_the_roadmap():
         SegmentationModel.create(num_classes=2, arch="segresnet")
 
 
-@pytest.mark.parametrize("entry", ["create", "load", "sliding_window"])
-def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch):
-    """``SegmentationModel.create`` / ``.load`` and
-    ``sliding_window_inference`` default to ``device="cuda"`` like ``train``
-    and ``InferenceSession``: without a card they raise, with
+@pytest.mark.parametrize("entry", ["create", "load", "sliding_window", "predict",
+                                   "ensemble_creator", "cross_validate"])
+def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch,
+                                                                 tmp_path):
+    """``SegmentationModel.create`` / ``.load``, ``sliding_window_inference``,
+    ``predict``, ``ensemble_creator`` and ``cross_validate`` default to
+    ``device="cuda"`` like ``train`` and ``InferenceSession``: without a card
+    they raise (``cross_validate`` before it launches a fold), with
     ``device="cpu"`` they run."""
+    from segmantic_tpu_torch.infer.ensemble import ensemble_creator
+    from segmantic_tpu_torch.infer.predict import predict
     from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
+    from segmantic_tpu_torch.train.cross_validate import cross_validate
 
     vol = np.zeros((8, 8, 8, 1), np.float32)
+    image = tmp_path / "in.nii.gz"
+    _nifti(image, seed=5)
+    for sub in ("image", "label", "configs"):
+        (tmp_path / sub).mkdir()
+    for stem in ("a", "b"):
+        for sub in ("image", "label"):
+            (tmp_path / sub / f"{stem}.nii.gz").write_bytes(b"x")
+    (tmp_path / "tissues.txt").write_text("V7\nN1\nC1.00 0.00 0.00 0.50 A\n")
+    launched = []
+
+    class _NoTraining:  # cross_validate's training subprocesses are not run here
+        def __init__(self, *args, **kwargs):
+            launched.append(args)
+
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen", _NoTraining)
 
     def predictor(w):
         return torch.cat([w, -w], dim=-1).float()
@@ -243,8 +267,19 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
         "load": lambda **kw: SegmentationModel.load(ckpt, **kw).device.type,
         "sliding_window": lambda **kw: sliding_window_inference(
             vol, (8, 8, 8), 1, predictor, **kw).device.type,
+        "predict": lambda **kw: predict(ckpt, [image], sw_batch_size=2, **kw)[0].image.name,
+        "ensemble_creator": lambda **kw: ensemble_creator(
+            [ckpt], [image], output_dir=tmp_path / "ens", combination_mode="vote",
+            roi_size=(16, 16, 16), **kw)[0].name,
+        "cross_validate": lambda **kw: len(cross_validate(
+            image_dir=tmp_path / "image", labels_dir=tmp_path / "label",
+            tissue_list=tmp_path / "tissues.txt", output_dir=tmp_path / "cv",
+            config_files_dir=tmp_path / "configs", num_splits=2, **kw)),
     }
+    want = {"predict": "in.nii.gz", "ensemble_creator": "in_seg.nii.gz",
+            "cross_validate": 0}.get(entry, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
-    assert calls[entry](device="cpu") == "cpu"
+    assert not launched and not (tmp_path / "cv").exists()
+    assert calls[entry](device="cpu") == want
