@@ -9,10 +9,16 @@ batch, one f32 train step on the card against the CPU, and ``train()`` with
 the device augmentation (margin patches, rotation + zoom, intensity ops) with
 the augmentation's own time beside the augmented step, and ``train()`` driven
 by ``preprocessing`` / ``augmentation`` config dicts (the host pipeline's
-milliseconds a batch beside the step's); then evaluate: ``predict()`` with
-labels and metrics on two phantoms, ``ensemble_creator()`` in its three
-modes over three checkpoints, and ``cross_validate()`` over two folds
-trained in subprocesses of the port's CLI.
+milliseconds a batch beside the step's); the two other architectures at full
+width, SegResNet and UNETR: their new conv shapes on kernels 1 and 2, each
+trained by ``train()``, stepped on a fixed batch, predicted with labels and
+served, with every launch of the kernels counted, and one f32 train step of
+each on the card against the f64 CPU step; ``train()`` with
+``accumulate_steps``, ``remat``, the constant validation blend and a
+``profile_dir``; then evaluate: ``predict()`` with labels and metrics on two
+phantoms, ``ensemble_creator()`` in its three modes over three checkpoints,
+and ``cross_validate()`` over two folds trained in subprocesses of the
+port's CLI.
 
     python3 chip_smoke.py
 
@@ -32,6 +38,7 @@ data sheet, dense).
 
 from __future__ import annotations
 
+import functools
 import gzip
 import json
 import statistics
@@ -108,7 +115,7 @@ def _median_ms(torch, fn, n: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _graph_ms(torch, fn, n: int = 10, launches: int = 10) -> float:
+def _graph_ms(torch, fn, n: int = 10, launches: int = 10, warmup: int = 3) -> float:
     """Device time of one call of ``fn``: ``launches`` calls captured in one
     CUDA graph, median over ``n`` replays (CUDA events) per call. No host gap
     lies between the kernels, so a call that takes the card less time than its
@@ -121,7 +128,7 @@ def _graph_ms(torch, fn, n: int = 10, launches: int = 10) -> float:
     with torch.cuda.graph(graph):
         for _ in range(launches):
             fn()
-    return _median_ms(torch, graph.replay, n=n) / launches
+    return _median_ms(torch, graph.replay, n=n, warmup=warmup) / launches
 
 
 def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=None):
@@ -1039,14 +1046,14 @@ def fixed_batch(torch, n: int, seed: int, size: int = 96, volume: int = 128):
             torch.from_numpy(np.stack(labels).astype(np.uint8)))
 
 
-def warm_steps(torch, step, image, label):
-    """3 warm-up steps, then 17 timed ones (CUDA events) on one fixed batch:
-    (median ms, the 17 times, the 20 losses, peak device MiB)."""
+def warm_steps(torch, step, image, label, n: int = 17):
+    """3 warm-up steps, then ``n`` timed ones (CUDA events) on one fixed
+    batch: (median ms, the n times, the n + 3 losses, peak device MiB)."""
     loss_hist = [step(image, label).item() for _ in range(3)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(17):
+    for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1317,17 +1324,23 @@ def train_parity(torch):
     the tensor's scale); the floor keeps the conv biases that feed a
     BatchNorm, whose true gradient is zero, from being judged against
     rounding noise."""
+    image, label = fixed_batch(torch, 2, 40)
+    step_parity(torch, dict(num_classes=NUM_CLASSES, seed=2), image, label, TRAIN_PATCH)
+
+
+def step_parity(torch, create_kw, image, label, patch):
+    """One f32 train step of ``SegmentationModel.create(**create_kw)`` on the
+    card, f32 and f64 on the CPU, judged as :func:`train_parity` says."""
     from segmantic_tpu_torch.train.augment import AugmentConfig
     from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
 
-    image, label = fixed_batch(torch, 2, 40)
     out = {}
     for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
                           ("cpu", torch.float64)):
-        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=2, device=device)
+        model = SegmentationModel.create(device=device, **create_kw)
         module = model.module.to(dtype).train().requires_grad_(True)
         opt = torch.optim.SGD(module.parameters(), lr=0.0)
-        step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+        step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), patch,
                                mixed_precision=False)
         t0 = time.perf_counter()
         loss = step(image.to(device, dtype), label.to(device)).item()
@@ -1349,7 +1362,7 @@ def train_parity(torch):
         rows.append((e_card / lim, k, e_card, e_cpu, lim))
     rows.sort(reverse=True)
     worst_b = max(((bg[k] - b64[k]).abs().max().item() / b64[k].abs().max().item(), k)
-                  for k in b64)
+                  for k in b64) if b64 else (0.0, "none (no BatchNorm)")
     print(f"  card vs f64: loss rel diff {rel:.3e} (limit 1e-5); worst BN statistic "
           f"{worst_b[0]:.3e} of max|ref| at {worst_b[1]} (limit 1e-4); gradients "
           f"(floor 1e-2 * max|g64| = {floor:.3e}), the 8 nearest their limits:")
@@ -1383,8 +1396,10 @@ def make_checkpoint(torch, path: Path, seed: int = 0, metrics=None):
     model.save(path, metrics)
 
 
+@functools.lru_cache(maxsize=None)
 def phantom(shape, seed: int):
-    """Nested ellipsoids of distinct intensities over low-level noise (f32)."""
+    """Nested ellipsoids of distinct intensities over low-level noise (f32;
+    read-only: the phases share one array for each (shape, seed))."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1394,10 +1409,14 @@ def phantom(shape, seed: int):
         center = rng.uniform(-0.1, 0.1, 3)[:, None, None, None]
         inside = (((grid - center) / radius) ** 2).sum(0) < 1.0
         img[inside] = 100.0 * (k + 1) + 5.0 * rng.standard_normal(inside.sum())
+    img.setflags(write=False)
     return img
 
 
-def serve_requests(torch, ckpt: Path, work: Path):
+def serve_requests(torch, ckpt: Path, work: Path,
+                   required=("fused_conv", "phase_conv", "blend")):
+    """Three requests through ``make_server(InferenceSession(ckpt))``; fails
+    unless each kernel of ``required`` launched."""
     import numpy as np
 
     from segmantic_tpu_torch.serve import InferenceSession, make_server
@@ -1455,7 +1474,7 @@ def serve_requests(torch, ckpt: Path, work: Path):
         _fail("server thread did not stop")
     launches = {name: c.count for name, c in _counters().items()}
     print(f"  launches during the requests: {launches}")
-    if min(launches[k] for k in ("fused_conv", "phase_conv", "blend")) <= 0:
+    if min(launches[k] for k in required) <= 0:
         _fail(f"a kernel of the path was never launched: {launches}")
     return seconds, launches, session
 
@@ -1743,6 +1762,321 @@ def run_cross_validate(torch, work: Path):
                       "eval_s": [round(r.eval_seconds, 3) for r in runs]}
 
 
+# the two other architectures at full width: train() / create() keywords and
+# the stride-1 3^3 convs of a forward (kernel 1 launches; the dx skip the
+# input layer's conv, so a step launches 2 * n - 1, and kernel 2 n)
+ARCHS = {
+    "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
+                  "convs": 25},
+    "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
+                        "val_roi_size": TRAIN_PATCH},
+              "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 22},
+}
+# (architecture, stored x shape at the training batch, CO, launches of the
+# shape a forward): every stride-1 3^3 conv shape of the two that no earlier
+# phase times at batch 8
+ARCH_CONV_SHAPES = [
+    ("segresnet", (TRAIN_BATCH, 96, 96, 96, 1), 8, 1),
+    ("segresnet", (TRAIN_BATCH, 96, 96, 96, 8), 8, 4),
+    ("unetr", (TRAIN_BATCH, 96, 96, 96, 1), 16, 1),
+    ("unetr", (TRAIN_BATCH, 96, 96, 96, 16), 16, 2),
+    ("unetr", (TRAIN_BATCH, 96, 96, 96, 32), 16, 1),
+    ("unetr", (TRAIN_BATCH, 48, 48, 48, 32), 32, 3),
+    ("unetr", (TRAIN_BATCH, 48, 48, 48, 64), 32, 1),
+    ("unetr", (TRAIN_BATCH, 24, 24, 24, 32), 32, 2),
+    ("unetr", (TRAIN_BATCH, 24, 24, 24, 64), 64, 3),
+    ("unetr", (TRAIN_BATCH, 24, 24, 24, 128), 64, 1),
+    ("unetr", (TRAIN_BATCH, 12, 12, 12, 32), 32, 2),
+    ("unetr", (TRAIN_BATCH, 12, 12, 12, 64), 64, 2),
+    ("unetr", (TRAIN_BATCH, 12, 12, 12, 128), 128, 3),
+    ("unetr", (TRAIN_BATCH, 12, 12, 12, 256), 128, 1),
+]
+
+
+def check_arch_kernels(torch):
+    """Kernels 1 and 2 at every new conv shape of SegResNet and UNETR, bf16 at
+    the training batch: the forward (limit 2e-2 * max|ref|, as ``[kernels]``)
+    and the weight gradient (1e-3 * max|ref|, as ``[train-kernels]``) against
+    their plain versions once, each with its launch plan (or its CUDA-core
+    body: C = 1), timed by CUDA-graph replay beside the plain version and
+    cuDNN (``F.conv3d``; ``torch.nn.grad.conv3d_weight`` on the bf16
+    tensors; median of 5 replays of 5 calls, the plain weight gradient at
+    96^3 one replay of one call). Returns {kernel: {...}} as
+    :func:`check_kernels`, times and bounds summed over these shapes."""
+    import torch.nn.functional as F
+
+    from segmantic_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)  # on the card: ~10^9 values here
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    results = {}
+    reps = dict(n=5, launches=5)  # the 96^3 calls take 0.2-3 ms: the host keeps up
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    def check(label, got, want, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        ok = err <= limit * ref
+        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e} = {limit:g} * max|ref| "
+              f"{ref:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{label} disagrees with its plain version")
+        return err
+
+    for arch, shape, co, per_fwd in ARCH_CONV_SHAPES:
+        c = shape[-1]
+        x = randn(*shape)
+        w = randn(3, 3, 3, c, co, scale=(27 * c) ** -0.5)
+        dy = randn(*shape[:4], co)
+        dims = tuple(shape[:4])
+        label = f"{arch} x{shape}->{co} ({per_fwd} a forward)"
+        # the plain f32 wgrad takes 60-320 ms at 96^3: one timed replay of one call
+        slow = dict(n=1, launches=1, warmup=1) if x.numel() * co > 2 ** 28 else reps
+
+        if fused_conv.takes_tensor_cores(x, c):
+            p = fused_conv.plan(dims, c, co, 2, sms)
+            body = (f"brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile {p.nt}, "
+                    f"{p.nbricks} bricks x {p.n_tiles} N tiles, tile fill {p.fill:.3f}")
+        else:
+            body = "CUDA-core body"
+        k = lambda: fused_conv.conv3d(x, w)  # noqa: E731
+        pl = lambda: fused_conv.conv3d_plain(x, w)  # noqa: E731
+        err = check(f"fused_conv {label}", k(), pl(), 2e-2)
+        xc = x.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **reps)
+        lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1), **reps)
+        print(f"    {body}; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
+        _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms,
+                nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
+                peak=PEAK_BF16, library_ms=lms)
+
+        if fused_conv.takes_dw_tensor_cores(x, c, co):
+            p = fused_conv.dw_plan(dims, c, co, sms)
+            body = (f"brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, {p.splits} splits, "
+                    f"{p.grid[0] * p.grid[1]} blocks of {p.warps} warps, K fill {p.fill:.3f}")
+        else:
+            body = "CUDA-core body"
+        k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
+        pl = lambda: fused_conv.conv3d_dw_plain(x, dy)  # noqa: E731
+        got = k()
+        err = check(f"fused_conv_dw {label}", got, pl(), 1e-3)
+        ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **slow)
+        lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc, (co, c, 3, 3, 3), dy.permute(0, 4, 1, 2, 3), padding=1), **reps)
+        print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
+              f"{lms:.4f} ms")
+        _record(results, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
+                nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
+                peak=PEAK_BF16, library_ms=lms)
+    return results
+
+
+def _launches(counters):
+    return {name: c.count for name, c in counters.items()}
+
+
+def _add_launches(total, got):
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def run_arch(torch, arch: str, data: Path, work: Path):
+    """One architecture at full width on the card, 8 classes: ``train()`` for
+    two epochs on the phantoms of ``data`` (96^3 bf16 patches, batch 2 x 4,
+    Adam 1e-4), the warm step on a fixed 8 x 96^3 batch (Adam 1e-3, CUDA
+    events, median of 10) with its peak memory and the loss falling,
+    ``predict()`` with labels on one 256x256x176 phantom with its stage
+    seconds, three requests through ``make_server(InferenceSession(...))``
+    and the sliding window alone on one volume. Each path's launches are
+    counted from 0: kernel 1 ``convs`` a forward and ``2 * convs - 1`` a step,
+    kernel 2 ``convs`` a step, kernel 7 once a chunk, no other kernel."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.predict import predict
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import (
+        SegmentationModel, make_train_step, make_val_forward, train,
+    )
+
+    spec = ARCHS[arch]
+    fwd = spec["convs"]
+    per_step = {"fused_conv": 2 * fwd - 1, "fused_conv_dw": fwd}
+    total = {}
+
+    def expect(where, got, steps=0, chunks=0):
+        want = {name: 0 for name in got}
+        want["fused_conv"] = steps * per_step["fused_conv"] + chunks * fwd
+        want["fused_conv_dw"] = steps * per_step["fused_conv_dw"]
+        want["blend"] = chunks
+        print(f"  launches of {where}: {got}")
+        if got != want:
+            _fail(f"{arch} {where}: expected launches {want}, got {got}")
+        _add_launches(total, got)
+
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    result = train(image_dir=data / "image", labels_dir=data / "label", output_dir=work / "run",
+                   num_classes=NUM_CLASSES, max_epochs=2, seed=0, **spec["train"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    got = _launches(counters)
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
+              f"{rec['train_voxels_per_sec']:.4g} voxels/s (cold), {rec['seconds']:.2f} s")
+    print(f"  train(arch={arch!r}): {train_s:.1f} s for 2 epochs of 2 steps + validation")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    if len(result.history) != 2 or not finite or result.best_checkpoint is None \
+            or not (work / "run" / "last.ckpt").exists():
+        _fail(f"{arch} train(): not 2 finite epochs with last.ckpt and a best checkpoint")
+    expect("train()", got, steps=4, chunks=got["blend"])
+    if not got["blend"]:
+        _fail(f"{arch} train(): validation launched no blend")
+
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda",
+                                     **spec["create"])
+    module = model.module.train().requires_grad_(True)
+    opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+    step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+                           mixed_precision=True)
+    image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    image, label = image.to(torch.bfloat16).cuda(), label.cuda()
+    counters = _reset_counters()
+    step(image, label)
+    torch.cuda.synchronize()
+    expect("one train step", _launches(counters), steps=1)
+    counters = _reset_counters()
+    make_val_forward(module)(image[:SW_BATCH])
+    torch.cuda.synchronize()
+    got = _launches(counters)
+    print(f"  launches of one eval forward of {SW_BATCH} x 96^3 windows: {got}")
+    if got["fused_conv"] != fwd or sum(got.values()) != fwd:
+        _fail(f"{arch} eval forward: expected {fwd} launches of kernel 1 alone, got {got}")
+    _add_launches(total, got)
+    ms, times, loss_hist, peak = warm_steps(torch, step, image, label, n=10)
+    voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
+    print(f"  fixed batch {TRAIN_BATCH}x96^3 bf16, Adam lr 1e-3: warm step median {ms:.2f} ms "
+          f"(min {min(times):.2f}, max {max(times):.2f}, CUDA events over 10 steps), "
+          f"{voxels / ms * 1e3:.4g} labelled voxels/s, peak device memory {peak:.0f} MiB")
+    print(f"  loss over 13 steps: {[round(v, 5) for v in loss_hist]}")
+    if not all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0] - 1e-3:
+        _fail(f"{arch}: the loss did not fall over 13 steps on a fixed batch")
+    del module, opt, step, model
+
+    ckpt = result.best_checkpoint
+    images, labels = _labelled_cases(work / "data", ["scan"], EVAL_SHAPE, 100,
+                                     spacing=(1.0, 1.0, 1.2))
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    res = predict(ckpt, images, labels, output_dir=work / "pred", tissue_dict=CLASS_NAMES,
+                  device=DEVICE, save_confusion_plots=False)[0]
+    pred_s = time.perf_counter() - t0
+    got = _launches(counters)
+    print(f"  predict(): {pred_s:.2f} s with the model's load; dice {res.dice:.5f}; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
+    saved, _ = read_nifti(res.saved_to)
+    if saved.shape != EVAL_SHAPE or saved.max() >= NUM_CLASSES:
+        _fail(f"{arch} predict(): the saved label map {saved.shape}")
+    expect("predict()", got, chunks=got["blend"])
+
+    (work / "serve").mkdir()
+    request_s, got, session = serve_requests(torch, ckpt, work / "serve",
+                                             required=("fused_conv", "blend"))
+    print(f"  seconds per request: {[round(s, 3) for s in request_s]}")
+    expect("the three requests", got, chunks=got["blend"])
+    sw_s = device_seconds_per_volume(torch, session, SW_BATCH)
+    print(f"  sliding window on the card, one 256x256x176 volume (upload, 12 chunks of "
+          f"{SW_BATCH} x 96^3, blend with the weight map): {sw_s:.4f} s (median of 5)")
+    del session
+    return total, {"train_s": train_s, "step_ms": ms, "peak_mib": peak, "predict_s": pred_s,
+                   "request_s": request_s, "sliding_window_s": sw_s}
+
+
+# [arch-parity]: (create() keywords, patch) of each architecture's f32 step
+# against the f64 CPU step, at full width and batch 1: the f64 CPU step took
+# 8.7 s (SegResNet) and 16.1 s (UNETR) on the card's host, under the minute
+# beyond which SegResNet would take a 64^3 patch and UNETR 4 layers
+ARCH_PARITY = {
+    "segresnet": ({"arch": "segresnet"}, TRAIN_PATCH),
+    "unetr": ({"arch": "unetr", "spatial_size": TRAIN_PATCH}, TRAIN_PATCH),
+}
+
+
+def arch_parity(torch):
+    """One f32 train step of SegResNet and UNETR on the card against the f64
+    CPU step, judged per gradient tensor as ``[train-parity]``, batch 1."""
+    for arch, (kw, patch) in ARCH_PARITY.items():
+        image, label = fixed_batch(torch, 1, 41, size=patch[0])
+        print(f"  {arch} {kw}, batch 1 x {patch}")
+        step_parity(torch, dict(num_classes=NUM_CLASSES, seed=3, **kw), image, label, patch)
+
+
+def run_train_extras(torch, data: Path, out: Path):
+    """The flagship ``train()`` with ``accumulate_steps=2``, ``remat=True``,
+    ``val_blend_mode="constant"`` and a ``profile_dir`` on the phantoms of
+    ``data``: two finite epochs and a trace file with the card's kernels in
+    it; then the warm step on a fixed 8 x 96^3 batch with and without
+    ``remat`` (CUDA events, median of 10) and the peak memory of each."""
+    import numpy as np
+
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step, train
+
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    result = train(image_dir=data / "image", labels_dir=data / "label", output_dir=out / "run",
+                   num_classes=NUM_CLASSES, max_epochs=2, accumulate_steps=2, remat=True,
+                   val_blend_mode="constant", profile_dir=out / "profile", seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches(counters)
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f}, {rec['seconds']:.2f} s")
+    print(f"  train(accumulate_steps=2, remat=True, val_blend_mode='constant', profile_dir=...)"
+          f": {seconds:.1f} s for 2 epochs of 2 micro-batches + validation; launches {launches}")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    if len(result.history) != 2 or not finite:
+        _fail("train() with the extras: history is not 2 finite epochs")
+    if min(n for name, n in launches.items() if name != "shear_group") <= 0:
+        _fail(f"a kernel of the training path was never launched: {launches}")
+    traces = sorted((out / "profile").glob("*.json"))
+    kernels = 0
+    for path in traces:
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        kernels += sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"  profile_dir: {[p.name for p in traces]}, {kernels} kernel events on the card")
+    if not traces or kernels <= 0:
+        _fail("profile_dir holds no trace with kernel events")
+
+    image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    image, label = image.to(torch.bfloat16).cuda(), label.cuda()
+    numbers = {}
+    for remat in (False, True):
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
+        module = model.module.train().requires_grad_(True)
+        opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+        step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+                               mixed_precision=True, remat=remat)
+        ms, times, loss_hist, peak = warm_steps(torch, step, image, label, n=10)
+        numbers[f"remat={remat}"] = {"step_ms": ms, "peak_mib": peak}
+        print(f"  remat={remat}: warm step median {ms:.2f} ms (min {min(times):.2f}, max "
+              f"{max(times):.2f}, 10 steps), peak device memory {peak:.0f} MiB, loss "
+              f"{loss_hist[0]:.5f} -> {loss_hist[-1]:.5f}")
+        if not all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0] - 1e-3:
+            _fail(f"remat={remat}: the loss did not fall on a fixed batch")
+        del module, opt, step, model
+    return launches, numbers
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1790,6 +2124,13 @@ def main() -> None:
     print("[dice-kernels] the phase-Dice kernels vs their plain versions, "
           "xp (8,48,48,48,64), and the loss Function vs autograd")
     measured.update(check_dice_kernels(torch))
+    print("[arch-kernels] kernels 1 and 2 at the new conv shapes of SegResNet and UNETR, "
+          "bf16, batch 8, vs their plain versions and cuDNN")
+    for name, r in check_arch_kernels(torch).items():
+        m = measured[name]
+        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "library_ms"):
+            m[key] += r[key]
+        m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
 
     print("[serve] flagship UNet (16-32-64-128-256, 8 classes, roi 96^3, "
           "sw-batch 4, overlap 0.25) through the HTTP server")
@@ -1821,6 +2162,22 @@ def main() -> None:
               "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
         cfg_launches, cfg_numbers = run_train_config(torch, work / "train", work / "run_cfg",
                                                      train_numbers["step_ms"])
+        arch_launches, arch_numbers = {}, {}
+        for arch, title in (("segresnet", "SegResNet (init_filters 8, blocks (1, 2, 2, 4) / "
+                                          "(1, 1, 1), GroupNorm, ReLU)"),
+                            ("unetr", "UNETR (hidden 768, 12 layers, 12 heads, MLP 3072, "
+                                      "feature 16, patch 16, InstanceNorm; val roi 96^3)")):
+            print(f"[{arch}] {title} at full width, 8 classes: train() on the same phantoms, "
+                  "the warm step, predict() on a labelled 256x256x176 phantom, three requests")
+            arch_launches[arch], arch_numbers[arch] = run_arch(torch, arch, work / "train",
+                                                               work / arch)
+        print("[arch-parity] one f32 train step of SegResNet and UNETR: card vs the f64 CPU "
+              "step")
+        arch_parity(torch)
+        print("[train-extras] flagship train() with accumulate_steps=2, remat=True, "
+              "val_blend_mode='constant' and a profile_dir; the step with and without remat")
+        extras_launches, extras_numbers = run_train_extras(torch, work / "train",
+                                                           work / "extras")
         print("[predict] predict(test_labels=...) with the flagship checkpoint on two labelled "
               "256x256x176 phantoms (roi 96^3, sw-batch 4, overlap 0.25, bf16)")
         pred_launches, pred_numbers = run_predict(torch, ckpt, work / "predict")
@@ -1836,12 +2193,15 @@ def main() -> None:
     if loaded:
         _fail(f"JAX or the JAX package was imported: {loaded[:5]}")
     print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}, "
-          f"train-config {cfg_launches}, predict {pred_launches}, ensemble {ens_launches}, "
-          f"cross-validate {cv_launches}; train step {train_numbers}; augmented "
-          f"{aug_numbers}; config-driven {cfg_numbers}; predict {pred_numbers}; ensemble "
-          f"seconds {ens_numbers}; cross-validate {cv_numbers}")
-    paths = (launches, train_launches, aug_launches, cfg_launches, pred_launches,
-             ens_launches, cv_launches)
+          f"train-config {cfg_launches}, segresnet {arch_launches['segresnet']}, unetr "
+          f"{arch_launches['unetr']}, train-extras {extras_launches}, predict "
+          f"{pred_launches}, ensemble {ens_launches}, cross-validate {cv_launches}; train "
+          f"step {train_numbers}; augmented {aug_numbers}; config-driven {cfg_numbers}; "
+          f"segresnet {arch_numbers['segresnet']}; unetr {arch_numbers['unetr']}; extras "
+          f"{extras_numbers}; predict {pred_numbers}; ensemble seconds {ens_numbers}; "
+          f"cross-validate {cv_numbers}")
+    paths = (launches, train_launches, aug_launches, cfg_launches, arch_launches["segresnet"],
+             arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(path[name] for path in paths),

@@ -1,14 +1,17 @@
 """Where the time of one training step of the PyTorch port goes on the card:
 the flagship UNet (16-32-64-128-256, 8 classes) on one fixed 8 x 96^3 bf16
 batch, Adam, the phase-major Dice, as ``train()`` runs it by default; with
+``--arch segresnet`` or ``--arch unetr`` that architecture at full width
+(the JAX package's defaults, 8 classes; the plain Dice); with
 ``--augment`` the step ``train(augment_spatial=True, augment_intensity=True)``
 runs, on one fixed 8 x 144^3 bf16 margin batch (rotation + zoom through the
 shear-group kernel, intensity ops, flips, Gibbs and spike).
 
-    python3 profile_train_step.py [--steps 3] [--augment]
+    python3 profile_train_step.py [--steps 3] [--arch unet|segresnet|unetr] [--augment]
 
-Prints the card's name and power limit; the two phase-Dice kernels alone at
-the step's shape by CUDA-graph replay; forward + loss, backward and the
+Prints the card's name and power limit; for the UNet the two phase-Dice
+kernels alone at the step's shape by CUDA-graph replay; forward + loss,
+backward and the
 optimizer step timed apart (CUDA events, median of 10); the whole step
 through ``make_train_step`` (median of 10); then, over ``--steps`` steps
 under ``torch.profiler``, the device kernel time per step by group, the busy
@@ -39,10 +42,10 @@ GROUPS = [
     ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
     ("conv kernels fwd+dx (fused_conv, phase_conv)", ("conv3_kernel", "conv3_mma_kernel")),
     ("cuDNN convs (strided, transposed, 1x1)",
-     ("xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
-    ("GEMMs", ("gemm", "cutlass")),
+     ("cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
+    ("GEMMs (cuBLAS: attention, MLP)", ("gemm", "cutlass", "xmma", "nvjet")),
     ("optimizer", ("multi_tensor_apply", "adam")),
-    ("reductions (BN stats)", ("reduce_kernel", "welford", "batch_norm")),
+    ("reductions (norm statistics, Dice sums)", ("reduce_kernel", "welford", "batch_norm")),
     ("copies / layout", ("copy", "memcpy", "memset", "cat", "transpose", "permute", "index")),
     ("elementwise (BN, PReLU, casts, intensity ops)", ("elementwise",)),
 ]
@@ -67,6 +70,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--arch", choices=("unet", "segresnet", "unetr"), default="unet",
+                        help="the architecture, at full width")
     parser.add_argument("--augment", action="store_true",
                         help="profile the augmented step on a 8 x 144^3 margin batch")
     args = parser.parse_args()
@@ -81,7 +86,7 @@ def main() -> None:
     from segmantic_tpu_torch.ops import _cuda
     from segmantic_tpu_torch.ops.fast_conv import space_to_depth
     from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
-    from segmantic_tpu_torch.train.losses import dice_loss_phase
+    from segmantic_tpu_torch.train.losses import dice_loss, dice_loss_phase
     from segmantic_tpu_torch.train.optim import make_optimizer
     from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
 
@@ -92,26 +97,34 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     _cuda.build()
 
-    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
+    arch_kw = {"arch": args.arch}
+    if args.arch == "unetr":
+        arch_kw["spatial_size"] = PATCH
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda", **arch_kw)
     module = model.module.train().requires_grad_(True)
+    print(f"{args.arch}: {sum(p.numel() for p in module.parameters())} parameters")
     opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-4})
     image32, label = fixed_batch(torch, BATCH, 20)
     image32, label = image32.cuda(), label.cuda()
     image = image32.to(torch.bfloat16)
     target = space_to_depth(label[..., None])
-    if not module.phase_top_ok():
-        sys.exit("profile_train_step: the flagship top stage should run in phase space")
+    if (args.arch == "unet") != module.phase_top_ok():
+        sys.exit("profile_train_step: only the flagship's top stage runs in phase space")
 
     def forward():
+        if args.arch != "unet":
+            return dice_loss(module(image), label)
         return dice_loss_phase(module(image, phase_logits=True), target)
 
-    with torch.no_grad():
-        xp = module(image, phase_logits=True)
-    hot, cold = (torch.randn((BATCH, xp.shape[-1]), device="cuda") for _ in range(2))
-    print(f"Dice kernels alone, xp {tuple(xp.shape)} {str(xp.dtype)[6:]}, CUDA-graph replay "
-          f"(median of 10 replays of 10 calls): sums + finalize "
-          f"{_graph_ms(torch, lambda: phase_dice.dice_phase_sums(xp, target)):.4f} ms, dx "
-          f"{_graph_ms(torch, lambda: phase_dice.dice_phase_dx(xp, target, hot, cold)):.4f} ms")
+    if args.arch == "unet":
+        with torch.no_grad():
+            xp = module(image, phase_logits=True)
+        hot, cold = (torch.randn((BATCH, xp.shape[-1]), device="cuda") for _ in range(2))
+        print(f"Dice kernels alone, xp {tuple(xp.shape)} {str(xp.dtype)[6:]}, CUDA-graph "
+              f"replay (median of 10 replays of 10 calls): sums + finalize "
+              f"{_graph_ms(torch, lambda: phase_dice.dice_phase_sums(xp, target)):.4f} ms, dx "
+              f"{_graph_ms(torch, lambda: phase_dice.dice_phase_dx(xp, target, hot, cold)):.4f}"
+              f" ms")
 
     def backward():
         opt.zero_grad(set_to_none=True)
@@ -171,6 +184,11 @@ def main() -> None:
           f"step whose launches the host paces)")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms/step  {name}")
+    others = [e for e in kernels
+              if not any(sub in e.key.lower() for _, subs in GROUPS for sub in subs)]
+    for e in sorted(others, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"    other: {e.self_device_time_total / 1e3 / args.steps:8.3f} ms/step  "
+              f"{e.key[:90]}")
     print("largest kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3 / args.steps:8.3f} ms/step  "

@@ -87,12 +87,14 @@ def cross_validate_cmd(config_file: Optional[Path], print_defaults: bool) -> Non
 @click.option("--model-parallel", type=int, default=1,
               help="not ported yet: values other than 1 raise")
 @click.option("--accumulate-steps", type=int, default=1,
-              help="not ported yet: values other than 1 raise")
-@click.option("--remat/--no-remat", default=False, help="not ported yet: --remat raises")
+              help="average gradients over this many micro-batches per update")
+@click.option("--remat/--no-remat", default=False,
+              help="recompute the forward in the backward to save device memory")
 @click.option("--zero-optimizer/--no-zero-optimizer", default=False,
               help="not ported yet: --zero-optimizer raises")
 @click.option("--arch", type=click.Choice(["unet", "segresnet", "unetr"]), default="unet",
-              help="segmentation architecture (the port has unet)")
+              help="segmentation architecture (unetr needs spatial_size and a "
+                   "val_roi_size equal to it: configure them via train-config)")
 @click.option("--device", type=str, default="cuda",
               help="torch device; 'cuda' fails where CUDA is not available")
 def train_cmd(datalist_file: Path, tissue_list: Optional[Path], output_dir: Path,

@@ -4,13 +4,15 @@ Port of the single-device path of ``segmantic_tpu/infer/sliding_window.py``:
 the same window grid (MONAI convention, last window snapped to the edge),
 the same separable Gaussian importance map and the same blend, on the
 unaligned grid the JAX package uses off the TPU (no channel padding, no grid
-quantisation). The volume and both accumulators live on the device; each
+quantisation); ``mode="constant"`` blends with an importance map of ones.
+The volume and both accumulators live on the device; each
 chunk of ``sw_batch_size`` windows is gathered, run through the predictor and
 blended by the blend kernel (:mod:`..ops.blend`), which adds the importance
 map into the weight map in the same pass; the short last chunk is
 padded by repeating its last window and the duplicates' logits are dropped
 before blending. ``wire_dtype`` (e.g. ``torch.bfloat16``) casts the host
-volume before upload.
+volume before upload. :class:`SlidingWindowInferer` is the MONAI-style
+callable with the settings fixed.
 
 The mesh, volume-sharded and host-streamed modes of the JAX package are not
 ported yet.
@@ -26,7 +28,10 @@ import torch
 from ..ops import blend
 from ..ops._cuda import resolve_device
 
-__all__ = ["window_starts", "gaussian_importance", "sliding_window_inference"]
+__all__ = ["window_starts", "gaussian_importance", "sliding_window_inference",
+           "SlidingWindowInferer", "BLEND_MODES"]
+
+BLEND_MODES = ("gaussian", "constant")
 
 # accumulators above this many bytes were streamed from host memory by the
 # JAX package (sliding_window_inference_streamed), not ported yet
@@ -83,17 +88,20 @@ def sliding_window_inference(
     sw_batch_size: int,
     predictor: Callable,  # (B, *roi, C) -> (B, *roi, num_classes) f32
     overlap: float = 0.25,
+    mode: str = "gaussian",
     num_classes: Optional[int] = None,
     device="cuda",
     wire_dtype: Optional[torch.dtype] = None,
     mesh=None,
     shard_volume: bool = False,
 ) -> torch.Tensor:
-    """Tiled inference over a 3D volume with Gaussian blending; returns
-    (*spatial, num_classes) blended logits (f32, on ``device``: the card
-    unless the caller asks for the CPU; CUDA without a card raises). The volume
-    is zero-padded up to the roi where it is smaller (and the result cropped
-    back)."""
+    """Tiled inference over a 3D volume with Gaussian (``mode="gaussian"``)
+    or uniform (``"constant"``) blending; returns (*spatial, num_classes)
+    blended logits (f32, on ``device``: the card unless the caller asks for
+    the CPU; CUDA without a card raises). The volume is zero-padded up to the
+    roi where it is smaller (and the result cropped back)."""
+    if mode not in BLEND_MODES:
+        raise ValueError(f"mode must be one of {BLEND_MODES}, got {mode!r}")
     if mesh is not None or shard_volume:
         raise NotImplementedError(
             "mesh / shard_volume sliding window is not ported yet (ROADMAP "
@@ -127,7 +135,10 @@ def sliding_window_inference(
     padded = tuple(vol.shape[:nd])
 
     starts = np.asarray(window_starts(padded, roi, overlap), np.int64)
-    importance = torch.as_tensor(gaussian_importance(roi), device=device)
+    if mode == "gaussian":
+        importance = torch.as_tensor(gaussian_importance(roi), device=device)
+    else:
+        importance = torch.ones(roi, dtype=torch.float32, device=device)
 
     if num_classes is None:
         num_classes = predictor(_gather(vol, starts[:1], roi)).shape[-1]
@@ -147,3 +158,32 @@ def sliding_window_inference(
 
     out = acc / wacc
     return out[lo[0]:lo[0] + spatial[0], lo[1]:lo[1] + spatial[1], lo[2]:lo[2] + spatial[2]]
+
+
+class SlidingWindowInferer:
+    """Callable with fixed roi / sw-batch / overlap / mode (MONAI-style API):
+    ``inferer(volume, predictor)`` is :func:`sliding_window_inference` with
+    these settings. (The JAX twin's mesh and TPU wire options are not
+    ported: ROADMAP Queue 1.)"""
+
+    def __init__(
+        self,
+        roi_size: Sequence[int],
+        sw_batch_size: int = 4,
+        overlap: float = 0.25,
+        mode: str = "gaussian",
+        device="cuda",
+        wire_dtype: Optional[torch.dtype] = None,
+    ):
+        self.roi_size = list(roi_size)
+        self.sw_batch_size = sw_batch_size
+        self.overlap = overlap
+        self.mode = mode
+        self.device = device
+        self.wire_dtype = wire_dtype
+
+    def __call__(self, volume, predictor: Callable) -> torch.Tensor:
+        return sliding_window_inference(
+            volume, self.roi_size, self.sw_batch_size, predictor, overlap=self.overlap,
+            mode=self.mode, device=self.device, wire_dtype=self.wire_dtype,
+        )

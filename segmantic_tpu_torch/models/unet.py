@@ -7,7 +7,10 @@ units with projection shortcuts, BatchNorm, PReLU). The modules are named
 like the flax auto-names (``ResidualUnit_i``, ``ConvUnit_j``, ``Conv_0``,
 ``ConvTranspose_0``, ``Norm_0``, ``PReLU_0``) so a ``state_dict`` key reads as
 the flax path it came from; :func:`from_flax_variables` and
-:func:`to_flax_variables` convert between the two.
+:func:`to_flax_variables` convert between the two, for the UNet and for the
+SegResNet and UNETR of :mod:`.segresnet` and :mod:`.unetr`, which share the
+norms (:func:`make_norm`: BATCH, INSTANCE, GROUP, NONE) and activations
+(:func:`activation`) defined here.
 
 ``UNet.forward`` runs the JAX module's graph: channel-last (B, D, H, W, C) in
 and out, XLA-SAME padding, parameters cast to the input's dtype at use, and
@@ -26,7 +29,9 @@ package leaves them to XLA. The folded, kernel-backed serving forward is
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import contextlib
+import re
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +46,8 @@ from ..ops.phase_conv import phase_conv_grad
 
 __all__ = [
     "UNet", "ResidualUnit", "ConvUnit", "Conv", "ConvTranspose", "BatchNorm",
-    "PReLU", "from_flax_variables", "to_flax_variables",
+    "GroupNorm", "Norm", "make_norm", "PReLU", "activation", "frozen_running_stats",
+    "from_flax_variables", "to_flax_variables",
 ]
 
 BN_EPS = 1e-5
@@ -140,6 +146,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.frozen = False  # see frozen_running_stats
 
     def forward(self, x, groups: int = 1):
         shape = x.shape
@@ -150,14 +157,105 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             mean = xf.mean(axes)
             var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not self.frozen:
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
         return y.to(x.dtype).reshape(shape)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block the BatchNorms of ``module`` normalise as before but
+    leave their running statistics alone: the recomputed forward of a
+    rematerialised step (``torch.utils.checkpoint``) must not update them a
+    second time (the JAX package takes ``batch_stats`` from the primal only)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (eps 1e-5) over the last (channel) axis: channel
+    c is in group ``c // (C / groups)``; mean and ``E[x^2] - E[x]^2`` (clipped
+    at 0) in f32 or wider over all non-batch positions of a group, the
+    normalisation in that type, output in x's dtype. ``phase_groups > 1``: x
+    is phase-major (…, phase_groups * C) and the phases are reduced too (the
+    same values as the full-resolution layout)."""
+
+    def __init__(self, c: int, groups: int):
+        super().__init__()
+        if c % groups:
+            raise ValueError(f"{groups} groups do not divide {c} channels")
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x, phase_groups: int = 1):
+        c, g = self.weight.shape[0], self.groups
+        shape = x.shape
+        xf = at_least_f32(x).reshape(shape[0], -1, phase_groups, g, c // g)
+        axes = (1, 2, 4)
+        mean = xf.mean(axes, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(axes, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight.reshape(g, c // g)
+        y = (xf - mean) * mul + self.bias.reshape(g, c // g)
+        return y.to(x.dtype).reshape(shape)
+
+
+class Norm(nn.Module):
+    """The JAX package's ``Norm`` for INSTANCE (one group a channel) and GROUP
+    (min(8, C) groups): a flax ``GroupNorm_0`` inside, so its parameters sit at
+    ``Norm_k/GroupNorm_0/{scale,bias}`` as in the flax tree. (BATCH is
+    :class:`BatchNorm` itself, whose keys the UNet's checkpoints already use;
+    see :func:`make_norm`.)"""
+
+    def __init__(self, c: int, kind: str):
+        super().__init__()
+        kind = kind.upper()
+        self.GroupNorm_0 = GroupNorm(c, c if kind == "INSTANCE" else min(8, c))
+
+    def forward(self, x, groups: int = 1):
+        return self.GroupNorm_0(x, phase_groups=groups)
+
+
+def make_norm(kind: str, c: int) -> Optional[nn.Module]:
+    """The norm of kind BATCH, INSTANCE, GROUP or NONE (None) over c channels;
+    ``forward(x, groups=1)`` either way, ``groups`` the phases of a
+    phase-major x (the JAX ``Norm.phase_groups``)."""
+    kind = kind.upper()
+    if kind == "BATCH":
+        return BatchNorm(c)
+    if kind in ("INSTANCE", "GROUP"):
+        return Norm(c, kind)
+    if kind == "NONE":
+        return None
+    raise ValueError(f"unsupported norm {kind!r}")
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The JAX package's ``_activation`` without PRELU, which has a parameter
+    (:class:`PReLU`): RELU, LEAKYRELU (slope 0.01), GELU (flax's ``nn.gelu``
+    is the tanh approximation) and TANH, in x's dtype."""
+    name = name.upper()
+    if name == "RELU":
+        return lambda x: torch.clamp_min(x, 0)
+    if name == "LEAKYRELU":
+        return lambda x: F.leaky_relu(x, 0.01)
+    if name == "GELU":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "TANH":
+        return torch.tanh
+    raise ValueError(f"unsupported activation {name!r}")
 
 
 class PReLU(nn.Module):
@@ -186,17 +284,20 @@ class ConvUnit(nn.Module):
         self.act = act.upper()
         self.add_module(name, conv_cls(c_in, c_out, kernel_size, strides, generator))
         if not conv_only:
-            if norm.upper() == "BATCH":
-                self.Norm_0 = BatchNorm(c_out)
+            norm_module = make_norm(norm, c_out)
+            if norm_module is not None:
+                self.Norm_0 = norm_module
             if self.act == "PRELU":
                 self.PReLU_0 = PReLU()
+            else:
+                self.act_fn = activation(self.act)
 
     @property
     def conv(self):
         return self.ConvTranspose_0 if self.transposed else self.Conv_0
 
     @property
-    def norm(self) -> Optional[BatchNorm]:
+    def norm(self) -> Optional[nn.Module]:
         return getattr(self, "Norm_0", None)
 
     def forward(self, x, phase: str = ""):
@@ -213,7 +314,7 @@ class ConvUnit(nn.Module):
             x = self.norm(x, groups=8 if phase else 1)
         if self.act == "PRELU":
             return self.PReLU_0(x)
-        return torch.clamp_min(x, 0)
+        return self.act_fn(x)
 
 
 class ResidualUnit(nn.Module):
@@ -272,11 +373,8 @@ class UNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if spatial_dims != 3:
-            raise NotImplementedError("the port's UNet is 3D only (2D: ROADMAP Queue 1)")
-        if norm.upper() not in ("BATCH", "NONE"):
-            raise NotImplementedError(f"norm {norm!r}: the port has BATCH and NONE")
-        if act.upper() not in ("PRELU", "RELU"):
-            raise NotImplementedError(f"act {act!r}: the port has PRELU and RELU")
+            raise NotImplementedError(
+                "the port's UNet is 3D only (2D: ROADMAP Queue 1, train() extras)")
         channels, strides = list(channels), list(strides)
         if len(channels) < 2 or len(strides) != len(channels) - 1:
             raise ValueError("need len(channels) >= 2 and len(strides) == len(channels) - 1")
@@ -410,27 +508,62 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
+# Which flax module a parameter sits in, from its module names alone (the
+# same rule both ways): the BatchNorm inside the JAX ``Norm_k``, the slopes of
+# ``PReLU_k``, the scale / bias of a GroupNorm or LayerNorm (UNETR's
+# ``encoder_norm`` is one), ``Dense_k`` (kernel (in, out) <-> weight (out,
+# in)), the projections of ``MultiHeadDotProductAttention_k`` (kept in flax's
+# shapes), conv-transposes (the UNet's ``ConvTranspose_0``, UNETR's ``deconv``,
+# SegResNet's ``up_j``) and, for every other kernel, a conv.
+_BN_MODULE = re.compile(r"Norm_\d+$")
+_PRELU = re.compile(r"PReLU_\d+$")
+_SCALE_BIAS = re.compile(r"(GroupNorm_\d+|LayerNorm_\d+|encoder_norm)$")
+_DENSE = re.compile(r"Dense_\d+$")
+_ATTENTION = re.compile(r"MultiHeadDotProductAttention_\d+$")
+_TRANSPOSED = re.compile(r"(ConvTranspose_0|deconv|up_\d+)$")
+
+
+def _kernel_kind(mods: Sequence[str]) -> str:
+    last = mods[-1] if mods else ""
+    if _DENSE.match(last):
+        return "dense"
+    if len(mods) > 1 and _ATTENTION.match(mods[-2]):
+        return "attention"
+    if _TRANSPOSED.match(last):
+        return "transposed"
+    return "conv"
+
+
 def from_flax_variables(variables: Dict) -> Dict[str, np.ndarray]:
     """flax ``{"params", "batch_stats"}`` tree -> torch ``state_dict`` (numpy).
 
     Conv kernels go DHWIO -> OIDHW; transposed-conv kernels DHWIO -> the
-    flipped (Ci, Co, k, k, k) layout of :class:`ConvTranspose`; BatchNorm
-    scale/bias/mean/var -> weight/bias/running_mean/running_var; PReLU alpha ->
-    weight."""
+    flipped (Ci, Co, k, k, k) layout of :class:`ConvTranspose`; Dense kernels
+    (in, out) -> (out, in); attention projections keep flax's shapes;
+    BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+    GroupNorm / LayerNorm scale -> weight; PReLU alpha -> weight; UNETR's
+    ``pos_embed`` as it is."""
     out: Dict[str, np.ndarray] = {}
     for path, leaf in _flatten(variables.get("params", {})):
         arr = np.asarray(leaf)
         *mods, name = path
-        if mods and mods[-1] == "BatchNorm_0":
-            mods = mods[:-1]
+        last = mods[-1] if mods else ""
+        if last == "BatchNorm_0" or _SCALE_BIAS.match(last):
+            if last == "BatchNorm_0":
+                mods = mods[:-1]
             name = {"scale": "weight", "bias": "bias"}[name]
-        elif mods and mods[-1] == "PReLU_0":
+        elif _PRELU.match(last):
             name = {"alpha": "weight"}[name]
-        elif name == "kernel" and mods[-1] == "ConvTranspose_0":
-            arr, name = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2), "weight"
         elif name == "kernel":
-            arr, name = arr.transpose(4, 3, 0, 1, 2), "weight"
-        elif name != "bias":
+            kind = _kernel_kind(mods)
+            if kind == "dense":
+                arr = arr.T
+            elif kind == "transposed":
+                arr = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+            elif kind == "conv":
+                arr = arr.transpose(4, 3, 0, 1, 2)
+            name = "weight"
+        elif name not in ("bias", "pos_embed"):
             raise KeyError(f"unknown flax parameter {'/'.join(path)}")
         out[".".join(mods + [name])] = np.ascontiguousarray(arr)
     for path, leaf in _flatten(variables.get("batch_stats", {})):
@@ -456,20 +589,26 @@ def to_flax_variables(state_dict: Dict) -> Dict[str, Dict]:
         arr = value.detach().cpu().numpy() if torch.is_tensor(value) else np.asarray(value)
         *mods, name = key.split(".")
         last = mods[-1] if mods else ""
-        if last == "Norm_0":
+        if _BN_MODULE.match(last):
             if name in ("running_mean", "running_var"):
                 put(stats, mods + ["BatchNorm_0", name[len("running_"):]], arr)
             else:
                 put(params, mods + ["BatchNorm_0", {"weight": "scale", "bias": "bias"}[name]], arr)
-        elif last == "PReLU_0":
+        elif _SCALE_BIAS.match(last):
+            put(params, mods + [{"weight": "scale", "bias": "bias"}[name]], arr)
+        elif _PRELU.match(last):
             put(params, mods + ["alpha"], arr)
-        elif last == "ConvTranspose_0" and name == "weight":
-            put(params, mods + ["kernel"],
-                np.ascontiguousarray(arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]))
         elif name == "weight":
-            put(params, mods + ["kernel"], np.ascontiguousarray(arr.transpose(2, 3, 4, 1, 0)))
-        elif name == "bias":
-            put(params, mods + ["bias"], arr)
+            kind = _kernel_kind(mods)
+            if kind == "dense":
+                arr = arr.T
+            elif kind == "transposed":
+                arr = arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+            elif kind == "conv":
+                arr = arr.transpose(2, 3, 4, 1, 0)
+            put(params, mods + ["kernel"], np.ascontiguousarray(arr))
+        elif name in ("bias", "pos_embed"):
+            put(params, mods + [name], arr)
         else:
             raise KeyError(f"unknown state_dict entry {key}")
     return {"params": params, "batch_stats": stats}

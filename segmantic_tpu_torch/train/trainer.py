@@ -2,8 +2,9 @@
 
 Port of the single-device path of ``segmantic_tpu/train/trainer.py``:
 ``default_preprocessing``, ``SegmentationModel`` (create / load for
-``arch="unet"``), ``make_train_step``, ``make_val_forward``, ``validate``
-and ``train`` with the JAX package's keyword signature plus ``device``.
+``arch="unet"``, ``"segresnet"`` and ``"unetr"``), ``make_train_step``,
+``make_val_forward``, ``validate`` and ``train`` with the JAX package's
+keyword signature plus ``device``.
 
 - Deterministic preprocessing runs once per volume into a host RAM cache
   with per-class crop indices (``data/cache.py``); each step a background
@@ -14,17 +15,23 @@ and ``train`` with the JAX package's keyword signature plus ``device``.
   in the JAX package.
 - The train step runs on ``device``: the augmentation (``train/augment.py``:
   rotation + zoom through the shear-group kernel, intensity ops, flips), then
-  the UNet forward and
-  backward with explicit casts like the JAX step (bf16 image and weights cast
-  at use under ``mixed_precision``, f32 master parameters, f32 BatchNorm
-  statistics; no autocast), the phase-major Dice, and the optimizer update.
-  On the card every stride-1 3^3 conv and every phase-space conv runs on the
+  the model's forward
+  and backward with explicit casts like the JAX step (bf16 image and weights
+  cast at use under ``mixed_precision``, f32 master parameters, f32 norm
+  statistics; no autocast), the phase-major Dice where the UNet's top stage
+  runs in phase space (the plain Dice otherwise), and the optimizer update,
+  every ``accumulate_steps`` micro-batches (``optax.MultiSteps`` semantics),
+  optionally with the forward recomputed in the backward (``remat``). On the
+  card every stride-1 3^3 conv and every phase-space conv runs on the
   hand-written kernels, forward and backward.
-- Validation: sliding-window inference (roi 160^3) through the folded
-  executor + Dice, the LR scheduler stepped per validation epoch, top-3
+- Validation: sliding-window inference (roi 160^3, Gaussian or constant
+  blend) through the folded executor, or the module's own eval forward where
+  the executor does not apply, + Dice, the LR scheduler stepped per
+  validation epoch, top-3
   checkpoints by val_dice plus ``last.ckpt``, early stopping; the epoch's
   scalars go to ``history.json`` and to TensorBoard under ``output_dir/logs``
-  (a warning when no writer package is installed).
+  (a warning when no writer package is installed); with ``profile_dir`` a
+  ``torch.profiler`` trace of epoch 1's steps goes there.
 
 Options of the JAX ``train()`` that the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item; nothing is skipped
@@ -33,6 +40,7 @@ silently and nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -43,15 +51,18 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..data.dataset import PairedDataSet
 from ..utils.json import PathEncoder
 
 from ..data.cache import PatchSampler, PrefetchLoader, VolumeCache
 from ..image.labels import load_decathlon_tissuelist, load_tissue_list
-from ..infer.sliding_window import sliding_window_inference
+from ..infer.sliding_window import BLEND_MODES, sliding_window_inference
 from ..metrics.overlap import confusion_matrix, dice_from_confusion
-from ..models.unet import UNet, from_flax_variables, to_flax_variables
+from ..models.segresnet import SegResNet
+from ..models.unet import UNet, from_flax_variables, frozen_running_stats, to_flax_variables
+from ..models.unetr import UNETR
 from ..ops.fast_conv import space_to_depth
 from ..ops._cuda import resolve_device
 from ..ops.fused_conv import at_least_f32
@@ -86,9 +97,10 @@ def default_preprocessing(keys: Sequence[str], spacing: Sequence[float] = ()) ->
 
 @dataclasses.dataclass
 class SegmentationModel:
-    """Model bundle: torch UNet (eval mode, on ``device``) + hparams."""
+    """Model bundle: torch module (UNet, SegResNet or UNETR; eval mode, on
+    ``device``) + hparams."""
 
-    module: UNet
+    module: torch.nn.Module
     hparams: Dict[str, Any]
 
     @property
@@ -136,15 +148,17 @@ class SegmentationModel:
         """A freshly initialised model (weights from ``torch.Generator(seed)``:
         the JAX package's initialisers, not its random numbers), on ``device``:
         the card unless the caller asks for the CPU; asking for CUDA where
-        there is none raises."""
+        there is none raises.
+
+        ``arch`` selects the architecture: ``unet`` (configured by channels /
+        strides / num_res_units / norm / act), ``segresnet`` (``arch_params``:
+        init_filters / blocks_down / blocks_up / norm / act) or ``unetr``
+        (``arch_params``: hidden_size / num_layers / num_heads / mlp_dim /
+        feature_size / patch_size / norm; needs ``spatial_size``), with the JAX
+        package's defaults. The UNet's top-level keys do not apply to the
+        other two."""
         arch = (arch or "unet").lower()
-        if arch in ("segresnet", "unetr"):
-            raise NotImplementedError(
-                f"arch={arch!r} is not ported yet (ROADMAP Queue 1: "
-                "models/segresnet.py, models/unetr.py)"
-            )
-        if arch != "unet":
-            raise ValueError(f"unsupported arch {arch!r}")
+        ap = dict(arch_params or {})
         hparams = {
             "num_classes": num_classes,
             "num_channels": num_channels,
@@ -157,15 +171,43 @@ class SegmentationModel:
             "num_res_units": num_res_units,
             "norm": norm,
             "arch": arch,
-            "arch_params": dict(arch_params or {}),
+            "arch_params": ap,
         }
-        module = UNet(
-            spatial_dims=spatial_dims, in_channels=num_channels,
-            out_channels=num_classes, channels=tuple(channels),
-            strides=tuple(strides), dropout=dropout, act=act,
-            num_res_units=num_res_units, norm=norm,
-            generator=torch.Generator().manual_seed(seed),
-        )
+        generator = torch.Generator().manual_seed(seed)
+        if arch == "unet":
+            module = UNet(
+                spatial_dims=spatial_dims, in_channels=num_channels,
+                out_channels=num_classes, channels=tuple(channels),
+                strides=tuple(strides), dropout=dropout, act=act,
+                num_res_units=num_res_units, norm=norm, generator=generator,
+            )
+        elif arch == "segresnet":
+            blocks_down = tuple(ap.get("blocks_down", (1, 2, 2, 4)))
+            module = SegResNet(
+                spatial_dims=spatial_dims, in_channels=num_channels,
+                out_channels=num_classes, init_filters=int(ap.get("init_filters", 8)),
+                blocks_down=blocks_down,
+                blocks_up=tuple(ap.get("blocks_up", (1,) * (len(blocks_down) - 1))),
+                norm=ap.get("norm", "GROUP"), act=ap.get("act", "RELU"),
+                dropout=dropout, generator=generator,
+            )
+        elif arch == "unetr":
+            # the position embedding ties the parameters to the token grid
+            if not spatial_size:
+                raise ValueError("arch='unetr' requires spatial_size")
+            module = UNETR(
+                spatial_size=tuple(spatial_size), spatial_dims=spatial_dims,
+                in_channels=num_channels, out_channels=num_classes,
+                hidden_size=int(ap.get("hidden_size", 768)),
+                num_layers=int(ap.get("num_layers", 12)),
+                num_heads=int(ap.get("num_heads", 12)),
+                mlp_dim=int(ap.get("mlp_dim", 3072)),
+                feature_size=int(ap.get("feature_size", 16)),
+                patch_size=int(ap.get("patch_size", 16)),
+                norm=ap.get("norm", "INSTANCE"), generator=generator,
+            )
+        else:
+            raise ValueError(f"unsupported arch {arch!r}")
         module = module.eval().requires_grad_(False).to(resolve_device(device))
         return SegmentationModel(module=module, hparams=hparams)
 
@@ -195,7 +237,17 @@ class SegmentationModel:
             arch_params=h.get("arch_params"),
             device=device,
         )
-        state = from_flax_variables(ckpt["variables"])
+        stored = dict(ckpt["variables"])
+        template_cols = model.variables
+        # empty collections on either side are no mismatch (the JAX package's
+        # rule): a GroupNorm model has no batch_stats, the trainers save {}
+        extra = sorted(k for k, v in stored.items() if k not in template_cols and v)
+        if extra:
+            raise ValueError(f"checkpoint has unexpected variable collections: {extra}")
+        missing = sorted(k for k, v in template_cols.items() if v and k not in stored)
+        if missing:
+            raise ValueError(f"checkpoint is missing variable collections: {missing}")
+        state = from_flax_variables(stored)
         template = model.module.state_dict()
         missing = sorted(set(template) - set(state))
         extra = sorted(set(state) - set(template))
@@ -211,16 +263,25 @@ class SegmentationModel:
         return model
 
 
-def make_val_forward(module: UNet, compute_dtype: torch.dtype = torch.bfloat16):
-    """Eval forward ``windows -> f32 logits`` on the model's device: the
-    folded executor on the hand-written kernels. Windows are cast to
-    ``compute_dtype`` (bf16 by default, as the JAX package) and logits come
-    back in f32 for blending. (Every UNet a checkpoint describes is one the
-    executor supports; the JAX package's ``module.apply`` fallback covers
-    configurations the port does not build.)"""
-    from ..infer.executor import make_eval_forward
+def make_val_forward(module: torch.nn.Module, compute_dtype: torch.dtype = torch.bfloat16):
+    """Eval forward ``windows -> f32 logits`` on the model's device. Windows
+    are cast to ``compute_dtype`` (bf16 by default, as the JAX package) and
+    logits come back in f32 for blending. The folded executor runs the UNets
+    it supports (BATCH / NONE norm, PReLU / ReLU); every other model, SegResNet
+    and UNETR among them, runs its own forward in eval mode (the JAX
+    package's ``module.apply`` fallback), whose convs launch the kernels
+    too."""
+    from ..infer.executor import executor_supported, make_eval_forward
 
-    return make_eval_forward(module, compute_dtype)
+    if executor_supported(module):
+        return make_eval_forward(module, compute_dtype)
+
+    def val_forward(windows: torch.Tensor) -> torch.Tensor:
+        module.eval()  # the train step leaves the module in train mode
+        with torch.inference_mode():
+            return module(windows.to(compute_dtype)).float()
+
+    return val_forward
 
 
 @dataclasses.dataclass
@@ -254,12 +315,13 @@ def _resolve_num_classes(num_classes: int, tissue_list: Optional[Path], datalist
     return num_classes
 
 
-def make_train_step(module: UNet, optimizer: torch.optim.Optimizer,
+def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     aug_cfg: AugmentConfig, patch_size: Sequence[int],
-                    mixed_precision: bool, generator: Optional[torch.Generator] = None):
-    """``step(image, label) -> loss``: augmentation, forward, phase-major
-    Dice, backward and the optimizer update, in place on ``module``
-    (parameters and BatchNorm running statistics) and ``optimizer``.
+                    mixed_precision: bool, generator: Optional[torch.Generator] = None,
+                    accumulate_steps: int = 1, remat: bool = False):
+    """``step(image, label) -> loss``: augmentation, forward, Dice, backward
+    and the optimizer update, in place on ``module`` (parameters and
+    BatchNorm running statistics) and ``optimizer``.
 
     image (B, *margin patch, C) and label (B, *margin patch) on the module's
     device, the margin patch being the sampler's (the patch itself without
@@ -269,13 +331,34 @@ def make_train_step(module: UNet, optimizer: torch.optim.Optimizer,
     Returns the loss as a 0-d device tensor (no synchronisation).
     The Dice consumes the top phase stage's phase-major logits directly when
     that stage runs in phase space and the patch is even (exact: Dice sums
-    are invariant to permuting voxels)."""
+    are invariant to permuting voxels).
+
+    ``accumulate_steps`` k > 1: ``optax.MultiSteps`` semantics. The
+    optimizer steps on every k-th micro-batch with the running mean of the k
+    micro-batch gradients (``acc + (g - acc) / (n + 1)``, as optax sums
+    them); the parameters stay as they are in between, the optimizer's step
+    count advances once per k micro-batches, and the BatchNorm running
+    statistics are updated at every micro-batch. ``remat``: the forward is
+    recomputed in the backward (``torch.utils.checkpoint``, as
+    ``jax.checkpoint`` over the JAX package's forward); the recomputation
+    leaves the running statistics alone."""
+    if accumulate_steps < 1:
+        raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
     # bf16 interpolation only when the step computes in bf16 anyway (the cast
     # after the augmentation would round as much)
     aug_cfg = dataclasses.replace(
         aug_cfg, interp_bf16=aug_cfg.interp_bf16 and mixed_precision)
     patch_size = tuple(int(p) for p in patch_size)
     use_phase_logits = module.phase_top_ok() and all(p % 2 == 0 for p in patch_size)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    acc: Dict[torch.Tensor, torch.Tensor] = {}  # running mean of the micro-batch grads
+    micro = [0]  # micro-batches in acc
+
+    def forward(image: torch.Tensor) -> torch.Tensor:
+        return module(image, phase_logits=use_phase_logits)
+
+    def recompute_context():
+        return contextlib.nullcontext(), frozen_running_stats(module)
 
     def step(image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         module.train()
@@ -286,12 +369,33 @@ def make_train_step(module: UNet, optimizer: torch.optim.Optimizer,
         if mixed_precision:
             image = image.to(torch.bfloat16)
         optimizer.zero_grad(set_to_none=True)
-        out = module(image.contiguous(), phase_logits=use_phase_logits)
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(
+                forward, image.contiguous(), use_reentrant=False,
+                context_fn=recompute_context)
+        else:
+            out = forward(image.contiguous())
         if use_phase_logits:
             loss = dice_loss_phase(out, space_to_depth(label[..., None]))
         else:
             loss = dice_loss(out, label)
         loss.backward()
+        if accumulate_steps > 1:
+            n = micro[0]
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is None:
+                        continue
+                    if n == 0:
+                        acc[p] = p.grad.clone()
+                    else:
+                        acc[p].add_((p.grad - acc[p]) / (n + 1))
+            micro[0] = n + 1
+            if micro[0] < accumulate_steps:
+                return loss.detach()
+            for p in params:
+                p.grad = acc.pop(p, None)
+            micro[0] = 0
         optimizer.step()
         return loss.detach()
 
@@ -299,17 +403,19 @@ def make_train_step(module: UNet, optimizer: torch.optim.Optimizer,
 
 
 def validate(
-    module: UNet,
+    module: torch.nn.Module,
     cache: VolumeCache,
     num_classes: int,
     roi: Optional[Sequence[int]] = None,
     sw_batch_size: int = 4,
     val_forward=None,
     overlap: float = 0.25,
+    blend_mode: str = "gaussian",
 ) -> Tuple[float, float]:
     """Sliding-window validation -> (mean val_dice excluding background,
     mean val_loss), on the module's device: Dice loss on the blended
-    logits, per-class Dice over the classes present in label or prediction."""
+    logits (``blend_mode`` "gaussian" or "constant"), per-class Dice over the
+    classes present in label or prediction."""
     roi = list(roi) if roi else [160] * 3
     device = next(module.parameters()).device
     if val_forward is None:
@@ -320,7 +426,8 @@ def validate(
         image = np.moveaxis(vol.image.numpy(), 0, -1)  # (*spatial, C)
         label = torch.as_tensor(vol.label.numpy()[0].astype(np.int64), device=device)
         logits = sliding_window_inference(image, roi, sw_batch_size, val_forward,
-                                          overlap=overlap, device=device)
+                                          overlap=overlap, mode=blend_mode,
+                                          num_classes=num_classes, device=device)
         with torch.no_grad():
             losses.append(float(dice_loss(logits[None], label[None])))
         cm = confusion_matrix(num_classes, label, logits.argmax(-1)).cpu().numpy()
@@ -335,17 +442,34 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
-def _check_ported(*, arch, model_parallel, accumulate_steps, remat, zero_optimizer,
-                  profile_dir, val_blend_mode) -> None:
-    if (arch or "unet").lower() != "unet":
-        raise _not_ported(f"arch={arch!r}", "models/segresnet.py, models/unetr.py")
+def _check_ported(*, model_parallel, zero_optimizer, dropout) -> None:
     if model_parallel != 1 or zero_optimizer:
         raise _not_ported("model_parallel > 1 and zero_optimizer", "Parallel")
-    if accumulate_steps != 1 or remat or profile_dir:
-        raise _not_ported("accumulate_steps > 1, remat and profile_dir",
-                          "train() extras")
-    if val_blend_mode != "gaussian":
-        raise _not_ported(f"val_blend_mode={val_blend_mode!r}", "train() extras")
+    if dropout > 0:
+        raise _not_ported("training with dropout > 0", "train() extras")
+
+
+def _start_profiler(device: torch.device):
+    """A started ``torch.profiler`` over the host and, on the card, CUDA."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: Path, device: torch.device) -> Path:
+    """Stop ``profiler`` and write its Chrome trace under ``profile_dir``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    profile_dir.mkdir(parents=True, exist_ok=True)
+    path = profile_dir / "train_epoch1.pt.trace.json"
+    profiler.export_chrome_trace(str(path))
+    return path
 
 
 _TB_TAGS = ("train_loss", "val_loss", "val_dice", "lr", "train_voxels_per_sec")
@@ -421,19 +545,24 @@ def train(
     seed: int = 0,
     device: str = "cuda",
 ) -> TrainResult:
-    """Train a residual UNet on ``device``; returns the best checkpoint and
-    the history. Same keywords as the JAX package's ``train`` (``gpu_ids`` is
-    accepted for config compatibility; the device is ``device``, which must
-    exist: ``"cuda"`` without CUDA raises). ``preprocessing`` and
-    ``augmentation`` are ``_target_`` configs (``transforms/registry.py``):
-    the first replaces the default preprocessing that fills the volume cache;
-    the second runs per step on the host in numpy, as in the JAX package, and
-    feeds the step on ``device`` (``augment_spatial`` / ``augment_intensity``
-    are the augmentation on the device)."""
-    _check_ported(arch=arch, model_parallel=model_parallel,
-                  accumulate_steps=accumulate_steps, remat=remat,
-                  zero_optimizer=zero_optimizer, profile_dir=profile_dir,
-                  val_blend_mode=val_blend_mode)
+    """Train a segmentation model (``arch``: the residual UNet, SegResNet or
+    UNETR) on ``device``; returns the best checkpoint and the history. Same
+    keywords as the JAX package's ``train`` (``gpu_ids`` is accepted for
+    config compatibility; the device is ``device``, which must exist:
+    ``"cuda"`` without CUDA raises). ``preprocessing`` and ``augmentation``
+    are ``_target_`` configs (``transforms/registry.py``): the first replaces
+    the default preprocessing that fills the volume cache; the second runs per
+    step on the host in numpy, as in the JAX package, and feeds the step on
+    ``device`` (``augment_spatial`` / ``augment_intensity`` are the
+    augmentation on the device). ``accumulate_steps`` and ``remat`` are
+    :func:`make_train_step`'s; ``val_blend_mode`` ("gaussian" or "constant")
+    is the validation's window blend; ``profile_dir`` receives a
+    ``torch.profiler`` trace of the steps of epoch 1 (with CUDA activity on
+    the card), as the JAX package writes a ``jax.profiler`` trace there."""
+    _check_ported(model_parallel=model_parallel, zero_optimizer=zero_optimizer,
+                  dropout=dropout)
+    if val_blend_mode not in BLEND_MODES:
+        raise ValueError(f"val_blend_mode must be one of {BLEND_MODES}, got {val_blend_mode!r}")
     device = resolve_device(device)
     optimizer_cfg = dict(DEFAULT_OPTIMIZER)
     optimizer_cfg.update(optimizer or {})
@@ -459,6 +588,12 @@ def train(
         )
     module = model.module.train().requires_grad_(True)
     patch_size = model.spatial_size
+    val_roi = list(val_roi_size) if val_roi_size else [160] * 3
+    if isinstance(module, UNETR) and tuple(val_roi) != module.spatial_size:
+        raise ValueError(
+            f"UNETR validates on windows of its spatial_size {list(module.spatial_size)} "
+            f"(its position embedding ties the token grid to it), not val_roi_size "
+            f"{val_roi}: pass val_roi_size={list(module.spatial_size)}")
 
     # --- data --------------------------------------------------------------
     if datalist:
@@ -487,7 +622,8 @@ def train(
     opt = make_optimizer(module.parameters(), optimizer_cfg)
     aug_cfg = AugmentConfig(spatial=augment_spatial, intensity=augment_intensity)
     train_step = make_train_step(module, opt, aug_cfg, patch_size, mixed_precision,
-                                 generator=torch.Generator().manual_seed(seed))
+                                 generator=torch.Generator().manual_seed(seed),
+                                 accumulate_steps=accumulate_steps, remat=remat)
     scheduler = LRScheduler(optimizer_cfg["lr"], scheduler_cfg)
     ckpts = TopKCheckpoints(output_dir, k=3)
     steps_per_epoch = max(1, math.ceil(len(train_cache) / batch_size))
@@ -497,8 +633,11 @@ def train(
     history: List[Dict[str, float]] = []
     writer = _make_tb_writer(output_dir)
     loader = PrefetchLoader(sampler) if host_augment is None else None
+    profiler = None
     try:
         for epoch in range(max_epochs):
+            if profile_dir and epoch == 1:
+                profiler = _start_profiler(device)
             t0 = time.time()
             epoch_loss = 0.0
             for step_i in range(steps_per_epoch):
@@ -516,6 +655,10 @@ def train(
                 epoch_loss += float(train_step(image_d, label_d))
             epoch_loss /= steps_per_epoch
             train_seconds = time.time() - t0
+            if profiler is not None:
+                trace = _stop_profiler(profiler, Path(profile_dir), device)
+                profiler = None
+                print(f"wrote profiler trace to {trace}")
             # labelled voxels per second of the training epoch (host clock;
             # float(loss) synchronises every step)
             voxels_per_sec = voxels_per_step * steps_per_epoch / max(train_seconds, 1e-9)
@@ -523,9 +666,9 @@ def train(
             # --- validation epoch ------------------------------------------
             if len(val_cache) > 0:
                 val_dice, val_loss = validate(
-                    module, val_cache, num_classes,
-                    roi=list(val_roi_size) if val_roi_size else None,
+                    module, val_cache, num_classes, roi=val_roi,
                     val_forward=make_val_forward(module), overlap=val_overlap,
+                    blend_mode=val_blend_mode,
                 )
             else:
                 val_dice, val_loss = float("nan"), epoch_loss
@@ -566,6 +709,8 @@ def train(
                 print(f"early stopping at epoch {epoch} (patience {early_stop_patience})")
                 break
     finally:
+        if profiler is not None:
+            profiler.stop()
         if loader is not None:
             loader.stop()
         if writer is not None:

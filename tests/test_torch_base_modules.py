@@ -409,7 +409,8 @@ def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
                 "image.processing", "transforms.registry", "transforms.intensity",
                 "transforms.base", "data.datalist", "image.labels", "viz.plots",
                 "metrics.overlap", "infer.predict", "infer.ensemble",
-                "train.cross_validate", "commands.unet_cli"):
+                "train.cross_validate", "commands.unet_cli", "models.segresnet",
+                "models.unetr", "infer.sliding_window"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys

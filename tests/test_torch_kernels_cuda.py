@@ -338,6 +338,43 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     assert mod.dw_counter.count == 2
 
 
+# (stored shape of x at the training batch, CO): the stride-1 3^3 conv shapes
+# of SegResNet and UNETR at full width that the flagship has not, the input
+# layers' C = 1 (the CUDA-core bodies) and the 96^3 batch-8 ones among them
+ARCH_SHAPES = [
+    ((8, 96, 96, 96, 1), 8), ((8, 96, 96, 96, 8), 8), ((8, 96, 96, 96, 1), 16),
+    ((8, 96, 96, 96, 16), 16), ((8, 96, 96, 96, 32), 16), ((8, 48, 48, 48, 32), 32),
+    ((8, 48, 48, 48, 64), 32), ((8, 24, 24, 24, 64), 64), ((8, 24, 24, 24, 128), 64),
+    ((8, 12, 12, 12, 32), 32), ((8, 12, 12, 12, 128), 128), ((8, 12, 12, 12, 256), 128),
+]
+
+
+@pytest.mark.parametrize("shape,co", ARCH_SHAPES)
+def test_arch_conv_shapes(cuda, shape, co):
+    g = torch.Generator().manual_seed(17)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, shape[-1], co, scale=(27 * shape[-1]) ** -0.5).to(torch.bfloat16)
+    assert fused_conv.takes_tensor_cores(x, shape[-1]) == (shape[-1] % 8 == 0)
+    fused_conv.counter.reset()
+    got = fused_conv.conv3d(x, w)
+    assert fused_conv.counter.count == 1 and got.shape == shape[:4] + (co,)
+    _close(got, fused_conv.conv3d_plain(x, w), 2e-2)
+    assert torch.equal(got, fused_conv.conv3d(x, w))
+
+
+@pytest.mark.parametrize("shape,co", ARCH_SHAPES)
+def test_arch_dw_shapes(cuda, shape, co):
+    g = torch.Generator().manual_seed(18)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    assert fused_conv.takes_dw_tensor_cores(x, shape[-1], co) == (shape[-1] % 8 == 0)
+    fused_conv.dw_counter.reset()
+    got = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, shape[-1], co)
+    _close(got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    assert torch.equal(got, fused_conv.conv3d_dw(x, dy))
+
+
 @pytest.mark.parametrize("shape,co", [((2, 10, 11, 13, 12), 16), ((2, 5, 7, 9, 16), 20)])
 def test_dw_other_channel_counts_keep_the_cuda_core_body(cuda, shape, co):
     g = torch.Generator().manual_seed(17)

@@ -219,11 +219,6 @@ def test_cli_serve_defaults_to_cuda():
     assert "--device" in res.output and "cuda" in res.output
 
 
-def test_unported_archs_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SegmentationModel.create(num_classes=2, arch="segresnet")
-
-
 @pytest.mark.parametrize("entry", ["create", "load", "sliding_window", "predict",
                                    "ensemble_creator", "cross_validate"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch,

@@ -193,7 +193,7 @@ def test_config_pipelines_leave_no_option_of_the_other_refusals(tmp_path):
     """The other unported options still raise with a config pipeline given."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         trainer.train(output_dir=tmp_path, num_classes=2, device="cpu",
-                      augmentation=_augmentation([8, 8, 8], 1), remat=True)
+                      augmentation=_augmentation([8, 8, 8], 1), dropout=0.1)
 
 
 def test_host_batch_feeds_the_train_step(phantoms):  # noqa: F811
