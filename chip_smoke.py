@@ -15,10 +15,16 @@ trained by ``train()``, stepped on a fixed batch, predicted with labels and
 served, with every launch of the kernels counted, and one f32 train step of
 each on the card against the f64 CPU step; ``train()`` with
 ``accumulate_steps``, ``remat``, the constant validation blend and a
-``profile_dir``; then evaluate: ``predict()`` with labels and metrics on two
+``profile_dir``; 2D segmentation at the flagship's full width: ``train()``
+and the warm step of the 2D UNet (plain and augmented) and of the 2D
+SegResNet, one f32 step of each against the f64 CPU step, a 1024 x 1024
+image served and a labelled one predicted, each held against the CPU
+forward; then evaluate: ``predict()`` with labels and metrics on two
 phantoms, ``ensemble_creator()`` in its three modes over three checkpoints,
 and ``cross_validate()`` over two folds trained in subprocesses of the
-port's CLI.
+port's CLI; last, a 512 x 512 x 896 host volume whose accumulators pass
+8 GiB, which the sliding window streams from host memory by itself, held
+against the in-memory path on the card.
 
     python3 chip_smoke.py
 
@@ -88,6 +94,13 @@ EVAL_KERNELS = ("fused_conv", "phase_conv", "blend")  # the eval forward's and t
 CLASS_NAMES = {"Background": 0, **{f"tissue{k}": k for k in range(1, 8)}}
 CV_SIZE = 128
 CV_SCENARIO = {"num_classes": 8, "max_epochs": 1, "device": "cuda"}  # flagship defaults
+TRAIN_2D_PATCH = (256, 256)  # the 2D flagship's patch
+TRAIN_2D_BATCH = 16
+PHANTOM_2D = (512, 512)  # the 2D training phantoms
+EVAL_2D_SHAPE = (1024, 1024)  # the 2D image served and predicted
+SW_BATCH_2D = 16
+STREAM_SHAPE = (512, 512, 896)  # a whole-body CT: 235 M voxels, 9.4 GB of accumulators
+STREAM_SW_BATCH = 16
 # NIfTI-1 datatype codes
 _NIFTI_DTYPES = {2: "u1", 4: "<i2", 8: "<i4", 16: "<f4", 64: "<f8", 256: "i1",
                  512: "<u2", 768: "<u4", 1024: "<i8"}
@@ -726,8 +739,11 @@ def check_aug_kernels(torch):
     times by CUDA-graph replay for the kernel (its wrapper takes the host as
     long as the kernel takes the card) and eager calls for the plain version
     (milliseconds long). The recorded time is one step's six launches: the
-    bf16 image groups and the uint8 label groups. Ragged, odd, 2D and int32
-    shapes (and one with lines beyond a warp's registers) run once, untimed."""
+    bf16 image groups and the uint8 label groups. The 2D flagship's group
+    (16 x 1 x 384^2 to 256^2: bf16 order 1 with its plane in global scratch,
+    uint8 order 0) is held bit-equal too and timed, printed apart from that
+    row. Ragged, odd, 2D and int32 shapes (and one with lines beyond a warp's
+    registers) run once, untimed."""
     from segmantic_tpu_torch.ops import _cuda, fused_shear, shear_resample
 
     dev = torch.device("cuda")
@@ -748,10 +764,16 @@ def check_aug_kernels(torch):
     def plan_text(x, a_axis, b_axis, specs, order):
         p = fused_shear.group_plan(tuple(x.shape[2:]), a_axis, b_axis, tuple(specs), x.dtype,
                                    x.shape[0] * x.shape[1], x.data_ptr() % 16 == 0, sms)
-        card = _cuda.query("segk_shear_group_blocks_per_sm", dtype_code[x.dtype], p.wc, p.cp,
-                           order, p.threads, p.smem_bytes)
-        text = (f"{p.cp} plane{'s' if p.cp > 1 else ''} {p.passes[0]}x{p.passes[1]} in rows of "
-                f"{p.row_units} units of {p.unit_bytes} B (wc {p.wc}), {p.smem_bytes} B shared, "
+        if p.global_plane:
+            card = _cuda.query("segk_shear_group_global_blocks_per_sm", dtype_code[x.dtype],
+                               order, p.threads, p.smem_bytes)
+        else:
+            card = _cuda.query("segk_shear_group_blocks_per_sm", dtype_code[x.dtype], p.wc,
+                               p.cp, order, p.threads, p.smem_bytes)
+        where = f"global scratch ({p.global_bytes} B)" if p.global_plane else "shared memory"
+        text = (f"{p.cp} plane{'s' if p.cp > 1 else ''} {p.passes[0]}x{p.passes[1]} in {where}, "
+                f"rows of {p.row_units} units of {p.unit_bytes} B (wc {p.wc}), "
+                f"{p.smem_bytes} B shared, "
                 f"{p.threads} threads, "
                 f"{'a block' if p.block_lines else 'a warp'} per line, grid {p.grid}, 16-byte "
                 f"rows in {p.vec_in} out {p.vec_out}, blocks per SM: plan {p.blocks_per_sm}, "
@@ -799,6 +821,44 @@ def check_aug_kernels(torch):
                         nbytes=_nbytes(x, got, c, zoom), ops=3 * outputs * order,
                         peak=PEAK_F32)
             x = want.contiguous()
+
+    # the 2D flagship's augmented step: 16 x 1 x 384^2 margin patches to
+    # 256^2, one rotation group; the bf16 images (order 1, bf16 weights) keep
+    # their 297 KB plane in global scratch, the uint8 labels theirs in shared
+    # memory. Timed and printed beside the 3D row, not recorded in it.
+    margin_2d = tuple(e + e // 2 for e in TRAIN_2D_PATCH)
+    passes, divz, _, groups = shear_resample.chain_plan(margin_2d, 1, TRAIN_2D_PATCH, 0.4, 0.8)
+    angles = (torch.rand((TRAIN_2D_BATCH, 1), generator=g) * 0.8 - 0.4).to(dev)
+    zoom = torch.linspace(0.8, 1.3, TRAIN_2D_BATCH).to(dev)
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)[:, :3].contiguous()
+    a_axis, b_axis, specs = groups[0]
+    images_2d = torch.randn((TRAIN_2D_BATCH, 1, *margin_2d), generator=g).to(dev, torch.bfloat16)
+    labels_2d = torch.randint(0, NUM_CLASSES, (TRAIN_2D_BATCH, 1, *margin_2d), generator=g,
+                              dtype=torch.uint8).to(dev)
+    for label, x, order, bf16 in (("bf16 order 1", images_2d, 1, True),
+                                  ("u8 order 0", labels_2d, 0, False)):
+        k = lambda: fused_shear.shear_group(  # noqa: E731
+            x, a_axis, b_axis, coef, zoom, specs, order, bf16)
+        p = lambda: fused_shear.shear_group_plain(  # noqa: E731
+            x, a_axis, b_axis, coef, zoom, specs, order, bf16)
+        before = fused_shear.counter.count
+        got, want = k(), p()
+        torch.cuda.synchronize()
+        launched = fused_shear.counter.count == before + 1
+        err = (got.float() - want.float()).abs().max().item()
+        exact, repeat = torch.equal(got, want), torch.equal(got, k())
+        plan, card, text = plan_text(x.unsqueeze(-1), a_axis, b_axis, specs, order)
+        ms, pms = _graph_ms(torch, k), _median_ms(torch, p)
+        ok = exact and repeat and launched and got.shape == want.shape
+        print(f"  shear_group 2D {label} {tuple(x.shape)} -> {tuple(got.shape)}: max|d| "
+              f"{err:.3e}, bit-equal {exact} (limit bit-equal), repeated launch bit-equal "
+              f"{repeat} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms (CUDA graph replay), "
+              f"plain {pms:.4f} ms (eager)")
+        print(f"    {text}")
+        if not ok:
+            _fail(f"shear_group 2D {label} disagrees with its plain version")
+        if card < 1:  # 16 blocks for 132 SMs: two a SM are not needed here
+            _fail(f"shear_group 2D {label}: the card cannot make a block resident")
 
     # odd shapes, untimed: ragged chunks of the third axis, odd extents (no
     # 16-byte rows), 2D, int32, shrinking windows with the zoom folded in,
@@ -852,7 +912,9 @@ def check_dice_kernels(torch):
     plain versions (sums 1e-5 relative to each sum's largest entry, the counts
     exact; dx 1e-3 * max|ref| in f32, 2e-2 in bf16, whose output rounds once),
     a repeated launch bit-equal, one ragged shape (a voxel count that is no
-    multiple of the unroll, of the block or of P), and the loss ``Function``
+    multiple of the unroll, of the block or of P), the 2D flagship's step
+    (xp (16, 128, 128, 32) at 4 phases, f32 and bf16, same limits; timed and
+    printed apart from the 3D rows), and the loss ``Function``
     against autograd through the plain sums (loss 1e-5 relative; gradient as
     dx). Times are the bf16 ones (the train step's type), by CUDA-graph replay
     (``_graph_ms``: the sums are two launches and two allocations a call, so an
@@ -892,6 +954,21 @@ def check_dice_kernels(torch):
             _fail(f"dice_phase_sums {label} disagrees with its plain version")
         return got, err
 
+    def check_dx(xp, yp, hot, cold, label):
+        got_dx = phase_dice.dice_phase_dx(xp, yp, hot, cold)
+        want_dx = phase_dice.dice_phase_dx_plain(xp, yp, hot, cold)
+        torch.cuda.synchronize()
+        dx_err = (got_dx.float() - want_dx.float()).abs().max().item()
+        ref = want_dx.float().abs().max().item()
+        limit = 2e-2 if xp.dtype == torch.bfloat16 else 1e-3
+        same = torch.equal(got_dx, phase_dice.dice_phase_dx(xp, yp, hot, cold))
+        ok = dx_err <= limit * ref and same and got_dx.dtype == xp.dtype
+        print(f"  dice_phase_dx {label}: max|d| {dx_err:.3e} (limit {limit:g} * max|ref| "
+              f"{ref:.3e}), repeated launch bit-equal {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dice_phase_dx {label} disagrees with its plain version")
+        return dx_err, got_dx
+
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         xp = x32.to(dtype)
@@ -901,17 +978,7 @@ def check_dice_kernels(torch):
         got, err = check_sums(xp, yp, name)
         dx = lambda: phase_dice.dice_phase_dx(xp, yp, hot, cold)  # noqa: E731
         dx_plain = lambda: phase_dice.dice_phase_dx_plain(xp, yp, hot, cold)  # noqa: E731
-        got_dx, want_dx = dx(), dx_plain()
-        torch.cuda.synchronize()
-        dx_err = (got_dx.float() - want_dx.float()).abs().max().item()
-        ref = want_dx.float().abs().max().item()
-        limit = 2e-2 if dtype == torch.bfloat16 else 1e-3
-        same = torch.equal(got_dx, dx())
-        ok = dx_err <= limit * ref and same and got_dx.dtype == dtype
-        print(f"  dice_phase_dx {name}: max|d| {dx_err:.3e} (limit {limit:g} * max|ref| "
-              f"{ref:.3e}), repeated launch bit-equal {same} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            _fail(f"dice_phase_dx {dtype} disagrees with its plain version")
+        dx_err, got_dx = check_dx(xp, yp, hot, cold, name)
         if dtype == torch.bfloat16:
             ms, pms = _graph_ms(torch, sums), _median_ms(torch, sums_plain)
             print(f"    bf16 time: sums kernel {ms:.4f} ms by graph replay (sums + finalize; "
@@ -934,6 +1001,30 @@ def check_dice_kernels(torch):
                        dtype=torch.uint8).to(dev)
     for dtype in (torch.float32, torch.bfloat16):
         check_sums(xr.to(dtype), yr, f"ragged {ragged} {str(dtype)[6:]}")
+
+    # the 2D flagship's step: 16 x 256^2 patches, a 128^2 phase grid of 4
+    # phases, xp (16, 128, 128, 32) and yp (16, 128, 128, 4); timed and
+    # printed, not recorded in the 3D rows
+    shape = (TRAIN_2D_BATCH, TRAIN_2D_PATCH[0] // 2, TRAIN_2D_PATCH[1] // 2)
+    lanes = 4 * NUM_CLASSES
+    x2 = (torch.randn((*shape, lanes), generator=g) * 2.0).to(dev)
+    y2 = torch.randint(0, NUM_CLASSES, (*shape, 4), generator=g, dtype=torch.uint8).to(dev)
+    hot2 = torch.randn((TRAIN_2D_BATCH, lanes), generator=g).to(dev)
+    cold2 = torch.randn((TRAIN_2D_BATCH, lanes), generator=g).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        xp = x2.to(dtype)
+        label = f"2D 4 phases {tuple(xp.shape)} {str(dtype)[6:]}"
+        check_sums(xp, y2, label)
+        check_dx(xp, y2, hot2, cold2, label)
+        if dtype == torch.bfloat16:
+            times = [_graph_ms(torch, fn) for fn in (
+                lambda: phase_dice.dice_phase_sums(xp, y2),
+                lambda: phase_dice.dice_phase_dx(xp, y2, hot2, cold2))]
+            plain = [_median_ms(torch, fn) for fn in (
+                lambda: phase_dice.dice_phase_sums_plain(xp, y2),
+                lambda: phase_dice.dice_phase_dx_plain(xp, y2, hot2, cold2))]
+            print(f"    {label} time: sums {times[0]:.4f} ms, dx {times[1]:.4f} ms by graph "
+                  f"replay; plain {plain[0]:.4f} ms, {plain[1]:.4f} ms")
 
     for dtype, limit in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
         for include_background in (True, False):
@@ -962,7 +1053,7 @@ def check_dice_kernels(torch):
 
 
 def write_nifti(path: Path, data, affine) -> None:
-    """data (i, j, k) and its 4x4 RAS affine as a gzipped single-file NIfTI-1
+    """data (i, j, k) or (i, j) and its 4x4 RAS affine as a gzipped single-file NIfTI-1
     (sform), written here so the script holds the port's NIfTI I/O against
     an independent codec."""
     import numpy as np
@@ -970,7 +1061,7 @@ def write_nifti(path: Path, data, affine) -> None:
     code = {np.dtype(v): k for k, v in _NIFTI_DTYPES.items()}[data.dtype]
     hdr = bytearray(348)
     struct.pack_into("<i", hdr, 0, 348)
-    struct.pack_into("<8h", hdr, 40, 3, *data.shape, 1, 1, 1, 1)
+    struct.pack_into("<8h", hdr, 40, data.ndim, *data.shape, *(1,) * (7 - data.ndim))
     struct.pack_into("<2h", hdr, 70, code, 8 * data.dtype.itemsize)
     struct.pack_into("<8f", hdr, 76, 1.0, *np.linalg.norm(affine[:3, :3], axis=0),
                      1.0, 1.0, 1.0, 1.0)
@@ -1015,29 +1106,29 @@ def spacing_affine(spacing, origin=(0.0, 0.0, 0.0)):
 
 
 def labelled_phantom(shape, seed: int):
-    """Nested ellipsoids: label k inside the k-th shell (8 classes), image
-    100 * k plus noise; returns (image f32, label u8) arrays."""
+    """Nested ellipsoids (ellipses in 2D): label k inside the k-th shell (8
+    classes), image 100 * k plus noise; returns (image f32, label u8) arrays."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     grid = np.stack(np.meshgrid(*[np.linspace(-1, 1, s) for s in shape], indexing="ij"))
     lbl = np.zeros(shape, np.uint8)
     for k, radius in enumerate((0.9, 0.75, 0.62, 0.5, 0.38, 0.27, 0.16)):
-        center = rng.uniform(-0.05, 0.05, 3)[:, None, None, None]
+        center = rng.uniform(-0.05, 0.05, len(shape)).reshape((-1,) + (1,) * len(shape))
         lbl[(((grid - center) / radius) ** 2).sum(0) < 1.0] = k + 1
     img = (100.0 * lbl + 20.0 * rng.standard_normal(shape)).astype(np.float32)
     return img, lbl
 
 
-def fixed_batch(torch, n: int, seed: int, size: int = 96, volume: int = 128):
-    """n z-scored size^3 patches of volume^3 phantoms with their labels (host)."""
+def fixed_batch(torch, n: int, seed: int, size: int = 96, volume: int = 128, nd: int = 3):
+    """n z-scored size^nd patches of volume^nd phantoms with their labels (host)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     images, labels = [], []
     for i in range(n):
-        img, lbl = labelled_phantom((volume,) * 3, seed + i)
-        s = rng.integers(0, volume - size + 1, 3)
+        img, lbl = labelled_phantom((volume,) * nd, seed + i)
+        s = rng.integers(0, volume - size + 1, nd)
         crop = tuple(slice(a, a + size) for a in s)
         im = img[crop]
         images.append(((im - im.mean()) / im.std())[..., None])
@@ -2077,6 +2168,439 @@ def run_train_extras(torch, data: Path, out: Path):
     return launches, numbers
 
 
+# -- 2D segmentation ----------------------------------------------------------
+
+# launches of kernels 9, 8 and 7 a 2D train step (PERF.md, section 6): the
+# phase-major Dice's two sweeps; with the spatial augmentation the rotation
+# groups of the bf16 images (a 384^2 plane of 297 KB, held in global scratch)
+# and of the uint8 labels (148 KB, in shared memory); no blend outside
+# validation. Every 2D conv is F.conv2d / F.conv_transpose2d (kernels 1-6
+# are 3D).
+STEP_2D = {"dice_phase_sums": 1, "dice_phase_dx": 1, "shear_group": 0, "blend": 0}
+STEP_2D_AUG = dict(STEP_2D, shear_group=2)
+
+
+def _expect_only(where, got, want):
+    """``got`` launches equal ``want`` for the kernels it names and 0 for
+    every other kernel."""
+    full = {name: want.get(name, 0) for name in got}
+    print(f"  launches of {where}: {got}")
+    if got != full:
+        _fail(f"{where}: expected launches {full}, got {got}")
+
+
+def _validation_chunks(run: Path, roi, sw_batch: int = 4) -> int:
+    """Blend launches of one validation epoch of ``train()``: the chunks of
+    the validation volumes of ``run/Dataset.json`` after the default
+    preprocessing."""
+    from segmantic_tpu_torch.train.trainer import default_preprocessing
+
+    pre = default_preprocessing(["image", "label"])
+    chunks = 0
+    for case in json.loads((run / "Dataset.json").read_text())["validation"]:
+        sample = pre({"image": Path(case["image"]), "label": Path(case["label"])})
+        chunks += -(-_windows(sample["image"].spatial_shape, roi, 0.25) // sw_batch)
+    return chunks
+
+
+def run_train_2d(torch, work: Path):
+    """The flagship UNet in 2D at full width (16-32-64-128-256, strides 2^4,
+    2 residual units, BatchNorm, PReLU, 8 classes, 256^2 patches): ``train()``
+    for two epochs on 4 + 1 labelled 512^2 phantoms (its checkpoint feeds
+    ``[serve-2d]`` and ``[predict-2d]``), then on a fixed 16 x 256^2 bf16
+    batch with Adam the warm step plain and with the fused augmentation
+    (16 x 384^2 margin patches in), and the 2D SegResNet's warm step, plain:
+    CUDA events, median of 10, peak memory, labelled pixels per second, and
+    the launches of kernels 9, 8 and 7 a step against ``STEP_2D``."""
+    import numpy as np
+
+    from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step, train
+
+    data = work / "data"
+    for sub in ("image", "label"):
+        (data / sub).mkdir(parents=True)
+    for i in range(5):
+        img, lbl = labelled_phantom(PHANTOM_2D, 200 + i)
+        write_nifti(data / "image" / f"slice{i}.nii.gz", img, np.eye(4))
+        write_nifti(data / "label" / f"slice{i}.nii.gz", lbl, np.eye(4))
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    result = train(image_dir=data / "image", labels_dir=data / "label", output_dir=work / "run",
+                   num_classes=NUM_CLASSES, spatial_dims=2, spatial_size=TRAIN_2D_PATCH,
+                   max_epochs=2, seed=0)  # device: the default, the card
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    total = _launches(counters)
+    for rec in result.history:
+        print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
+              f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
+              f"{rec['train_voxels_per_sec']:.4g} pixels/s (cold), {rec['seconds']:.2f} s")
+    print(f"  train(spatial_dims=2): {train_s:.1f} s for 2 epochs of 2 steps + validation "
+          f"(roi 160^2)")
+    finite = all(np.isfinite(v) for rec in result.history for v in rec.values())
+    if len(result.history) != 2 or not finite or result.best_checkpoint is None \
+            or not (work / "run" / "last.ckpt").exists():
+        _fail("2D train(): not 2 finite epochs with last.ckpt and a best checkpoint")
+    val_chunks = 2 * _validation_chunks(work / "run", (160, 160))
+    _expect_only("train() in 2D", total, {"dice_phase_sums": 4, "dice_phase_dx": 4,
+                                          "blend": val_chunks})
+    model = SegmentationModel.load(result.best_checkpoint, device="cpu")
+    if model.spatial_dims != 2 or model.spatial_size != list(TRAIN_2D_PATCH):
+        _fail(f"the 2D checkpoint reads back as {model.spatial_dims}D {model.spatial_size}")
+
+    pixels = TRAIN_2D_BATCH * int(np.prod(TRAIN_2D_PATCH))
+    numbers = {"train_s": train_s}
+    size, volume = TRAIN_2D_PATCH[0], PHANTOM_2D[0]
+    image, label = fixed_batch(torch, TRAIN_2D_BATCH, 20, size=size, volume=volume, nd=2)
+    # the sampler's margin patches: 256 + 2 * (256 // 4) = 384
+    margin_image, margin_label = fixed_batch(torch, TRAIN_2D_BATCH, 60, size=size + size // 2,
+                                             volume=volume, nd=2)
+    aug = AugmentConfig(spatial=True, intensity=True)
+    for name, create, cfg, batch, per_step in (
+            ("unet", {}, AugmentConfig(flip_prob=0.0), (image, label), STEP_2D),
+            ("unet-augmented", {}, aug, (margin_image, margin_label), STEP_2D_AUG),
+            ("segresnet", {"arch": "segresnet"}, AugmentConfig(flip_prob=0.0), (image, label),
+             {})):
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, spatial_dims=2,
+                                         spatial_size=TRAIN_2D_PATCH, seed=1, device="cuda",
+                                         **create)
+        module = model.module.train().requires_grad_(True)
+        opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+        step = make_train_step(module, opt, cfg, TRAIN_2D_PATCH, mixed_precision=True,
+                               generator=torch.Generator().manual_seed(4))
+        img, lbl = batch[0].to(torch.bfloat16).cuda(), batch[1].cuda()
+        counters = _reset_counters()
+        step(img, lbl)
+        torch.cuda.synchronize()
+        got = _launches(counters)
+        _expect_only(f"one {name} step", got, per_step)
+        _add_launches(total, got)
+        ms, times, loss_hist, peak = warm_steps(torch, step, img, lbl, n=10)
+        extra = ""
+        if cfg.spatial:
+            gen = torch.Generator().manual_seed(3)
+            aug_ms = _median_ms(torch, lambda: augment_batch(img, lbl, gen, cfg, TRAIN_2D_PATCH),
+                                n=10)
+            numbers[f"{name}_augment_ms"] = aug_ms
+            extra = f"; the augmentation alone {aug_ms:.2f} ms"
+        numbers[name] = {"step_ms": ms, "pixels_per_s": pixels / ms * 1e3, "peak_mib": peak}
+        print(f"  {name}: fixed batch {tuple(img.shape)} bf16, Adam lr 1e-3: warm step median "
+              f"{ms:.2f} ms (min {min(times):.2f}, max {max(times):.2f}, 10 steps), "
+              f"{pixels / ms * 1e3:.4g} labelled pixels/s, peak device memory {peak:.0f} MiB"
+              f"{extra}; loss {loss_hist[0]:.5f} -> {loss_hist[-1]:.5f}")
+        if not all(np.isfinite(loss_hist)) or not min(loss_hist[-5:]) < loss_hist[0] - 1e-3:
+            _fail(f"2D {name}: the loss did not fall over 13 steps on a fixed batch")
+        del module, opt, step, model
+    return total, numbers, result.best_checkpoint
+
+
+def train_parity_2d(torch):
+    """One f32 train step of the 2D UNet and the 2D SegResNet at full width,
+    batch 2 x 256^2, on the card against the f64 CPU step, judged per
+    gradient tensor as ``[train-parity]``. Every 2D conv is cuDNN's, so this
+    holds cuDNN to f32 as TF32 off does for the 3D phases: with its
+    deterministic algorithms (``cudnn.deterministic``, for this phase only).
+    Its default weight-gradient algorithm at the deepest 2D conv-transpose
+    (384 -> 64 channels, 16^2 -> 32^2) lands 1.8e-6 from the f64 gradient,
+    3.9 times that tensor's limit; the deterministic ones hold it to f32."""
+    image, label = fixed_batch(torch, 2, 40, size=TRAIN_2D_PATCH[0], volume=PHANTOM_2D[0], nd=2)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arch in ("unet", "segresnet"):
+            print(f"  {arch} 2D, batch 2 x {TRAIN_2D_PATCH} (cudnn.deterministic)")
+            step_parity(torch, dict(num_classes=NUM_CLASSES, seed=2, spatial_dims=2,
+                                    spatial_size=TRAIN_2D_PATCH, arch=arch),
+                        image, label, TRAIN_2D_PATCH)
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def parity_2d(torch, ckpt: Path, image):
+    """The sliding window over one preprocessed 2D image (numpy (H, W, 1)) in
+    f32, the checkpoint's forward on the card against the same on the CPU:
+    logits within 1e-4 * max|ref|, and the argmax equal at every pixel whose
+    two largest CPU logits lie further apart than that limit (closer ones are
+    ties at f32's summation noise: their count is printed)."""
+    from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_val_forward
+
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = SegmentationModel.load(ckpt, device=device)
+        t0 = time.perf_counter()
+        logits[device] = sliding_window_inference(
+            image, model.spatial_size, SW_BATCH_2D, make_val_forward(model.module,
+                                                                    torch.float32),
+            overlap=0.25, num_classes=model.num_classes, device=device).cpu()
+        print(f"  f32 sliding window on the {device}: {time.perf_counter() - t0:.2f} s")
+    got, ref = logits["cuda"], logits["cpu"]
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    limit = 1e-4 * scale
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > limit
+    same = got.argmax(-1) == ref.argmax(-1)
+    agree = same.float().mean().item()
+    agree_decided = same[decided].float().mean().item()
+    print(f"  card vs CPU, f32: max|dlogit| {diff:.3e} ({diff / scale:.3e} of max|ref| "
+          f"{scale:.3e}; limit 1e-4); argmax agreement {100 * agree:.5f}% of "
+          f"{same.numel()} pixels, {100 * agree_decided:.5f}% of the "
+          f"{int(decided.sum())} whose top two logits differ by more than the limit "
+          f"({int((~decided).sum())} closer)")
+    if not (diff <= limit and agree_decided == 1.0):
+        _fail("2D card vs CPU parity (logits 1e-4 * max|ref|, argmax 100% where decided)")
+    return agree
+
+
+def run_serve_2d(torch, ckpt: Path, work: Path):
+    """The 2D checkpoint of ``[train-2d]`` behind ``make_server`` with sw-batch
+    16: one 1024 x 1024 single-channel image (roi the checkpoint's 256^2,
+    overlap 0.25, 25 windows in 2 chunks); the served map must equal
+    ``segment_volume``'s on the card (stage seconds printed), the blend
+    launch once a chunk and nothing else, and the forward hold against the
+    CPU (:func:`parity_2d`)."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.predict import segment_volume
+    from segmantic_tpu_torch.serve import InferenceSession, make_server
+
+    work.mkdir(parents=True)
+    img = labelled_phantom(EVAL_2D_SHAPE, 300)[0]
+    affine = spacing_affine((0.5, 0.6, 1.0), (4.0, -3.0, 0.0))
+    path = work / "image2d.nii.gz"
+    write_nifti(path, img, affine)
+    session = InferenceSession(ckpt, sw_batch_size=SW_BATCH_2D, device="cuda")
+    server = make_server(session, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    seconds = []
+    try:
+        with urllib.request.urlopen(f"{base}/v1/info", timeout=60) as r:
+            info = json.loads(r.read())
+        if info.get("spatial_dims") != 2:
+            _fail(f"/v1/info of the 2D checkpoint: {info}")
+        counters = _reset_counters()
+        for _ in range(2):  # the first request is cold
+            req = urllib.request.Request(f"{base}/v1/segment", data=path.read_bytes(),
+                                         method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, body = r.status, r.read()
+            seconds.append(time.perf_counter() - t0)
+        launches = _launches(counters)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+        server.server_close()
+    out = work / "served.nii.gz"
+    out.write_bytes(body)
+    served, served_affine = read_nifti(out)
+    chunks = -(-_windows(EVAL_2D_SHAPE, TRAIN_2D_PATCH, 0.25) // SW_BATCH_2D)
+    print(f"  POST /v1/segment {EVAL_2D_SHAPE}: HTTP {status}, seconds "
+          f"{[round(s, 3) for s in seconds]}, grid {served.shape}, labels per class "
+          f"{np.bincount(served.astype(np.int64).ravel(), minlength=NUM_CLASSES).tolist()}")
+    if status != 200 or served.shape != EVAL_2D_SHAPE or served.max() >= NUM_CLASSES \
+            or not np.allclose(served_affine, affine, atol=1e-4):
+        _fail("the 2D request: status, grid, affine or label values")
+    _expect_only("the two 2D requests", launches, {"blend": 2 * chunks})
+    stage = {}
+    pred, sample = segment_volume(session.model, path, val_forward=session.val_forward,
+                                  sw_batch_size=SW_BATCH_2D, seconds=stage)
+    print("  segment_volume on the card, seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage.items()))
+    if not np.array_equal(pred.numpy()[0], served):
+        _fail("the served 2D map differs from segment_volume's")
+    del session
+    parity_2d(torch, ckpt, np.moveaxis(sample["image"].numpy(), 0, -1))
+    return launches, {"request_s": seconds, "stage_s": stage}
+
+
+def run_predict_2d(torch, ckpt: Path, work: Path):
+    """``predict()`` with labels on a labelled 1024 x 1024 phantom with the 2D
+    checkpoint (sw-batch 4): Dice and stage seconds, the saved map equal to
+    ``segment_volume``'s on the card, its confusion matrix to a numpy
+    bincount, the blend launched once a chunk and nothing else, and the
+    forward held against the CPU (:func:`parity_2d`)."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.predict import predict, segment_volume
+    from segmantic_tpu_torch.metrics.overlap import dice_from_confusion
+    from segmantic_tpu_torch.train.trainer import (
+        SegmentationModel, default_preprocessing, make_val_forward,
+    )
+
+    images, labels = _labelled_cases(work, ["slice_a"], EVAL_2D_SHAPE, 400,
+                                     spacing=(0.5, 0.5, 1.0))
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    res = predict(ckpt, images, labels, output_dir=work / "pred", tissue_dict=CLASS_NAMES,
+                  device=DEVICE, save_confusion_plots=False)[0]
+    seconds = time.perf_counter() - t0
+    launches = _launches(counters)
+    print(f"  predict(): {seconds:.2f} s with the model's load; dice {res.dice:.5f}; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
+    model = SegmentationModel.load(ckpt, device=DEVICE)
+    pred, sample = segment_volume(model, {"image": images[0], "label": labels[0]},
+                                  val_forward=make_val_forward(model.module),
+                                  pre=default_preprocessing(["image", "label"]))
+    saved, _ = read_nifti(res.saved_to)
+    true = read_nifti(labels[0])[0].astype(np.int64)
+    cm = np.bincount(true.ravel() * NUM_CLASSES + saved.astype(np.int64).ravel(),
+                     minlength=NUM_CLASSES ** 2).reshape(NUM_CLASSES, NUM_CLASSES)
+    if saved.shape != EVAL_2D_SHAPE or not np.array_equal(saved, pred.numpy()[0]) \
+            or not np.array_equal(res.per_class_dice, dice_from_confusion(cm)):
+        _fail("2D predict(): the saved map differs from segment_volume's, or its Dice from "
+              "the bincount's")
+    chunks = -(-_windows(sample["image"].spatial_shape, TRAIN_2D_PATCH, 0.25) // SW_BATCH)
+    _expect_only("predict() in 2D", launches, {"blend": chunks})
+    parity_2d(torch, ckpt, np.moveaxis(sample["image"].numpy(), 0, -1))
+    return launches, {"seconds": seconds, "stage_s": res.seconds, "dice": res.dice}
+
+
+# -- the host-streamed sliding window ----------------------------------------
+
+
+class _PeakRss:
+    """The largest resident set of this process while the block runs, sampled
+    every 20 ms from /proc/self/statm."""
+
+    def __enter__(self):
+        import os
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self.start = self.read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def read(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+def stream_volume(shape, seed: int):
+    """A z-scored single-channel host volume (numpy f32, (*shape, 1)): two
+    nested ellipsoids over noise, made with broadcasting (no coordinate grid
+    of the whole volume)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    axes = [np.linspace(-1, 1, s, dtype=np.float32) for s in shape]
+    r2 = axes[0][:, None, None] ** 2 + axes[1][None, :, None] ** 2
+    r2 = r2 + axes[2][None, None, :] ** 2 * np.float32(0.8)
+    vol = rng.standard_normal(shape, dtype=np.float32)
+    vol *= np.float32(0.3)
+    vol += (r2 < 0.81).astype(np.float32)
+    vol += (r2 < 0.25).astype(np.float32)
+    del r2
+    vol -= vol.mean(dtype=np.float64)
+    vol /= vol.std(dtype=np.float64)
+    return vol[..., None]
+
+
+def run_streamed(torch, ckpt: Path):
+    """The 3D flagship checkpoint on a 512 x 512 x 896 single-channel f32 host
+    numpy volume, 8 classes, roi 96^3, overlap 0.25, sw-batch 16, through
+    ``sliding_window_inference``: its accumulators (9.4 GB) pass the 8 GiB
+    rule, so it must stream from host memory by itself (no blend launch; the
+    eval forward's kernels once a chunk). Host seconds, device seconds (CUDA
+    events around each forward), windows and the peak host RSS are printed.
+    Then the same volume as a CUDA tensor runs in memory, the blend kernel
+    once a chunk, and the two results agree: max|d| <= 1e-5 * max|ref|,
+    argmax >= 99.99%. Both run the eval forward in f32 (bf16 would hold them
+    to its rounding of their batch-dependent conv algorithms)."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer import sliding_window as sw
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_val_forward
+
+    t0 = time.perf_counter()
+    vol = stream_volume(STREAM_SHAPE, 7)
+    make_s = time.perf_counter() - t0
+    est = int(np.prod(STREAM_SHAPE)) * 4 * (NUM_CLASSES + 2)
+    windows = _windows(STREAM_SHAPE, ROI, 0.25)
+    chunks = -(-windows // STREAM_SW_BATCH)
+    print(f"  volume {STREAM_SHAPE} f32 made on the host in {make_s:.1f} s; accumulators "
+          f"{est / 1e9:.2f} GB ({est / 2**30:.2f} GiB, the rule 8 GiB); {windows} windows "
+          f"in {chunks} chunks")
+    if est <= sw._STREAM_BYTES or windows != 7 * 7 * 13:
+        _fail("the streamed phase's volume does not pass the 8 GiB rule or has not 637 windows")
+    model = SegmentationModel.load(ckpt, device="cuda")
+    forward = make_val_forward(model.module, torch.float32)
+    events = []
+
+    def predictor(windows_d):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(windows_d)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with _PeakRss() as rss:
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        host = sw.sliding_window_inference(vol, ROI, STREAM_SW_BATCH, predictor, overlap=0.25,
+                                           num_classes=NUM_CLASSES, device="cuda")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = _launches(counters)
+    device_s = sum(s.elapsed_time(e) for s, e in events) / 1e3
+    print(f"  streamed: host {host_s:.2f} s, device {device_s:.2f} s (the forwards of "
+          f"{len(events)} chunks), {windows} windows; peak host RSS {rss.peak / 2**30:.2f} GiB "
+          f"(at the start {rss.start / 2**30:.2f} GiB)")
+    if host.device.type != "cpu" or tuple(host.shape) != STREAM_SHAPE + (NUM_CLASSES,):
+        _fail(f"the streamed result: {host.device} {tuple(host.shape)}")
+    per_forward = {"fused_conv": 8, "phase_conv": 2}  # the flagship's eval forward
+    _expect_only("the streamed sliding window", launches,
+                 {k: n * chunks for k, n in per_forward.items()})
+
+    vol_d = torch.from_numpy(vol).cuda()
+    counters = _reset_counters()
+    t0 = time.perf_counter()
+    ref = sw.sliding_window_inference(vol_d, ROI, STREAM_SW_BATCH, forward, overlap=0.25,
+                                      num_classes=NUM_CLASSES, device="cuda")
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    got = _launches(counters)
+    print(f"  in memory on the card (volume as a CUDA tensor): {mem_s:.2f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _expect_only("the in-memory comparison", got,
+                 dict({k: n * chunks for k, n in per_forward.items()}, blend=chunks))
+    del vol_d
+    diff, scale, same = 0.0, 0.0, 0
+    for z in range(0, STREAM_SHAPE[0], 64):
+        a = host[z:z + 64].cuda()
+        b = ref[z:z + 64]
+        diff = max(diff, (a - b).abs().max().item())
+        scale = max(scale, b.abs().max().item())
+        same += int((a.argmax(-1) == b.argmax(-1)).sum())
+    agree = same / int(np.prod(STREAM_SHAPE))
+    print(f"  streamed vs in memory: max|d| {diff:.3e} ({diff / scale:.3e} of max|ref| "
+          f"{scale:.3e}; limit 1e-5), argmax agreement {100 * agree:.5f}% (limit 99.99%)")
+    if not (diff <= 1e-5 * scale and agree >= 0.9999):
+        _fail("the streamed sliding window against the in-memory path")
+    del ref, host
+    torch.cuda.empty_cache()
+    return launches, {"host_s": host_s, "device_s": device_s, "windows": windows,
+                      "peak_rss_gib": rss.peak / 2**30, "in_memory_s": mem_s}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2097,7 +2621,7 @@ def main() -> None:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    run_t0 = t0 = time.perf_counter()
     lib = _cuda.build()
     print(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     report_conv_build(lib)
@@ -2178,6 +2702,20 @@ def main() -> None:
               "val_blend_mode='constant' and a profile_dir; the step with and without remat")
         extras_launches, extras_numbers = run_train_extras(torch, work / "train",
                                                            work / "extras")
+        print("[train-2d] the flagship UNet in 2D at full width (16-32-64-128-256, strides "
+              "2^4, 2 residual units, BatchNorm, PReLU, 8 classes, 256^2 patches): train() "
+              "on 4 + 1 labelled 512^2 phantoms; the warm step on a fixed 16 x 256^2 bf16 "
+              "batch, Adam, plain and with the fused augmentation; the 2D SegResNet's, plain")
+        t2d_launches, t2d_numbers, ckpt_2d = run_train_2d(torch, work / "train2d")
+        print("[train-parity-2d] one f32 train step of the 2D UNet and the 2D SegResNet, "
+              "batch 2 x 256^2: card vs the f64 CPU step")
+        train_parity_2d(torch)
+        print("[serve-2d] the 2D checkpoint behind make_server: a 1024 x 1024 image, roi "
+              "256^2, overlap 0.25, sw-batch 16; against the CPU forward")
+        s2d_launches, s2d_numbers = run_serve_2d(torch, ckpt_2d, work / "serve2d")
+        print("[predict-2d] predict(test_labels=...) with the 2D checkpoint on a labelled "
+              "1024 x 1024 phantom (sw-batch 4); against the CPU forward")
+        p2d_launches, p2d_numbers = run_predict_2d(torch, ckpt_2d, work / "predict2d")
         print("[predict] predict(test_labels=...) with the flagship checkpoint on two labelled "
               "256x256x176 phantoms (roi 96^3, sw-batch 4, overlap 0.25, bf16)")
         pred_launches, pred_numbers = run_predict(torch, ckpt, work / "predict")
@@ -2187,6 +2725,10 @@ def main() -> None:
         print("[cross-validate] cross_validate() on four 128^3 phantoms plus one test "
               "phantom, one flagship scenario (max_epochs 1, device cuda), 2 folds")
         cv_launches, cv_numbers = run_cross_validate(torch, work / "cv")
+        print("[streamed] the flagship checkpoint on a 512 x 512 x 896 f32 host numpy volume, "
+              "8 classes, roi 96^3, overlap 0.25, sw-batch 16: streamed from host memory by "
+              "the sliding window's own rule; against the in-memory path on the card")
+        st_launches, st_numbers = run_streamed(torch, ckpt)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
@@ -2200,8 +2742,12 @@ def main() -> None:
           f"segresnet {arch_numbers['segresnet']}; unetr {arch_numbers['unetr']}; extras "
           f"{extras_numbers}; predict {pred_numbers}; ensemble seconds {ens_numbers}; "
           f"cross-validate {cv_numbers}")
+    print(f"launches: train-2d {t2d_launches}, serve-2d {s2d_launches}, predict-2d "
+          f"{p2d_launches}, streamed {st_launches}; train-2d {t2d_numbers}; serve-2d "
+          f"{s2d_numbers}; predict-2d {p2d_numbers}; streamed {st_numbers}")
     paths = (launches, train_launches, aug_launches, cfg_launches, arch_launches["segresnet"],
-             arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches)
+             arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
+             t2d_launches, s2d_launches, p2d_launches, st_launches)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(path[name] for path in paths),
@@ -2213,6 +2759,7 @@ def main() -> None:
          "library_ms": measured[name]["library_ms"]}
         for name, (src, replaces) in KERNELS.items()
     ]
+    print(f"[total] {time.perf_counter() - run_t0:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

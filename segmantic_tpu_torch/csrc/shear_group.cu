@@ -49,6 +49,11 @@
 //    clamped for the loads and the result replaced by zero.
 //  - Rows in shared memory are padded to an odd number of 32-bit words, so
 //    lanes that walk a line across rows hit distinct banks.
+//  - A plane too large for one block's shared memory (the 2D flagship's
+//    384 x 384 bf16 margin patch: 297 KB) lives in a global scratch buffer of
+//    the block's own instead (segk_shear_group_global; GLOBAL below), served
+//    by L1 and L2. The traversal, the passes in place and the barriers are
+//    the same; the position tables or the scratch line stay in shared memory.
 //  - Where the plane holds the memory-minor axis, global loads and the final
 //    stores move 16 bytes a thread along it (8 bf16, 16 uint8, 4 f32): the
 //    last pass also writes in place, and a copy-out phase stores whole
@@ -296,9 +301,11 @@ __device__ __forceinline__ void run_pass(typename Bits<sizeof(T) * WC>::type* fi
 // WC > 1: a block takes WC neighbours of a memory-minor third axis as one
 // unit. CP > 1: it takes CP neighbours of a third axis that is not
 // memory-minor as CP planes. Never both.
-template <typename T, int WC, int CP, int ORDER>
+// GLOBAL: the planes lie in `planes`, CP * plane units a block, not in
+// shared memory.
+template <typename T, int WC, int CP, int ORDER, bool GLOBAL>
 __global__ void __launch_bounds__(512, 2)
-shear_group_kernel(const void* __restrict__ x_raw, void* __restrict__ y_raw,
+shear_group_kernel(const void* __restrict__ x_raw, void* __restrict__ y_raw, void* planes,
                    const float* __restrict__ coef, const float* __restrict__ zoom,
                    const Group g) {
   using U = typename Bits<sizeof(T) * WC>::type;
@@ -306,12 +313,16 @@ shear_group_kernel(const void* __restrict__ x_raw, void* __restrict__ y_raw,
   const Pass p0 = g.p[0], p1 = g.p[1], p2 = g.p[2];
   const int A0 = p0.n_in, B0 = p0.n_other, A1 = p0.n_out, B1 = p1.n_out, A2 = p2.n_out;
   const int row = g.row_units, plane = A0 * row;
-  U* buf = reinterpret_cast<U*>(smem_raw);
-  // behind the planes: the passes' position tables, or the scratch lines
-  float* table0 = reinterpret_cast<float*>(buf + CP * plane);
+  U* buf = GLOBAL ? reinterpret_cast<U*>(planes) + (int64_t)blockIdx.x * CP * plane
+                  : reinterpret_cast<U*>(smem_raw);
+  // behind the planes in shared memory: the passes' position tables, or the
+  // scratch lines
+  unsigned char* behind =
+      GLOBAL ? smem_raw : reinterpret_cast<unsigned char*>(buf + CP * plane);
+  float* table0 = reinterpret_cast<float*>(behind);
   float* table1 = table0 + p0.n_out;
   float* table2 = table1 + p1.n_out;
-  U* scratch = g.block_lines ? buf + CP * plane : nullptr;
+  U* scratch = g.block_lines ? reinterpret_cast<U*>(behind) : nullptr;
 
   const int chunks = (g.nc + WC * CP - 1) / (WC * CP);
   const int chunk = blockIdx.x % chunks;
@@ -401,20 +412,28 @@ shear_group_kernel(const void* __restrict__ x_raw, void* __restrict__ y_raw,
   }
 }
 
-using KernelFn = void (*)(const void*, void*, const float*, const float*, Group);
+using KernelFn = void (*)(const void*, void*, void*, const float*, const float*, Group);
 
-template <typename T, int WC, int CP>
+template <typename T, int WC, int CP, bool GLOBAL = false>
 KernelFn kernel_of_order(int order) {
-  if (order == 0) return shear_group_kernel<T, WC, CP, 0>;
-  if constexpr (Elem<T>::kFloat) return shear_group_kernel<T, WC, CP, 1>;
+  if (order == 0) return shear_group_kernel<T, WC, CP, 0, GLOBAL>;
+  if constexpr (Elem<T>::kFloat) return shear_group_kernel<T, WC, CP, 1, GLOBAL>;
   return nullptr;
 }
 
 // dtype 0 f32, 1 bf16, 2 uint8, 3 int32; wc the elements of a unit (units are
 // at most 4 bytes), cp the planes of a block (wc == 1); integer types take
-// order 0 only.
-KernelFn kernel_for(int dtype, int wc, int cp, int order) {
+// order 0 only. A plane in global memory (`global`) is taken one a block.
+KernelFn kernel_for(int dtype, int wc, int cp, int order, bool global = false) {
   if (order != 0 && order != 1) return nullptr;
+  if (global) {
+    if (wc != 1 || cp != 1) return nullptr;
+    if (dtype == 0) return kernel_of_order<float, 1, 1, true>(order);
+    if (dtype == 1) return kernel_of_order<__nv_bfloat16, 1, 1, true>(order);
+    if (dtype == 2) return kernel_of_order<uint8_t, 1, 1, true>(order);
+    if (dtype == 3) return kernel_of_order<int32_t, 1, 1, true>(order);
+    return nullptr;
+  }
   if (wc == 1 && cp == 1) {
     if (dtype == 0) return kernel_of_order<float, 1, 1>(order);
     if (dtype == 1) return kernel_of_order<__nv_bfloat16, 1, 1>(order);
@@ -437,14 +456,7 @@ KernelFn kernel_for(int dtype, int wc, int cp, int order) {
 
 int item_bytes(int dtype) { return dtype == 2 ? 1 : (dtype == 1 ? 2 : 4); }
 
-}  // namespace
-
-// Resident blocks per SM of the kernel for (dtype, wc, order) at `threads`
-// threads and `smem_bytes` of dynamic shared memory, as the runtime counts
-// them (registers included); -1 for a combination that has no kernel.
-extern "C" int segk_shear_group_blocks_per_sm(int dtype, int wc, int cp, int order, int threads,
-                                              int smem_bytes) {
-  KernelFn fn = kernel_for(dtype, wc, cp, order);
+int blocks_per_sm(KernelFn fn, int threads, int smem_bytes) {
   if (fn == nullptr) return -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
       cudaSuccess)
@@ -456,20 +468,15 @@ extern "C" int segk_shear_group_blocks_per_sm(int dtype, int wc, int cp, int ord
   return blocks;
 }
 
-// x (S, C, *spatial) and y (S, C, *out spatial) of one type: dtype 0 f32, 1 bf16,
-// 2 uint8, 3 int32. coef (S, 3) f32 and zoom (S,) f32 on the device. passes:
-// host array of 15 ints, (n_in, n_other, n_out, use_zoom, frame) per pass.
-// strides: host array of 8 ints, the element strides of a, b, c and of one
-// image for x, then for y. n_img = S * C; nc the extent of the third axis.
-// (wc, cp, row_units, block_lines, threads, vec_in, vec_out, smem_bytes) is the
-// wrapper's plan (ops/fused_shear.py::group_plan); a plan whose shared-memory
-// sum differs from the one computed here is refused.
-extern "C" int segk_shear_group(const void* x, void* y, const float* coef, const float* zoom,
-                                const int* passes, const int* strides, int dtype, int n_img,
-                                int channels, int nc, int wc, int cp, int order, int round_w,
-                                int row_units, int block_lines, int threads, int vec_in,
-                                int vec_out, int smem_bytes, void* stream) {
+// The launch of segk_shear_group (planes == nullptr: the planes in shared
+// memory) and of segk_shear_group_global (planes: n_img * chunks planes of
+// A0 * row_units units in global memory).
+int launch_group(const void* x, void* y, void* planes, const float* coef, const float* zoom,
+                 const int* passes, const int* strides, int dtype, int n_img, int channels,
+                 int nc, int wc, int cp, int order, int round_w, int row_units, int block_lines,
+                 int threads, int vec_in, int vec_out, int smem_bytes, void* stream) {
   const int invalid = (int)cudaErrorInvalidValue;
+  const bool global = planes != nullptr;
   Group g;
   int longest = 0;
   for (int j = 0; j < 3; ++j) {
@@ -497,14 +504,14 @@ extern "C" int segk_shear_group(const void* x, void* y, const float* coef, const
   g.out_sc = strides[6];
   g.out_sn = strides[7];
   if (n_img <= 0 || nc <= 0) return 0;
-  KernelFn fn = kernel_for(dtype, wc, cp, order);
+  KernelFn fn = kernel_for(dtype, wc, cp, order, global);
   const int unit = item_bytes(dtype) * wc;
   const int A0 = g.p[0].n_in, B0 = g.p[0].n_other, B1 = g.p[1].n_out;
   if (fn == nullptr || threads < 32 || threads > 512 || threads % 32 || row_units < B0 ||
       (row_units * unit) % 4 || (!block_lines && longest > 32 * kMaxPerLane))
     return invalid;
   const long long tables = 4LL * (g.p[0].n_out + g.p[1].n_out + g.p[2].n_out);
-  const long long sum = (long long)A0 * row_units * cp * unit +
+  const long long sum = (global ? 0LL : (long long)A0 * row_units * cp * unit) +
                         (block_lines ? (long long)longest * cp * unit : tables);
   if (sum != smem_bytes || sum > 232448) return invalid;
   const int item = item_bytes(dtype);
@@ -521,6 +528,55 @@ extern "C" int segk_shear_group(const void* x, void* y, const float* coef, const
   if (err != cudaSuccess) return (int)err;
   const int chunks = (nc + wc * cp - 1) / (wc * cp);
   fn<<<(unsigned)(n_img * chunks), threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, y, coef, zoom, g);
+      x, y, planes, coef, zoom, g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Resident blocks per SM of the kernel for (dtype, wc, order) at `threads`
+// threads and `smem_bytes` of dynamic shared memory, as the runtime counts
+// them (registers included); -1 for a combination that has no kernel.
+extern "C" int segk_shear_group_blocks_per_sm(int dtype, int wc, int cp, int order, int threads,
+                                              int smem_bytes) {
+  return blocks_per_sm(kernel_for(dtype, wc, cp, order), threads, smem_bytes);
+}
+
+// The same for the kernel that keeps its plane in global memory (wc = cp = 1).
+extern "C" int segk_shear_group_global_blocks_per_sm(int dtype, int order, int threads,
+                                                     int smem_bytes) {
+  return blocks_per_sm(kernel_for(dtype, 1, 1, order, true), threads, smem_bytes);
+}
+
+// x (S, C, *spatial) and y (S, C, *out spatial) of one type: dtype 0 f32, 1 bf16,
+// 2 uint8, 3 int32. coef (S, 3) f32 and zoom (S,) f32 on the device. passes:
+// host array of 15 ints, (n_in, n_other, n_out, use_zoom, frame) per pass.
+// strides: host array of 8 ints, the element strides of a, b, c and of one
+// image for x, then for y. n_img = S * C; nc the extent of the third axis.
+// (wc, cp, row_units, block_lines, threads, vec_in, vec_out, smem_bytes) is the
+// wrapper's plan (ops/fused_shear.py::group_plan); a plan whose shared-memory
+// sum differs from the one computed here is refused.
+extern "C" int segk_shear_group(const void* x, void* y, const float* coef, const float* zoom,
+                                const int* passes, const int* strides, int dtype, int n_img,
+                                int channels, int nc, int wc, int cp, int order, int round_w,
+                                int row_units, int block_lines, int threads, int vec_in,
+                                int vec_out, int smem_bytes, void* stream) {
+  return launch_group(x, y, nullptr, coef, zoom, passes, strides, dtype, n_img, channels, nc, wc,
+                      cp, order, round_w, row_units, block_lines, threads, vec_in, vec_out,
+                      smem_bytes, stream);
+}
+
+// The same with the planes in global memory: `planes` holds n_img * chunks
+// planes of passes[0] * row_units elements (wc = cp = 1), one a block, for a
+// plane too large for a block's shared memory; smem_bytes counts only the
+// position tables or the scratch line.
+extern "C" int segk_shear_group_global(const void* x, void* y, void* planes, const float* coef,
+                                       const float* zoom, const int* passes, const int* strides,
+                                       int dtype, int n_img, int channels, int nc, int order,
+                                       int round_w, int row_units, int block_lines, int threads,
+                                       int vec_in, int vec_out, int smem_bytes, void* stream) {
+  if (planes == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_group(x, y, planes, coef, zoom, passes, strides, dtype, n_img, channels, nc, 1,
+                      1, order, round_w, row_units, block_lines, threads, vec_in, vec_out,
+                      smem_bytes, stream);
 }

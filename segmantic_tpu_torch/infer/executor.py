@@ -102,9 +102,9 @@ def _kernel_conv(x: torch.Tensor, c: _Conv):
 def _plain_conv(x: torch.Tensor, c: _Conv, stride: int, transposed: bool):
     """Strided conv / conv-transpose through torch, epilogue after."""
     if transposed:
-        y = fast_conv.conv_transpose3d_same(x, c.w, stride=stride)
+        y = fast_conv.conv_transpose_same(x, c.w, stride=stride)
     else:
-        y = fast_conv.conv3d_same(x, c.w, stride=stride)
+        y = fast_conv.conv_same(x, c.w, stride=stride)
     return c.epilogue(y + c.bias.to(y.dtype))
 
 
@@ -134,7 +134,7 @@ class _ResidualUnit:
         if self.fused is not None:
             wcat, bcat = self.fused
             feats = c0.w.shape[-1]
-            both = fast_conv.conv3d_same(x, wcat, stride=self.strides)
+            both = fast_conv.conv_same(x, wcat, stride=self.strides)
             both = both + bcat.to(both.dtype)
             y, residual = c0.epilogue(both[..., :feats]), both[..., feats:]
             start = 1

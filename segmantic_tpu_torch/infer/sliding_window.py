@@ -1,21 +1,30 @@
 """Sliding-window inference with Gaussian-blended overlap accumulation.
 
-Port of the single-device path of ``segmantic_tpu/infer/sliding_window.py``:
-the same window grid (MONAI convention, last window snapped to the edge),
-the same separable Gaussian importance map and the same blend, on the
+Port of the single-device paths of ``segmantic_tpu/infer/sliding_window.py``,
+2D and 3D: the same window grid (MONAI convention, last window snapped to the
+edge), the same separable Gaussian importance map and the same blend, on the
 unaligned grid the JAX package uses off the TPU (no channel padding, no grid
 quantisation); ``mode="constant"`` blends with an importance map of ones.
-The volume and both accumulators live on the device; each
-chunk of ``sw_batch_size`` windows is gathered, run through the predictor and
-blended by the blend kernel (:mod:`..ops.blend`), which adds the importance
-map into the weight map in the same pass; the short last chunk is
-padded by repeating its last window and the duplicates' logits are dropped
-before blending. ``wire_dtype`` (e.g. ``torch.bfloat16``) casts the host
-volume before upload. :class:`SlidingWindowInferer` is the MONAI-style
-callable with the settings fixed.
 
-The mesh, volume-sharded and host-streamed modes of the JAX package are not
-ported yet.
+In memory (:func:`sliding_window_inference`): the volume and both
+accumulators live on the device; each chunk of ``sw_batch_size`` windows is
+gathered, run through the predictor and blended by the blend kernel
+(:mod:`..ops.blend`), which adds the importance map into the weight map in
+the same pass; the short last chunk is padded by repeating its last window
+and the duplicates' logits are dropped before blending. A 2D volume runs as a
+3D one of unit depth (the kernel's windows are then one plane deep).
+``wire_dtype`` (e.g. ``torch.bfloat16``) casts the host volume before upload.
+
+Host-streamed (:func:`sliding_window_inference_streamed`): the volume and both
+accumulators stay in host memory and only each chunk of windows travels to
+the device and its logits back. :func:`sliding_window_inference` takes this
+path by itself, as the JAX function does, for a volume on the host whose
+accumulators would pass ``_STREAM_BYTES``: a numpy array, or a CPU tensor
+when ``device`` is not the CPU. A tensor on ``device`` always runs in memory.
+
+:class:`SlidingWindowInferer` is the MONAI-style callable with the settings
+fixed. The mesh and volume-sharded modes of the JAX package are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,12 +38,12 @@ from ..ops import blend
 from ..ops._cuda import resolve_device
 
 __all__ = ["window_starts", "gaussian_importance", "sliding_window_inference",
-           "SlidingWindowInferer", "BLEND_MODES"]
+           "sliding_window_inference_streamed", "SlidingWindowInferer", "BLEND_MODES"]
 
 BLEND_MODES = ("gaussian", "constant")
 
-# accumulators above this many bytes were streamed from host memory by the
-# JAX package (sliding_window_inference_streamed), not ported yet
+# accumulators of a host volume above this many bytes are streamed from host
+# memory (the JAX package's rule: they would not fit the device)
 _STREAM_BYTES = 8 << 30
 
 
@@ -75,11 +84,28 @@ def gaussian_importance(roi_size: Sequence[int], sigma_scale: float = 0.125) -> 
 
 
 def _gather(volume: torch.Tensor, starts, roi) -> torch.Tensor:
-    """volume (*spatial, C), starts (B, 3) host ints -> windows (B, *roi, C)."""
+    """volume (D, H, W, C), starts (B, 3) host ints -> windows (B, *roi, C)."""
     return torch.stack([
         volume[s[0]:s[0] + roi[0], s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]]
         for s in starts
     ])
+
+
+def _importance(roi: Sequence[int], mode: str) -> np.ndarray:
+    if mode == "gaussian":
+        return gaussian_importance(roi)
+    return np.ones(tuple(roi), np.float32)
+
+
+def _streams(volume, device: torch.device, nd: int, num_classes: Optional[int]) -> bool:
+    """Does the JAX package's rule send this volume to the streamed path? Its
+    accumulators (``prod(spatial) * 4 * (classes or 8 + 2)`` bytes) pass
+    ``_STREAM_BYTES`` and it lies on the host: a numpy array, or a CPU
+    tensor when the device is not the CPU."""
+    on_host = isinstance(volume, np.ndarray) or (
+        torch.is_tensor(volume) and volume.device.type == "cpu" and device.type != "cpu")
+    est = int(np.prod(volume.shape[:nd])) * 4 * ((num_classes or 8) + 2)
+    return on_host and est > _STREAM_BYTES
 
 
 def sliding_window_inference(
@@ -95,11 +121,14 @@ def sliding_window_inference(
     mesh=None,
     shard_volume: bool = False,
 ) -> torch.Tensor:
-    """Tiled inference over a 3D volume with Gaussian (``mode="gaussian"``)
-    or uniform (``"constant"``) blending; returns (*spatial, num_classes)
-    blended logits (f32, on ``device``: the card unless the caller asks for
-    the CPU; CUDA without a card raises). The volume is zero-padded up to the
-    roi where it is smaller (and the result cropped back)."""
+    """Tiled inference over a 2D or 3D volume (``len(roi_size)`` spatial axes)
+    with Gaussian (``mode="gaussian"``) or uniform (``"constant"``) blending;
+    returns (*spatial, num_classes) blended logits, f32, on ``device`` (the
+    card unless the caller asks for the CPU; CUDA without a card raises). The
+    volume is zero-padded up to the roi where it is smaller (and the result
+    cropped back). A host volume whose accumulators pass ``_STREAM_BYTES``
+    goes through :func:`sliding_window_inference_streamed`, which ignores
+    ``wire_dtype`` as the JAX package does, and its result is a CPU tensor."""
     if mode not in BLEND_MODES:
         raise ValueError(f"mode must be one of {BLEND_MODES}, got {mode!r}")
     if mesh is not None or shard_volume:
@@ -108,40 +137,42 @@ def sliding_window_inference(
             "Queue 1: parallel)"
         )
     nd = len(roi_size)
-    if nd != 3:
-        raise NotImplementedError("the port's sliding window is 3D only")
+    if nd not in (2, 3):
+        raise ValueError(f"the sliding window takes 2D or 3D windows, got roi {roi_size}")
     device = resolve_device(device)
-    n_cls_est = num_classes if num_classes else 8
-    est = int(np.prod(volume.shape[:nd])) * 4 * (n_cls_est + 2)
-    if est > _STREAM_BYTES:
-        raise NotImplementedError(
-            "volume needs the host-streamed sliding window (accumulators above "
-            f"{_STREAM_BYTES >> 30} GiB), which is not ported yet"
-        )
+    if _streams(volume, device, nd, num_classes):
+        return torch.from_numpy(sliding_window_inference_streamed(
+            volume, roi_size, sw_batch_size, predictor, overlap=overlap, mode=mode,
+            num_classes=num_classes, device=device))
     vol = torch.as_tensor(volume)
     if wire_dtype is not None:
         vol = vol.to(wire_dtype)
     vol = vol.to(device)
-    spatial = tuple(vol.shape[:nd])
     roi = tuple(int(r) for r in roi_size)
+    importance = _importance(roi, mode)
+    if nd == 2:  # one plane deep: the 3D grid, gather and blend at unit depth
+        vol, roi, importance = vol[None], (1,) + roi, importance[None]
 
-    pad = [max(roi[a] - spatial[a], 0) for a in range(nd)]
+    def run(windows: torch.Tensor) -> torch.Tensor:
+        """The predictor on (B, *roi, C) windows, as 3D ones of unit depth in 2D."""
+        return predictor(windows[:, 0])[:, None] if nd == 2 else predictor(windows)
+
+    spatial = tuple(vol.shape[:3])
+
+    pad = [max(roi[a] - spatial[a], 0) for a in range(3)]
     lo = [p // 2 for p in pad]
     if any(pad):
         widths = []
-        for a in reversed(range(nd)):  # F.pad order: last axis first
+        for a in reversed(range(3)):  # F.pad order: last axis first
             widths += [lo[a], pad[a] - lo[a]]
         vol = torch.nn.functional.pad(vol, [0, 0] + widths)
-    padded = tuple(vol.shape[:nd])
+    padded = tuple(vol.shape[:3])
 
     starts = np.asarray(window_starts(padded, roi, overlap), np.int64)
-    if mode == "gaussian":
-        importance = torch.as_tensor(gaussian_importance(roi), device=device)
-    else:
-        importance = torch.ones(roi, dtype=torch.float32, device=device)
+    importance = torch.as_tensor(importance, device=device)
 
     if num_classes is None:
-        num_classes = predictor(_gather(vol, starts[:1], roi)).shape[-1]
+        num_classes = run(_gather(vol, starts[:1], roi)).shape[-1]
     acc = torch.zeros(padded + (num_classes,), dtype=torch.float32, device=device)
     wacc = torch.zeros(padded + (1,), dtype=torch.float32, device=device)
 
@@ -152,12 +183,94 @@ def sliding_window_inference(
             chunk_run = np.concatenate([chunk, np.repeat(chunk[-1:], sw_batch_size - n, 0)])
         else:
             chunk_run = chunk
-        logits = predictor(_gather(vol, chunk_run, roi))[:n]
+        logits = run(_gather(vol, chunk_run, roi))[:n]
         # one pass adds the logits into acc and the importance into the weight map
         blend.accumulate_windows(acc, logits.float().contiguous(), importance, chunk, wacc)
 
     out = acc / wacc
-    return out[lo[0]:lo[0] + spatial[0], lo[1]:lo[1] + spatial[1], lo[2]:lo[2] + spatial[2]]
+    out = out[lo[0]:lo[0] + spatial[0], lo[1]:lo[1] + spatial[1], lo[2]:lo[2] + spatial[2]]
+    return out[0] if nd == 2 else out
+
+
+def sliding_window_inference_streamed(
+    volume: np.ndarray,  # (*spatial, C) host array
+    roi_size: Sequence[int],
+    sw_batch_size: int,
+    predictor: Callable,  # (B, *roi, C) -> (B, *roi, num_classes) on device
+    overlap: float = 0.25,
+    mode: str = "gaussian",
+    num_classes: Optional[int] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Sliding-window inference for volumes too large for the device: the
+    JAX function of this name, with ``device``. 2D or 3D.
+
+    The volume and both f32 accumulators stay in host memory; each chunk of
+    windows (the last one short) is cropped on the host, copied into pinned
+    memory and uploaded without blocking, run through the predictor on ``device``, and
+    its logits come back and are blended on the host in window order
+    (``acc += logits * imp``, ``wacc += imp``). One chunk deep, as in the JAX
+    function: chunk k+1 is launched before chunk k is blended, and the wait
+    for chunk k's logits on the host is the only synchronisation. Returns
+    ``acc / wacc`` cropped back, (*spatial, num_classes) f32 numpy."""
+    device = resolve_device(device)
+    pinned = device.type == "cuda"
+    volume = np.asarray(volume)
+    nd = len(roi_size)
+    roi = tuple(int(r) for r in roi_size)
+    spatial = volume.shape[:nd]
+
+    pad = [max(roi[a] - spatial[a], 0) for a in range(nd)]
+    lo = [p // 2 for p in pad]
+    if any(pad):
+        widths = [(lo[a], pad[a] - lo[a]) for a in range(nd)] + [(0, 0)]
+        volume = np.pad(volume, widths)
+    padded = volume.shape[:nd]
+
+    starts = window_starts(padded, roi, overlap)
+    imp = _importance(roi, mode)[..., None]
+
+    def launch(chunk):
+        """Crop, upload and run one chunk; returns a function that waits for
+        its logits on the host."""
+        windows = torch.from_numpy(np.stack([
+            volume[tuple(slice(s[a], s[a] + roi[a]) for a in range(nd))] for s in chunk]))
+        if pinned:
+            windows = windows.pin_memory()
+        logits = predictor(windows.to(device, non_blocking=True)).float()
+        if not pinned:
+            return lambda: logits.numpy()
+        host = torch.empty(logits.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(logits, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def ready() -> np.ndarray:
+            done.synchronize()
+            return host.numpy()
+
+        return ready
+
+    if num_classes is None:
+        num_classes = int(launch([(0,) * nd])().shape[-1])
+    acc = np.zeros(tuple(padded) + (num_classes,), np.float32)
+    wacc = np.zeros(tuple(padded) + (1,), np.float32)
+
+    chunks = [starts[i:i + sw_batch_size] for i in range(0, len(starts), sw_batch_size)]
+    pending = None  # (chunk, its logits once they are on the host)
+    for chunk in chunks + [None]:
+        launched = None if chunk is None else (chunk, launch(chunk))
+        if pending is not None:
+            done_chunk, ready = pending
+            logits = ready()
+            for j, s in enumerate(done_chunk):
+                sl = tuple(slice(s[a], s[a] + roi[a]) for a in range(nd))
+                acc[sl] += logits[j] * imp
+                wacc[sl] += imp
+        pending = launched
+
+    np.divide(acc, wacc, out=acc)
+    return acc[tuple(slice(lo[a], lo[a] + spatial[a]) for a in range(nd))]
 
 
 class SlidingWindowInferer:

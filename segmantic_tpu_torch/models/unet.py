@@ -1,4 +1,4 @@
-"""Residual 3D UNet as torch modules: the training forward and the plain
+"""Residual 2D / 3D UNet as torch modules: the training forward and the plain
 eval math.
 
 Port of ``segmantic_tpu/models/unet.py`` (MONAI-UNet topology: stride-2
@@ -12,18 +12,23 @@ SegResNet and UNETR of :mod:`.segresnet` and :mod:`.unetr`, which share the
 norms (:func:`make_norm`: BATCH, INSTANCE, GROUP, NONE) and activations
 (:func:`activation`) defined here.
 
-``UNet.forward`` runs the JAX module's graph: channel-last (B, D, H, W, C) in
-and out, XLA-SAME padding, parameters cast to the input's dtype at use, and
-the narrow top decoder stages in subpixel phase space (``phase_stage_ok``),
-optionally returning the top stage's phase-major logits (``phase_logits``).
+``UNet.forward`` runs the JAX module's graph: channel-last (B, *S, C) in and
+out (S = (D, H, W) or (H, W)), XLA-SAME padding, parameters cast to the
+input's dtype at use, and the narrow top decoder stages in subpixel phase
+space (``phase_stage_ok``: 2^nd phases), optionally returning the top stage's
+phase-major logits (``phase_logits``).
 In ``train()`` mode BatchNorm normalises by the batch statistics (in f32,
 biased variance) and updates the running statistics as flax does; in
-``eval()`` mode it uses the running statistics. Every stride-1 3^3 conv goes
-through :func:`..ops.fused_conv.conv3d_grad` and every phase-space conv
+``eval()`` mode it uses the running statistics. In 3D every stride-1 3^3 conv
+goes through :func:`..ops.fused_conv.conv3d_grad` and every phase-space conv
 through :func:`..ops.phase_conv.phase_conv_grad` (the hand-written kernels on
 the card, their plain versions on the CPU); strided convs, conv-transposes
 and 1x1 projections are ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX
-package leaves them to XLA. The folded, kernel-backed serving forward is
+package leaves them to XLA. In 2D every conv is ``F.conv2d`` /
+``F.conv_transpose2d`` (the phase-space convs too, on the expanded kernel),
+as the JAX package's 2D convs are XLA: its Pallas routes are 3D only.
+Training with dropout > 0 raises :data:`DROPOUT_REFUSAL`, as the JAX trainer
+does. The folded, kernel-backed serving forward is
 :mod:`segmantic_tpu_torch.infer.executor`, tested against this one.
 """
 
@@ -39,7 +44,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fast_conv import (
-    conv3d_same, depth_to_space, space_to_depth, subpixel_phase_conv, tile_phase,
+    conv_same, depth_to_space, phase_conv_s1_plain, space_to_depth, subpixel_phase_conv,
+    tile_phase,
 )
 from ..ops.fused_conv import at_least_f32, conv3d_grad
 from ..ops.phase_conv import phase_conv_grad
@@ -47,14 +53,23 @@ from ..ops.phase_conv import phase_conv_grad
 __all__ = [
     "UNet", "ResidualUnit", "ConvUnit", "Conv", "ConvTranspose", "BatchNorm",
     "GroupNorm", "Norm", "make_norm", "PReLU", "activation", "frozen_running_stats",
-    "from_flax_variables", "to_flax_variables",
+    "from_flax_variables", "to_flax_variables", "DROPOUT_REFUSAL",
 ]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's; torch's momentum 0.1
-# phase-channel bound of the phase stages (8 * out_feats): the JAX package's
-# default SEGMANTIC_PHASE_MAX, the head and the next stage
+# phase-channel bound of the phase stages (2^nd * out_feats): the JAX
+# package's default SEGMANTIC_PHASE_MAX, the head and the next stage
 PHASE_MAX = 128
+
+# The JAX trainer cannot train with dropout either: its step applies the
+# module with training=True and no "dropout" PRNG stream, so flax's
+# nn.Dropout raises (segmantic_tpu/train/trainer.py:393-400). Eval forwards
+# with dropout > 0 are the identity in both packages.
+DROPOUT_REFUSAL = (
+    "training with dropout > 0 is refused, as the JAX trainer refuses it: its train "
+    "step applies the module with no 'dropout' PRNG stream "
+    "(segmantic_tpu/train/trainer.py:393-400), so flax's nn.Dropout raises")
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
@@ -64,69 +79,76 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> None:
 
 
 class Conv(nn.Module):
-    """3D conv with XLA-SAME padding (flax ``Conv_0``); weight OIDHW."""
+    """``nd``-D conv with XLA-SAME padding (flax ``Conv_0``); weight (O, I, *k)."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, nd: int = 3):
         super().__init__()
         k = kernel_size
         self.stride = stride
-        self.weight = nn.Parameter(torch.empty(c_out, c_in, k, k, k))
+        self.nd = nd
+        self.weight = nn.Parameter(torch.empty((c_out, c_in) + (k,) * nd))
         self.bias = nn.Parameter(torch.zeros(c_out))
         with torch.no_grad():
-            _lecun_normal_(self.weight, c_in * k**3, generator)
+            _lecun_normal_(self.weight, c_in * k**nd, generator)
 
     def dhwio(self) -> torch.Tensor:
-        return self.weight.permute(2, 3, 4, 1, 0)
+        """The kernel as flax stores it: (*k, I, O)."""
+        return self.weight.permute(*range(2, 2 + self.nd), 1, 0)
 
     def forward(self, x, phase: bool = False):
-        """``phase``: x is a phase-major tensor (B, *S, 8*C) and the conv runs
-        on the volume it stands for (same parameters)."""
+        """``phase``: x is a phase-major tensor (B, *S, 2^nd * C) and the conv
+        runs on the volume it stands for (same parameters)."""
         w = self.dhwio().to(x.dtype)
         b = self.bias.to(x.dtype)
-        if phase:
-            return phase_conv_grad(x, w) + tile_phase(b)
-        if self.stride == 1 and w.shape[:3] == (3, 3, 3):
-            return conv3d_grad(x, w) + b
-        return conv3d_same(x, w, b, self.stride)
+        if self.nd == 3:
+            if phase:
+                return phase_conv_grad(x, w) + tile_phase(b)
+            if self.stride == 1 and w.shape[:3] == (3, 3, 3):
+                return conv3d_grad(x, w) + b
+        elif phase:
+            return phase_conv_s1_plain(x, w) + tile_phase(b, self.nd)
+        return conv_same(x, w, b, self.stride)
 
 
 class ConvTranspose(nn.Module):
-    """flax SAME stride-2 conv-transpose (``ConvTranspose_0``).
+    """flax SAME stride-2 conv-transpose (``ConvTranspose_0``), ``nd``-D.
 
-    ``weight`` is in torch's ``ConvTranspose3d`` layout (Ci, Co, k, k, k) and
+    ``weight`` is in torch's ``ConvTranspose{nd}d`` layout (Ci, Co, *k) and
     already spatially flipped: flax's SAME transpose (no kernel flip) equals
     torch's unpadded transposed conv with the flipped kernel, cropped to the
     first ``stride * N`` outputs per axis."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, nd: int = 3):
         super().__init__()
         k = kernel_size
         self.stride = stride
-        self.weight = nn.Parameter(torch.empty(c_in, c_out, k, k, k))
+        self.nd = nd
+        self.weight = nn.Parameter(torch.empty((c_in, c_out) + (k,) * nd))
         self.bias = nn.Parameter(torch.zeros(c_out))
         with torch.no_grad():
-            # flax's ConvTranspose fan-in is the kernel's in-axis size * k^3
-            _lecun_normal_(self.weight, c_in * k**3, generator)
+            # flax's ConvTranspose fan-in is the kernel's in-axis size * k^nd
+            _lecun_normal_(self.weight, c_in * k**nd, generator)
 
     def dhwio(self) -> torch.Tensor:
-        """The kernel as flax stores it: (k, k, k, Ci, Co), unflipped."""
-        return self.weight.flip(2, 3, 4).permute(2, 3, 4, 0, 1)
+        """The kernel as flax stores it: (*k, Ci, Co), unflipped."""
+        spatial = tuple(range(2, 2 + self.nd))
+        return self.weight.flip(spatial).permute(*spatial, 0, 1)
 
     def forward(self, x, phase_out: bool = False):
-        """``phase_out``: return the phase-major tensor (B, *S, 8*Co) of the
-        2x-upsampled output at input resolution (subpixel factorisation,
+        """``phase_out``: return the phase-major tensor (B, *S, 2^nd * Co) of
+        the 2x-upsampled output at input resolution (subpixel factorisation,
         stride 2 kernel 3 only)."""
         if phase_out:
             y = subpixel_phase_conv(x, self.dhwio().to(x.dtype))
-            return y + tile_phase(self.bias.to(x.dtype))
-        n = x.shape[1:4]
+            return y + tile_phase(self.bias.to(x.dtype), self.nd)
+        n = x.shape[1:-1]
         s = self.stride
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=s)
-        y = y[:, :, : s * n[0], : s * n[1], : s * n[2]]
-        return y.permute(0, 2, 3, 4, 1)
+        conv_t = F.conv_transpose3d if self.nd == 3 else F.conv_transpose2d
+        y = conv_t(x.movedim(-1, 1), self.weight.to(x.dtype), self.bias.to(x.dtype), stride=s)
+        y = y[(slice(None), slice(None)) + tuple(slice(0, s * m) for m in n)]
+        return y.movedim(1, -1)
 
 
 class BatchNorm(nn.Module):
@@ -275,14 +297,14 @@ class ConvUnit(nn.Module):
     def __init__(self, c_in: int, c_out: int, *, kernel_size: int = 3,
                  strides: int = 1, transposed: bool = False,
                  conv_only: bool = False, norm: str = "BATCH",
-                 act: str = "PRELU", generator=None):
+                 act: str = "PRELU", generator=None, nd: int = 3):
         super().__init__()
         conv_cls = ConvTranspose if transposed else Conv
         name = "ConvTranspose_0" if transposed else "Conv_0"
         self.transposed = transposed
         self.conv_only = conv_only
         self.act = act.upper()
-        self.add_module(name, conv_cls(c_in, c_out, kernel_size, strides, generator))
+        self.add_module(name, conv_cls(c_in, c_out, kernel_size, strides, generator, nd))
         if not conv_only:
             norm_module = make_norm(norm, c_out)
             if norm_module is not None:
@@ -311,7 +333,7 @@ class ConvUnit(nn.Module):
         if self.conv_only:
             return x
         if self.norm is not None:
-            x = self.norm(x, groups=8 if phase else 1)
+            x = self.norm(x, groups=2 ** (x.ndim - 2) if phase else 1)
         if self.act == "PRELU":
             return self.PReLU_0(x)
         return self.act_fn(x)
@@ -325,7 +347,7 @@ class ResidualUnit(nn.Module):
     def __init__(self, c_in: int, c_out: int, *, strides: int = 1,
                  kernel_size: int = 3, subunits: int = 2,
                  last_conv_only: bool = False, norm: str = "BATCH",
-                 act: str = "PRELU", generator=None):
+                 act: str = "PRELU", generator=None, nd: int = 3):
         super().__init__()
         self.subunits = max(1, subunits)
         self.strides = strides
@@ -335,12 +357,12 @@ class ResidualUnit(nn.Module):
                 c, c_out, kernel_size=kernel_size,
                 strides=strides if i == 0 else 1,
                 conv_only=last_conv_only and i == self.subunits - 1,
-                norm=norm, act=act, generator=generator,
+                norm=norm, act=act, generator=generator, nd=nd,
             ))
             c = c_out
         if strides != 1 or c_in != c_out:
             rk = kernel_size if strides != 1 else 1
-            self.Conv_0 = Conv(c_in, c_out, rk, strides, generator)
+            self.Conv_0 = Conv(c_in, c_out, rk, strides, generator, nd)
 
     def units(self) -> List[ConvUnit]:
         return [getattr(self, f"ConvUnit_{i}") for i in range(self.subunits)]
@@ -359,7 +381,7 @@ class ResidualUnit(nn.Module):
 
 
 class UNet(nn.Module):
-    """Residual 3D UNet with skip concatenation (channel-last in and out).
+    """Residual 2D / 3D UNet with skip concatenation (channel-last in and out).
 
     Defaults are the reference's flagship: channels (16, 32, 64, 128, 256),
     strides (2, 2, 2, 2), 2 residual units, BatchNorm, PReLU."""
@@ -372,9 +394,8 @@ class UNet(nn.Module):
                  kernel_size: int = 3, up_kernel_size: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if spatial_dims != 3:
-            raise NotImplementedError(
-                "the port's UNet is 3D only (2D: ROADMAP Queue 1, train() extras)")
+        if spatial_dims not in (2, 3):
+            raise ValueError(f"spatial_dims must be 2 or 3, got {spatial_dims}")
         channels, strides = list(channels), list(strides)
         if len(channels) < 2 or len(strides) != len(channels) - 1:
             raise ValueError("need len(channels) >= 2 and len(strides) == len(channels) - 1")
@@ -386,7 +407,7 @@ class UNet(nn.Module):
         self.num_res_units = num_res_units
         self.norm = norm.upper()
         self.act = act.upper()
-        self.dropout = dropout  # eval only: dropout is the identity (training raises)
+        self.dropout = dropout  # the identity in eval; training raises DROPOUT_REFUSAL
         self.kernel_size = kernel_size
         self.up_kernel_size = up_kernel_size
 
@@ -399,7 +420,7 @@ class UNet(nn.Module):
             self.add_module(name, module)
             order.append(name)
 
-        common = dict(norm=norm, act=act, generator=generator)
+        common = dict(norm=norm, act=act, generator=generator, nd=spatial_dims)
 
         def down(c_in, c_out, s):
             if num_res_units > 0:
@@ -443,15 +464,15 @@ class UNet(nn.Module):
 
     def phase_stage_ok(self, out_feats: int, strides: int) -> bool:
         """Run this decoder stage in subpixel phase space? The JAX package's
-        ``models/unet.py::phase_stage_ok`` for 3D, without its environment
-        knobs (the train graph and the eval executor both consult it)."""
+        ``models/unet.py::phase_stage_ok`` without its environment knobs (the
+        train graph and the eval executor both consult it)."""
         return (
             self.num_res_units > 0
             and self.dropout == 0.0
             and strides == 2
             and self.kernel_size == 3
             and self.up_kernel_size == 3
-            and 8 * out_feats <= PHASE_MAX
+            and (2**self.spatial_dims) * out_feats <= PHASE_MAX
         )
 
     def phase_top_ok(self) -> bool:
@@ -460,15 +481,14 @@ class UNet(nn.Module):
         return self.phase_stage_ok(self.out_channels, self.strides[0])
 
     def forward(self, x: torch.Tensor, phase_logits: bool = False) -> torch.Tensor:
-        """Logits (N, D, H, W, classes). With ``phase_logits`` the output
-        stays phase-major at half resolution, (N, D/2, H/2, W/2, 8*classes),
+        """Logits (N, *S, classes). With ``phase_logits`` the output stays
+        phase-major at half resolution, (N, *S/2, 2^nd * classes),
         ``depth_to_space`` of which is the ordinary output (even sizes)."""
-        if x.ndim != 5:
-            raise ValueError(f"expected (N, D, H, W, C) input, got {tuple(x.shape)}")
+        if x.ndim != self.spatial_dims + 2:
+            raise ValueError(f"expected (N, *spatial[{self.spatial_dims}], C) input, "
+                             f"got {tuple(x.shape)}")
         if self.training and self.dropout > 0:
-            raise NotImplementedError(
-                "training with dropout > 0 is not ported yet (ROADMAP Queue 1: "
-                "train() extras)")
+            raise NotImplementedError(DROPOUT_REFUSAL)
         enc = self.encoder()
         skips = []
         y = x
@@ -490,9 +510,9 @@ class UNet(nn.Module):
             for unit in units:
                 y = unit(y)
         if phase_logits:
-            if any(s % 2 for s in y.shape[1:4]):
+            if any(s % 2 for s in y.shape[1:-1]):
                 raise ValueError("phase_logits=True requires even output spatial "
-                                 f"dims, got {tuple(y.shape[1:4])}")
+                                 f"dims, got {tuple(y.shape[1:-1])}")
             y = space_to_depth(y)
         return y
 
@@ -537,8 +557,9 @@ def _kernel_kind(mods: Sequence[str]) -> str:
 def from_flax_variables(variables: Dict) -> Dict[str, np.ndarray]:
     """flax ``{"params", "batch_stats"}`` tree -> torch ``state_dict`` (numpy).
 
-    Conv kernels go DHWIO -> OIDHW; transposed-conv kernels DHWIO -> the
-    flipped (Ci, Co, k, k, k) layout of :class:`ConvTranspose`; Dense kernels
+    Conv kernels go (*k, I, O) -> (O, I, *k) (DHWIO -> OIDHW in 3D, HWIO ->
+    OIHW in 2D); transposed-conv kernels (*k, Ci, Co) -> the flipped
+    (Ci, Co, *k) layout of :class:`ConvTranspose`; Dense kernels
     (in, out) -> (out, in); attention projections keep flax's shapes;
     BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
     GroupNorm / LayerNorm scale -> weight; PReLU alpha -> weight; UNETR's
@@ -559,9 +580,11 @@ def from_flax_variables(variables: Dict) -> Dict[str, np.ndarray]:
             if kind == "dense":
                 arr = arr.T
             elif kind == "transposed":
-                arr = arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+                nd = arr.ndim - 2
+                arr = arr[(slice(None, None, -1),) * nd].transpose(nd, nd + 1, *range(nd))
             elif kind == "conv":
-                arr = arr.transpose(4, 3, 0, 1, 2)
+                nd = arr.ndim - 2
+                arr = arr.transpose(nd + 1, nd, *range(nd))
             name = "weight"
         elif name not in ("bias", "pos_embed"):
             raise KeyError(f"unknown flax parameter {'/'.join(path)}")
@@ -603,9 +626,11 @@ def to_flax_variables(state_dict: Dict) -> Dict[str, Dict]:
             if kind == "dense":
                 arr = arr.T
             elif kind == "transposed":
-                arr = arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+                nd = arr.ndim - 2
+                arr = arr.transpose(*range(2, 2 + nd), 0, 1)[(slice(None, None, -1),) * nd]
             elif kind == "conv":
-                arr = arr.transpose(2, 3, 4, 1, 0)
+                nd = arr.ndim - 2
+                arr = arr.transpose(*range(2, 2 + nd), 1, 0)
             put(params, mods + ["kernel"], np.ascontiguousarray(arr))
         elif name in ("bias", "pos_embed"):
             put(params, mods + [name], arr)

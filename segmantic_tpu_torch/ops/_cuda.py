@@ -51,6 +51,8 @@ _SIGNATURES = {
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],
     "segk_shear_group_blocks_per_sm": [_I] * 6,
+    "segk_shear_group_global": [_P] * 7 + [_I] * 12 + [_P],
+    "segk_shear_group_global_blocks_per_sm": [_I] * 4,
     "segk_dice_phase_sums": [_P] * 4 + [_I] * 4 + [_L, _L, _I, _I, _P],
     "segk_dice_phase_dx": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
 }

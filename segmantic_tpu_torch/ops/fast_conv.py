@@ -4,12 +4,13 @@ Port of the subset of ``segmantic_tpu/ops/fast_conv.py`` that the folded
 eval forward runs: the subpixel conv-transpose in phase space
 (``subpixel_phase_conv``), the phase-major ``depth_to_space`` /
 ``space_to_depth`` pair, ``tile_phase`` and the block-space expansion of a
-stride-1 3^3 kernel (``expand_s1_kernel``), plus the XLA-SAME stride-2 conv
-and conv-transpose the plain model uses.
+stride-1 3^3 kernel (``expand_s1_kernel``), plus the XLA-SAME convs and
+conv-transposes the plain model uses.
 
-Layouts follow the JAX package: tensors are channel-last (B, *S, C), kernels
-DHWIO, and a phase tensor (B, *S, 8*C) orders its channels phase-major as
-(pz, py, px, c) with c fastest.
+Every function takes 2D or 3D tensors (the rank of x). Layouts follow the JAX
+package: tensors are channel-last (B, *S, C), kernels (*k, I, O) (DHWIO in
+3D), and a phase tensor (B, *S, 2^nd * C) orders its channels phase-major as
+(pz, py, px, c) with c fastest (4 phases (py, px) in 2D).
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "conv3d_same",
-    "conv_transpose3d_same",
+    "conv_same",
+    "conv_transpose_same",
     "subpixel_phase_conv",
     "expand_s1_kernel",
     "phase_conv_s1_plain",
@@ -31,13 +32,22 @@ __all__ = [
     "space_to_depth",
 ]
 
+_CONV = {2: F.conv2d, 3: F.conv3d}
+_CONV_T = {2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
-def _to_ncdhw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 4, 1, 2, 3)
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(-1, 1)
 
 
-def _to_ndhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 4, 1)
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.movedim(1, -1)
+
+
+def _oi(w: torch.Tensor) -> torch.Tensor:
+    """(*k, I, O) -> torch's (O, I, *k)."""
+    nd = w.ndim - 2
+    return w.permute(nd + 1, nd, *range(nd))
 
 
 def _same_pads(size: int, k: int, s: int):
@@ -46,31 +56,32 @@ def _same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
-def conv3d_same(x: torch.Tensor, w: torch.Tensor, bias=None, stride: int = 1):
-    """XLA-SAME conv. x (B, D, H, W, C); w (k, k, k, C, CO) DHWIO.
+def conv_same(x: torch.Tensor, w: torch.Tensor, bias=None, stride: int = 1):
+    """XLA-SAME conv, 2D or 3D. x (B, *S, C); w (*k, C, CO), flax's layout.
 
     For stride 2, kernel 3 on even sizes XLA pads (0, 1), which torch's
     symmetric ``padding=1`` does not reproduce; the pads are applied here."""
+    nd = x.ndim - 2
     k = w.shape[0]
     pads = []
-    for size in reversed(x.shape[1:4]):
+    for size in reversed(x.shape[1:-1]):
         pads += list(_same_pads(size, k, stride))
-    xp = F.pad(_to_ncdhw(x), pads)
-    y = F.conv3d(xp, w.permute(4, 3, 0, 1, 2), bias=bias, stride=stride)
-    return _to_ndhwc(y)
+    xp = F.pad(_channels_first(x), pads)
+    return _channels_last(_CONV[nd](xp, _oi(w), bias=bias, stride=stride))
 
 
-def conv_transpose3d_same(x: torch.Tensor, w: torch.Tensor, bias=None,
-                          stride: int = 2):
-    """flax/lax SAME conv-transpose (no kernel flip), stride 2, kernel 3.
+def conv_transpose_same(x: torch.Tensor, w: torch.Tensor, bias=None, stride: int = 2):
+    """flax/lax SAME conv-transpose (no kernel flip), stride 2, kernel 3, 2D
+    or 3D; w (*k, Ci, Co).
 
     Equals torch's transposed conv with the spatially flipped kernel and no
     padding, cropped to the first ``2 N`` outputs per axis."""
-    n = x.shape[1:4]
-    wt = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2)  # (Ci, Co, k, k, k)
-    y = F.conv_transpose3d(_to_ncdhw(x), wt, bias=bias, stride=stride)
-    y = y[:, :, : stride * n[0], : stride * n[1], : stride * n[2]]
-    return _to_ndhwc(y)
+    nd = x.ndim - 2
+    n = x.shape[1:-1]
+    wt = w.flip(tuple(range(nd))).permute(nd, nd + 1, *range(nd))  # (Ci, Co, *k)
+    y = _CONV_T[nd](_channels_first(x), wt, bias=bias, stride=stride)
+    y = y[(slice(None), slice(None)) + tuple(slice(0, stride * m) for m in n)]
+    return _channels_last(y)
 
 
 @lru_cache(maxsize=None)
@@ -99,34 +110,43 @@ def _sel_s1() -> np.ndarray:
 
 
 def subpixel_phase_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Phase tensor (B, *S, 8*Co) of the stride-2 k3 SAME conv-transpose of
-    x (B, *S, Ci) with w (3, 3, 3, Ci, Co): a kernel-2 conv at input
+    """Phase tensor (B, *S, 2^nd * Co) of the stride-2 k3 SAME conv-transpose
+    of x (B, *S, Ci) with w (*3^nd, Ci, Co): a kernel-2 conv at input
     resolution with left padding 1 (``depth_to_space`` of it is the
     conv-transpose output)."""
+    nd = x.ndim - 2
     ci, co = w.shape[-2], w.shape[-1]
+    taps, blocks, phases = "tuv"[:nd], "abc"[:nd], "pqr"[:nd]
     sel = torch.as_tensor(_sel_transpose(), dtype=w.dtype, device=w.device)
-    wsub = torch.einsum("tuvio,apt,bqu,crv->abcipqro", w, sel, sel, sel)
-    wsub = wsub.reshape(2, 2, 2, ci, 8 * co)
-    xp = F.pad(_to_ncdhw(x), (1, 0, 1, 0, 1, 0))
-    return _to_ndhwc(F.conv3d(xp, wsub.permute(4, 3, 0, 1, 2).to(x.dtype)))
+    spec = (f"{taps}io," + ",".join(f"{b}{p}{t}" for b, p, t in zip(blocks, phases, taps))
+            + f"->{blocks}i{phases}o")
+    wsub = torch.einsum(spec, w, *([sel] * nd)).reshape((2,) * nd + (ci, 2**nd * co))
+    xp = F.pad(_channels_first(x), (1, 0) * nd)
+    return _channels_last(_CONV[nd](xp, _oi(wsub).to(x.dtype)))
 
 
 def expand_s1_kernel(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 3, Ci, Co) -> (3, 3, 3, 8*Ci, 8*Co): the stride-1 3^3 SAME conv
-    as a block-space kernel-3 conv between phase tensors
+    """(*3^nd, Ci, Co) -> (*3^nd, 2^nd*Ci, 2^nd*Co): the stride-1 3^nd SAME
+    conv as a block-space kernel-3 conv between phase tensors
     (``conv3(x) == d2s(conv_SAME(s2d(x), expand_s1_kernel(w)))``)."""
+    nd = w.ndim - 2
     ci, co = w.shape[-2], w.shape[-1]
+    taps, blocks, pin, pout = "tuv"[:nd], "abc"[:nd], "PQR"[:nd], "XYZ"[:nd]
     sel = torch.as_tensor(_sel_s1(), dtype=w.dtype, device=w.device)
-    wsub = torch.einsum("tuvio,aPXt,bQYu,cRZv->abcPQRiXYZo", w, sel, sel, sel)
-    return wsub.reshape(3, 3, 3, 8 * ci, 8 * co)
+    spec = (f"{taps}io,"
+            + ",".join(f"{b}{i}{o}{t}" for b, i, o, t in zip(blocks, pin, pout, taps))
+            + f"->{blocks}{pin}i{pout}o")
+    wsub = torch.einsum(spec, w, *([sel] * nd))
+    return wsub.reshape((3,) * nd + (2**nd * ci, 2**nd * co))
 
 
 def phase_conv_s1_plain(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1 3^3 SAME conv applied in phase space as the expanded k3 conv
-    (the JAX package's XLA path, ``fast_conv._phase_conv_xla_k3``)."""
+    """Stride-1 3^nd SAME conv applied in phase space as the expanded k3 conv
+    (the JAX package's XLA path, ``fast_conv._phase_conv_xla_k3``), 2D or
+    3D."""
+    nd = p.ndim - 2
     wsub = expand_s1_kernel(w).to(p.dtype)
-    y = F.conv3d(_to_ncdhw(p), wsub.permute(4, 3, 0, 1, 2), padding=1)
-    return _to_ndhwc(y)
+    return _channels_last(_CONV[nd](_channels_first(p), _oi(wsub), padding=1))
 
 
 def tile_phase(v: torch.Tensor, nd: int = 3) -> torch.Tensor:
@@ -135,16 +155,19 @@ def tile_phase(v: torch.Tensor, nd: int = 3) -> torch.Tensor:
 
 
 def depth_to_space(p: torch.Tensor, c_out: int) -> torch.Tensor:
-    """(B, D, H, W, 8*C) phase-major -> (B, 2D, 2H, 2W, C)."""
-    b, d, h, w, _ = p.shape
-    x = p.reshape(b, d, h, w, 2, 2, 2, c_out)
-    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
-    return x.reshape(b, 2 * d, 2 * h, 2 * w, c_out)
+    """(B, *S, 2^nd * C) phase-major -> (B, *2S, C)."""
+    nd = p.ndim - 2
+    b, sp = p.shape[0], p.shape[1:-1]
+    x = p.reshape((b,) + tuple(sp) + (2,) * nd + (c_out,))
+    perm = (0,) + sum(((1 + i, 1 + nd + i) for i in range(nd)), ()) + (1 + 2 * nd,)
+    return x.permute(perm).reshape((b,) + tuple(2 * s for s in sp) + (c_out,))
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
-    """(B, D, H, W, C) with even D, H, W -> (B, D/2, H/2, W/2, 8*C)."""
-    b, d, h, w, c = x.shape
-    y = x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
-    y = y.permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return y.reshape(b, d // 2, h // 2, w // 2, 8 * c)
+    """(B, *S, C) with even S -> (B, *S/2, 2^nd * C), phase-major."""
+    nd = x.ndim - 2
+    b, c, sp = x.shape[0], x.shape[-1], x.shape[1:-1]
+    y = x.reshape((b,) + sum(((s // 2, 2) for s in sp), ()) + (c,))
+    perm = ((0,) + tuple(1 + 2 * i for i in range(nd)) + tuple(2 + 2 * i for i in range(nd))
+            + (1 + 2 * nd,))
+    return y.permute(perm).reshape((b,) + tuple(s // 2 for s in sp) + (2**nd * c,))

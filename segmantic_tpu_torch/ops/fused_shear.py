@@ -12,7 +12,9 @@ and passes that emit only a center window (``ops/shear_resample.py``).
 :func:`shear_group_plain` (three ``shear_pass`` calls) for CPU tensors. The
 launch geometry is Python (:func:`group_plan`): a block holds one plane of
 one (sample, channel, chunk of the third axis) in one shared-memory buffer
-and runs the passes in place, a warp per line.
+and runs the passes in place, a warp per line. A plane too large for a
+block's shared memory (the 2D flagship's 384^2 bf16 margin patch) is held in
+a global scratch buffer of the block's own instead, served by L1 and L2.
 """
 
 from __future__ import annotations
@@ -62,7 +64,10 @@ class GroupPlan:
     plane buffer has ``passes[0]`` rows of ``row_units`` units (padded to an
     odd number of 32-bit words). ``block_lines``: lines too long for a warp's
     registers go a block per line through ``scratch_units`` of scratch; else
-    the positions that an output index fixes lie in one f32 table per pass."""
+    the positions that an output index fixes lie in one f32 table per pass.
+    ``global_plane``: the plane does not fit a block's shared memory and lies
+    in ``global_bytes`` of global scratch (one plane a block, ``wc = cp = 1``);
+    ``smem_bytes`` then counts the tables or the scratch line only."""
 
     passes: Tuple[int, ...]  # (n_in, n_other, n_out, use_zoom, frame) per pass
     out_dims: Tuple[int, int, int]
@@ -81,6 +86,8 @@ class GroupPlan:
     grid: int  # chunks * images
     vec_in: bool  # 16-byte loads along the rows of x
     vec_out: bool  # 16-byte stores along the rows of y
+    global_plane: bool
+    global_bytes: int  # of the planes' scratch for the whole grid (0: shared memory)
 
 
 def _passes(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[PassSpec]):
@@ -102,9 +109,10 @@ def _passes(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[PassS
     return tuple(passes), tuple(out_dims)
 
 
-def _layout(passes, wc: int, cp: int, item: int):
+def _layout(passes, wc: int, cp: int, item: int, global_plane: bool = False):
     """(row_units, block_lines, scratch_units, smem_bytes) of ``cp`` planes of
-    ``wc``-element units."""
+    ``wc``-element units; ``global_plane``: the planes lie outside shared
+    memory."""
     unit = wc * item
     longest = max(passes[2], passes[7], passes[12])
     block_lines = longest > 32 * _LANE_OUTPUTS
@@ -115,7 +123,8 @@ def _layout(passes, wc: int, cp: int, item: int):
     scratch = cp * longest if block_lines else 0
     # behind the planes: the scratch lines, or one f32 per output index of each pass
     behind = scratch * unit if block_lines else 4 * (passes[2] + passes[7] + passes[12])
-    return row_units, block_lines, scratch, cp * passes[0] * row_units * unit + behind
+    planes = 0 if global_plane else cp * passes[0] * row_units * unit
+    return row_units, block_lines, scratch, planes + behind
 
 
 def _blocks_by_smem(smem_bytes: int) -> int:
@@ -129,7 +138,8 @@ def group_plan(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[Pa
     """The launch plan of one group over ``images`` volumes of spatial extents
     ``dims`` (three; a 2D plane has a third extent of 1) on a card of ``sms``
     SMs. ``aligned``: x starts on a 16-byte boundary (y, allocated by the
-    wrapper, does)."""
+    wrapper, does). A plane that fits no block's shared memory takes a global
+    plane; a plan whose tables or scratch line do not fit either raises."""
     c_axis = 3 - a_axis - b_axis
     passes, out_dims = _passes(dims, a_axis, b_axis, specs)
     item = torch.empty((), dtype=dtype).element_size()
@@ -150,15 +160,19 @@ def group_plan(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[Pa
         shapes.append((1, 2))
     shapes.append((1, 1))
     fits = [wp for wp in shapes if _layout(passes, *wp, item)[3] <= _SMEM_LIMIT]
-    if not fits:
-        raise ValueError(
-            f"a {passes[0]} x {passes[1]} plane of {dtype} needs "
-            f"{_layout(passes, 1, 1, item)[3]} bytes of shared memory; a block has {_SMEM_LIMIT}")
+    global_plane = not fits
+    if global_plane:
+        fits = [(1, 1)]
+        if _layout(passes, 1, 1, item, True)[3] > _SMEM_LIMIT:
+            raise ValueError(
+                f"the lines of a {passes[0]} x {passes[1]} plane of {dtype} need "
+                f"{_layout(passes, 1, 1, item, True)[3]} bytes of shared memory; a block has "
+                f"{_SMEM_LIMIT}")
     good = [(w, p) for w, p in fits
             if _blocks_by_smem(_layout(passes, w, p, item)[3]) >= 2
             and (p == 1 or images * -(-nc // p) >= 2 * sms)]
     wc, cp = (good or fits)[0]
-    row_units, block_lines, scratch, smem = _layout(passes, wc, cp, item)
+    row_units, block_lines, scratch, smem = _layout(passes, wc, cp, item, global_plane)
     by_smem = _blocks_by_smem(smem)
     threads = 256 if by_smem >= 4 and not block_lines else 512
     in_st, out_st = strides(dims), strides(out_dims)
@@ -177,6 +191,8 @@ def group_plan(dims: Sequence[int], a_axis: int, b_axis: int, specs: Sequence[Pa
         grid=chunks * images,
         vec_in=aligned and rows_of_16_bytes(in_st, passes[1]),
         vec_out=rows_of_16_bytes(out_st, passes[7]),
+        global_plane=global_plane,
+        global_bytes=chunks * images * passes[0] * row_units * item if global_plane else 0,
     )
 
 
@@ -221,12 +237,16 @@ def shear_group(
                    x.data_ptr() % 16 == 0,
                    torch.cuda.get_device_properties(x.device).multi_processor_count)
     y = torch.empty((x.shape[0], x.shape[1], *p.out_dims), dtype=x.dtype, device=x.device)
-    _cuda.launch(
-        "segk_shear_group", x.data_ptr(), y.data_ptr(), coef.data_ptr(), zoom.data_ptr(),
-        (ctypes.c_int * 15)(*p.passes), (ctypes.c_int * 8)(*p.in_strides, *p.out_strides),
-        _DTYPES[x.dtype], images, x.shape[1], x.shape[2 + 3 - a_axis - b_axis], p.wc, p.cp, order,
-        int(bool(bf16) and order == 1), p.row_units, int(p.block_lines), p.threads,
-        int(p.vec_in), int(p.vec_out), p.smem_bytes,
-    )
+    head = (coef.data_ptr(), zoom.data_ptr(), (ctypes.c_int * 15)(*p.passes),
+            (ctypes.c_int * 8)(*p.in_strides, *p.out_strides), _DTYPES[x.dtype], images,
+            x.shape[1], x.shape[2 + 3 - a_axis - b_axis])
+    tail = (order, int(bool(bf16) and order == 1), p.row_units, int(p.block_lines), p.threads,
+            int(p.vec_in), int(p.vec_out), p.smem_bytes)
+    if p.global_plane:
+        planes = torch.empty(p.global_bytes, dtype=torch.uint8, device=x.device)
+        _cuda.launch("segk_shear_group_global", x.data_ptr(), y.data_ptr(), planes.data_ptr(),
+                     *head, *tail)
+    else:
+        _cuda.launch("segk_shear_group", x.data_ptr(), y.data_ptr(), *head, p.wc, p.cp, *tail)
     counter.count += 1
     return y.squeeze(-1) if squeeze else y

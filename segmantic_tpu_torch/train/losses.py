@@ -96,6 +96,9 @@ class _DicePhase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, yp, include_background, smooth_nr, smooth_dr):
+        # the kernels read dense channel-last rows; a conv's output may be a
+        # permuted view (PyTorch's native convs return NCHW)
+        xp = xp.contiguous()
         inter, prob_sum, count = phase_dice.dice_phase_sums(xp, yp)
         denom = prob_sum + count
         if not include_background:

@@ -24,7 +24,7 @@ keyword signature plus ``device``.
   optionally with the forward recomputed in the backward (``remat``). On the
   card every stride-1 3^3 conv and every phase-space conv runs on the
   hand-written kernels, forward and backward.
-- Validation: sliding-window inference (roi 160^3, Gaussian or constant
+- Validation: sliding-window inference (roi 160^nd, Gaussian or constant
   blend) through the folded executor, or the module's own eval forward where
   the executor does not apply, + Dice, the LR scheduler stepped per
   validation epoch, top-3
@@ -33,9 +33,11 @@ keyword signature plus ``device``.
   (a warning when no writer package is installed); with ``profile_dir`` a
   ``torch.profiler`` trace of epoch 1's steps goes there.
 
+2D (``spatial_dims=2``) and 3D models train, validate, save and load alike.
 Options of the JAX ``train()`` that the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item; nothing is skipped
-silently and nothing falls back to the CPU.
+``NotImplementedError`` naming their ROADMAP item, and dropout in training
+raises as the JAX trainer does (``models.unet.DROPOUT_REFUSAL``); nothing is
+skipped silently and nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ from ..image.labels import load_decathlon_tissuelist, load_tissue_list
 from ..infer.sliding_window import BLEND_MODES, sliding_window_inference
 from ..metrics.overlap import confusion_matrix, dice_from_confusion
 from ..models.segresnet import SegResNet
-from ..models.unet import UNet, from_flax_variables, frozen_running_stats, to_flax_variables
+from ..models.unet import (
+    DROPOUT_REFUSAL, UNet, from_flax_variables, frozen_running_stats, to_flax_variables,
+)
 from ..models.unetr import UNETR
 from ..ops.fast_conv import space_to_depth
 from ..ops._cuda import resolve_device
@@ -341,7 +345,9 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
     statistics are updated at every micro-batch. ``remat``: the forward is
     recomputed in the backward (``torch.utils.checkpoint``, as
     ``jax.checkpoint`` over the JAX package's forward); the recomputation
-    leaves the running statistics alone."""
+    leaves the running statistics alone. A step of a module with dropout > 0
+    raises ``DROPOUT_REFUSAL`` from its training forward, as the JAX step
+    cannot run one."""
     if accumulate_steps < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
     # bf16 interpolation only when the step computes in bf16 anyway (the cast
@@ -415,8 +421,9 @@ def validate(
     """Sliding-window validation -> (mean val_dice excluding background,
     mean val_loss), on the module's device: Dice loss on the blended
     logits (``blend_mode`` "gaussian" or "constant"), per-class Dice over the
-    classes present in label or prediction."""
-    roi = list(roi) if roi else [160] * 3
+    classes present in label or prediction. ``roi`` defaults to 160 along
+    each of the module's ``spatial_dims`` axes."""
+    roi = list(roi) if roi else [160] * module.spatial_dims
     device = next(module.parameters()).device
     if val_forward is None:
         val_forward = make_val_forward(module)
@@ -424,10 +431,11 @@ def validate(
     for i in range(len(cache)):
         vol = cache[i]
         image = np.moveaxis(vol.image.numpy(), 0, -1)  # (*spatial, C)
-        label = torch.as_tensor(vol.label.numpy()[0].astype(np.int64), device=device)
         logits = sliding_window_inference(image, roi, sw_batch_size, val_forward,
                                           overlap=overlap, mode=blend_mode,
                                           num_classes=num_classes, device=device)
+        # beside the logits: on the host where the volume was streamed
+        label = torch.as_tensor(vol.label.numpy()[0].astype(np.int64), device=logits.device)
         with torch.no_grad():
             losses.append(float(dice_loss(logits[None], label[None])))
         cm = confusion_matrix(num_classes, label, logits.argmax(-1)).cpu().numpy()
@@ -446,7 +454,7 @@ def _check_ported(*, model_parallel, zero_optimizer, dropout) -> None:
     if model_parallel != 1 or zero_optimizer:
         raise _not_ported("model_parallel > 1 and zero_optimizer", "Parallel")
     if dropout > 0:
-        raise _not_ported("training with dropout > 0", "train() extras")
+        raise NotImplementedError(DROPOUT_REFUSAL)
 
 
 def _start_profiler(device: torch.device):
@@ -588,7 +596,7 @@ def train(
         )
     module = model.module.train().requires_grad_(True)
     patch_size = model.spatial_size
-    val_roi = list(val_roi_size) if val_roi_size else [160] * 3
+    val_roi = list(val_roi_size) if val_roi_size else [160] * model.spatial_dims
     if isinstance(module, UNETR) and tuple(val_roi) != module.spatial_size:
         raise ValueError(
             f"UNETR validates on windows of its spatial_size {list(module.spatial_size)} "

@@ -144,6 +144,8 @@ def _random_case(rng, volume, roi, starts, channels):
     ((40, 44, 36), (24, 24, 20), window_starts((40, 44, 36), (24, 24, 20), 0.25)),  # snapped edges
     ((30, 30, 30), (12, 16, 10), [[3, 5, 7], [3, 5, 7], [18, 14, 20]]),  # a window twice
     ((20, 20, 20), (8, 8, 8), [[12, 12, 12]]),
+    # a 2D sliding window's chunk: windows one plane deep
+    ((1, 40, 36), (1, 16, 16), window_starts((1, 40, 36), (1, 16, 16), 0.25)),
 ])
 def test_emulated_traversal_is_bit_equal_to_the_plain_loop(volume, roi, starts, channels):
     rng = np.random.default_rng(5)
@@ -160,6 +162,33 @@ def test_emulated_traversal_is_bit_equal_to_the_plain_loop(volume, roi, starts, 
     for s in starts:
         covered[tuple(slice(a, a + r) for a, r in zip(s, roi))] = True
     assert torch.equal(got[~covered], acc[~covered])
+
+
+@pytest.mark.parametrize("channels", [8, 5])
+@pytest.mark.parametrize("sw_batch", [4, 16])
+def test_unit_depth_windows_take_one_plane_of_tiles(channels, sw_batch):
+    """A 2D volume runs as one of unit depth: a 1024^2 image in 256^2 windows
+    at overlap 0.25 (25 windows). Each launch's tiles lie in plane 0 (the
+    kernel's ROWS = 4 planes a thread, of which only the first is covered),
+    cover the union exactly once, and the listed tiles fill less than the
+    bounding box only where the union does."""
+    volume, roi = (1, 1024, 1024), (1, 256, 256)
+    starts = np.asarray(window_starts(volume, roi, 0.25))
+    assert len(starts) == 25
+    _, (_, tx, ty) = blend.launch_shape(channels)
+    tile = (blend.ROWS, ty, tx)
+    for i in range(0, len(starts), sw_batch):
+        part = starts[i:i + sw_batch]
+        plan = blend.union_tiles(part, roi, tile)
+        assert plan.grid[0] == 1 and all(t[0] == 0 for t in plan.tiles)
+        covered = np.zeros(volume[1:], bool)
+        for s in part:
+            covered[s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]] = True
+        visited = np.zeros(volume[1:], np.int32)
+        for t in plan.tiles:
+            y, x = plan.origin[1] + t[1] * ty, plan.origin[2] + t[2] * tx
+            visited[y:y + ty, x:x + tx] += 1
+        assert visited.max() == 1 and not (covered & (visited == 0)).any()
 
 
 def test_more_windows_than_a_launch_takes_split_in_order():

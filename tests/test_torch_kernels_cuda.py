@@ -513,6 +513,7 @@ def test_shear_group(cuda, full, out_shape, dtype, order, bf16):
     ((9, 11, 3), None),  # ragged chunks of the third axis: 3 = 2 + 1 (bf16), 3 of 4 (uint8)
     ((64, 48, 32), (40, 30, 20)),  # 16-byte rows in and out, shrinking windows
     ((133, 20, 24), None),  # two planes a block where blocks abound: 133 = 66 pairs + 1
+    ((384, 384), (256, 256)),  # 2D flagship: planes beyond 2 bytes in global scratch
 ])
 def test_shear_group_planned_shapes(cuda, full, out_shape, dtype, order, bf16):
     g = torch.Generator().manual_seed(23)
@@ -571,6 +572,21 @@ def test_shear_group_plans_leave_two_blocks_per_sm_on_the_card(cuda):
                                    p.threads, p.smem_bytes)
                 assert 2 <= card <= p.blocks_per_sm, (dtype, dims, order, card, p)
             dims = p.out_dims
+
+
+def test_shear_group_global_plans_leave_two_blocks_per_sm_on_the_card(cuda):
+    """The 2D flagship's 384^2 -> 256^2 group in bf16 and f32 keeps its plane
+    in global scratch; the runtime counts at least two resident blocks per SM
+    of that kernel, and no more than the plan does."""
+    _, _, _, groups = shear_resample.chain_plan((384, 384), 1, (256, 256), 0.4, 0.8)
+    a_axis, b_axis, specs = groups[0]
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        p = fused_shear.group_plan((384, 384, 1), a_axis, b_axis, specs, dtype, 16)
+        assert p.global_plane
+        for order in (0, 1):
+            card = _cuda.query("segk_shear_group_global_blocks_per_sm", code, order, p.threads,
+                               p.smem_bytes)
+            assert 2 <= card <= p.blocks_per_sm, (dtype, order, card, p)
 
 
 def test_shear_launcher_refuses_a_plan_with_another_shared_memory_sum(cuda):

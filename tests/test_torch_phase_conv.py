@@ -94,11 +94,11 @@ def test_strided_same_conv_and_transpose_match_lax(size):
     x = _rand(rng, (2,) + size + (3,))
     w = _rand(rng, (3, 3, 3, 3, 4), 0.3)
     dn = ("NDHWC", "DHWIO", "NDHWC")
-    got = fast_conv.conv3d_same(torch.from_numpy(x), torch.from_numpy(w), stride=2).numpy()
+    got = fast_conv.conv_same(torch.from_numpy(x), torch.from_numpy(w), stride=2).numpy()
     want = np.asarray(jax.lax.conv_general_dilated(
         jnp.asarray(x), jnp.asarray(w), (2, 2, 2), "SAME", dimension_numbers=dn))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
-    got_t = fast_conv.conv_transpose3d_same(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    got_t = fast_conv.conv_transpose_same(torch.from_numpy(x), torch.from_numpy(w)).numpy()
     want_t = np.asarray(jax.lax.conv_transpose(
         jnp.asarray(x), jnp.asarray(w), (2, 2, 2), "SAME", dimension_numbers=dn))
     np.testing.assert_allclose(got_t, want_t, atol=1e-5, rtol=1e-5)

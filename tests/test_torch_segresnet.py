@@ -139,7 +139,7 @@ def test_phase_logits_and_dropout_in_training_raise(case):
     with pytest.raises(ValueError, match="phase-logits"):
         model(torch.from_numpy(x), phase_logits=True)
     dropped = SegResNet(dropout=0.1, **CFG).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: train\\(\\) extras"):
+    with pytest.raises(NotImplementedError, match="JAX trainer refuses it"):
         dropped(torch.from_numpy(x))
 
 

@@ -219,18 +219,20 @@ def test_cli_serve_defaults_to_cuda():
     assert "--device" in res.output and "cuda" in res.output
 
 
-@pytest.mark.parametrize("entry", ["create", "load", "sliding_window", "predict",
-                                   "ensemble_creator", "cross_validate"])
+@pytest.mark.parametrize("entry", ["create", "load", "sliding_window", "sliding_window_streamed",
+                                   "predict", "ensemble_creator", "cross_validate"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch,
                                                                  tmp_path):
     """``SegmentationModel.create`` / ``.load``, ``sliding_window_inference``,
-    ``predict``, ``ensemble_creator`` and ``cross_validate`` default to
+    ``sliding_window_inference_streamed``, ``predict``, ``ensemble_creator`` and ``cross_validate`` default to
     ``device="cuda"`` like ``train`` and ``InferenceSession``: without a card
     they raise (``cross_validate`` before it launches a fold), with
     ``device="cpu"`` they run."""
     from segmantic_tpu_torch.infer.ensemble import ensemble_creator
     from segmantic_tpu_torch.infer.predict import predict
-    from segmantic_tpu_torch.infer.sliding_window import sliding_window_inference
+    from segmantic_tpu_torch.infer.sliding_window import (
+        sliding_window_inference, sliding_window_inference_streamed,
+    )
     from segmantic_tpu_torch.train.cross_validate import cross_validate
 
     vol = np.zeros((8, 8, 8, 1), np.float32)
@@ -262,6 +264,8 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
         "load": lambda **kw: SegmentationModel.load(ckpt, **kw).device.type,
         "sliding_window": lambda **kw: sliding_window_inference(
             vol, (8, 8, 8), 1, predictor, **kw).device.type,
+        "sliding_window_streamed": lambda **kw: str(sliding_window_inference_streamed(
+            vol, (8, 8, 8), 1, predictor, **kw).dtype),
         "predict": lambda **kw: predict(ckpt, [image], sw_batch_size=2, **kw)[0].image.name,
         "ensemble_creator": lambda **kw: ensemble_creator(
             [ckpt], [image], output_dir=tmp_path / "ens", combination_mode="vote",
@@ -272,7 +276,7 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
             config_files_dir=tmp_path / "configs", num_splits=2, **kw)),
     }
     want = {"predict": "in.nii.gz", "ensemble_creator": "in_seg.nii.gz",
-            "cross_validate": 0}.get(entry, "cpu")
+            "cross_validate": 0, "sliding_window_streamed": "float32"}.get(entry, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

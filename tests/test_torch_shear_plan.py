@@ -104,8 +104,16 @@ def test_plan_prefers_two_blocks_and_refuses_what_cannot_fit():
     # nothing leaves two blocks: the widest unit that fits at all
     p = fused_shear.group_plan((256, 240, 8), 0, 1, specs, torch.bfloat16)
     assert p.wc == 1 and p.blocks_per_sm == 1 and p.smem_bytes <= 232448
+    assert not p.global_plane and p.global_bytes == 0
+    # a plane no block's shared memory holds lies in global scratch, one a
+    # block; shared memory keeps the position tables (lines of 256 fit a warp)
+    p = fused_shear.group_plan((256, 256, 4), 0, 1, specs, torch.float32, images=3)
+    assert p.global_plane and (p.wc, p.cp, p.chunks, p.grid) == (1, 1, 4, 12)
+    assert not p.block_lines and p.smem_bytes == 4 * 3 * 256
+    assert p.global_bytes == 12 * 256 * p.row_units * 4 and p.row_units == 257
+    # what cannot fit: a scratch line longer than a block's shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        fused_shear.group_plan((256, 256, 4), 0, 1, specs, torch.float32)
+        fused_shear.group_plan((60000, 4, 1), 0, 1, specs, torch.float32)
     with pytest.raises(ValueError, match="center window"):
         fused_shear.group_plan((16, 16, 4), 0, 1, ((False, None, 11),) * 3, torch.float32)
 
@@ -251,3 +259,37 @@ def test_emulated_traversal_in_2d():
     want = fused_shear.shear_group_plain(x, a_axis, b_axis, coef[:, :3], zoom, specs, 0, False)
     got = emulate_group(x.unsqueeze(-1), a_axis, b_axis, coef[:, :3], zoom, specs, 0, False)
     assert torch.equal(got.squeeze(-1), want)
+
+
+@pytest.mark.parametrize("dtype,order,bf16,global_plane", [
+    (torch.bfloat16, 1, True, True),  # the 2D flagship's image: 297 KB a plane
+    (torch.float32, 1, False, True),
+    (torch.uint8, 0, False, False),  # its labels: 148 KB, in shared memory
+])
+def test_emulated_traversal_of_the_2d_flagship_group(dtype, order, bf16, global_plane):
+    """The 384^2 margin patch to 256^2: the plan keeps a plane in global
+    scratch where no block's shared memory holds it, and the traversal (the
+    same in either place) equals the plain group."""
+    rng = np.random.default_rng(5)
+    passes, divz, _, groups = shear_resample.chain_plan((384, 384), 1, (256, 256), 0.4, 0.8)
+    angles = torch.tensor([[0.35], [-0.2]])
+    zoom = torch.tensor([0.85, 1.25])
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)
+    if dtype.is_floating_point:
+        x = torch.from_numpy(rng.standard_normal((2, 1, 384, 384)).astype(np.float32)).to(dtype)
+    else:
+        x = torch.from_numpy(rng.integers(0, 8, (2, 1, 384, 384))).to(dtype)
+    a_axis, b_axis, specs = groups[0]
+    specs = tuple(map(tuple, specs))
+    p = fused_shear.group_plan((384, 384, 1), a_axis, b_axis, specs, dtype, 2)
+    assert p.global_plane is global_plane and p.block_lines
+    assert p.smem_bytes <= fused_shear._SMEM_LIMIT
+    want = fused_shear.shear_group_plain(x, a_axis, b_axis, coef[:, :3], zoom, specs, order,
+                                         bf16)
+    got = emulate_group(x.unsqueeze(-1), a_axis, b_axis, coef[:, :3], zoom, specs, order,
+                        bf16).squeeze(-1)
+    assert got.shape == want.shape == (2, 1, 256, 256)
+    if order == 0 or bf16:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()

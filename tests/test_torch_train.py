@@ -363,11 +363,14 @@ def test_flip_matches_jax_and_augment_batch_flips_image_with_label():
     assert same is img
 
 
-@pytest.mark.parametrize("kw", [
-    dict(model_parallel=2), dict(zero_optimizer=True), dict(dropout=0.1),
-], ids=lambda kw: next(iter(kw)))
-def test_unported_train_options_raise(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+@pytest.mark.parametrize("kw, match", [
+    pytest.param(dict(model_parallel=2), "ROADMAP Queue 1", id="model_parallel"),
+    pytest.param(dict(zero_optimizer=True), "ROADMAP Queue 1", id="zero_optimizer"),
+    # not a gap of the port: the JAX trainer cannot train with dropout either
+    pytest.param(dict(dropout=0.1), "JAX trainer refuses it", id="dropout"),
+])
+def test_unported_train_options_raise(kw, match, tmp_path):
+    with pytest.raises(NotImplementedError, match=match):
         trainer.train(output_dir=tmp_path, num_classes=2, device="cpu", **kw)
 
 

@@ -1,6 +1,6 @@
 """Config-driven ``preprocessing`` / ``augmentation`` through the port's
-``train()`` (the twin of ``tests/train/test_config_paths.py``, which is 2D; the
-port has no 2D UNet yet, so this is 3D at tiny size).
+``train()``, 3D at tiny size (the 2D twin of ``tests/train/test_config_paths.py``
+is ``tests/test_torch_2d_e2e.py``).
 
 ``_host_augment_batch`` against the JAX package's function on the same
 stand-in cache (each package's own ``Volume`` around the same arrays), the same
@@ -190,8 +190,8 @@ def test_cli_train_config_takes_both_dicts_from_a_json_file(phantoms, tmp_path, 
 
 
 def test_config_pipelines_leave_no_option_of_the_other_refusals(tmp_path):
-    """The other unported options still raise with a config pipeline given."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    """The other refused options still raise with a config pipeline given."""
+    with pytest.raises(NotImplementedError, match="JAX trainer refuses it"):
         trainer.train(output_dir=tmp_path, num_classes=2, device="cpu",
                       augmentation=_augmentation([8, 8, 8], 1), dropout=0.1)
 

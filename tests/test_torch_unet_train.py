@@ -179,7 +179,7 @@ def test_bf16_training_forward_keeps_f32_master_gradients(case):
 
 def test_training_with_dropout_raises():
     model = UNet(**dict(CFG, dropout=0.1)).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="JAX trainer refuses it"):
         model(torch.zeros(SHAPE))
 
 
