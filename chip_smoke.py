@@ -22,9 +22,15 @@ image served and a labelled one predicted, each held against the CPU
 forward; then evaluate: ``predict()`` with labels and metrics on two
 phantoms, ``ensemble_creator()`` in its three modes over three checkpoints,
 and ``cross_validate()`` over two folds trained in subprocesses of the
-port's CLI; last, a 512 x 512 x 896 host volume whose accumulators pass
+port's CLI; a 512 x 512 x 896 host volume whose accumulators pass
 8 GiB, which the sliding window streams from host memory by itself, held
-against the in-memory path on the card.
+against the in-memory path on the card; last, image-to-image translation at
+the i2i CLI's width: ``train_pix2pix`` and ``train_cyclegan`` on slices of
+synthetic T1-like / T2-like volumes (losses falling, the warm iteration's
+time and peak), ``translate_volume`` with both checkpoints, one f32 pix2pix
+iteration on the card against the f64 CPU iteration in 2D and in 3D (the 3D
+generator's block convs on kernels 1 and 2), and both kernels at the 3D
+generator's f32 shapes.
 
     python3 chip_smoke.py
 
@@ -101,6 +107,12 @@ EVAL_2D_SHAPE = (1024, 1024)  # the 2D image served and predicted
 SW_BATCH_2D = 16
 STREAM_SHAPE = (512, 512, 896)  # a whole-body CT: 235 M voxels, 9.4 GB of accumulators
 STREAM_SW_BATCH = 16
+I2I_BASE, I2I_BLOCKS, I2I_BATCH = 64, 6, 16  # the i2i CLI's defaults
+I2I_SLICE = 256  # the i2i volumes' in-plane size: 256^2 slices along axis 2
+I2I_DEPTHS = (150, 144)  # two T1-like / T2-like pairs
+I2I_STEPS = 20  # pix2pix iterations
+I2I_CG_STEPS = 5  # CycleGAN iterations
+I2I_PARITY_3D = 32  # the 3D parity generator's cube
 # NIfTI-1 datatype codes
 _NIFTI_DTYPES = {2: "u1", 4: "<i2", 8: "<i4", 16: "<f4", 64: "<f8", 256: "i1",
                  512: "<u2", 768: "<u4", 1024: "<i8"}
@@ -2601,6 +2613,370 @@ def run_streamed(torch, ckpt: Path):
                       "peak_rss_gib": rss.peak / 2**30, "in_memory_s": mem_s}
 
 
+# -- i2i: pix2pix, CycleGAN, translate -----------------------------------------
+
+
+def i2i_pair(shape, seed: int):
+    """A T1-like volume and its T2-like twin over one anatomy: an ellipsoidal
+    head of 8 nested shells with T1 levels per shell plus noise, air 0; T2 is a
+    monotone (decreasing) remap of T1 inside the head, the checkable relation
+    a pix2pix translator learns. f32 (i, j, k) arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ax = [np.linspace(-1, 1, s, dtype=np.float32) for s in shape]
+    c = rng.uniform(-0.05, 0.05, 3).astype(np.float32)
+    r = np.sqrt(((ax[0] - c[0]) / 0.92)[:, None, None] ** 2
+                + ((ax[1] - c[1]) / 0.85)[None, :, None] ** 2
+                + ((ax[2] - c[2]) / 0.95)[None, None, :] ** 2)
+    shell = np.digitize(r, np.array([0.16, 0.27, 0.38, 0.5, 0.62, 0.75, 0.9, 1.0],
+                                    np.float32))  # 0 innermost .. 8 air
+    levels = np.array([650, 420, 800, 560, 900, 300, 720, 480, 0], np.float32)
+    head = shell < 8
+    t1 = levels[shell] + np.where(head, 25.0 * rng.standard_normal(shape, np.float32), 0.0)
+    t1 = np.maximum(t1, 0.0).astype(np.float32)
+    t2 = np.where(head, 1200.0 - 0.9 * t1 - 2e-4 * t1 ** 2, 0.0).astype(np.float32)
+    return t1, t2
+
+
+def write_i2i_pairs(work: Path):
+    """The T1-like / T2-like NIfTI pairs of the i2i phases (1 mm in-plane,
+    1.2 mm between slices), written once: [(t1 path, t2 path)]."""
+    work.mkdir(parents=True, exist_ok=True)
+    pairs = []
+    for i, depth in enumerate(I2I_DEPTHS):
+        t1, t2 = i2i_pair((I2I_SLICE, I2I_SLICE, depth), 60 + i)
+        aff = spacing_affine((1.0, 1.0, 1.2))
+        pair = (work / f"case{i}_t1.nii.gz", work / f"case{i}_t2.nii.gz")
+        write_nifti(pair[0], t1, aff)
+        write_nifti(pair[1], t2, aff)
+        pairs.append(pair)
+    return pairs
+
+
+def _i2i_hparams(data):
+    """The extra hparams the CLI stores with a generator checkpoint."""
+    return {"slice_axis": 2, "source_window": list(data.source_window),
+            "target_window": list(data.target_window)}
+
+
+def _i2i_iteration_ms(torch, d_step, g_step, batch, n: int):
+    """Median device ms of ``n`` iterations (D step + G step) on one fixed
+    batch after 2 warm ones (CUDA events around each), and the peak device
+    MiB of those ``n``."""
+    a, b = (torch.as_tensor(v, device=DEVICE) for v in batch)
+
+    def iteration():
+        d_step(a, b)
+        g_step(a, b)
+
+    for _ in range(2):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _median_ms(torch, iteration, n=n, warmup=0)
+    return ms, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _falling(name, values):
+    """Finite, and the last value below the first (and, over 10 or more, the
+    mean of the last five below that of the first five)."""
+    import math
+
+    ok = all(math.isfinite(v) for v in values) and values[-1] < values[0]
+    if len(values) >= 10:
+        ok = ok and sum(values[-5:]) < sum(values[:5])
+    if not ok:
+        _fail(f"{name} is not finite and falling: {values}")
+
+
+def run_i2i_pix2pix(torch, work: Path):
+    """``train_pix2pix`` at the CLI's full width (base 64, 6 blocks, batch 16,
+    lr 2e-4, lambda_l1 100) on a ``PairedSliceDataset`` of the T1-like /
+    T2-like pairs (256^2 slices along axis 2), ``I2I_STEPS`` iterations with
+    ``log_every=1``: the L1 trajectory must fall, every kernel launch count is
+    0 (2D convs are cuDNN's). Then the warm iteration (D step + G step) on
+    one fixed batch: median device ms over 10 (CUDA events), slices per
+    second, the peak device memory; the TF32 switch it ran with."""
+    from segmantic_tpu_torch.i2i import train as i2i_train
+    from segmantic_tpu_torch.i2i.data import PairedSliceDataset
+
+    t0 = time.perf_counter()
+    pairs = write_i2i_pairs(work)
+    data = PairedSliceDataset(pairs, batch_size=I2I_BATCH, axis=2, seed=0)
+    print(f"  {len(pairs)} pairs {I2I_SLICE}x{I2I_SLICE}x{I2I_DEPTHS}: {data.num_slices} slices "
+          f"@ {data.slice_shape}, {len(data)} batches/epoch, windows {data.source_window} -> "
+          f"{data.target_window} ({time.perf_counter() - t0:.1f} s to write and load); "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    if data.slice_shape != (I2I_SLICE, I2I_SLICE):
+        _fail(f"pix2pix slices {data.slice_shape}")
+    counters = _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = i2i_train.train_pix2pix(
+        data, steps=I2I_STEPS, base_features=I2I_BASE, n_blocks=I2I_BLOCKS, seed=0,
+        output_dir=work / "pix2pix", log_every=1, extra_hparams=_i2i_hparams(data),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    l1 = [r["l1"] for r in result.history]
+    print(f"  train_pix2pix: {I2I_STEPS} iterations in {train_s:.1f} s (host clock, the "
+          f"first's cuDNN planning included), peak {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+          f" MiB; L1 {[round(v, 4) for v in l1]}")
+    _falling("pix2pix L1", l1)
+    _expect_only("train_pix2pix", launches, {})
+
+    src0, dst0 = next(iter(data))
+    gen, disc = i2i_train._init_pix2pix(src0, dst0, I2I_BASE, I2I_BLOCKS, 0, DEVICE)
+    g_opt = i2i_train._make_optim(gen.parameters(), 2e-4)
+    d_opt = i2i_train._make_optim(disc.parameters(), 2e-4)
+    steps = i2i_train.make_pix2pix_steps(gen, disc, g_opt, d_opt, 100.0)
+    ms, peak = _i2i_iteration_ms(torch, *steps, (src0, dst0), n=10)
+    print(f"  warm iteration, fixed {I2I_BATCH} x {I2I_SLICE}^2 batch: {ms:.2f} ms (D step + "
+          f"G step, median of 10, CUDA events), {I2I_BATCH / ms * 1e3:.1f} slices/s, peak "
+          f"{peak:.0f} MiB")
+    return launches, {"iteration_ms": round(ms, 3), "peak_mib": round(peak), "l1": l1[::5] + l1[-1:],
+                      "train_s": round(train_s, 1)}, result.checkpoint, pairs
+
+
+def run_i2i_cyclegan(torch, work: Path, pairs):
+    """``train_cyclegan`` at the CLI's defaults (base 64, 6 blocks, batch 16,
+    lambda_cycle 10, lambda_identity 0.5) over an ``UnpairedSliceDataset`` of
+    the same volumes (T1-like as domain A, T2-like as B), ``I2I_CG_STEPS``
+    iterations: the cycle loss must be finite and falling, no kernel launch.
+    Then the warm iteration on one fixed batch (median of 3) and its peak."""
+    from segmantic_tpu_torch.i2i import train as i2i_train
+    from segmantic_tpu_torch.i2i.data import UnpairedSliceDataset
+
+    data = UnpairedSliceDataset([p for p, _ in pairs], [q for _, q in pairs],
+                                batch_size=I2I_BATCH, axis=2, seed=0)
+    counters = _reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = i2i_train.train_cyclegan(
+        data, steps=I2I_CG_STEPS, base_features=I2I_BASE, n_blocks=I2I_BLOCKS, seed=0,
+        output_dir=work / "cyclegan", log_every=1, extra_hparams=_i2i_hparams(data),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _launches(counters)
+    cycle = [r["cycle"] for r in result.history]
+    print(f"  train_cyclegan: {data.num_slices} slices a domain, {I2I_CG_STEPS} iterations in "
+          f"{train_s:.1f} s, peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; cycle "
+          f"{[round(v, 4) for v in cycle]}")
+    _falling("CycleGAN cycle loss", cycle)
+    _expect_only("train_cyclegan", launches, {})
+
+    a0, b0 = next(iter(data))
+    nets = i2i_train._init_cyclegan(a0, b0, I2I_BASE, I2I_BLOCKS, 0, DEVICE)
+    g_opt = i2i_train._make_optim([*nets["gen_ab"].parameters(),
+                                   *nets["gen_ba"].parameters()], 2e-4)
+    d_opt = i2i_train._make_optim([*nets["disc_a"].parameters(),
+                                   *nets["disc_b"].parameters()], 2e-4)
+    steps = i2i_train.make_cyclegan_steps(nets, g_opt, d_opt, 10.0, 0.5)
+    ms, peak = _i2i_iteration_ms(torch, *steps, (a0, b0), n=3)
+    print(f"  warm iteration, fixed {I2I_BATCH} x {I2I_SLICE}^2 batch per domain: {ms:.2f} ms "
+          f"(median of 3, CUDA events), {I2I_BATCH / ms * 1e3:.1f} slices/s a domain, peak "
+          f"{peak:.0f} MiB")
+    del nets, g_opt, d_opt, steps
+    return launches, {"iteration_ms": round(ms, 3), "peak_mib": round(peak), "cycle": cycle,
+                      "train_s": round(train_s, 1)}, result.checkpoint
+
+
+def run_i2i_translate(torch, p2p_ckpt: Path, cg_ckpt: Path, volume: Path):
+    """``load_generator`` on both checkpoints just written, ``translate_volume``
+    of one 256 x 256 x 150 volume with pix2pix and both CycleGAN directions
+    (batch 16, the checkpoint's slice axis and output window, as the CLI
+    does): the output keeps the input's shape and affine, lies in the window
+    it was mapped to, and equals the window's unscaling of the raw tanh
+    output (pix2pix; within 1e-5 of the window); seconds per volume on the
+    host clock (the result back on the host), the second run of each."""
+    import numpy as np
+
+    from segmantic_tpu_torch.i2i.data import load_generator, translate_volume, unscale_from_tanh
+    from segmantic_tpu_torch.io.nifti import read_volume
+
+    vol = read_volume(volume)
+    counters = _reset_counters()
+    numbers = {}
+    for label, ckpt, direction in (("pix2pix", p2p_ckpt, "ab"), ("cyclegan ab", cg_ckpt, "ab"),
+                                   ("cyclegan ba", cg_ckpt, "ba")):
+        apply, hp = load_generator(ckpt, direction=direction, device=DEVICE)
+        window = tuple(hp["target_window" if direction == "ab" else "source_window"])
+        seconds = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = translate_volume(apply, vol, axis=int(hp["slice_axis"]), batch_size=I2I_BATCH,
+                                   output_window=window)
+            seconds.append(time.perf_counter() - t0)
+        data = out.numpy()
+        lo, hi = window
+        ok = (out.spatial_shape == vol.spatial_shape and np.array_equal(out.affine, vol.affine)
+              and np.isfinite(data).all() and lo - 1e-3 * (hi - lo) <= data.min()
+              and data.max() <= hi + 1e-3 * (hi - lo) and data.std() > 0)
+        print(f"  {label}: {vol.spatial_shape} -> {out.spatial_shape}, window "
+              f"({lo:.1f}, {hi:.1f}), output [{data.min():.1f}, {data.max():.1f}]; "
+              f"{seconds[0]:.3f} s cold, {seconds[1]:.3f} s warm a volume")
+        if label == "pix2pix":
+            raw = translate_volume(apply, vol, axis=int(hp["slice_axis"]),
+                                   batch_size=I2I_BATCH).numpy()
+            err = np.abs(unscale_from_tanh(raw, window) - data).max()
+            print(f"  pix2pix: raw tanh output [{raw.min():.3f}, {raw.max():.3f}], unscaled "
+                  f"by the window: max|d| {err:.3e} from the windowed output")
+            ok = ok and np.abs(raw).max() <= 1.0 and err <= 1e-5 * (hi - lo)
+        if not ok:
+            _fail(f"translate_volume ({label}) lost the geometry or the output window")
+        numbers[label] = round(seconds[1], 4)
+    launches = _launches(counters)
+    _expect_only("translate", launches, {})
+    return launches, numbers
+
+
+def _i2i_step_parity(torch, label, src, dst, base, blocks, counters):
+    """One pix2pix iteration (D step, then G step; Adam at lr 0, so every
+    gradient stays in place) from one set of weights: f32 on the card, f32 and
+    f64 on the CPU. Judged as ``[train-parity]``: both losses 1e-5 relative
+    to f64, each G and D gradient tensor within 2 * e_cpu + 1e-3 *
+    max(max|g64|, 1e-2 * max over all tensors). Returns the card's launches."""
+    from segmantic_tpu_torch.i2i import train as i2i_train
+
+    out = []
+    launches = None
+    for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32),
+                          ("cpu", torch.float64)):
+        gen, disc = i2i_train._init_pix2pix(src, dst, base, blocks, 0, "cpu")
+        gen, disc = gen.to(device, dtype), disc.to(device, dtype)
+        d_step, g_step = i2i_train.make_pix2pix_steps(
+            gen, disc, i2i_train._make_optim(gen.parameters(), 0.0),
+            i2i_train._make_optim(disc.parameters(), 0.0), 100.0)
+        s, d = (torch.from_numpy(v).to(device, dtype) for v in (src, dst))
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        losses = (d_step(s, d).item(), g_step(s, d)[0].item())
+        if launches is None:  # the card's run comes first
+            launches = _launches(counters)
+        print(f"  {label} {device} {str(dtype)[6:]}: D loss {losses[0]:.9f}, G loss "
+              f"{losses[1]:.9f} ({time.perf_counter() - t0:.1f} s)")
+        out.append((losses, {
+            **{f"G.{k}": p.grad.cpu().double() for k, p in gen.named_parameters()},
+            **{f"D.{k}": p.grad.cpu().double() for k, p in disc.named_parameters()}}))
+    (lg, gg), (_, gc), (l64, g64) = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, l64))
+    floor = 1e-2 * max(g.abs().max().item() for g in g64.values())
+    rows = []
+    for k, ref in g64.items():
+        e_card = (gg[k] - ref).abs().max().item()
+        e_cpu = (gc[k] - ref).abs().max().item()
+        lim = 2 * e_cpu + 1e-3 * max(ref.abs().max().item(), floor)
+        rows.append((e_card / lim, k, e_card, e_cpu, lim))
+    rows.sort(reverse=True)
+    print(f"  {label} card vs f64: losses rel diff {rel:.3e} (limit 1e-5); gradients (floor "
+          f"{floor:.3e}), the 4 nearest their limits:")
+    for ratio, k, e_card, e_cpu, lim in rows[:4]:
+        print(f"    {k}: card {e_card:.3e}, CPU f32 {e_cpu:.3e}; limit {lim:.3e}; {ratio:.3f} of it")
+    print(f"  {label}: {sum(r[0] <= 1.0 for r in rows)} of {len(rows)} gradient tensors within "
+          f"their limits")
+    if not (rel <= 1e-5 and rows[0][0] <= 1.0):
+        _fail(f"i2i f32 iteration parity ({label}), card vs the f64 iteration")
+    return launches
+
+
+def i2i_parity(torch):
+    """``[train-parity]`` for i2i, TF32 off and cuDNN's deterministic
+    algorithms (as ``[train-parity-2d]``: every 2D i2i conv is cuDNN's): one
+    pix2pix iteration at full width (base 64, 6 blocks) on 2 x 256^2 slices,
+    then a 3D generator and discriminator (1 x 32^3, base 16, 2 blocks), whose
+    ResNet blocks' stride-1 3^3 convs run kernels 1 and 2 on the card: 12
+    launches of kernel 1 an iteration (4 convs: the D step's forward, the G
+    step's forward and input gradients) and 4 of kernel 2. Returns the 3D
+    case's launches."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+
+    def pair(shape):
+        src = rng.uniform(-1, 1, shape).astype(np.float32)
+        return src, np.tanh(1.5 - 2.0 * src).astype(np.float32)
+
+    counters = _counters()
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        src, dst = pair((2, I2I_SLICE, I2I_SLICE, 1))
+        got = _i2i_step_parity(torch, f"2D base {I2I_BASE}", src, dst, I2I_BASE, I2I_BLOCKS,
+                               counters)
+        _expect_only("the 2D i2i iteration", got, {})
+        src, dst = pair((1,) + (I2I_PARITY_3D,) * 3 + (1,))
+        got = _i2i_step_parity(torch, f"3D {I2I_PARITY_3D}^3 base 16", src, dst, 16, 2,
+                               counters)
+        _expect_only("the 3D i2i iteration", got, {"fused_conv": 12, "fused_conv_dw": 4})
+    finally:
+        torch.backends.cudnn.deterministic = old
+    return got
+
+
+# (x shape, CO) of the 3D generator's ResNet-block convs (4 * base channels at
+# a quarter of the input), f32 as i2i trains: the parity case (base 16 on
+# 32^3) and the CLI's width on 64^3 and 32^3 inputs
+I2I_CONV_SHAPES = [((1, 8, 8, 8, 64), 64), ((1, 16, 16, 16, 256), 256),
+                   ((2, 8, 8, 8, 256), 256)]
+
+
+def check_i2i_kernels(torch):
+    """Kernels 1 and 2 at the 3D i2i generator's f32 shapes (the CUDA-core
+    bodies: f32 keeps TF32 out) against their plain versions (forward 1e-4 *
+    max|ref|, weight gradient 1e-3 * max|ref|, as the card tests hold f32),
+    timed by CUDA-graph replay beside the plain versions and cuDNN's f32
+    ``F.conv3d`` / ``conv3d_weight``; bound at the f32 peak. Returns {kernel:
+    {...}} as :func:`check_kernels`."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    results = {}
+    reps = dict(n=5, launches=5)
+
+    def check(label, got, want, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e})")
+        if err > limit * ref:
+            _fail(f"{label} disagrees with its plain version")
+        return err
+
+    for shape, co in I2I_CONV_SHAPES:
+        c = shape[-1]
+        x = torch.randn(shape, generator=g, device=dev)
+        w = torch.randn((3, 3, 3, c, co), generator=g, device=dev) * (27 * c) ** -0.5
+        dy = torch.randn(shape[:4] + (co,), generator=g, device=dev)
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous()
+        ops = 2 * 27 * c * co * (x.numel() // c)
+        label = f"x{shape}->{co} f32"
+        k = lambda: fused_conv.conv3d(x, w)  # noqa: E731
+        err = check(f"fused_conv {label}", k(), fused_conv.conv3d_plain(x, w), 1e-4)
+        ms = _graph_ms(torch, k, **reps)
+        pms = _graph_ms(torch, lambda: fused_conv.conv3d_plain(x, w), **reps)
+        lms = _graph_ms(torch, lambda: torch.nn.functional.conv3d(xc, wc, padding=1), **reps)
+        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN f32 conv3d {lms:.4f} ms")
+        _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, w, k()),
+                ops=ops, peak=PEAK_F32, library_ms=lms)
+        k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
+        got = k()
+        err = check(f"fused_conv_dw {label}", got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+        ms = _graph_ms(torch, k, **reps)
+        pms = _graph_ms(torch, lambda: fused_conv.conv3d_dw_plain(x, dy), **reps)
+        lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc, (co, c, 3, 3, 3), dyc, padding=1), **reps)
+        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN f32 wgrad {lms:.4f} ms")
+        _record(results, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
+                nbytes=_nbytes(x, dy, got), ops=ops, peak=PEAK_F32, library_ms=lms)
+    return results
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2729,6 +3105,30 @@ def main() -> None:
               "8 classes, roi 96^3, overlap 0.25, sw-batch 16: streamed from host memory by "
               "the sliding window's own rule; against the in-memory path on the card")
         st_launches, st_numbers = run_streamed(torch, ckpt)
+        i2i_t0 = time.perf_counter()
+        print(f"[i2i-pix2pix] train_pix2pix at the CLI's width (base {I2I_BASE}, {I2I_BLOCKS} "
+              f"blocks, batch {I2I_BATCH}, lr 2e-4, lambda_l1 100) on {I2I_SLICE}^2 slices of "
+              f"{len(I2I_DEPTHS)} synthetic T1-like / T2-like pairs, {I2I_STEPS} iterations, f32")
+        p2p_launches, p2p_numbers, p2p_ckpt, i2i_pairs = run_i2i_pix2pix(torch, work / "i2i")
+        print(f"[i2i-cyclegan] train_cyclegan at the CLI's defaults (base {I2I_BASE}, "
+              f"{I2I_BLOCKS} blocks, batch {I2I_BATCH}) over the same volumes unpaired, "
+              f"{I2I_CG_STEPS} iterations, f32")
+        cg_launches, cg_numbers, cg_ckpt = run_i2i_cyclegan(torch, work / "i2i", i2i_pairs)
+        print("[i2i-translate] load_generator on both checkpoints, translate_volume of a "
+              f"{I2I_SLICE}x{I2I_SLICE}x{I2I_DEPTHS[0]} volume: pix2pix and both CycleGAN "
+              "directions")
+        tr_launches, tr_numbers = run_i2i_translate(torch, p2p_ckpt, cg_ckpt, i2i_pairs[0][0])
+        print("[i2i-parity] one f32 pix2pix iteration on the card against the f64 CPU iteration: "
+              f"2D at full width (2 x {I2I_SLICE}^2), and a 3D generator and discriminator "
+              f"(1 x {I2I_PARITY_3D}^3, base 16, 2 blocks) through kernels 1 and 2; the 3D "
+              "generator's f32 conv shapes on both kernels")
+        par_launches = i2i_parity(torch)
+        for name, r in check_i2i_kernels(torch).items():
+            m = measured[name]
+            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "library_ms"):
+                m[key] += r[key]
+            m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
+        print(f"[i2i] the four i2i phases: {time.perf_counter() - i2i_t0:.1f} s")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
@@ -2745,9 +3145,13 @@ def main() -> None:
     print(f"launches: train-2d {t2d_launches}, serve-2d {s2d_launches}, predict-2d "
           f"{p2d_launches}, streamed {st_launches}; train-2d {t2d_numbers}; serve-2d "
           f"{s2d_numbers}; predict-2d {p2d_numbers}; streamed {st_numbers}")
+    print(f"launches: i2i-pix2pix {p2p_launches}, i2i-cyclegan {cg_launches}, i2i-translate "
+          f"{tr_launches}, i2i-parity 3D {par_launches}; pix2pix {p2p_numbers}; cyclegan "
+          f"{cg_numbers}; translate seconds {tr_numbers}")
     paths = (launches, train_launches, aug_launches, cfg_launches, arch_launches["segresnet"],
              arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
-             t2d_launches, s2d_launches, p2d_launches, st_launches)
+             t2d_launches, s2d_launches, p2d_launches, st_launches, p2p_launches, cg_launches,
+             tr_launches, par_launches)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(path[name] for path in paths),

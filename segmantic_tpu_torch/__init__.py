@@ -8,7 +8,9 @@ PyTorch version that runs for CPU tensors.
 
 Ported so far: serving, single-device training and evaluation (the
 ``serve``, ``train``, ``train-config``, ``predict``, ``ensemble-predict`` and
-``cross-validate`` subcommands of ``segmantic-unet-torch``).
+``cross-validate`` subcommands of ``segmantic-unet-torch``), and
+image-to-image translation (``i2i``: the ``pix2pix``, ``cyclegan`` and
+``translate`` subcommands of ``segmantic-i2i-torch``).
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
-"""Affine grid resampling on the host (numpy).
+"""Affine grid resampling, on the host (numpy) and on a torch device.
 
-Port of the numpy half of ``segmantic_tpu/ops/resample.py``: ``grid_matrix``,
+Port of ``segmantic_tpu/ops/resample.py``: ``grid_matrix``,
 ``output_affine_for_spacing`` and ``resample_affine_np`` (ITK semantics: voxel
 centres at integer indices, ``v_in = M[:, :nd] @ v_out + M[:, nd]``, linear or
-nearest interpolation, constant padding outside the input grid). The device
-twin (``resample_affine_jax``) is not on the serving path and is not ported.
+nearest interpolation, constant padding outside the input grid), and the
+device twin ``resample_affine_jax`` as :func:`resample_affine_torch` (the i2i
+datasets' ``on_device_resample``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import itertools
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def grid_matrix(in_affine: np.ndarray, out_affine: np.ndarray, ndim: int) -> np.ndarray:
@@ -164,3 +166,68 @@ def _np_gather_interp(work: np.ndarray, coords: np.ndarray, order: int) -> np.nd
         term = work[(slice(None),) + tuple(idx)] * (w * valid)[None]
         out = term if out is None else out + term
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch implementation (device path)
+# ---------------------------------------------------------------------------
+
+
+def resample_affine_torch(
+    data: torch.Tensor,
+    matrix,
+    out_shape: Sequence[int],
+    order: int = 1,
+    cval: float = 0.0,
+) -> torch.Tensor:
+    """Twin of :func:`resample_affine_np` on ``data``'s device, the port of
+    ``resample_affine_jax``: (C, *S_in) in, f32 maths, ``data``'s dtype out.
+
+    The same formulation as the JAX function: the coordinates of the output
+    grid in f32, gathers from the flattened spatial index, and for order 1
+    ``floor`` clipped to ``[0, n - 2]`` so that ``lo + 1`` stays inside
+    (``c == n - 1`` keeps ``frac == 1``); points outside ``[0, n - 1]`` on any
+    axis take ``cval``."""
+    nd = data.ndim - 1
+    in_shape = tuple(data.shape[1:])
+    out_shape = tuple(int(s) for s in out_shape)
+    dev = data.device
+    matrix = torch.as_tensor(matrix, dtype=torch.float32, device=dev)
+
+    grids = torch.meshgrid(
+        *[torch.arange(s, dtype=torch.float32, device=dev) for s in out_shape], indexing="ij")
+    coords = [sum(matrix[a, b] * grids[b] for b in range(nd)) + matrix[a, nd]
+              for a in range(nd)]
+
+    # row-major strides of the flattened spatial index
+    strides = [1] * nd
+    for a in range(nd - 2, -1, -1):
+        strides[a] = strides[a + 1] * in_shape[a + 1]
+
+    work = data.to(torch.float32).reshape(data.shape[0], -1)
+    inside = torch.ones(out_shape, dtype=torch.bool, device=dev)
+    if order == 0:
+        lin = torch.zeros(out_shape, dtype=torch.int64, device=dev)
+        for a in range(nd):
+            i = torch.round(coords[a]).to(torch.int64)
+            inside &= (i >= 0) & (i <= in_shape[a] - 1)
+            lin = lin + i.clamp(0, in_shape[a] - 1) * strides[a]
+        out = work[:, lin.reshape(-1)].reshape((data.shape[0],) + out_shape)
+    else:
+        lo, frac = [], []
+        for a in range(nd):
+            inside &= (coords[a] >= 0) & (coords[a] <= in_shape[a] - 1)
+            fl = torch.floor(coords[a]).to(torch.int64).clamp(0, max(in_shape[a] - 2, 0))
+            frac.append(coords[a] - fl.to(torch.float32))
+            lo.append(fl)
+        base = sum(lo[a] * strides[a] for a in range(nd)).reshape(-1)
+        out = torch.zeros((data.shape[0],) + out_shape, dtype=torch.float32, device=dev)
+        for corner in itertools.product((0, 1), repeat=nd):
+            offset = sum(corner[a] * strides[a] for a in range(nd))
+            w = torch.ones(out_shape, dtype=torch.float32, device=dev)
+            for a in range(nd):
+                w = w * (frac[a] if corner[a] else 1.0 - frac[a])
+            vals = work[:, base + offset].reshape((data.shape[0],) + out_shape)
+            out = out + vals * w[None]
+    out = torch.where(inside[None], out, cval)
+    return out.to(data.dtype)

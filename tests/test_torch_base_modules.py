@@ -410,7 +410,8 @@ def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
                 "transforms.base", "data.datalist", "image.labels", "viz.plots",
                 "metrics.overlap", "infer.predict", "infer.ensemble",
                 "train.cross_validate", "commands.unet_cli", "models.segresnet",
-                "models.unetr", "infer.sliding_window"):
+                "models.unetr", "infer.sliding_window", "i2i.models", "i2i.data",
+                "i2i.train", "commands.i2i_cli", "ops.resample"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys

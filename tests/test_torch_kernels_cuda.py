@@ -375,6 +375,63 @@ def test_arch_dw_shapes(cuda, shape, co):
     assert torch.equal(got, fused_conv.conv3d_dw(x, dy))
 
 
+# (x shape, CO): the stride-1 3^3 convs of a 3D i2i generator's ResNet blocks
+# (4 * base channels at a quarter of the input), f32 as i2i trains, so the
+# CUDA-core bodies: base 16 on a 32^3 input, and the CLI's base 64 on 64^3 and
+# 32^3 inputs
+I2I_SHAPES = [((1, 8, 8, 8, 64), 64), ((1, 16, 16, 16, 256), 256), ((2, 8, 8, 8, 256), 256)]
+
+
+@pytest.mark.parametrize("shape,co", I2I_SHAPES)
+def test_i2i_generator_conv_shapes_f32(cuda, shape, co):
+    g = torch.Generator().manual_seed(19)
+    c = shape[-1]
+    x = _randn(g, *shape)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5)
+    dy = _randn(g, *shape[:4], co)
+    assert not fused_conv.takes_tensor_cores(x, c)
+    assert not fused_conv.takes_dw_tensor_cores(x, c, co)
+    fused_conv.counter.reset()
+    fused_conv.dw_counter.reset()
+    got = fused_conv.conv3d(x, w)
+    dw = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.counter.count == 1 and fused_conv.dw_counter.count == 1
+    _close(got, fused_conv.conv3d_plain(x, w), 1e-4)
+    _close(dw, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    assert torch.equal(got, fused_conv.conv3d(x, w))
+    assert torch.equal(dw, fused_conv.conv3d_dw(x, dy))
+
+
+def test_i2i_3d_generator_runs_its_block_convs_on_the_kernels(cuda):
+    """A 3D i2i generator (base 16, 2 blocks) on the card: its four stride-1
+    3^3 convs launch kernel 1 once each a forward, and once more each (input
+    gradient) plus kernel 2 once each in the backward; output and every
+    parameter gradient against the same module on the CPU (f32), within 1e-3
+    * max(max|ref| of the tensor, 1e-2 * max|ref| over all gradients): the
+    floor takes in the conv biases in front of an InstanceNorm, whose true
+    gradient is zero and whose f32 gradients are rounding noise."""
+    from segmantic_tpu_torch.i2i.models import ResnetGenerator
+
+    gen = ResnetGenerator(1, 1, 16, 2, spatial_dims=3, generator=torch.Generator().manual_seed(3))
+    x = torch.randn((1, 32, 32, 32, 1), generator=torch.Generator().manual_seed(4))
+    r = torch.randn((1, 32, 32, 32, 1), generator=torch.Generator().manual_seed(5))
+    (gen(x) * r).sum().backward()
+    want = [gen(x).detach()] + [p.grad.clone() for p in gen.parameters()]
+    gen = gen.to(cuda)
+    gen.zero_grad(set_to_none=True)
+    fused_conv.counter.reset()
+    fused_conv.dw_counter.reset()
+    y = gen(x.to(cuda))
+    assert fused_conv.counter.count == 4
+    (y * r.to(cuda)).sum().backward()
+    assert fused_conv.counter.count == 8 and fused_conv.dw_counter.count == 4
+    _close(y.detach(), want[0].to(cuda), 1e-4)
+    floor = 1e-2 * max(g.abs().max().item() for g in want[1:])
+    for p, ref in zip(gen.parameters(), want[1:]):
+        err = (p.grad.cpu() - ref).abs().max().item()
+        assert err <= 1e-3 * max(ref.abs().max().item(), floor), err
+
+
 @pytest.mark.parametrize("shape,co", [((2, 10, 11, 13, 12), 16), ((2, 5, 7, 9, 16), 20)])
 def test_dw_other_channel_counts_keep_the_cuda_core_body(cuda, shape, co):
     g = torch.Generator().manual_seed(17)

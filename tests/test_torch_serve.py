@@ -220,14 +220,25 @@ def test_cli_serve_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("entry", ["create", "load", "sliding_window", "sliding_window_streamed",
-                                   "predict", "ensemble_creator", "cross_validate"])
+                                   "predict", "ensemble_creator", "cross_validate",
+                                   "train_pix2pix", "train_cyclegan", "load_generator",
+                                   "paired_on_device_resample",
+                                   "unpaired_on_device_resample"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch,
                                                                  tmp_path):
     """``SegmentationModel.create`` / ``.load``, ``sliding_window_inference``,
     ``sliding_window_inference_streamed``, ``predict``, ``ensemble_creator`` and ``cross_validate`` default to
     ``device="cuda"`` like ``train`` and ``InferenceSession``: without a card
     they raise (``cross_validate`` before it launches a fold), with
-    ``device="cpu"`` they run."""
+    ``device="cpu"`` they run. So do i2i's ``train_pix2pix``,
+    ``train_cyclegan``, ``load_generator`` and both slice datasets with
+    ``on_device_resample=True`` (the only option of theirs that needs a
+    device)."""
+    from segmantic_tpu_torch.i2i.data import (
+        PairedSliceDataset, UnpairedSliceDataset, load_generator,
+    )
+    from segmantic_tpu_torch.i2i.models import ResnetGenerator, to_flax_variables
+    from segmantic_tpu_torch.i2i.train import train_cyclegan, train_pix2pix
     from segmantic_tpu_torch.infer.ensemble import ensemble_creator
     from segmantic_tpu_torch.infer.predict import predict
     from segmantic_tpu_torch.infer.sliding_window import (
@@ -275,8 +286,28 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
             tissue_list=tmp_path / "tissues.txt", output_dir=tmp_path / "cv",
             config_files_dir=tmp_path / "configs", num_splits=2, **kw)),
     }
+    i2i_ckpt = tmp_path / "i2i.ckpt"
+    checkpoint.save_checkpoint(i2i_ckpt, to_flax_variables(
+        ResnetGenerator(1, 1, 2, 1).state_dict()), {"model": "pix2pix", "out_channels": 1,
+                                                     "base_features": 2, "n_blocks": 1})
+    slices = np.zeros((2, 8, 8, 1), np.float32)
+    calls.update({
+        "train_pix2pix": lambda **kw: train_pix2pix(
+            [(slices, slices)], steps=1, base_features=2, n_blocks=1, **kw).history[0]["step"],
+        "train_cyclegan": lambda **kw: train_cyclegan(
+            [(slices, slices)], steps=1, base_features=2, n_blocks=1, **kw).history[0]["step"],
+        "load_generator": lambda **kw: load_generator(i2i_ckpt, **kw)[0](slices).shape,
+        "paired_on_device_resample": lambda **kw: PairedSliceDataset(
+            [(image, image)], batch_size=2, on_device_resample=True, **kw).num_slices,
+        "unpaired_on_device_resample": lambda **kw: UnpairedSliceDataset(
+            [image], [image], batch_size=2, spacing=(2.0, 2.0, 2.0), on_device_resample=True,
+            **kw).slice_shape,
+    })
     want = {"predict": "in.nii.gz", "ensemble_creator": "in_seg.nii.gz",
-            "cross_validate": 0, "sliding_window_streamed": "float32"}.get(entry, "cpu")
+            "cross_validate": 0, "sliding_window_streamed": "float32", "train_pix2pix": 0,
+            "train_cyclegan": 0, "load_generator": (2, 8, 8, 1),
+            "paired_on_device_resample": 10, "unpaired_on_device_resample": (12, 12)}.get(
+                entry, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
