@@ -30,7 +30,14 @@ synthetic T1-like / T2-like volumes (losses falling, the warm iteration's
 time and peak), ``translate_volume`` with both checkpoints, one f32 pix2pix
 iteration on the card against the f64 CPU iteration in 2D and in 3D (the 3D
 generator's block convs on kernels 1 and 2), and both kernels at the 3D
-generator's f32 shapes.
+generator's f32 shapes. The rest of the single-device package runs at full
+size beside them: the surface distances of the served labels through the
+native distance transform (``[distance]``, after ``[parity]``), the
+augmented step with the labels' composed-affine gather against the shear
+chain (``[label-gather]``), the patch sampler's native crop with its bf16
+wire against the numpy route (``[sampler]``), the landmark heat maps on the
+card (``[detect]``), and the models' share of the bf16 peak from the FLOP
+counts (``[flops]``).
 
     python3 chip_smoke.py
 
@@ -2977,6 +2984,361 @@ def check_i2i_kernels(torch):
     return results
 
 
+# --- the rest of the single-device package ----------------------------------
+
+SPINE_SHAPE = (192, 192, 384)  # a 1 mm spine crop
+SPINE_LEVELS = 24  # vertebra labels (25 heat-map channels with the background)
+DIST_SPACING = (0.9, 0.9, 1.2)
+GATHER_TIE = 1e-4  # a position this close to a half-integer may round either way
+
+
+def gather_ties(in_shape, out_shape, angles, zoom):
+    """Output voxels of ``rotate_zoom_nn_gather`` whose source position,
+    recomputed in f64, lies within ``GATHER_TIE`` of a half-integer along some
+    axis: where f32 rounding may pick either neighbour."""
+    import numpy as np
+
+    from segmantic_tpu_torch.ops.shear_resample import rotation_matrix
+
+    nd = len(in_shape)
+    inv = rotation_matrix(nd, np.asarray(angles, np.float64)).T / float(zoom)
+    grids = np.meshgrid(*[np.arange(o) + (n - o) // 2 - (n - 1) / 2.0
+                          for n, o in zip(in_shape, out_shape)], indexing="ij", sparse=True)
+    near = np.zeros(tuple(out_shape), bool)
+    for a in range(nd):
+        pos = sum(inv[a, b] * grids[b] for b in range(nd)) + (in_shape[a] - 1) / 2.0
+        near |= np.abs(pos - np.floor(pos) - 0.5) < GATHER_TIE
+    return near
+
+
+def run_label_gather(torch):
+    """The flagship's augmented step on a fixed 8 x 144^3 bf16 margin batch
+    with the labels through the composed-affine gather and through the shear
+    chain, interleaved: step and augmentation times, kernel 8's launches, and
+    one draw's gathered labels on the card against the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from segmantic_tpu_torch.ops.shear_resample import (
+        center_crop, rotate_zoom_nn_gather, rotate_zoom_shear,
+    )
+    from segmantic_tpu_torch.train.augment import AugmentConfig, augment_batch, draw_params
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    chain = AugmentConfig(spatial=True, intensity=True)
+    routes = {"gather": dataclasses.replace(chain, label_affine_gather=True), "chain": chain}
+    image, label = fixed_batch(torch, TRAIN_BATCH, 60, size=MARGIN_PATCH[0], volume=160)
+    image, label = image.to(torch.bfloat16).cuda(), label.cuda()
+
+    # one draw's labels: the card against the CPU on the same parameters
+    params = draw_params(torch.Generator().manual_seed(5), routes["gather"], TRAIN_BATCH, 3)
+    idx = torch.as_tensor(params.spatial_index, dtype=torch.int64)
+    lbl_cf = label[:, None]
+    got = rotate_zoom_nn_gather(lbl_cf[idx.cuda()], params.angles, params.zoom,
+                                TRAIN_PATCH).cpu().numpy()
+    want = rotate_zoom_nn_gather(lbl_cf.cpu()[idx], params.angles, params.zoom,
+                                 TRAIN_PATCH).numpy()
+    differ = ties = 0
+    for s in range(len(idx)):
+        diff = got[s, 0] != want[s, 0]
+        near = gather_ties(MARGIN_PATCH, TRAIN_PATCH, params.angles[s], params.zoom[s])
+        ties += int(near.sum())
+        differ += int(diff.sum())
+        if (diff & ~near).any():
+            _fail(f"[label-gather] sample {s}: {int((diff & ~near).sum())} labels differ "
+                  "from the CPU's off a half-integer tie")
+    print(f"  gathered labels of {len(idx)} samples ({got.dtype}, {got.shape[2:]}): "
+          f"{differ} of {got.size} differ from the CPU's, all at ties "
+          f"({ties} outputs within {GATHER_TIE} of a half-integer)")
+
+    # the labels' two routes alone on the same draw: the card's time (CUDA
+    # events) beside the host's time to queue the call (no wait for the card)
+    lbl_s = lbl_cf[idx.cuda()]
+    angles = torch.as_tensor(params.angles, dtype=torch.float32, device="cuda")
+    zoom = torch.as_tensor(params.zoom, dtype=torch.float32, device="cuda")
+    chain_cfg = routes["chain"]
+    label_routes = {
+        "gather": lambda: rotate_zoom_nn_gather(lbl_s, params.angles, params.zoom, TRAIN_PATCH),
+        "chain": lambda: center_crop(rotate_zoom_shear(
+            lbl_s, angles, zoom, order=0, out_shape=TRAIN_PATCH, angle_max=chain_cfg.rotate_range,
+            zoom_min=min(chain_cfg.zoom_range[0], 1.0)), TRAIN_PATCH),
+    }
+    labels_alone = {}
+    for name, fn in label_routes.items():
+        card_ms = _median_ms(torch, fn)
+        queue = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            queue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        labels_alone[name] = {"labels_ms": card_ms, "labels_queue_ms": statistics.median(queue)}
+        print(f"  labels alone, {name}: {card_ms:.3f} ms (CUDA events, median of 10), the host "
+              f"{statistics.median(queue):.3f} ms to queue it (median of 10)")
+
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device="cuda")
+    module = model.module.train().requires_grad_(True)
+    opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+    steps = {name: make_train_step(module, opt, cfg, TRAIN_PATCH, mixed_precision=True,
+                                   generator=torch.Generator().manual_seed(4))
+             for name, cfg in routes.items()}
+    counters = _counters()
+    launches = {}
+    for name, step in steps.items():
+        for c in counters.values():
+            c.reset()
+        step(image, label)
+        torch.cuda.synchronize()
+        launches[name] = _launches(counters)
+    print(f"  launches of one step: gather {launches['gather']}, chain {launches['chain']}")
+    if launches["gather"]["shear_group"] != 3 or launches["chain"]["shear_group"] != 6:
+        _fail(f"[label-gather] expected kernel 8 three times a gather step (the image's "
+              f"groups) and six times a chain step: {launches}")
+    for step in steps.values():
+        for _ in range(3):
+            step(image, label)
+    times = {name: [] for name in steps}
+    for _ in range(10):  # interleaved
+        for name, step in steps.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(image, label)
+            end.record()
+            torch.cuda.synchronize()
+            if not np.isfinite(loss.item()):
+                _fail(f"[label-gather] {name} step: loss not finite")
+            times[name].append(start.elapsed_time(end))
+    numbers = {}
+    for name, cfg in routes.items():
+        gen = torch.Generator().manual_seed(3)
+        aug_ms = _median_ms(torch, lambda: augment_batch(image, label, gen, cfg, TRAIN_PATCH))
+        step_ms = statistics.median(times[name])
+        numbers[name] = {"step_ms": step_ms, "augment_ms": aug_ms, **labels_alone[name]}
+        print(f"  {name}: augmented step median {step_ms:.2f} ms (min {min(times[name]):.2f}, "
+              f"max {max(times[name]):.2f}; 10 steps interleaved, CUDA events), augmentation "
+              f"alone {aug_ms:.2f} ms (median of 10)")
+    for c in counters.values():
+        c.reset()
+    return launches["gather"], numbers
+
+
+def spine_labels(seed: int):
+    """A synthetic spine on SPINE_SHAPE (1 mm voxels): SPINE_LEVELS vertebral
+    bodies (elliptic slabs 36-52 x 28-40 mm, labels 1..24) stacked along
+    axis 2 and drifting in the plane (uint8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scale = SPINE_SHAPE[0] / 192.0
+    x, y = np.meshgrid(np.arange(SPINE_SHAPE[0]), np.arange(SPINE_SHAPE[1]), indexing="ij")
+    lbl = np.zeros(SPINE_SHAPE, np.uint8)
+    step = SPINE_SHAPE[2] // SPINE_LEVELS
+    for k in range(SPINE_LEVELS):
+        cx = SPINE_SHAPE[0] / 2 + scale * (10 * np.sin(k / 5.0) + rng.uniform(-2, 2))
+        cy = SPINE_SHAPE[1] / 2 + scale * rng.uniform(-3, 3)
+        rx, ry = scale * rng.uniform(18, 26), scale * rng.uniform(14, 20)
+        disk = ((x - cx) / rx) ** 2 + ((y - cy) / ry) ** 2 < 1.0
+        lbl[disk, k * step + 1:max((k + 1) * step - 2, k * step + 2)] = k + 1
+    return lbl
+
+
+def run_detect(torch):
+    """``VertHeatMap`` on the card on a 1 mm spine crop: seconds per call
+    warm, the host peak (the output is 25 channels of f32), and three classes'
+    channels against the plain CPU path."""
+    import tracemalloc
+
+    import numpy as np
+
+    from segmantic_tpu_torch.core.volume import Volume
+    from segmantic_tpu_torch.detect import VertHeatMap
+
+    lbl = spine_labels(7)
+    names = [f"L{k}" for k in range(1, SPINE_LEVELS + 1)]
+    vol = Volume(data=lbl[None], affine=spacing_affine((1.0, 1.0, 1.0)))
+    heat = VertHeatMap("label", gamma=1000.0, label_names=names)  # device: the card
+    counters = _reset_counters()
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    out = heat({"label": vol})["label"].numpy()
+    cold = time.perf_counter() - t0
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        heat({"label": vol})
+        seconds.append(time.perf_counter() - t0)
+    launches = _launches(counters)
+    print(f"  VertHeatMap {lbl.shape} uint8, {SPINE_LEVELS} labels, gamma 1000 -> "
+          f"{out.shape} {out.dtype} ({out.nbytes / 1e9:.2f} GB): cold {cold:.3f} s, warm "
+          f"{[round(s, 3) for s in seconds]} s a call (host clock, the output on the host); "
+          f"host peak {peak / 2**30:.2f} GiB (tracemalloc, the cold call)")
+    peaks = out.reshape(out.shape[0], -1).max(1)
+    if out.shape != (SPINE_LEVELS + 1,) + SPINE_SHAPE or out.dtype != np.float32 \
+            or not np.isfinite(out).all() or out[0].any() \
+            or not np.allclose(peaks[1:], 1000.0, rtol=1e-6):
+        _fail("[detect] heat maps: shape, type, finiteness, or a channel's peak not gamma")
+    if any(launches.values()):
+        _fail(f"[detect] launched a kernel: {launches}")
+    picked = (1, 12, SPINE_LEVELS)
+    only = np.where(np.isin(lbl, picked), lbl, 0)
+    ref = VertHeatMap("label", gamma=1000.0, label_names=names, device="cpu")(
+        {"label": only[None]})["label"]
+    errs = [float(np.abs(out[c] - ref[c]).max() / np.abs(ref[c]).max()) for c in picked]
+    print(f"  classes {picked} against the plain CPU path: max|diff| / max|ref| "
+          f"{[f'{e:.2e}' for e in errs]} (limit 1e-6)")
+    if max(errs) > 1e-6:
+        _fail("[detect] heat maps differ from the CPU path")
+    return {"cold_s": cold, "warm_s": min(seconds), "host_peak_gib": peak / 2**30}
+
+
+def run_distance(torch, work: Path):
+    """Both Hausdorff statistics for classes 1-7 between ``[serve]``'s served
+    labels of phantom_a and the phantom's own labels (its intensity shells),
+    spacing DIST_SPACING, on the host through the native distance transform;
+    one class again through scipy's."""
+    import numpy as np
+
+    from segmantic_tpu_torch import native
+    from segmantic_tpu_torch.metrics import distance
+
+    pred, _ = read_nifti(work / "phantom_a_pred.nii.gz")
+    ref = np.clip(np.rint(phantom((256, 256, 176), 1) / 100.0), 0, 5).astype(np.uint8)
+    if pred.shape != ref.shape:
+        _fail(f"[distance] served labels {pred.shape} vs the phantom's {ref.shape}")
+    calls = []
+    real = native.edt_distance_to_foreground
+
+    def counted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(1)
+        return out
+
+    counters = _reset_counters()
+    native.edt_distance_to_foreground = counted
+    try:
+        per_class, results = [], {}
+        t_case = time.perf_counter()
+        for c in range(1, 8):
+            t0 = time.perf_counter()
+            results[c] = (distance.hausdorff_surface_distance(pred == c, ref == c, DIST_SPACING),
+                          distance.hausdorff_pointwise_distance(pred == c, ref == c,
+                                                                DIST_SPACING))
+            per_class.append(time.perf_counter() - t0)
+        case_s = time.perf_counter() - t_case
+        n_native = len(calls)
+    finally:
+        native.edt_distance_to_foreground = real
+    for c, (surf, point) in results.items():
+        print(f"  class {c}: surface {', '.join(f'{k} {v:.4g}' for k, v in surf.items())}; "
+              f"pointwise max {point['max']:.4g} mean {point['mean']:.4g} (mm)")
+    print(f"  host seconds per class {[round(s, 3) for s in per_class]}, {case_s:.2f} s the "
+          f"case (7 classes, both statistics); {n_native} native distance transforms")
+    empty = sum((not (pred == c).any()) + (not (ref == c).any()) for c in range(1, 8))
+    if n_native != 4 * 7 - 2 * empty:
+        _fail(f"[distance] the native distance transform ran {n_native} times")
+    if any(_launches(counters).values()):
+        _fail(f"[distance] launched a kernel: {_launches(counters)}")
+    # one class through scipy's transform: the first that both label maps hold
+    both = [c for c in range(1, 8) if (pred == c).any() and (ref == c).any()]
+    if not both:
+        _fail("[distance] no class is in both the served and the phantom's labels")
+    c = both[0]
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("native distance transform refused")
+
+    native.edt_distance_to_foreground = refuse
+    try:
+        t0 = time.perf_counter()
+        scipy_res = (distance.hausdorff_surface_distance(pred == c, ref == c, DIST_SPACING),
+                     distance.hausdorff_pointwise_distance(pred == c, ref == c, DIST_SPACING))
+        scipy_s = time.perf_counter() - t0
+    finally:
+        native.edt_distance_to_foreground = real
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(results[c], scipy_res) for k in b)
+    print(f"  class {c} through scipy's transform: {scipy_s:.2f} s (native {per_class[c - 1]:.2f}"
+          f" s), largest relative difference {rel:.2e} (limit 1e-5)")
+    if not rel <= 1e-5:
+        _fail("[distance] the native and scipy routes disagree")
+    return {"case_s": case_s, "class_s": per_class, "scipy_class_s": scipy_s}
+
+
+def run_sampler(torch):
+    """``PatchSampler`` drawing 8 x 144^3 margin batches (batch 2 x 4 samples,
+    margin 24, bf16 wire) from one cached 256 x 256 x 176 volume: the native
+    crop, then the numpy route and its cast; host ms a batch, bit-equal."""
+    import numpy as np
+
+    from segmantic_tpu_torch import native
+    from segmantic_tpu_torch.core.volume import Volume
+    from segmantic_tpu_torch.data.cache import PatchSampler, VolumeCache
+
+    img = phantom((256, 256, 176), 1)
+    lbl = np.clip(np.rint(img / 100.0), 0, 5).astype(np.uint8)
+    t0 = time.perf_counter()
+    cache = VolumeCache([{"image": Volume(data=img[None], affine=np.eye(4)),
+                          "label": Volume(data=lbl[None], affine=np.eye(4))}],
+                        lambda sample: sample, NUM_CLASSES)
+    cache_s = time.perf_counter() - t0
+    if not native.available():
+        _fail("[sampler] the native library did not build")
+    kw = dict(patch_size=TRAIN_PATCH, batch_size=TRAIN_BATCH, num_samples=4,
+              margin=TRAIN_PATCH[0] // 4, seed=0, image_wire_dtype=torch.bfloat16)
+    fast, slow = PatchSampler(cache, **kw), PatchSampler(cache, **kw)
+    slow._native_ok = lambda picks: False
+    counters = _reset_counters()
+    ms = {"native": [], "numpy": []}
+    for _ in range(10):
+        for name, sampler in (("native", fast), ("numpy", slow)):
+            t0 = time.perf_counter()
+            img_b, lbl_b = sampler.sample_batch()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "native":
+                want = (img_b, lbl_b)
+        if tuple(img_b.shape) != (TRAIN_BATCH, *MARGIN_PATCH, 1) \
+                or img_b.dtype != torch.bfloat16 or lbl_b.dtype != np.uint8 \
+                or not torch.equal(img_b.view(torch.int16), want[0].view(torch.int16)) \
+                or not np.array_equal(lbl_b, want[1]):
+            _fail("[sampler] the native and numpy routes differ")
+    if any(_launches(counters).values()):
+        _fail(f"[sampler] launched a kernel: {_launches(counters)}")
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"  cache of one volume {cache_s:.2f} s; host ms a batch (median of 10, interleaved): "
+          f"native crop + bf16 {med['native']:.1f} (min {min(ms['native']):.1f}), numpy route + "
+          f"cast {med['numpy']:.1f} (min {min(ms['numpy']):.1f}); 10 batches bit-equal")
+    return med
+
+
+def report_flops(torch, step_ms) -> None:
+    """The model's share of the card's dense bf16 peak in the warm steps of
+    ``[train]``, ``[segresnet]`` and ``[unetr]`` (8 x 96^3). The augmentation
+    is not credited: its FLOP count is the banded matmuls of the JAX
+    package's rotation, which the port runs as kernel 8's line copies."""
+    from segmantic_tpu_torch.utils import flops
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    for arch, ms in step_ms.items():
+        f = flops.flagship_step_flops(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH[0] // 4,
+                                      NUM_CLASSES, arch=arch)
+        share = f["model_fwd_bwd"] / (ms * 1e-3) / flops.H100_SXM_BF16_PEAK
+        print(f"  {arch}: model fwd {f['model_fwd'] / 1e9:.1f} GFLOP, fwd+bwd "
+              f"{f['model_fwd_bwd'] / 1e9:.1f} GFLOP a step (augment as banded matmuls "
+              f"{f['augment'] / 1e9:.1f}, not credited); warm step {ms:.2f} ms -> "
+              f"{f['model_fwd_bwd'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s, {100 * share:.2f}% of "
+              f"{flops.H100_SXM_BF16_PEAK / 1e12:.0f} TFLOP/s bf16 ({card})")
+        if not 0 < share < 1:
+            _fail(f"[flops] {arch}: a share of the peak outside (0, 1)")
+
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3048,6 +3410,12 @@ def main() -> None:
         print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
         parity(torch, ckpt, session)
         del session
+        print("[distance] hausdorff_surface_distance and hausdorff_pointwise_distance, classes "
+              "1-7, [serve]'s served 256x256x176 labels against the phantom's, spacing "
+              f"{DIST_SPACING}, on the host through the native distance transform")
+        t0 = time.perf_counter()
+        dist_numbers = run_distance(torch, work)
+        new_phase_s = {"distance": time.perf_counter() - t0}
         print("[train] train() with the flagship defaults (96^3 patches, batch 2 x 4 "
               "samples, bf16, Adam 1e-4, phase Dice, roi-160 validation, top-3 ckpts) "
               "on 4 + 1 phantoms of 128^3, 8 classes")
@@ -3057,6 +3425,25 @@ def main() -> None:
         print("[train-aug] train(augment_spatial=True, augment_intensity=True) with the "
               "flagship defaults (144^3 margin patches -> 96^3) on the same phantoms")
         aug_launches, aug_numbers = run_train_aug(torch, work / "train", work / "run_aug")
+        print("[label-gather] the flagship's augmented step (8 x 144^3 bf16 margin patches -> "
+              "96^3, spatial and intensity, spatial_subset) with label_affine_gather=True and "
+              "False, interleaved")
+        t0 = time.perf_counter()
+        gather_launches, gather_numbers = run_label_gather(torch)
+        new_phase_s["label-gather"] = time.perf_counter() - t0
+        print("[sampler] PatchSampler, 8 x 144^3 margin batches (batch 2 x 4 samples, margin "
+              "24, bf16 wire) from a cached 256x256x176 volume: the native crop vs the numpy "
+              "route and its cast")
+        t0 = time.perf_counter()
+        sampler_ms = run_sampler(torch)
+        new_phase_s["sampler"] = time.perf_counter() - t0
+        print(f"[detect] VertHeatMap on the card: a 1 mm spine crop {SPINE_SHAPE} uint8, "
+              f"{SPINE_LEVELS} vertebra labels ({SPINE_LEVELS + 1} channels), gamma 1000")
+        t0 = time.perf_counter()
+        detect_numbers = run_detect(torch)
+        new_phase_s["detect"] = time.perf_counter() - t0
+        print(f"[phase-seconds] label-gather, sampler, detect, distance: "
+              f"{ {k: round(v, 1) for k, v in new_phase_s.items()} } s")
         print("[train-config] train(preprocessing=<config>, augmentation=<config>) with the "
               "flagship defaults: the default preprocessing spelled out as _target_ entries, "
               "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
@@ -3078,6 +3465,11 @@ def main() -> None:
               "val_blend_mode='constant' and a profile_dir; the step with and without remat")
         extras_launches, extras_numbers = run_train_extras(torch, work / "train",
                                                            work / "extras")
+        print("[flops] utils.flops.flagship_step_flops at 8 x 96^3 and the warm steps of "
+              "[train], [segresnet] and [unetr]: the model's share of the bf16 peak")
+        report_flops(torch, {"unet": train_numbers["step_ms"],
+                             "segresnet": arch_numbers["segresnet"]["step_ms"],
+                             "unetr": arch_numbers["unetr"]["step_ms"]})
         print("[train-2d] the flagship UNet in 2D at full width (16-32-64-128-256, strides "
               "2^4, 2 residual units, BatchNorm, PReLU, 8 classes, 256^2 patches): train() "
               "on 4 + 1 labelled 512^2 phantoms; the warm step on a fixed 16 x 256^2 bf16 "
@@ -3148,7 +3540,11 @@ def main() -> None:
     print(f"launches: i2i-pix2pix {p2p_launches}, i2i-cyclegan {cg_launches}, i2i-translate "
           f"{tr_launches}, i2i-parity 3D {par_launches}; pix2pix {p2p_numbers}; cyclegan "
           f"{cg_numbers}; translate seconds {tr_numbers}")
-    paths = (launches, train_launches, aug_launches, cfg_launches, arch_launches["segresnet"],
+    print(f"launches: label-gather {gather_launches} (detect, distance, sampler: none); "
+          f"label-gather {gather_numbers}; sampler host ms {sampler_ms}; detect "
+          f"{detect_numbers}; distance {dist_numbers}")
+    paths = (launches, train_launches, aug_launches, gather_launches, cfg_launches,
+             arch_launches["segresnet"],
              arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
              t2d_launches, s2d_launches, p2d_launches, st_launches, p2p_launches, cg_launches,
              tr_launches, par_launches)

@@ -8,9 +8,19 @@ slicing + zero pad) and stacks a channel-last batch; a background thread
 keeps the next batch ready while the device runs the step.
 
 The sampler draws from ``np.random.default_rng(seed)`` exactly as the JAX
-package's does, so for one seed both packages produce the same batches. The
-JAX package's multithreaded C++ crop (``segmantic_tpu.native``) gives
-identical output; the port keeps the numpy path.
+package's does, so for one seed both packages produce the same batches, with
+the same ``ratios`` rule. A 3D batch is cropped, zero padded, moved
+channel-last and cast by the multithreaded C++ crop of ``native/``
+(``native.crop_patches_3d``) when the library loads and the volumes qualify
+(the JAX rule ``_native_ok``), else in numpy; the two routes give the same
+bits.
+
+``image_wire_dtype=torch.bfloat16`` halves the bytes a batch takes to the
+device when the step computes in bf16. numpy has no bf16 type of its own, so
+a bf16 image batch is a CPU ``torch.bfloat16`` tensor (the C++ crop writes
+its bit patterns into a ``uint16`` array, viewed as bf16 without a copy; the
+numpy route rounds its f32 batch to nearest even, as the C++ crop does); an
+f32 batch and the labels stay numpy arrays.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.volume import Volume
 
@@ -99,25 +110,50 @@ def _crop_with_pad(data: np.ndarray, start: Sequence[int], size: Sequence[int]) 
     return out
 
 
+def _wire_is_bf16(dtype) -> bool:
+    """Whether an ``image_wire_dtype`` is ``torch.bfloat16``; float32
+    (``np.float32`` or ``torch.float32``) is the other choice."""
+    if dtype is torch.bfloat16:
+        return True
+    if dtype in (torch.float32, np.float32) and not isinstance(dtype, str):
+        return False
+    raise ValueError(f"image_wire_dtype must be float32 or torch.bfloat16, got {dtype!r}")
+
+
+def _bf16_view(bits: np.ndarray) -> torch.Tensor:
+    """A ``uint16`` array of bf16 bit patterns as a CPU ``torch.bfloat16``
+    tensor (no copy)."""
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
 class PatchSampler:
     """Class-balanced margin-patch batches from a VolumeCache: image
-    (B, *margin_size, C) float32 and label (B, *margin_size) uint8 (int32
-    above 256 classes), with margin_size = patch_size + 2 * margin. Centers
-    fall on foreground classes with equal weight (the JAX package's default
-    ratios). The margin feeds the rotation + zoom on the device, so that
-    patch borders come from real data: the patch window is clamped inside the
-    volume and only the margin may hang outside, zero padded."""
+    (B, *margin_size, C) in ``image_wire_dtype`` (float32: a numpy array;
+    bfloat16: a CPU ``torch.bfloat16`` tensor) and label (B, *margin_size)
+    uint8 (int32 above 256 classes), with margin_size = patch_size + 2 *
+    margin. Crop centers fall on class c with weight ``ratios[c]`` among the
+    classes the volume holds (default: the foreground classes equally, the
+    background never). The margin feeds the rotation + zoom on the device, so
+    that patch borders come from real data: the patch window is clamped
+    inside the volume and only the margin may hang outside, zero padded."""
 
     def __init__(self, cache: VolumeCache, patch_size: Sequence[int], batch_size: int,
-                 num_samples: int = 4, margin: int = 0, seed: int = 0):
+                 num_samples: int = 4, ratios: Optional[Sequence[float]] = None,
+                 margin: int = 0, seed: int = 0, image_wire_dtype=np.float32):
         self.cache = cache
+        self.image_wire_dtype = image_wire_dtype
+        self._bf16 = _wire_is_bf16(image_wire_dtype)
         self.patch_size = list(patch_size)
         self.margin = margin
         self.margin_size = [p + 2 * margin for p in self.patch_size]
         self.batch_size = batch_size
         self.num_samples = num_samples
         self.num_classes = cache.num_classes
-        self.ratios = [0 if c == 0 else 1 for c in range(cache.num_classes)]
+        self.ratios = (
+            list(ratios)
+            if ratios is not None
+            else [0 if c == 0 else 1 for c in range(cache.num_classes)]
+        )
         self.rng = np.random.default_rng(seed)
 
     def _sample_center(self, vol: CachedVolume) -> List[int]:
@@ -131,7 +167,7 @@ class PatchSampler:
         pick = vol.class_indices[cls][self.rng.integers(len(vol.class_indices[cls]))]
         return list(np.unravel_index(pick, vol.spatial_shape))
 
-    def sample_batch(self) -> Tuple[np.ndarray, np.ndarray]:
+    def sample_batch(self):
         nd = len(self.patch_size)
         picks: List[Tuple[CachedVolume, List[int]]] = []
         while len(picks) < self.batch_size:
@@ -148,13 +184,64 @@ class PatchSampler:
                         st = min(max(center[a] - p // 2, 0), s - p)
                     start.append(st - self.margin)
                 picks.append((vol, start))
+
+        # the multithreaded C++ crop when it qualifies (the same bits)
+        if nd == 3 and self.num_classes <= 256 and self._native_ok(picks):
+            return self._sample_batch_native(picks)
+
         images, labels = [], []
         for vol, start in picks:
             images.append(_crop_with_pad(vol.image.numpy(), start, self.margin_size))
             labels.append(_crop_with_pad(vol.label.numpy(), start, self.margin_size)[0])
         image_b = np.moveaxis(np.stack(images).astype(np.float32), 1, -1)  # channel-last
+        if self._bf16:
+            image_b = torch.from_numpy(image_b).to(torch.bfloat16)
+        # uint8 labels are lossless up to 256 classes: 4x less to upload
         label_dtype = np.uint8 if self.num_classes <= 256 else np.int32
         return image_b, np.stack(labels).astype(label_dtype)
+
+    @staticmethod
+    def _native_ok(picks) -> bool:
+        from .. import native
+
+        if not native.available():
+            return False
+        return all(
+            v.image.numpy().dtype == np.float32
+            and v.label is not None
+            and np.issubdtype(v.label.numpy().dtype, np.integer)
+            for v, _ in picks
+        )
+
+    def _sample_batch_native(self, picks):
+        """Fused C++ pad + crop + transpose + cast, multithreaded over the
+        batch; the whole batch is allocated once and each volume's run of
+        picks writes its slice in batch order."""
+        from .. import native
+
+        b = len(picks)
+        c = picks[0][0].image.numpy().shape[0]
+        out_sz = tuple(self.margin_size)
+        img_out = np.empty((b,) + out_sz + (c,), np.uint16 if self._bf16 else np.float32)
+        lbl_out = np.empty((b,) + out_sz, np.uint8)
+        i = 0
+        while i < len(picks):
+            vol = picks[i][0]
+            j = i
+            starts = []
+            while j < len(picks) and picks[j][0] is vol:
+                starts.append(picks[j][1])
+                j += 1
+            native.crop_patches_3d(
+                vol.image.numpy(),
+                vol.label.numpy()[0],
+                np.asarray(starts, np.int64),
+                self.margin_size,
+                to_bf16=self._bf16,
+                out=(img_out[i:j], lbl_out[i:j]),
+            )
+            i = j
+        return (_bf16_view(img_out) if self._bf16 else img_out), lbl_out
 
 
 class PrefetchLoader:

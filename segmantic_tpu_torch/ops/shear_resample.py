@@ -24,6 +24,12 @@ bit-identical to the full frame); ``floor(pos + 0.5)`` for order 0; with
 summed in f32; each pass's output is rounded to the carry dtype. Integer
 labels are copied exactly (the JAX chain carries them in bf16, which is the
 same up to 256 classes).
+
+:func:`rotate_zoom_nn_gather` is the labels' other route
+(``AugmentConfig.label_affine_gather``): the rotation + zoom composed into
+one affine and one nearest-neighbour gather in the label's own dtype, plain
+PyTorch on any device (an XLA gather in the JAX package, no Pallas kernel).
+:func:`rotate_pass` is one Paeth rotation about one axis.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 
 __all__ = [
     "rotation_matrix", "shear_pass", "shear_positions", "scale_pass", "rotate_zoom_shear",
-    "center_crop", "shear_coefficients", "chain_plan",
+    "center_crop", "shear_coefficients", "chain_plan", "rotate_zoom_nn_gather", "rotate_pass",
 ]
 
 
@@ -59,6 +65,74 @@ def rotation_matrix(nd: int, angles) -> np.ndarray:
         m[a, a], m[a, b], m[b, a], m[b, b] = c, -s, s, c
         rot = m @ rot
     return rot
+
+
+def rotate_zoom_nn_gather(
+    x: torch.Tensor,  # (S, C, *spatial)
+    angles,  # (S, 3) or (S, 1) content rotation angles per axis
+    zoom,  # (S,) isotropic content zoom
+    out_shape: Sequence[int],
+) -> torch.Tensor:
+    """Direct composed-affine nearest-neighbour resample: the label twin of
+    ``rotate_zoom_shear(order=0)`` + center crop, as one gather per sample.
+
+    The shear chain rounds to the grid after every pass; composing the same
+    rotation + zoom into one affine (``in = R.T @ (out - c) / z + c`` about
+    the full-frame center) and rounding once is the resample MONAI's
+    ``Rand{Rotate,Zoom}d(mode="nearest")`` applies to label maps (reference:
+    src/segmantic/seg/monai_unet.py:187-205). The output window is
+    center-aligned in the full frame (offset ``(n - m) // 2`` per axis, as
+    the chain's), positions round by ``floor(pos + 0.5)``, zeros outside, and
+    the gather stays in ``x``'s dtype (u8 labels move as u8).
+
+    The affine is composed per sample on the CPU (:func:`rotation_matrix`
+    in f64, rounded to f32 once) and sent to ``x``'s device in one copy that
+    does not wait for the card, so every device gathers the same voxels. The
+    positions are summed in f32 in the JAX function's order,
+    ``sum_b inv[a, b] * grid_b + c``, each product and sum rounded on its
+    own. The JAX function composes the rotation in f32 and XLA's CPU backend
+    may contract the sums into FMAs, so a position within a few ulp of a
+    half-integer can round the other way there.
+    """
+    nd = x.ndim - 2
+    batch, in_shape = x.shape[0], tuple(x.shape[2:])
+    out_shape = tuple(int(o) for o in out_shape)
+    dev = x.device
+    angles = torch.as_tensor(angles).detach().cpu().double().reshape(batch, -1).numpy()
+    zoom = torch.as_tensor(zoom).detach().cpu().float().expand(batch).numpy()
+    # in = rot.T @ (out - c) / z + c
+    inv = np.stack([rotation_matrix(nd, a).T.astype(np.float32) / z
+                    for a, z in zip(angles, zoom)])
+    inv = torch.from_numpy(inv)
+    if dev.type == "cuda":  # pinned, so the copy does not wait for the work queued before it
+        inv = inv.pin_memory().to(dev, non_blocking=True)
+    inv = inv.reshape((batch, nd, nd) + (1,) * nd)
+
+    def axis_grid(a: int) -> torch.Tensor:
+        g = (torch.arange(out_shape[a], dtype=torch.float32, device=dev)
+             + float((in_shape[a] - out_shape[a]) // 2) - _center(in_shape[a]))
+        return g.reshape((1,) + tuple(-1 if d == a else 1 for d in range(nd)))
+
+    grids = [axis_grid(a) for a in range(nd)]
+    strides = [1] * nd
+    for a in range(nd - 2, -1, -1):
+        strides[a] = strides[a + 1] * in_shape[a + 1]
+
+    inside = torch.ones((batch,) + out_shape, dtype=torch.bool, device=dev)
+    lin = torch.zeros((batch,) + out_shape, dtype=torch.int64, device=dev)
+    for a in range(nd):
+        pos = inv[:, a, 0] * grids[0]
+        for b in range(1, nd):
+            pos = pos + inv[:, a, b] * grids[b]
+        pos = pos + _center(in_shape[a])
+        i = torch.floor(pos + 0.5).to(torch.int64)
+        inside &= (i >= 0) & (i <= in_shape[a] - 1)
+        lin = lin + i.clamp(0, in_shape[a] - 1) * strides[a]
+
+    flat = x.reshape(batch, x.shape[1], -1)
+    idx = lin.reshape(batch, 1, -1).expand(-1, x.shape[1], -1)
+    out = torch.gather(flat, 2, idx).reshape((batch, x.shape[1]) + out_shape)
+    return torch.where(inside[:, None], out, torch.zeros((), dtype=x.dtype, device=dev))
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -349,6 +423,25 @@ def rotate_zoom_shear(
         x = scale_pass(x, passes[i][1], zoom, order, extents[i], bf16,
                        frame_extent=full[passes[i][1]])
     return x
+
+
+def rotate_pass(x: torch.Tensor, axis: int, angle, order: int) -> torch.Tensor:
+    """Content rotation about one axis by three shears (Paeth), per sample:
+    ``x`` (S, C, *spatial), ``angle`` (S,) or a scalar. The rotation plane
+    (a, b) is the two spatial axes other than ``axis`` in 3D, (0, 1) in 2D,
+    as in :func:`rotation_matrix`."""
+    nd = x.ndim - 2
+    if nd == 2:
+        a, b = 0, 1
+    else:
+        a, b = [d for d in range(3) if d != axis]
+    angle = _per_sample(angle, x.shape[0], x.device)
+    sh1 = -torch.tan(angle / 2.0)
+    sh2 = torch.sin(angle)
+    # R(t) content rotation = shear_a(sh1) . shear_b(sh2) . shear_a(sh1)
+    x = shear_pass(x, a, b, sh1, order)
+    x = shear_pass(x, b, a, sh2, order)
+    return shear_pass(x, a, b, sh1, order)
 
 
 def center_crop(x: torch.Tensor, out_shape: Sequence[int]) -> torch.Tensor:

@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from ..ops.fused_conv import at_least_f32
-from ..ops.shear_resample import center_crop, rotate_zoom_shear
+from ..ops.shear_resample import (  # noqa: F401  (rotation_matrix: as the JAX module)
+    center_crop, rotate_zoom_nn_gather, rotate_zoom_shear, rotation_matrix,
+)
 from ..transforms import intensity_ops as iops
 
 __all__ = ["AugmentConfig", "AugmentParams", "draw_params", "apply_params",
@@ -35,7 +37,7 @@ __all__ = ["AugmentConfig", "AugmentParams", "draw_params", "apply_params",
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
     """Static augmentation configuration: the JAX package's fields and
-    defaults (without its opt-in ``label_affine_gather``)."""
+    defaults."""
 
     spatial: bool = False
     intensity: bool = False
@@ -60,6 +62,14 @@ class AugmentConfig:
     # step computes in bf16, the weight noise is below the cast that follows.
     # Labels are unaffected (their copies are exact either way).
     interp_bf16: bool = True
+    # resample the labels with one composed-affine nearest-neighbour gather
+    # (ops.shear_resample.rotate_zoom_nn_gather: rounds once, the ideal
+    # rotate + zoom of a label map) instead of the shear chain, which rounds
+    # after every pass; they differ only at boundary voxels where the two
+    # roundings disagree. Opt-in, as in the JAX package (where the gather
+    # measured far slower than the chain on its TPU); with it on, the labels
+    # launch no shear-group kernel.
+    label_affine_gather: bool = False
     # run the rotation + zoom chain on an exact-count random subset of the
     # batch (count = round(P[any rotation or zoom] * B)), whose members draw
     # their parameters conditioned on being active, instead of on every
@@ -183,7 +193,8 @@ def _index(idx: np.ndarray, device) -> torch.Tensor:
 
 def _spatial(images, labels, params: AugmentParams, cfg: AugmentConfig, out_shape):
     """Rotation + zoom of the samples in ``spatial_index`` (one batched call
-    of the shear chain for the images, one for the labels), the static center
+    of the shear chain for the images, one for the labels or, with
+    ``label_affine_gather``, one composed-affine gather), the static center
     crop for the rest. ``images`` (B, C, *margin), ``labels`` (B, 1, *margin);
     the results are new tensors."""
     out_i = center_crop(images, out_shape).clone(memory_format=torch.contiguous_format)
@@ -197,7 +208,10 @@ def _spatial(images, labels, params: AugmentParams, cfg: AugmentConfig, out_shap
                   zoom_min=min(cfg.zoom_range[0], 1.0))
     aug_i = rotate_zoom_shear(images[idx], angles, zoom, order=1, bf16=cfg.interp_bf16,
                               **bounds)
-    aug_l = rotate_zoom_shear(labels[idx], angles, zoom, order=0, **bounds)
+    if cfg.label_affine_gather:
+        aug_l = rotate_zoom_nn_gather(labels[idx], params.angles, params.zoom, out_shape)
+    else:
+        aug_l = rotate_zoom_shear(labels[idx], angles, zoom, order=0, **bounds)
     out_i[idx] = center_crop(aug_i, out_shape)
     out_l[idx] = center_crop(aug_l, out_shape)
     return out_i, out_l

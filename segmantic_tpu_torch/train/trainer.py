@@ -620,9 +620,11 @@ def train(
                             cache_rate=cache_rate)
     # the margin feeds the rotation + zoom on the device (real-data borders)
     margin = max(patch_size) // 4 if augment_spatial else 0
+    # the bf16 wire halves the upload when the step computes in bf16 anyway
     sampler = PatchSampler(train_cache, patch_size=patch_size,
                            batch_size=batch_size * num_samples,
-                           num_samples=num_samples, margin=margin, seed=seed)
+                           num_samples=num_samples, margin=margin, seed=seed,
+                           image_wire_dtype=torch.bfloat16 if mixed_precision else np.float32)
 
     host_augment = build_pipeline(augmentation)  # user-config path (host)
 
@@ -655,9 +657,9 @@ def train(
                     image_b, label_b = _host_augment_batch(
                         train_cache, host_augment, batch_size, num_samples, seed, epoch,
                         step_i)
-                image_t = torch.from_numpy(image_b)
-                if mixed_precision:  # halves the upload; the step computes in bf16
-                    image_t = image_t.to(torch.bfloat16)
+                # the sampler's bf16 wire is a CPU bf16 tensor; the host
+                # augmentation hands over f32 numpy, as in the JAX trainer
+                image_t = image_b if torch.is_tensor(image_b) else torch.from_numpy(image_b)
                 image_d = image_t.to(device, non_blocking=True)
                 label_d = torch.from_numpy(label_b).to(device, non_blocking=True)
                 epoch_loss += float(train_step(image_d, label_d))

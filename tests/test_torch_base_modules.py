@@ -4,11 +4,18 @@
 copies of the numpy-only modules it needs (``core/volume``,
 ``core/orientation``, ``io/nifti``, ``utils/*``, ``data/dataset``,
 ``data/datalist``, ``image/labels``, the ``native`` resampler binding,
-``image/processing.py::pad``, ``transforms/base.py``,
-``transforms/registry.py``, ``viz/plots``). Here each copy gets the same inputs as its
-original and must give the same results (exactly: the same numpy code), NIfTI
-files written by one package are read by the other, and every module of the
-port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
+``image/processing.py``, ``transforms/base.py``,
+``transforms/registry.py``, ``viz/plots``, and since the rest of the package was
+ported ``image/{modality,utils,make_mixed_modal_dataset}.py``,
+``data/iseg.py``, ``metrics/distance.py``, ``utils/flops.py``, the host
+transforms of ``detect/transforms.py`` and the native bindings). Here each copy gets the same inputs as its
+original and must give the same results (exactly: the same numpy code), the
+newer copies' functions and classes have the originals' code (their syntax
+trees equal, docstrings aside; results are compared in
+``test_torch_image_prep.py``, ``test_torch_distance.py``,
+``test_torch_detect.py``, ``test_torch_flops.py``, ``test_torch_sampler.py``),
+NIfTI files written by one package are read by the other, and every module of
+the port imports in a process where ``segmantic_tpu`` and ``jax`` are blocked.
 """
 
 from __future__ import annotations
@@ -411,7 +418,10 @@ def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
                 "metrics.overlap", "infer.predict", "infer.ensemble",
                 "train.cross_validate", "commands.unet_cli", "models.segresnet",
                 "models.unetr", "infer.sliding_window", "i2i.models", "i2i.data",
-                "i2i.train", "commands.i2i_cli", "ops.resample"):
+                "i2i.train", "commands.i2i_cli", "ops.resample", "ops.gaussian",
+                "detect.transforms", "metrics.distance", "image.modality", "image.utils",
+                "image.make_mixed_modal_dataset", "data.iseg", "utils.flops",
+                "utils.device"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys
@@ -447,3 +457,43 @@ def test_no_port_source_imports_the_jax_package():
             else:
                 continue
             assert not roots & banned, f"{path.relative_to(REPO)}:{node.lineno}"
+
+
+def _definitions(path: Path):
+    """Top-level functions and classes of a module, as syntax trees without
+    their docstrings (comments are not in the tree)."""
+    import ast
+
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            for sub in ast.walk(node):
+                body = getattr(sub, "body", None)
+                if (isinstance(sub, (ast.FunctionDef, ast.ClassDef)) and body
+                        and isinstance(body[0], ast.Expr)
+                        and isinstance(body[0].value, ast.Constant)
+                        and isinstance(body[0].value.value, str)):
+                    sub.body = body[1:] or [ast.Pass()]
+            out[node.name] = ast.dump(node)
+    return out
+
+
+# the port's numpy copies and what differs in them on purpose
+_COPIES = {
+    "image/modality.py": set(), "image/processing.py": set(), "image/utils.py": set(),
+    "image/make_mixed_modal_dataset.py": set(), "data/iseg.py": set(),
+    "metrics/distance.py": set(), "utils/flops.py": set(),
+    # the heat map smooths on a torch device
+    "detect/transforms.py": {"VertHeatMap"},
+    # bf16 as uint16 bits (no ml_dtypes); the loader builds atomically
+    "native.py": {"crop_patches_3d", "_load"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(_COPIES))
+def test_copied_modules_keep_the_originals_code(rel):
+    got = _definitions(REPO / "segmantic_tpu_torch" / rel)
+    want = _definitions(REPO / "segmantic_tpu" / rel)
+    assert set(want) <= set(got), sorted(set(want) - set(got))
+    same = {n for n in want if got[n] == want[n]}
+    assert set(want) - same == _COPIES[rel], sorted(set(want) - same)

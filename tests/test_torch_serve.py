@@ -223,7 +223,8 @@ def test_cli_serve_defaults_to_cuda():
                                    "predict", "ensemble_creator", "cross_validate",
                                    "train_pix2pix", "train_cyclegan", "load_generator",
                                    "paired_on_device_resample",
-                                   "unpaired_on_device_resample"])
+                                   "unpaired_on_device_resample", "VertHeatMap",
+                                   "make_device", "gaussian_smooth"])
 def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, monkeypatch,
                                                                  tmp_path):
     """``SegmentationModel.create`` / ``.load``, ``sliding_window_inference``,
@@ -233,7 +234,10 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
     ``device="cpu"`` they run. So do i2i's ``train_pix2pix``,
     ``train_cyclegan``, ``load_generator`` and both slice datasets with
     ``on_device_resample=True`` (the only option of theirs that needs a
-    device)."""
+    device), ``detect.VertHeatMap``, ``ops.gaussian.gaussian_smooth`` on a
+    numpy array, and ``utils.device.make_device``, whose explicit request for
+    the CPU is ``gpu_ids=[-1]``."""
+    from segmantic_tpu_torch.detect import VertHeatMap
     from segmantic_tpu_torch.i2i.data import (
         PairedSliceDataset, UnpairedSliceDataset, load_generator,
     )
@@ -244,7 +248,9 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
     from segmantic_tpu_torch.infer.sliding_window import (
         sliding_window_inference, sliding_window_inference_streamed,
     )
+    from segmantic_tpu_torch.ops.gaussian import gaussian_smooth
     from segmantic_tpu_torch.train.cross_validate import cross_validate
+    from segmantic_tpu_torch.utils.device import make_device
 
     vol = np.zeros((8, 8, 8, 1), np.float32)
     image = tmp_path / "in.nii.gz"
@@ -302,14 +308,71 @@ def test_entry_points_default_to_the_card_and_refuse_without_one(entry, ckpt, mo
         "unpaired_on_device_resample": lambda **kw: UnpairedSliceDataset(
             [image], [image], batch_size=2, spacing=(2.0, 2.0, 2.0), on_device_resample=True,
             **kw).slice_shape,
+        "VertHeatMap": lambda **kw: VertHeatMap("label", label_names=["a"], **kw)(
+            {"label": np.ones((1, 4, 4, 4), np.uint8)})["label"].shape,
+        "make_device": lambda device="cuda": make_device(
+            [-1] if device == "cpu" else [0]).type,
+        "gaussian_smooth": lambda **kw: gaussian_smooth(
+            np.ones((1, 4, 4), np.uint8), 1.0, **kw).device.type,
     })
     want = {"predict": "in.nii.gz", "ensemble_creator": "in_seg.nii.gz",
             "cross_validate": 0, "sliding_window_streamed": "float32", "train_pix2pix": 0,
             "train_cyclegan": 0, "load_generator": (2, 8, 8, 1),
-            "paired_on_device_resample": 10, "unpaired_on_device_resample": (12, 12)}.get(
+            "paired_on_device_resample": 10, "unpaired_on_device_resample": (12, 12),
+            "VertHeatMap": (2, 4, 4, 4)}.get(
                 entry, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
     assert not launched and not (tmp_path / "cv").exists()
     assert calls[entry](device="cpu") == want
+
+
+def test_make_device_maps_gpu_ids_like_the_jax_function(monkeypatch):
+    """``[-1]`` and ``[]`` are the CPU; another id is ``cuda:<min(id, count-1)>``
+    (the JAX function's clamp), and without a card it raises, where the JAX
+    function falls back to the CPU."""
+    from segmantic_tpu.utils.device import make_device as jax_make_device
+    from segmantic_tpu_torch.utils.device import make_device
+
+    for ids in ([-1], [], (-1, 0)):
+        assert make_device(ids) == torch.device("cpu")
+        assert jax_make_device(ids).platform == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert [make_device(ids) for ids in ([0], [1], [5], (3, 0))] == [
+        torch.device("cuda", i) for i in (0, 1, 1, 1)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_device()
+
+
+def test_lazy_top_level_api_matches_the_jax_package():
+    """The same lazy names as ``segmantic_tpu/__init__.py``, each the port's
+    object; importing the package loads none of them."""
+    import segmantic_tpu
+    import segmantic_tpu_torch
+    from segmantic_tpu_torch.core.volume import Volume as PortVolume
+    from segmantic_tpu_torch.infer import predict as port_predict
+    from segmantic_tpu_torch.train import trainer as port_trainer
+
+    assert segmantic_tpu_torch._LAZY.keys() == segmantic_tpu._LAZY.keys()
+    for name, (module, attr) in segmantic_tpu_torch._LAZY.items():
+        assert module.startswith("segmantic_tpu_torch.")
+        assert module.replace("segmantic_tpu_torch", "segmantic_tpu", 1) == \
+            segmantic_tpu._LAZY[name][0] and attr == segmantic_tpu._LAZY[name][1]
+        obj = getattr(segmantic_tpu_torch, name)
+        assert obj.__module__.startswith("segmantic_tpu_torch."), name
+    assert segmantic_tpu_torch.Volume is PortVolume
+    assert segmantic_tpu_torch.train_model is port_trainer.train
+    assert segmantic_tpu_torch.predict is port_predict.predict
+    with pytest.raises(AttributeError, match="no attribute 'nope'"):
+        segmantic_tpu_torch.nope
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(Path(__file__).resolve().parent.parent)!r})
+        import segmantic_tpu_torch
+        print(sorted(m for m in sys.modules if m.startswith("segmantic_tpu_torch.")))
+    """)], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
