@@ -37,7 +37,15 @@ augmented step with the labels' composed-affine gather against the shear
 chain (``[label-gather]``), the patch sampler's native crop with its bf16
 wire against the numpy route (``[sampler]``), the landmark heat maps on the
 card (``[detect]``), and the models' share of the bf16 peak from the FLOP
-counts (``[flops]``).
+counts (``[flops]``). Last, Parallel: the weight-gradient, shear-group and
+Dice kernels at a rank's shapes at two ranks (``[local-kernels]``), the
+flagship's train step with a mesh at a world of one over NCCL against the
+mesh-less step (``[parallel-dp]``), the window- and volume-sharded sliding
+window against the in-memory path (``[parallel-sw]``), a pix2pix iteration
+through the mesh path (``[parallel-i2i]``), and two ranks sharing the card
+over gloo: the data-parallel step at a local batch of 4 against one rank at
+8, ZeRO-1 against the replicated update and tensor parallelism against data
+parallelism (``[parallel-dp-2]``; NCCL refuses two ranks on one device).
 
     python3 chip_smoke.py
 
@@ -3339,6 +3347,594 @@ def report_flops(torch, step_ms) -> None:
 
 
 
+# -- Parallel: the mesh paths (world of one over NCCL, two ranks over gloo) ----
+
+LOCAL_BATCH = 4  # the flagship's rows a rank at two ranks
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _f32_step(torch, mesh, image, label, seed: int = 2):
+    """One f32 flagship step on the card (flips off, SGD at lr 0, so the
+    gradients stay in place), with or without a mesh: (loss, gradients,
+    buffers, launches), tensors on the host in f64."""
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=seed, device="cuda")
+    module = model.module.train().requires_grad_(True)
+    step = make_train_step(module, torch.optim.SGD(module.parameters(), lr=0.0),
+                           AugmentConfig(flip_prob=0.0), TRAIN_PATCH, False, mesh=mesh)
+    counters = _reset_counters()
+    loss = step(image, label).item()
+    launches = _launches(counters)
+    return (loss, {k: p.grad.cpu().double() for k, p in module.named_parameters()},
+            {k: b.cpu().double() for k, b in module.named_buffers()}, launches)
+
+
+def _judge_step(label, got, ref, other) -> None:
+    """``[train-parity]``'s limits with the mesh-less card step as the
+    reference: loss 1e-5 relative, BN statistics 1e-4 * max|ref| of each
+    buffer, each gradient tensor k within 2 * e[k] + 1e-3 * max(max|g[k]|,
+    1e-2 * the largest gradient anywhere). There e[k] is the f32 rounding of
+    that tensor, measured on the card as the distance of ``other`` (the
+    mesh-less step on the batch in reverse order: the same gradient summed in
+    another order) from the reference, where ``[train-parity]`` measures the
+    CPU's f32 step against f64."""
+    (lg, gg, bg, _), (lr_, gr, br, _), (_, go, _, _) = got, ref, other
+    rel = abs(lg - lr_) / abs(lr_)
+    floor = 1e-2 * max(g.abs().max().item() for g in gr.values())
+    worst_g = max(((gg[k] - g).abs().max().item()
+                   / (2 * (go[k] - g).abs().max().item()
+                      + 1e-3 * max(g.abs().max().item(), floor)), k)
+                  for k, g in gr.items())
+    worst_b = max(((bg[k] - b).abs().max().item() / b.abs().max().item(), k)
+                  for k, b in br.items())
+    print(f"  {label}: loss {lg:.9f} vs {lr_:.9f} (rel {rel:.3e}, limit 1e-5); worst BN "
+          f"statistic {worst_b[0]:.3e} of max|ref| at {worst_b[1]} (limit 1e-4); worst "
+          f"gradient {worst_g[0]:.3f} of its limit at {worst_g[1]}")
+    if not (rel <= 1e-5 and worst_b[0] <= 1e-4 and worst_g[0] <= 1.0):
+        _fail(f"{label}: the mesh step disagrees with the mesh-less step")
+
+
+def _step_profile(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` with CPU and CUDA activity:
+    the host's ms to queue it and to finish it (a synchronise), the device ms
+    of all its kernels, the NCCL kernels and their device ms, and each op's
+    (calls, self host us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+    out = {"queue_ms": queued * 1e3, "wall_ms": done * 1e3, "device_ms": 0.0,
+           "nccl_kernels": 0, "nccl_ms": 0.0, "ops": {}}
+    for e in prof.key_averages():
+        on_card = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if on_card:
+            out["device_ms"] += e.self_device_time_total / 1e3
+            if "nccl" in e.key.lower():
+                out["nccl_kernels"] += e.count
+                out["nccl_ms"] += e.self_device_time_total / 1e3
+        else:
+            out["ops"][e.key] = (e.count, e.self_cpu_time_total)
+    return out
+
+
+def _profile_gap(profiles) -> None:
+    """Print the host-side profile of the mesh-less and the mesh step, and
+    the ops whose host time or calls the mesh step adds."""
+    for name, p in profiles.items():
+        print(f"  torch.profiler, one {name} step: queued in {p['queue_ms']:.2f} ms, done in "
+              f"{p['wall_ms']:.2f} ms on the host; {p['device_ms']:.2f} ms of kernels on the "
+              f"card; {p['nccl_kernels']} NCCL kernels, {p['nccl_ms']:.4f} ms")
+    base, mesh = profiles["mesh-less"]["ops"], profiles["mesh"]["ops"]
+    gap = sorted(((mesh.get(k, (0, 0.0))[1] - base.get(k, (0, 0.0))[1], k) for k in
+                  set(base) | set(mesh)), reverse=True)
+    total = sum(v[1] for v in mesh.values()) - sum(v[1] for v in base.values())
+    print(f"  self host time the mesh step adds: {total / 1e3:.2f} ms in all; the largest:")
+    for us, k in gap[:12]:
+        print(f"    {k}: {us / 1e3:+.3f} ms, calls {base.get(k, (0, 0))[0]} -> "
+              f"{mesh.get(k, (0, 0))[0]}")
+
+
+def run_parallel_dp(torch):
+    """``[parallel-dp]``: the flagship's step with a mesh at a world of one
+    over NCCL against the mesh-less step. A data axis of 1 takes the
+    mesh-less step (the JAX package's rule for its per-shard body), so a
+    ``torchrun --nproc-per-node 1`` run costs what a run without torchrun
+    does: one f32 step within ``[train-parity]``'s limits with the same
+    kernel launches, then the warm bf16 step of each on 8 x 96^3 (5 timed
+    after 3 warm), and one step of each under ``torch.profiler``: host and
+    device ms, NCCL kernels, and the ops whose host time the mesh step adds."""
+    from segmantic_tpu_torch.parallel import make_mesh
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    mesh = make_mesh()
+    image, label = fixed_batch(torch, 2, 40)  # [train-parity]'s batch
+    image, label = image.cuda(), label.cuda()
+    ref = _f32_step(torch, None, image, label)
+    other = _f32_step(torch, None, image.flip(0), label.flip(0))
+    got = _f32_step(torch, mesh, image, label)
+    _judge_step("f32 step, batch 2, mesh of one vs mesh-less", got, ref, other)
+    if got[3] != ref[3]:
+        _fail(f"the mesh step launched other kernels: {got[3]} vs {ref[3]}")
+    print(f"  f32 step launches, both: {got[3]}")
+    image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    image, label = image.to("cuda", torch.bfloat16), label.cuda()
+    numbers, launches, profiles = {}, {}, {}
+    for name, m in (("mesh-less", None), ("mesh", mesh)):
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=0, device="cuda")
+        module = model.module.train().requires_grad_(True)
+        step = make_train_step(module, make_optimizer(module.parameters(), {"lr": 1e-4}),
+                               AugmentConfig(), TRAIN_PATCH, True,
+                               generator=torch.Generator().manual_seed(0), mesh=m)
+        ms, times, losses, peak = warm_steps(torch, step, image, label, n=5)
+        counters = _reset_counters()
+        step(image, label)
+        torch.cuda.synchronize()
+        launches[name] = _launches(counters)
+        numbers[name] = ms
+        print(f"  {name} bf16 step, 8 x 96^3, Adam 1e-4: warm median {ms:.2f} ms "
+              f"({[round(t, 2) for t in times]}), peak {peak:.0f} MiB, losses "
+              f"{[round(v, 4) for v in losses]}")
+        profiles[name] = _step_profile(torch, lambda: step(image, label))
+        del step, module, model
+    _profile_gap(profiles)
+    for key in ("queue_ms", "wall_ms", "device_ms"):
+        numbers[f"profiled_{key}"] = {k: round(p[key], 3) for k, p in profiles.items()}
+    numbers["nccl_kernels"] = profiles["mesh"]["nccl_kernels"]
+    numbers["nccl_ms"] = profiles["mesh"]["nccl_ms"]
+    if launches["mesh"] != launches["mesh-less"]:
+        _fail(f"bf16 step launches differ: {launches}")
+    print(f"  bf16 step launches, both: {launches['mesh']}")
+    return launches["mesh"], numbers
+
+
+def _sgd_steps(torch, mesh, image, label, n: int, zero: bool = False):
+    """``n`` f32 flagship steps (flips off, SGD lr 1e-2 momentum 0.9) with
+    ``mesh``: (losses, the whole parameters on the host, the optimizer's
+    moment bytes on this rank, launches of the last step)."""
+    from segmantic_tpu_torch.parallel import gather_params, shard_params
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=3, device="cuda")
+    module = model.module.train().requires_grad_(True)
+    if mesh.shape["model"] > 1:
+        shard_params(mesh, module)
+    opt = make_optimizer(module.parameters(), {"optimizer": "SGD", "lr": 1e-2,
+                                               "momentum": 0.9})
+    step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH, False,
+                           mesh=mesh, zero=zero)
+    losses = []
+    for _ in range(n):
+        counters = _reset_counters()
+        losses.append(step(image, label).item())
+    launches = _launches(counters)
+    moments = sum(t.numel() * t.element_size() for st in opt.state.values()
+                  for t in st.values() if torch.is_tensor(t) and t.ndim > 0)
+    params = {k: v.detach().cpu() for k, v in gather_params(mesh, module).items()}
+    return losses, params, moments, launches
+
+
+def _dp2_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of ``[parallel-dp-2]``: both ranks on the card, over gloo."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from segmantic_tpu_torch.parallel import initialize_distributed, make_mesh
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                           backend="gloo")
+    torch.cuda.set_device(0)
+    mesh = make_mesh()
+    host = {"calls": 0, "seconds": 0.0}
+    real = {name: getattr(dist, name) for name in
+            ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")}
+
+    def timed(fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host["calls"] += 1
+            host["seconds"] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    out = {}
+    try:
+        image, label = fixed_batch(torch, TRAIN_BATCH, 40)  # the global batch
+        image, label = image.cuda(), label.cuda()
+        out["f32"] = _f32_step(torch, mesh, image, label)
+        out["f32_host"] = dict(host)
+        # ZeRO-1 against the replicated update, two steps on the batch of 8
+        out["replicated"] = _sgd_steps(torch, mesh, image, label, 2)
+        host.update(calls=0, seconds=0.0)
+        out["zero"] = _sgd_steps(torch, mesh, image, label, 2, zero=True)
+        out["zero_host"] = dict(host)
+        # tensor parallelism (mesh (1, 2)) against data parallelism, batch 2
+        out["dp_b2"] = _sgd_steps(torch, mesh, image[:2], label[:2], 2)
+        host.update(calls=0, seconds=0.0)
+        out["tp"] = _sgd_steps(torch, make_mesh(model=2), image[:2], label[:2], 2)
+        out["tp_host"] = dict(host)
+        # the augmented bf16 step at the local shapes: kernel 8 on this rank's rows
+        host.update(calls=0, seconds=0.0)
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=0, device="cuda")
+        module = model.module.train().requires_grad_(True)
+        step = make_train_step(module, make_optimizer(module.parameters(), {"lr": 1e-4}),
+                               AugmentConfig(spatial=True, intensity=True), TRAIN_PATCH, True,
+                               generator=torch.Generator().manual_seed(0), mesh=mesh)
+        margin, margin_label = fixed_batch(torch, TRAIN_BATCH, 60, size=MARGIN_PATCH[0],
+                                           volume=MARGIN_PATCH[0])
+        margin = margin.to("cuda", torch.bfloat16)
+        margin_label = margin_label.cuda()
+        step(margin, margin_label)
+        torch.cuda.synchronize()
+        host.update(calls=0, seconds=0.0)
+        counters = _reset_counters()
+        out["aug_loss"] = step(margin, margin_label).item()
+        torch.cuda.synchronize()
+        out["aug_launches"] = _launches(counters)
+        out["aug_host"] = dict(host)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        dist.destroy_process_group()
+
+
+def run_parallel_dp2(torch, work: Path):
+    """``[parallel-dp-2]``: two ranks on the one card over gloo (NCCL refuses
+    two ranks on one device; gloo takes CUDA tensors for ``all_reduce``,
+    ``broadcast``, ``reduce_scatter_tensor`` and ``all_gather_into_tensor``,
+    all that the data-parallel, ZeRO-1 and tensor-parallel steps use). The
+    2-rank f32 step at a local batch of 4 against the 1-rank step on the batch
+    of 8 within ``[train-parity]``'s limits; ZeRO-1 against the replicated
+    update (two SGD steps, parameters within 1e-5 and half the moment bytes a
+    rank) and tensor parallelism over both ranks against data parallelism (two
+    SGD steps on 2 x 96^3, losses 2e-4 relative, parameters within 2e-4), the
+    JAX tests' limits; each rank's launches of the kernels at the local
+    shapes, in the f32 step and in an augmented bf16 step on 8 x 144^3 margin
+    patches; the host seconds of the gloo collectives (gloo stages CUDA
+    tensors through the host: no speed of the port)."""
+    import torch.multiprocessing as mp
+
+    image, label = fixed_batch(torch, TRAIN_BATCH, 40)
+    ref = _f32_step(torch, None, image.cuda(), label.cuda())
+    other = _f32_step(torch, None, image.flip(0).cuda(), label.flip(0).cuda())
+    torch.cuda.empty_cache()
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(_dp2_rank, args=(_free_port(), str(work)), nprocs=2, join=True)
+    print(f"  two ranks spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(work / f"rank{r}.pt") for r in range(2)]
+
+    def host(h):
+        return f"{h['calls']} gloo calls, {h['seconds'] * 1e3:.1f} ms host"
+
+    for r, out in enumerate(ranks):
+        _judge_step(f"rank {r}: f32 step, 2 ranks x 4 vs 1 rank x 8", out["f32"], ref, other)
+        print(f"  rank {r}: f32 step launches {out['f32'][3]}; {host(out['f32_host'])}")
+        print(f"  rank {r}: augmented bf16 step (4 local rows of 144^3) launches "
+              f"{out['aug_launches']}; {host(out['aug_host'])}; loss {out['aug_loss']:.5f}")
+        for name, base, atol, rtol, what in (
+                ("zero", "replicated", 1e-5, 1e-5, "ZeRO-1 vs replicated, batch 8"),
+                ("tp", "dp_b2", 2e-4, 2e-4, "TP (1, 2) vs DP (2, 1), batch 2")):
+            (la, pa, ma, launch), (lb, pb, mb, _) = out[name], out[base]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+            worst = max(((pa[k] - v).abs().max().item(), k) for k, v in pb.items())
+            ok = rel <= rtol and worst[0] <= atol
+            print(f"  rank {r}: {what}: losses {la} vs {lb} (rel {rel:.3e}, limit {rtol:g}); "
+                  f"worst parameter |d| {worst[0]:.3e} at {worst[1]} (limit {atol:g}); moment "
+                  f"bytes {ma} vs {mb}; launches {launch}; {host(out[name + '_host'])} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"[parallel-dp-2] {what} on rank {r}")
+        if not 0.45 * ranks[r]["replicated"][2] < out["zero"][2] < 0.55 * out["replicated"][2]:
+            _fail("[parallel-dp-2]: ZeRO-1 does not hold about half the moment bytes a rank")
+    if ranks[0]["f32"][0] != ranks[1]["f32"][0]:
+        _fail("the two ranks hold different losses")
+    for name in ("fused_conv", "fused_conv_dw", "phase_conv", "phase_conv_dw",
+                 "dice_phase_sums", "dice_phase_dx"):
+        if min(out["f32"][3][name] for out in ranks) <= 0:
+            _fail(f"{name} did not launch on every rank")
+    if min(out["aug_launches"]["shear_group"] for out in ranks) <= 0:
+        _fail("the shear-group kernel did not launch on every rank")
+    launches = {}
+    for out in ranks:
+        _add_launches(launches, out["f32"][3])
+        _add_launches(launches, out["aug_launches"])
+    return launches
+
+
+def run_parallel_sw(torch, ckpt: Path):
+    """``[parallel-sw]``: the served 256 x 256 x 176 phantom through the
+    flagship, roi 96^3, sw-batch 4, at a world of one over NCCL: the
+    window-sharded ``sliding_window_inference(mesh=)`` and
+    ``sliding_window_inference_sharded`` against the in-memory path, <=
+    1e-5 * max|ref| and every argmax equal; the device seconds of each (CUDA
+    events around the call, the upload included) and kernel 7's launches."""
+    import numpy as np
+
+    from segmantic_tpu_torch.infer.sliding_window import (
+        sliding_window_inference, sliding_window_inference_sharded,
+    )
+    from segmantic_tpu_torch.parallel import make_mesh
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_val_forward
+
+    model = SegmentationModel.load(ckpt, device="cuda")
+    fwd = make_val_forward(model.module)
+    vol = phantom((256, 256, 176), 1)
+    vol = ((vol - vol.mean()) / vol.std())[..., None].astype(np.float32)
+    mesh = make_mesh()
+    kw = dict(num_classes=NUM_CLASSES, device="cuda", wire_dtype=torch.bfloat16)
+    runs = {
+        "in memory": lambda: sliding_window_inference(vol, ROI, SW_BATCH, fwd, **kw),
+        "window-sharded": lambda: sliding_window_inference(vol, ROI, SW_BATCH, fwd,
+                                                           mesh=mesh, **kw),
+        "volume-sharded": lambda: sliding_window_inference_sharded(vol, ROI, SW_BATCH, fwd,
+                                                                   mesh, **kw),
+    }
+    out, launches, numbers = {}, {}, {}
+    for name, fn in runs.items():
+        fn()  # warm
+        counters = _reset_counters()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out[name] = fn()
+        end.record()
+        torch.cuda.synchronize()
+        numbers[name] = start.elapsed_time(end) / 1e3
+        got = _launches(counters)
+        if name != "in memory":
+            _add_launches(launches, got)
+        print(f"  {name}: {numbers[name]:.4f} s on the card, blend launches {got['blend']}, "
+              f"launches {got}")
+    ref = out["in memory"]
+    scale = ref.abs().max().item()
+    for name in ("window-sharded", "volume-sharded"):
+        got = out[name]
+        err = (got - ref).abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        ok = tuple(got.shape) == tuple(ref.shape) and err <= 1e-5 * scale and agree == 1.0
+        print(f"  {name} vs in memory: max|d| {err:.3e} (limit 1e-5 * {scale:.3e}), argmax "
+              f"agreement {agree:.6f} (limit 1) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"[parallel-sw] {name} disagrees with the in-memory path")
+    if min(launches.get(k, 0) for k in ("fused_conv", "phase_conv", "blend")) <= 0:
+        _fail(f"[parallel-sw]: a kernel of the path did not launch: {launches}")
+    return launches, numbers
+
+
+def run_parallel_i2i(torch):
+    """``[parallel-i2i]``: one pix2pix iteration at the CLI's width (base
+    64, 6 blocks, 16 x 256^2 slices, f32, Adam 2e-4) through the mesh path at
+    a world of one over NCCL against the mesh-less iteration from the same
+    weights, cuDNN's algorithms deterministic (as ``[i2i-parity]``): both
+    losses 1e-5 relative, each generator tensor within 1e-6 * max|p|. A world
+    of one differs from no mesh only by a flat copy of the gradients, an
+    ``all_reduce`` over one rank and a division by 1, so the iteration is the
+    same; an lr term would let any gradient through, since one Adam step
+    moves an element by about lr whatever the gradient."""
+    import numpy as np
+
+    from segmantic_tpu_torch.i2i import train as i2i_train
+    from segmantic_tpu_torch.parallel import make_mesh
+
+    t1, t2 = i2i_pair((I2I_SLICE, I2I_SLICE, I2I_BATCH), 70)
+    src = (np.moveaxis(t1, 2, 0)[..., None] / 500.0 - 1.0).astype(np.float32)
+    dst = (np.moveaxis(t2, 2, 0)[..., None] / 500.0 - 1.0).astype(np.float32)
+    lr = 2e-4
+    out, launches = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for name, mesh in (("mesh-less", None), ("mesh", make_mesh())):
+        gen, disc = i2i_train._init_pix2pix(src, dst, I2I_BASE, I2I_BLOCKS, 0, "cuda")
+        d_step, g_step = i2i_train.make_pix2pix_steps(
+            gen, disc, i2i_train._make_optim(gen.parameters(), lr),
+            i2i_train._make_optim(disc.parameters(), lr), 100.0, mesh=mesh)
+        counters = _reset_counters()
+        losses = (d_step(src, dst).item(), g_step(src, dst)[0].item())
+        torch.cuda.synchronize()
+        launches[name] = _launches(counters)
+        out[name] = (losses, {k: p.detach().cpu() for k, p in gen.named_parameters()})
+        print(f"  {name}: D loss {losses[0]:.7f}, G loss {losses[1]:.7f}, launches "
+              f"{launches[name]}")
+    torch.backends.cudnn.deterministic = deterministic
+    (lm, pm), (lr_, pr) = out["mesh"], out["mesh-less"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lm, lr_))
+    worst = max(((pm[k] - p).abs().max().item() / (1e-6 * p.abs().max().item() + 1e-30), k)
+                for k, p in pr.items())
+    print(f"  mesh vs mesh-less: losses rel {rel:.3e} (limit 1e-5); worst generator tensor "
+          f"{worst[0]:.3f} of its limit at {worst[1]}")
+    if not (rel <= 1e-5 and worst[0] <= 1.0):
+        _fail("[parallel-i2i]: the mesh iteration disagrees with the mesh-less one")
+    return launches["mesh"]
+
+
+def check_local_kernels(torch):
+    """``[local-kernels]``: kernels 2, 5-6, 8 and 9 at the shapes a rank's
+    step gives them at two ranks (the flagship's local batch of 4), bf16, each
+    against its plain version (the dw kernels 1e-3 * max|ref|; the shear
+    group bit-equal; the Dice sums 1e-5 relative, dx 2e-2 * max|ref|), timed
+    by CUDA-graph replay beside the plain version and, for the dw kernels,
+    cuDNN's bf16 wgrad, with the bound. Returns {kernel: numbers} summed over
+    its shapes, as ``_record`` sums them."""
+    from segmantic_tpu_torch.ops import fused_conv, fused_shear, phase_conv, phase_dice
+    from segmantic_tpu_torch.ops import shear_resample
+    from segmantic_tpu_torch.ops.fast_conv import depth_to_space
+    from segmantic_tpu_torch.train.augment import AugmentConfig, _subset_count
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(11)
+    bf16 = torch.bfloat16
+    B = LOCAL_BATCH
+    results = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def close(name, got, want, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        if err > limit * ref:
+            _fail(f"[local-kernels] {name}: max|d| {err:.3e} > {limit:g} * {ref:.3e}")
+        return err
+
+    cases = [("fused_conv_dw", (B, 48, 48, 48, 16), 16), ("fused_conv_dw", (B, 24, 24, 24, 32), 32),
+             ("fused_conv_dw", (B, 12, 12, 12, 64), 64), ("fused_conv_dw", (B, 6, 6, 6, 128), 128),
+             ("fused_conv_dw", (B, 6, 6, 6, 128), 256), ("fused_conv_dw", (B, 6, 6, 6, 256), 256),
+             ("phase_conv_dw", (B, 48, 48, 48, 64), 64), ("phase_conv_dw", (B, 24, 24, 24, 128), 128)]
+    for name, x_shape, co in cases:
+        dense = name == "fused_conv_dw"
+        kernel = fused_conv.conv3d_dw if dense else phase_conv.phase_conv_dw
+        plain = fused_conv.conv3d_dw_plain if dense else phase_conv.phase_conv_dw_plain
+        x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
+        c, cot = (x_shape[-1], co) if dense else (x_shape[-1] // 8, co // 8)
+        got = kernel(x, dy)
+        err = close(f"{name} {x_shape}->{co}", got, plain(x, dy), 1e-3)
+        xc, dyc = (x, dy) if dense else (depth_to_space(x, c), depth_to_space(dy, cot))
+        ms = _graph_ms(torch, lambda: kernel(x, dy))
+        pms = _graph_ms(torch, lambda: plain(x, dy), n=5, launches=2)
+        cms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xc.permute(0, 4, 1, 2, 3), (cot, c, 3, 3, 3), dyc.permute(0, 4, 1, 2, 3),
+            padding=1))
+        print(f"  {name} x{x_shape}->{co}: max|d| {err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms (CUDA graph replay)")
+        _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                ops=2 * 27 * c * cot * (xc.numel() // c), peak=PEAK_BF16, library_ms=cms)
+
+    cfg = AugmentConfig(spatial=True)
+    p_any = 1.0 - (1.0 - cfg.rotate_prob) ** 3 * (1.0 - cfg.zoom_prob)
+    samples = _subset_count(p_any, B)
+    passes, divz, _, groups = shear_resample.chain_plan(MARGIN_PATCH, 3, TRAIN_PATCH, 0.4, 0.8)
+    angles = (torch.rand((samples, 3), generator=g) * 0.8 - 0.4).to(dev)
+    zoom = torch.linspace(0.8, 1.3, samples).to(dev)
+    coef = shear_resample.shear_coefficients(angles, zoom, passes, divz)
+    for label, x, order, as_bf16 in (
+            ("bf16 order 1", randn(samples, 1, *MARGIN_PATCH).to(bf16), 1, True),
+            ("u8 order 0", torch.randint(0, NUM_CLASSES, (samples, 1, *MARGIN_PATCH),
+                                         generator=g, dtype=torch.uint8).to(dev), 0, False)):
+        for gi, (a_axis, b_axis, specs) in enumerate(groups):
+            cg = coef[:, 3 * gi: 3 * gi + 3].contiguous()
+            k = lambda: fused_shear.shear_group(  # noqa: E731
+                x, a_axis, b_axis, cg, zoom, specs, order, as_bf16)
+            p = lambda: fused_shear.shear_group_plain(  # noqa: E731
+                x, a_axis, b_axis, cg, zoom, specs, order, as_bf16)
+            got, want = k(), p()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                _fail(f"[local-kernels] shear_group {label} group {gi}: not bit-equal")
+            ms, pms = _graph_ms(torch, k), _median_ms(torch, p)
+            dims, outputs = list(x.shape[2:]), 0
+            for j, (_, _, out_ext) in enumerate(specs):
+                axis = b_axis if j == 1 else a_axis
+                dims[axis] = min(out_ext or dims[axis], dims[axis])
+                outputs += samples * dims[0] * dims[1] * dims[2]
+            print(f"  shear_group {label} group {gi} {tuple(x.shape)} -> {tuple(got.shape)}: "
+                  f"bit-equal; kernel {ms:.4f} ms (graph replay), plain {pms:.4f} ms (eager)")
+            _record(results, "shear_group", err=0.0, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(x, got, cg, zoom), ops=3 * outputs * order, peak=PEAK_F32)
+            x = want.contiguous()
+
+    shape, lanes = (B, DICE_EXTENT, DICE_EXTENT, DICE_EXTENT), 8 * NUM_CLASSES
+    xp = (randn(*shape, lanes) * 2.0).to(bf16)
+    yp = torch.randint(0, NUM_CLASSES, (*shape, 8), generator=g, dtype=torch.uint8).to(dev)
+    hot, cold = randn(B, lanes), randn(B, lanes)
+    got = phase_dice.dice_phase_sums(xp, yp)
+    want = phase_dice.dice_phase_sums_plain(xp, yp)
+    torch.cuda.synchronize()
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    if rel > 1e-5 or not torch.equal(got[2], want[2]):
+        _fail(f"[local-kernels] dice_phase_sums: rel {rel:.3e}")
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    ms = _graph_ms(torch, lambda: phase_dice.dice_phase_sums(xp, yp))
+    pms = _median_ms(torch, lambda: phase_dice.dice_phase_sums_plain(xp, yp))
+    print(f"  dice_phase_sums xp{tuple(xp.shape)}: rel {rel:.2e}; kernel {ms:.4f} ms (graph "
+          f"replay), plain {pms:.4f} ms")
+    _record(results, "dice_phase_sums", err=err, ms=ms, plain_ms=pms,
+            nbytes=_nbytes(xp, yp, *got), ops=7 * xp.numel(), peak=PEAK_F32)
+    got_dx = phase_dice.dice_phase_dx(xp, yp, hot, cold)
+    err = close("dice_phase_dx", got_dx, phase_dice.dice_phase_dx_plain(xp, yp, hot, cold), 2e-2)
+    ms = _graph_ms(torch, lambda: phase_dice.dice_phase_dx(xp, yp, hot, cold))
+    pms = _median_ms(torch, lambda: phase_dice.dice_phase_dx_plain(xp, yp, hot, cold))
+    print(f"  dice_phase_dx xp{tuple(xp.shape)}: max|d| {err:.3e}; kernel {ms:.4f} ms (graph "
+          f"replay), plain {pms:.4f} ms")
+    _record(results, "dice_phase_dx", err=err, ms=ms, plain_ms=pms,
+            nbytes=_nbytes(xp, yp, hot, cold, got_dx), ops=9 * xp.numel(), peak=PEAK_F32)
+    return results
+
+
+def run_parallel(torch, ckpt: Path, work: Path):
+    """The four Parallel phases and the local-batch kernels; the world of one
+    over NCCL lives from ``[parallel-dp]`` to ``[parallel-i2i]``."""
+    import torch.distributed as dist
+
+    from segmantic_tpu_torch.parallel import initialize_distributed
+
+    t0 = time.perf_counter()
+    print(f"[local-kernels] kernels 2, 5-6, 8 and 9 at a rank's shapes at two ranks (local "
+          f"batch {LOCAL_BATCH}), bf16, vs their plain versions")
+    local = check_local_kernels(torch)
+    print("[local-kernels] " + json.dumps({k: {key: (round(v, 6) if isinstance(v, float) else v)
+                                               for key, v in r.items()}
+                                           for k, r in local.items()}))
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                           rank=0, backend="nccl", local_rank=0)
+    try:
+        print("[parallel-dp] the flagship's step with make_train_step(mesh=make_mesh()) at a "
+              "world of one over NCCL vs the mesh-less step")
+        dp_launches, dp_numbers = run_parallel_dp(torch)
+        print("[parallel-sw] window- and volume-sharded sliding window at a world of one "
+              "over NCCL vs the in-memory path, flagship, 256x256x176, roi 96^3, sw-batch 4")
+        sw_launches, sw_numbers = run_parallel_sw(torch, ckpt)
+        print("[parallel-i2i] one pix2pix iteration through the mesh path at a world of one "
+              "over NCCL vs the mesh-less iteration")
+        i2i_launches = run_parallel_i2i(torch)
+    finally:
+        dist.destroy_process_group()
+    print("[parallel-dp-2] two ranks on the one card over gloo: the data-parallel step at a "
+          f"local batch of {LOCAL_BATCH} vs one rank at {TRAIN_BATCH}")
+    dp2_launches = run_parallel_dp2(torch, work / "dp2")
+    print(f"[parallel] the five Parallel phases: {time.perf_counter() - t0:.1f} s; step ms "
+          f"{dp_numbers}; sliding window s {sw_numbers}")
+    return (dp_launches, sw_launches, i2i_launches, dp2_launches)
+
+
+def _card() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3351,11 +3947,7 @@ def main() -> None:
     except ImportError as err:
         _fail(f"the repository is not around this script ({err})")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    print(_card())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
@@ -3521,6 +4113,7 @@ def main() -> None:
                 m[key] += r[key]
             m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
         print(f"[i2i] the four i2i phases: {time.perf_counter() - i2i_t0:.1f} s")
+        par_dp, par_sw, par_i2i, par_dp2 = run_parallel(torch, ckpt, work)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
@@ -3540,6 +4133,8 @@ def main() -> None:
     print(f"launches: i2i-pix2pix {p2p_launches}, i2i-cyclegan {cg_launches}, i2i-translate "
           f"{tr_launches}, i2i-parity 3D {par_launches}; pix2pix {p2p_numbers}; cyclegan "
           f"{cg_numbers}; translate seconds {tr_numbers}")
+    print(f"launches: parallel-dp {par_dp}, parallel-sw {par_sw}, parallel-i2i {par_i2i}, "
+          f"parallel-dp-2 (both ranks) {par_dp2}")
     print(f"launches: label-gather {gather_launches} (detect, distance, sampler: none); "
           f"label-gather {gather_numbers}; sampler host ms {sampler_ms}; detect "
           f"{detect_numbers}; distance {dist_numbers}")
@@ -3547,7 +4142,7 @@ def main() -> None:
              arch_launches["segresnet"],
              arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
              t2d_launches, s2d_launches, p2d_launches, st_launches, p2p_launches, cg_launches,
-             tr_launches, par_launches)
+             tr_launches, par_launches, par_dp, par_sw, par_i2i, par_dp2)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(path[name] for path in paths),
@@ -3559,6 +4154,7 @@ def main() -> None:
          "library_ms": measured[name]["library_ms"]}
         for name, (src, replaces) in KERNELS.items()
     ]
+    print(_card())  # again, in the output's tail beside the numbers
     print(f"[total] {time.perf_counter() - run_t0:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,11 @@ image preparation (``image.modality``, ``image.processing``,
 ``image.utils``, ``image.make_mixed_modal_dataset``), the iSEG export
 (``data.iseg``), FLOP counts (``utils.flops``), ``utils.device``, the native
 bindings of ``native/`` (distance transform, patch crop, surfaces) and the
-labels' one-gather augmentation (``AugmentConfig.label_affine_gather``).
-What is left is Parallel: the device mesh (``parallel/mesh.py``), the
-multi-device trainer paths and the sharded sliding window.
+labels' one-gather augmentation (``AugmentConfig.label_affine_gather``),
+and Parallel (``parallel/``): one process per card under torchrun, the
+(data, model) mesh, data-parallel training with cross-rank BatchNorm, ZeRO-1,
+tensor-parallel convs, the window- and volume-sharded sliding window and
+multi-rank i2i training.
 
 The top-level names below (``Volume``, ``UNet``, ``train_model``, ...) load
 their modules on first use, as in the JAX package.

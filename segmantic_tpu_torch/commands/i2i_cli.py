@@ -5,6 +5,11 @@ Port of ``segmantic_tpu/commands/i2i_cli.py``: the ``pix2pix`` (paired),
 ``cyclegan`` (unpaired) and ``translate`` subcommands with the JAX flags and
 defaults, plus ``--device`` (default ``cuda``, which fails where CUDA is not
 available). Checkpoints are the JAX package's, readable by either CLI.
+``pix2pix`` and ``cyclegan`` train data-parallel on N cards of one host when
+launched by torchrun, one process a card (each rank takes its rows of every
+batch)::
+
+    torchrun --nproc-per-node N -m segmantic_tpu_torch.commands.i2i_cli pix2pix ...
 """
 
 from __future__ import annotations
@@ -96,7 +101,10 @@ def pix2pix_cmd(
     device: str,
     lambda_l1: float,
 ) -> None:
-    """Train a paired pix2pix translator on stem-matched volume pairs."""
+    """Train a paired pix2pix translator on stem-matched volume pairs.
+
+    On N cards: torchrun --nproc-per-node N -m
+    segmantic_tpu_torch.commands.i2i_cli pix2pix ... (data-parallel)."""
     from ..i2i.train import train_pix2pix
 
     data = _paired_dataset(
@@ -151,6 +159,8 @@ def cyclegan_cmd(
 
     The two globs are independent — no stem matching is required (CycleGAN
     is an unpaired method); every volume each glob hits joins its domain.
+    On N cards: torchrun --nproc-per-node N -m
+    segmantic_tpu_torch.commands.i2i_cli cyclegan ... (data-parallel).
     """
     from ..i2i.data import UnpairedSliceDataset
     from ..i2i.train import train_cyclegan

@@ -7,6 +7,16 @@ available). ``train-config`` and ``cross-validate`` bind their config keys to
 the keyword signatures of the port's ``train()`` / ``cross_validate()`` (the
 JAX package's plus ``device``), with ``--print-defaults`` scaffolding and
 unknown-key rejection.
+
+``train`` and ``train-config`` train on N cards of one host when launched by
+torchrun, one process a card::
+
+    torchrun --nproc-per-node N -m segmantic_tpu_torch.commands.unet_cli \
+        train-config -c cfg.json
+
+(``model_parallel`` / ``zero_optimizer`` split the mesh as in the JAX
+package). ``cross-validate`` trains each fold in a subprocess of one process,
+so a fold trains on one card.
 """
 
 from __future__ import annotations
@@ -85,13 +95,16 @@ def cross_validate_cmd(config_file: Optional[Path], print_defaults: bool) -> Non
 @click.option("--max-epochs", type=int, default=600)
 @click.option("--gpu-ids", type=int, multiple=True, default=(0,))
 @click.option("--model-parallel", type=int, default=1,
-              help="not ported yet: values other than 1 raise")
+              help="tensor-parallel ranks per model replica; it must divide the "
+                   "ranks of a 'torchrun --nproc-per-node N -m "
+                   "segmantic_tpu_torch.commands.unet_cli train ...' launch")
 @click.option("--accumulate-steps", type=int, default=1,
               help="average gradients over this many micro-batches per update")
 @click.option("--remat/--no-remat", default=False,
               help="recompute the forward in the backward to save device memory")
 @click.option("--zero-optimizer/--no-zero-optimizer", default=False,
-              help="not ported yet: --zero-optimizer raises")
+              help="ZeRO-1: slice the optimizer moments over the data-parallel ranks "
+                   "(needs more than one rank: launch with torchrun --nproc-per-node N)")
 @click.option("--arch", type=click.Choice(["unet", "segresnet", "unetr"]), default="unet",
               help="segmentation architecture (unetr needs spatial_size and a "
                    "val_roi_size equal to it: configure them via train-config)")

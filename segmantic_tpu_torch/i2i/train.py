@@ -1,4 +1,4 @@
-"""pix2pix / CycleGAN training loops on one device.
+"""pix2pix / CycleGAN training loops, on one card or over the ranks of a mesh.
 
 Port of ``segmantic_tpu/i2i/train.py``: LSGAN objectives, L1 /
 cycle-consistency / identity terms, alternating G/D optimisation with Adam
@@ -6,9 +6,14 @@ cycle-consistency / identity terms, alternating G/D optimisation with Adam
 against the current G (its fakes under ``no_grad``, the reference's
 ``stop_gradient``), then the G step against the D just updated; during the G
 step the discriminators' parameters take no gradient (``jax.value_and_grad``
-differentiates with respect to G alone). The reference's mesh
-(``make_mesh`` / ``replicate`` / ``put_batch``) is the identity on one card;
-more than one device is ROADMAP Queue 1 "Parallel".
+differentiates with respect to G alone). The trainers run over the mesh of
+all ranks (``parallel.make_mesh``), as the JAX ones over all devices: the
+networks are replicated from rank 0, each rank takes its rows of every batch
+whose row count the data axis divides (``put_batch``), the D and G
+gradients and losses are averaged over the data axis in one flat
+``all_reduce`` each (the average GSPMD gives the JAX package), and rank 0
+alone writes the checkpoint and prints. A world of one (no process group) is
+the single-card loop.
 
 The networks of a run are built by :func:`_init_pix2pix` /
 :func:`_init_cyclegan` from one seed (a ``torch.Generator`` re-seeded before
@@ -30,6 +35,8 @@ import numpy as np
 import torch
 
 from ..ops._cuda import resolve_device
+from ..parallel.comm import mean_grads_
+from ..parallel.mesh import initialize_distributed, is_main, make_mesh, put_batch, replicate
 from ..train.checkpoint import save_checkpoint
 from .models import PatchDiscriminator, ResnetGenerator, to_flax_variables
 
@@ -98,13 +105,35 @@ def _frozen(nets):
             n.requires_grad_(True)
 
 
-def make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1: float
+def _on_rows(mesh, device, *batch):
+    """This rank's rows of each global batch array (all of them when the data
+    axis does not divide the rows) on ``device``, and the group to average
+    over (None: the rows are the whole batch)."""
+    local = mesh is not None and mesh.distributed and all(
+        b.shape[0] % mesh.shape["data"] == 0 for b in batch)
+    rows = [torch.as_tensor(put_batch(mesh, b) if local else b, device=device)
+            for b in batch]
+    return rows, mesh.data_group if local else None
+
+
+def _opt_params(optimizer):
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def _device_of(module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1: float, mesh=None
                        ) -> Tuple[Callable, Callable]:
     """``d_step(src, dst) -> d_loss`` and ``g_step(src, dst) -> (loss, adv,
-    l1)`` of one pix2pix iteration (tensors on the networks' device; the
-    losses stay on the device)."""
+    l1)`` of one pix2pix iteration: src and dst are the global batch (numpy or
+    tensors); with a ``mesh`` each rank takes its rows and the gradients and
+    losses are averaged over the data axis. The losses stay on the device."""
+    device = _device_of(gen)
 
     def d_step(src, dst):
+        (src, dst), group = _on_rows(mesh, device, src, dst)
         with torch.no_grad():
             fake = gen(src)
         d_opt.zero_grad(set_to_none=True)
@@ -112,10 +141,12 @@ def make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1: float
         fake_pred = disc(torch.cat([src, fake], -1))
         loss = 0.5 * (lsgan_loss(real_pred, True) + lsgan_loss(fake_pred, False))
         loss.backward()
+        (loss,) = mean_grads_(_opt_params(d_opt), [loss], group)
         d_opt.step()
-        return loss.detach()
+        return loss
 
     def g_step(src, dst):
+        (src, dst), group = _on_rows(mesh, device, src, dst)
         g_opt.zero_grad(set_to_none=True)
         with _frozen([disc]):
             fake = gen(src)
@@ -123,20 +154,24 @@ def make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1: float
             l1 = _l1(fake, dst)
             loss = adv + lambda_l1 * l1
             loss.backward()
+        out = mean_grads_(_opt_params(g_opt), [loss, adv, l1], group)
         g_opt.step()
-        return loss.detach(), adv.detach(), l1.detach()
+        return tuple(out)
 
     return d_step, g_step
 
 
 def make_cyclegan_steps(nets: Dict[str, torch.nn.Module], g_opt, d_opt, lambda_cycle: float,
-                        lambda_identity: float) -> Tuple[Callable, Callable]:
+                        lambda_identity: float, mesh=None) -> Tuple[Callable, Callable]:
     """``d_step(a, b) -> d_loss`` and ``g_step(a, b) -> (loss, adv, cycle)``
     of one CycleGAN iteration (the identity term weighted by
-    ``lambda_cycle * lambda_identity``, as the reference weighs it)."""
+    ``lambda_cycle * lambda_identity``, as the reference weighs it); a and b
+    and the ``mesh`` as in :func:`make_pix2pix_steps`."""
     gen_ab, gen_ba, disc_a, disc_b = (nets[k] for k in ("gen_ab", "gen_ba", "disc_a", "disc_b"))
+    device = _device_of(gen_ab)
 
     def d_step(a, b):
+        (a, b), group = _on_rows(mesh, device, a, b)
         with torch.no_grad():
             fake_b, fake_a = gen_ab(a), gen_ba(b)
         d_opt.zero_grad(set_to_none=True)
@@ -146,10 +181,12 @@ def make_cyclegan_steps(nets: Dict[str, torch.nn.Module], g_opt, d_opt, lambda_c
         loss = loss + lsgan_loss(disc_a(fake_a), False)
         loss = 0.5 * loss
         loss.backward()
+        (loss,) = mean_grads_(_opt_params(d_opt), [loss], group)
         d_opt.step()
-        return loss.detach()
+        return loss
 
     def g_step(a, b):
+        (a, b), group = _on_rows(mesh, device, a, b)
         g_opt.zero_grad(set_to_none=True)
         with _frozen([disc_a, disc_b]):
             fake_b, fake_a = gen_ab(a), gen_ba(b)
@@ -158,8 +195,9 @@ def make_cyclegan_steps(nets: Dict[str, torch.nn.Module], g_opt, d_opt, lambda_c
             idt = _l1(gen_ab(b), b) + _l1(gen_ba(a), a)
             loss = adv + lambda_cycle * cyc + lambda_cycle * lambda_identity * idt
             loss.backward()
+        out = mean_grads_(_opt_params(g_opt), [loss, adv, cyc], group)
         g_opt.step()
-        return loss.detach(), adv.detach(), cyc.detach()
+        return tuple(out)
 
     return d_step, g_step
 
@@ -197,19 +235,23 @@ def train_pix2pix(
     """Paired translation: generator(src) ~ dst with LSGAN + L1, on ``device``.
 
     ``batches`` yields (source, target) channel-last arrays of identical
-    static shapes."""
+    static shapes; on N ranks each rank iterates the same global batches and
+    takes its rows (the module's docstring)."""
     device = resolve_device(device)
+    initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
+    mesh = make_mesh()
     src0, dst0 = next(iter_batches := iter(batches))
     gen, disc = _init_pix2pix(src0, dst0, base_features, n_blocks, seed, device)
+    replicate(mesh, gen)
+    replicate(mesh, disc)
     g_opt, d_opt = _make_optim(gen.parameters(), lr), _make_optim(disc.parameters(), lr)
-    d_step, g_step = make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1)
+    d_step, g_step = make_pix2pix_steps(gen, disc, g_opt, d_opt, lambda_l1, mesh=mesh)
 
     history: List[Dict[str, float]] = []
     batch = (src0, dst0)
     for step in range(steps):
-        src_d, dst_d = (torch.as_tensor(v, device=device) for v in batch)
-        d_loss = d_step(src_d, dst_d)
-        g_loss, _, l1 = g_step(src_d, dst_d)
+        d_loss = d_step(*batch)
+        g_loss, _, l1 = g_step(*batch)
         if step % log_every == 0 or step == steps - 1:
             rec = {
                 "step": step,
@@ -218,12 +260,14 @@ def train_pix2pix(
                 "l1": float(l1),
             }
             history.append(rec)
-            print(f"pix2pix step {step}: g={rec['g_loss']:.4f} d={rec['d_loss']:.4f} l1={rec['l1']:.4f}")
+            if is_main(mesh):
+                print(f"pix2pix step {step}: g={rec['g_loss']:.4f} d={rec['d_loss']:.4f} "
+                      f"l1={rec['l1']:.4f}")
         iter_batches, batch = _next_batch(batches, iter_batches, batch)
 
     params = _params(gen)
     ckpt = None
-    if output_dir:
+    if output_dir and is_main(mesh):
         output_dir = Path(output_dir)
         ckpt = output_dir / "pix2pix_generator.ckpt"
         save_checkpoint(
@@ -258,20 +302,25 @@ def train_cyclegan(
     """Unpaired translation: G_AB/G_BA + D_A/D_B with cycle + identity, on
     ``device``.
 
-    ``batches`` yields (domain_A, domain_B) channel-last arrays (unpaired)."""
+    ``batches`` yields (domain_A, domain_B) channel-last arrays (unpaired),
+    on N ranks as in :func:`train_pix2pix`."""
     device = resolve_device(device)
+    initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
+    mesh = make_mesh()
     a0, b0 = next(iter_batches := iter(batches))
     nets = _init_cyclegan(a0, b0, base_features, n_blocks, seed, device)
+    for net in nets.values():
+        replicate(mesh, net)
     g_opt = _make_optim([*nets["gen_ab"].parameters(), *nets["gen_ba"].parameters()], lr)
     d_opt = _make_optim([*nets["disc_a"].parameters(), *nets["disc_b"].parameters()], lr)
-    d_step, g_step = make_cyclegan_steps(nets, g_opt, d_opt, lambda_cycle, lambda_identity)
+    d_step, g_step = make_cyclegan_steps(nets, g_opt, d_opt, lambda_cycle, lambda_identity,
+                                         mesh=mesh)
 
     history: List[Dict[str, float]] = []
     batch = (a0, b0)
     for step in range(steps):
-        a_d, b_d = (torch.as_tensor(v, device=device) for v in batch)
-        d_loss = d_step(a_d, b_d)
-        g_loss, _, cyc = g_step(a_d, b_d)
+        d_loss = d_step(*batch)
+        g_loss, _, cyc = g_step(*batch)
         if step % log_every == 0 or step == steps - 1:
             rec = {
                 "step": step,
@@ -280,12 +329,14 @@ def train_cyclegan(
                 "cycle": float(cyc),
             }
             history.append(rec)
-            print(f"cyclegan step {step}: g={rec['g_loss']:.4f} d={rec['d_loss']:.4f} cycle={rec['cycle']:.4f}")
+            if is_main(mesh):
+                print(f"cyclegan step {step}: g={rec['g_loss']:.4f} d={rec['d_loss']:.4f} "
+                      f"cycle={rec['cycle']:.4f}")
         iter_batches, batch = _next_batch(batches, iter_batches, batch)
 
     gens = {"gen_ab": _params(nets["gen_ab"]), "gen_ba": _params(nets["gen_ba"])}
     ckpt = None
-    if output_dir:
+    if output_dir and is_main(mesh):
         output_dir = Path(output_dir)
         ckpt = output_dir / "cyclegan_generators.ckpt"
         save_checkpoint(

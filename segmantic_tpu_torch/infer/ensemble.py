@@ -44,17 +44,16 @@ def ensemble_evaluate(
     mesh=None,
 ) -> dict:
     """Run every model on a preprocessed sample -> pred0..predN logits volumes
-    (host f32, channel first), each model on its own device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "ensemble_evaluate(mesh=...) is not ported yet (ROADMAP Queue 1: Parallel)")
+    (host f32, channel first), each model on its own device; with a ``mesh``
+    the windows are shared over its data axis and every rank gets the same
+    volumes."""
     image = np.moveaxis(sample["image"].numpy(), 0, -1)
     out = dict(sample)
     for i, model in enumerate(models):
         fwd = forwards[i] if forwards else make_val_forward(model.module)
         logits = sliding_window_inference(
             image, roi, sw_batch_size, fwd, overlap=overlap,
-            num_classes=model.num_classes, device=model.device,
+            num_classes=model.num_classes, device=model.device, mesh=mesh,
         )
         vol = sample["image"].with_data(
             np.moveaxis(logits.cpu().numpy(), -1, 0).astype(np.float32)

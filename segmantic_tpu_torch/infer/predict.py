@@ -24,6 +24,7 @@ import torch
 
 from ..io.nifti import read_volume
 from ..metrics.overlap import confusion_matrix, confusion_matrix_metrics, dice_from_confusion
+from ..parallel.mesh import is_main
 from ..train.trainer import SegmentationModel, default_preprocessing, make_val_forward
 from ..transforms import post as TP
 from ..transforms.spatial import LoadImaged
@@ -68,6 +69,8 @@ def segment_volume(
     sw_batch_size: int = 4,
     overlap: float = 0.25,
     seconds: Optional[Dict[str, float]] = None,
+    mesh=None,
+    shard_volume: bool = False,
 ):
     """Segment one image on the model's device. Returns (label Volume on the
     original grid, preprocessed sample).
@@ -77,7 +80,8 @@ def segment_volume(
     The volume is uploaded as bf16: exact when the forward computes in bf16
     (the default), since windows are cast to it anyway. A ``seconds`` dict
     gets the host-clock seconds of read, preprocessing, sliding_window,
-    inversion and argmax added."""
+    inversion and argmax added. ``mesh`` / ``shard_volume`` go to the sliding
+    window (every rank of the mesh returns the same label volume)."""
     stages = _Stages(seconds)
     if val_forward is None:
         val_forward = make_val_forward(model.module)
@@ -93,7 +97,7 @@ def segment_volume(
     logits = sliding_window_inference(
         img, model.spatial_size, sw_batch_size, val_forward, overlap=overlap,
         num_classes=model.num_classes, device=model.device,
-        wire_dtype=torch.bfloat16,
+        wire_dtype=torch.bfloat16, mesh=mesh, shard_volume=shard_volume,
     )
     logits = np.moveaxis(logits.cpu().numpy(), -1, 0)  # (C, *spatial)
     stages.mark("sliding_window")
@@ -131,10 +135,11 @@ def predict(
     asks for the CPU; CUDA without a card raises); returns per-case results.
 
     ``channels``/``strides``/``dropout``/``gpu_ids`` are accepted for config
-    compatibility -- hyperparameters actually come from the checkpoint."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "predict(mesh=...) is not ported yet (ROADMAP Queue 1: Parallel)")
+    compatibility -- hyperparameters actually come from the checkpoint.
+    ``mesh`` (:func:`..parallel.make_mesh`): each volume's windows are shared
+    over its data axis; every rank computes the same results, and rank 0
+    alone writes the files and prints."""
+    main = is_main(mesh)
     model = SegmentationModel.load(Path(model_file), device=device)
     num_classes = model.num_classes
     val_forward = make_val_forward(model.module)
@@ -145,7 +150,8 @@ def predict(
 
     if output_dir:
         output_dir = Path(output_dir)
-        output_dir.mkdir(parents=True, exist_ok=True)
+        if main:
+            output_dir.mkdir(parents=True, exist_ok=True)
 
     tissue_names = [str(i) for i in range(num_classes)]
     if tissue_dict:
@@ -164,11 +170,11 @@ def predict(
         result = CaseResult(image=Path(image_path), saved_to=None)
         pred, sample = segment_volume(
             model, raw, val_forward=val_forward, pre=pre,
-            sw_batch_size=sw_batch_size, overlap=overlap, seconds=result.seconds,
+            sw_batch_size=sw_batch_size, overlap=overlap, seconds=result.seconds, mesh=mesh,
         )
         stages = _Stages(result.seconds)
 
-        if output_dir:
+        if output_dir and main:
             work = dict(sample)
             work["pred"] = pred
             TP.SaveImaged(
@@ -199,21 +205,22 @@ def predict(
             result.metrics = metrics
             all_case_dices.append(case_dice)
 
-            print(f"case {image_path}: mean_dice={case_dice:.4f}")
-            _print_table(
-                ["tissue"] + ["dice", "sensitivity", "precision"],
-                [
-                    [tissue_names[c]]
-                    + [
-                        f"{per_class[c]:.4f}",
-                        f"{metrics['sensitivity'][c]:.4f}",
-                        f"{metrics['precision'][c]:.4f}",
-                    ]
-                    for c in range(1, num_classes)
-                ],
-            )
+            if main:
+                print(f"case {image_path}: mean_dice={case_dice:.4f}")
+                _print_table(
+                    ["tissue"] + ["dice", "sensitivity", "precision"],
+                    [
+                        [tissue_names[c]]
+                        + [
+                            f"{per_class[c]:.4f}",
+                            f"{metrics['sensitivity'][c]:.4f}",
+                            f"{metrics['precision'][c]:.4f}",
+                        ]
+                        for c in range(1, num_classes)
+                    ],
+                )
 
-            if output_dir and save_confusion_plots:
+            if output_dir and save_confusion_plots and main:
                 from ..viz.plots import plot_confusion_matrix
 
                 stem = Path(image_path).name.replace(".nii.gz", "").replace(".nii", "")
@@ -225,8 +232,9 @@ def predict(
 
     if have_labels:
         mean_dice = float(np.mean(all_case_dices)) if all_case_dices else 0.0
-        print(f"mean dice over {len(all_case_dices)} cases: {mean_dice:.4f}")
-        if output_dir:
+        if main:
+            print(f"mean dice over {len(all_case_dices)} cases: {mean_dice:.4f}")
+        if output_dir and main:
             (Path(output_dir) / "mean_dice.txt").write_text(
                 "\n".join(f"{d:.6f}" for d in all_case_dices)
                 + f"\nmean\t{mean_dice:.6f}\n"

@@ -23,8 +23,20 @@ accumulators would pass ``_STREAM_BYTES``: a numpy array, or a CPU tensor
 when ``device`` is not the CPU. A tensor on ``device`` always runs in memory.
 
 :class:`SlidingWindowInferer` is the MONAI-style callable with the settings
-fixed. The mesh and volume-sharded modes of the JAX package are not ported
-yet.
+fixed.
+
+Over the ranks of a mesh (:func:`..parallel.make_mesh`), as the JAX package
+over its devices, in two modes. Window sharding (``mesh=``): ``sw_batch_size``
+is rounded to a multiple of the data size, each rank runs its share of every
+chunk of windows and blends it into its own accumulators with the blend
+kernel, and the accumulators are summed over the data group. Volume sharding
+(``shard_volume=True``, :func:`sliding_window_inference_sharded`): each rank
+holds a slab of axis 0 plus the next slab's first ``roi[0]`` rows (the halo,
+received from the next rank), blends the windows that start in its slab, and
+sends the tails that spill past it to the next rank; it falls back to window
+sharding where a slab would be thinner than the roi. Both return the whole
+cropped result on every rank (the sharded one all-gathers its slabs), and a
+volume with a mesh never streams from the host.
 """
 
 from __future__ import annotations
@@ -33,12 +45,15 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import blend
 from ..ops._cuda import resolve_device
+from ..parallel import comm
 
 __all__ = ["window_starts", "gaussian_importance", "sliding_window_inference",
-           "sliding_window_inference_streamed", "SlidingWindowInferer", "BLEND_MODES"]
+           "sliding_window_inference_streamed", "sliding_window_inference_sharded",
+           "SlidingWindowInferer", "BLEND_MODES"]
 
 BLEND_MODES = ("gaussian", "constant")
 
@@ -128,19 +143,33 @@ def sliding_window_inference(
     volume is zero-padded up to the roi where it is smaller (and the result
     cropped back). A host volume whose accumulators pass ``_STREAM_BYTES``
     goes through :func:`sliding_window_inference_streamed`, which ignores
-    ``wire_dtype`` as the JAX package does, and its result is a CPU tensor."""
+    ``wire_dtype`` as the JAX package does, and its result is a CPU tensor.
+
+    ``mesh``: the windows are shared over the mesh's data axis (see the
+    module's docstring), or with ``shard_volume`` the volume
+    (:func:`sliding_window_inference_sharded`) where its slabs would be at
+    least ``roi_size[0]`` thick; ``shard_volume`` without a mesh is ignored,
+    as in the JAX package."""
     if mode not in BLEND_MODES:
         raise ValueError(f"mode must be one of {BLEND_MODES}, got {mode!r}")
-    if mesh is not None or shard_volume:
-        raise NotImplementedError(
-            "mesh / shard_volume sliding window is not ported yet (ROADMAP "
-            "Queue 1: parallel)"
-        )
     nd = len(roi_size)
     if nd not in (2, 3):
         raise ValueError(f"the sliding window takes 2D or 3D windows, got roi {roi_size}")
+    if mesh is not None and shard_volume:
+        n_data = mesh.shape["data"]
+        spatial0 = volume.shape[0] + max(roi_size[0] - volume.shape[0], 0)
+        if n_data > 1 and -(-spatial0 // n_data) >= roi_size[0]:
+            return sliding_window_inference_sharded(
+                volume, roi_size, sw_batch_size, predictor, mesh, overlap=overlap,
+                mode=mode, num_classes=num_classes, device=device, wire_dtype=wire_dtype)
+        # slabs thinner than the roi: window sharding
+    n_share, share = 1, 0  # this rank's share of every chunk of windows
+    if mesh is not None:
+        n_share, share = mesh.shape["data"], mesh.data_index
+        if sw_batch_size % n_share:
+            sw_batch_size = max(n_share, (sw_batch_size // n_share) * n_share)
     device = resolve_device(device)
-    if _streams(volume, device, nd, num_classes):
+    if mesh is None and _streams(volume, device, nd, num_classes):
         return torch.from_numpy(sliding_window_inference_streamed(
             volume, roi_size, sw_batch_size, predictor, overlap=overlap, mode=mode,
             num_classes=num_classes, device=device))
@@ -176,6 +205,7 @@ def sliding_window_inference(
     acc = torch.zeros(padded + (num_classes,), dtype=torch.float32, device=device)
     wacc = torch.zeros(padded + (1,), dtype=torch.float32, device=device)
 
+    per = sw_batch_size // n_share
     for i in range(0, len(starts), sw_batch_size):
         chunk = starts[i:i + sw_batch_size]
         n = len(chunk)
@@ -183,13 +213,142 @@ def sliding_window_inference(
             chunk_run = np.concatenate([chunk, np.repeat(chunk[-1:], sw_batch_size - n, 0)])
         else:
             chunk_run = chunk
-        logits = run(_gather(vol, chunk_run, roi))[:n]
+        mine = min(max(n - share * per, 0), per)  # this rank's windows that are not padding
+        if mine == 0:
+            continue
+        chunk_run = chunk_run[share * per:(share + 1) * per]
+        logits = run(_gather(vol, chunk_run, roi))[:mine]
         # one pass adds the logits into acc and the importance into the weight map
-        blend.accumulate_windows(acc, logits.float().contiguous(), importance, chunk, wacc)
+        blend.accumulate_windows(acc, logits.float().contiguous(), importance,
+                                 chunk_run[:mine], wacc)
+    if mesh is not None and mesh.distributed:
+        dist.all_reduce(acc, group=mesh.data_group)
+        dist.all_reduce(wacc, group=mesh.data_group)
 
     out = acc / wacc
     out = out[lo[0]:lo[0] + spatial[0], lo[1]:lo[1] + spatial[1], lo[2]:lo[2] + spatial[2]]
     return out[0] if nd == 2 else out
+
+
+def _padded_rows(volume, start: int, stop: int, lo, pad, nd: int, device, wire_dtype):
+    """Rows ``[start, stop)`` of the volume zero-padded by ``lo`` before and
+    ``pad - lo`` after each spatial axis, on ``device``; only those rows of the
+    volume (numpy or tensor) are read and uploaded."""
+    spatial0 = volume.shape[0]
+    a = min(max(start - lo[0], 0), spatial0)
+    b = min(max(stop - lo[0], 0), spatial0)
+    core = torch.as_tensor(volume[a:b] if b > a else volume[:0])
+    if wire_dtype is not None:
+        core = core.to(wire_dtype)
+    core = core.to(device)
+    front = min(max(lo[0] - start, 0), stop - start)
+    back = (stop - start) - front - (b - a if b > a else 0)
+    widths = [0, 0]  # channels
+    for ax in reversed(range(1, nd)):
+        widths += [lo[ax], pad[ax] - lo[ax]]
+    widths += [front, back]
+    return torch.nn.functional.pad(core, widths)
+
+
+def sliding_window_inference_sharded(
+    volume,  # (*spatial, C) numpy array or tensor
+    roi_size: Sequence[int],
+    sw_batch_size: int,
+    predictor: Callable,  # (B, *roi, C) -> (B, *roi, num_classes) f32
+    mesh,
+    overlap: float = 0.25,
+    mode: str = "gaussian",
+    num_classes: Optional[int] = None,
+    device="cuda",
+    wire_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Tiled inference with the VOLUME sharded over the mesh's data axis
+    (spatial axis 0): the JAX function of this name. 2D or 3D.
+
+    The window grid is the single-device one. With n ranks on the data axis
+    the padded axis 0 splits into n slabs of ``max(ceil(d / n), roi[0])``
+    rows; a window belongs to the slab its start row lies in. Each rank
+    uploads its slab only and receives the next slab's first ``roi[0]`` rows
+    from the next rank (the halo; zeros on the last rank), runs its windows in
+    chunks of ``sw_batch_size`` and blends them with the blend kernel into
+    accumulators of ``slab + roi[0]`` rows, sends the ``roi[0]``-row tails to
+    the next rank, which adds them into its first rows, and divides. The
+    slabs are all-gathered, so every rank returns the whole cropped
+    (*spatial, num_classes) f32 result on ``device``, as the JAX function
+    returns its global array."""
+    if mode not in BLEND_MODES:
+        raise ValueError(f"mode must be one of {BLEND_MODES}, got {mode!r}")
+    device = resolve_device(device)
+    n, r = mesh.shape["data"], mesh.data_index
+    group = mesh.data_group
+    nd = len(roi_size)
+    roi = tuple(int(v) for v in roi_size)
+    roi0 = roi[0]
+    spatial = tuple(volume.shape[:nd])
+    pad = [max(roi[a] - spatial[a], 0) for a in range(nd)]
+    lo = [p // 2 for p in pad]
+    grid_size = tuple(spatial[a] + pad[a] for a in range(nd))
+    d_roi = grid_size[0]
+    slab = max(-(-d_roi // n), roi0)
+    pad[0] += slab * n - d_roi
+    padded = tuple(spatial[a] + pad[a] for a in range(nd))
+    importance = torch.as_tensor(_importance(roi, mode), device=device)
+    if nd == 2:
+        importance = importance[None]
+
+    # this rank's slab and the halo from the next one
+    ext = torch.cat([
+        _padded_rows(volume, r * slab, (r + 1) * slab, lo, pad, nd, device, wire_dtype),
+        torch.zeros((roi0,) + padded[1:] + (volume.shape[-1],),
+                    dtype=wire_dtype or _dtype_of(volume), device=device)])
+    if n > 1:
+        halo = ext[slab:]
+        comm.p2p(sends=[(ext[:roi0].contiguous(), mesh.peer(r - 1))] if r > 0 else [],
+                 recvs=[(halo, mesh.peer(r + 1))] if r < n - 1 else [], group=group)
+
+    def windows_of(chunk):
+        return torch.stack([ext[tuple(slice(s[a], s[a] + roi[a]) for a in range(nd))]
+                            for s in chunk])
+
+    if num_classes is None:
+        num_classes = int(predictor(windows_of([(0,) * nd])).shape[-1])
+    mine = [(s[0] - r * slab,) + tuple(s[1:])
+            for s in window_starts(grid_size, roi, overlap)
+            if min(s[0] // slab, n - 1) == r]
+    acc = torch.zeros((slab + roi0,) + padded[1:] + (num_classes,), dtype=torch.float32,
+                      device=device)
+    wacc = torch.zeros((slab + roi0,) + padded[1:] + (1,), dtype=torch.float32,
+                       device=device)
+    # 2D: the blend kernel's windows are one plane deep
+    acc3, wacc3 = (acc[None], wacc[None]) if nd == 2 else (acc, wacc)
+    for i in range(0, len(mine), sw_batch_size):
+        chunk = mine[i:i + sw_batch_size]
+        logits = predictor(windows_of(chunk)).float()
+        starts3 = np.asarray([(0,) + s for s in chunk] if nd == 2 else chunk, np.int64)
+        if nd == 2:
+            logits = logits[:, None]
+        blend.accumulate_windows(acc3, logits.contiguous(), importance, starts3, wacc3)
+
+    if n > 1:
+        tails = torch.cat([acc[slab:], wacc[slab:]], -1).contiguous()
+        into = torch.empty_like(tails)
+        comm.p2p(sends=[(tails, mesh.peer(r + 1))] if r < n - 1 else [],
+                 recvs=[(into, mesh.peer(r - 1))] if r > 0 else [], group=group)
+        if r > 0:
+            acc[:roi0] += into[..., :num_classes]
+            wacc[:roi0] += into[..., num_classes:]
+    out = (acc[:slab] / wacc[:slab]).contiguous()
+    if n > 1:
+        whole = torch.empty((n * slab,) + out.shape[1:], dtype=out.dtype, device=device)
+        dist.all_gather_into_tensor(whole, out, group=group)
+        out = whole
+    return out[tuple(slice(lo[a], lo[a] + spatial[a]) for a in range(nd))]
+
+
+def _dtype_of(volume) -> torch.dtype:
+    if torch.is_tensor(volume):
+        return volume.dtype
+    return torch.from_numpy(np.asarray(volume[:0])).dtype
 
 
 def sliding_window_inference_streamed(
@@ -274,10 +433,10 @@ def sliding_window_inference_streamed(
 
 
 class SlidingWindowInferer:
-    """Callable with fixed roi / sw-batch / overlap / mode (MONAI-style API):
-    ``inferer(volume, predictor)`` is :func:`sliding_window_inference` with
-    these settings. (The JAX twin's mesh and TPU wire options are not
-    ported: ROADMAP Queue 1.)"""
+    """Callable with fixed roi / sw-batch / overlap / mode / mesh (MONAI-style
+    API): ``inferer(volume, predictor)`` is :func:`sliding_window_inference`
+    with these settings. (The JAX twin's TPU options ``use_pallas`` and
+    ``upload_pipeline`` have no counterpart here.)"""
 
     def __init__(
         self,
@@ -287,6 +446,8 @@ class SlidingWindowInferer:
         mode: str = "gaussian",
         device="cuda",
         wire_dtype: Optional[torch.dtype] = None,
+        mesh=None,
+        shard_volume: bool = False,
     ):
         self.roi_size = list(roi_size)
         self.sw_batch_size = sw_batch_size
@@ -294,9 +455,12 @@ class SlidingWindowInferer:
         self.mode = mode
         self.device = device
         self.wire_dtype = wire_dtype
+        self.mesh = mesh
+        self.shard_volume = shard_volume
 
     def __call__(self, volume, predictor: Callable) -> torch.Tensor:
         return sliding_window_inference(
             volume, self.roi_size, self.sw_batch_size, predictor, overlap=self.overlap,
             mode=self.mode, device=self.device, wire_dtype=self.wire_dtype,
+            mesh=self.mesh, shard_volume=self.shard_volume,
         )

@@ -49,10 +49,12 @@ from ..ops.fast_conv import (
 )
 from ..ops.fused_conv import at_least_f32, conv3d_grad
 from ..ops.phase_conv import phase_conv_grad
+from ..parallel.comm import all_reduce_sum
 
 __all__ = [
     "UNet", "ResidualUnit", "ConvUnit", "Conv", "ConvTranspose", "BatchNorm",
     "GroupNorm", "Norm", "make_norm", "PReLU", "activation", "frozen_running_stats",
+    "cross_rank_norm",
     "from_flax_variables", "to_flax_variables", "DROPOUT_REFUSAL",
 ]
 
@@ -101,11 +103,25 @@ class Conv(nn.Module):
         runs on the volume it stands for (same parameters)."""
         w = self.dhwio().to(x.dtype)
         b = self.bias.to(x.dtype)
+        tp = self.__dict__.get("tp")  # a column-parallel share (parallel.shard_params)
+        if tp is not None:
+            if phase:
+                raise ValueError("a phase-space conv is never sharded (its channels are "
+                                 "below shard_params' min_features)")
+            return tp.column(x, lambda v: self._conv(v, w, None, False)) + b
+        return self._conv(x, w, b, phase)
+
+    def _conv(self, x, w, b, phase: bool):
+        """The conv on x with kernel w (*k, I, O) and bias b (None: none, never
+        in phase space), by the route of its shape: kernels 1-2 for a
+        stride-1 3^3 conv in 3D, kernels 3-6 in phase space, XLA-SAME
+        ``F.conv`` otherwise."""
         if self.nd == 3:
             if phase:
                 return phase_conv_grad(x, w) + tile_phase(b)
             if self.stride == 1 and w.shape[:3] == (3, 3, 3):
-                return conv3d_grad(x, w) + b
+                y = conv3d_grad(x, w)
+                return y if b is None else y + b
         elif phase:
             return phase_conv_s1_plain(x, w) + tile_phase(b, self.nd)
         return conv_same(x, w, b, self.stride)
@@ -143,10 +159,16 @@ class ConvTranspose(nn.Module):
         if phase_out:
             y = subpixel_phase_conv(x, self.dhwio().to(x.dtype))
             return y + tile_phase(self.bias.to(x.dtype), self.nd)
+        tp = self.__dict__.get("tp")  # a column-parallel share (parallel.shard_params)
+        if tp is not None:
+            return tp.column(x, lambda v: self._conv_t(v, None)) + self.bias.to(x.dtype)
+        return self._conv_t(x, self.bias.to(x.dtype))
+
+    def _conv_t(self, x, b):
         n = x.shape[1:-1]
         s = self.stride
         conv_t = F.conv_transpose3d if self.nd == 3 else F.conv_transpose2d
-        y = conv_t(x.movedim(-1, 1), self.weight.to(x.dtype), self.bias.to(x.dtype), stride=s)
+        y = conv_t(x.movedim(-1, 1), self.weight.to(x.dtype), b, stride=s)
         y = y[(slice(None), slice(None)) + tuple(slice(0, s * m) for m in n)]
         return y.movedim(1, -1)
 
@@ -160,7 +182,9 @@ class BatchNorm(nn.Module):
     ``0.9 * old + 0.1 * batch`` with the biased variance (torch's
     ``F.batch_norm`` would use the unbiased one). ``groups > 1``: x is
     phase-major (…, groups * C) and the statistics are per true channel over
-    the phases (the JAX ``Norm.phase_groups``)."""
+    the phases (the JAX ``Norm.phase_groups``). With a process ``group`` set
+    (:func:`cross_rank_norm`) the training statistics are those of the
+    batches of all the group's ranks together."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -169,6 +193,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.frozen = False  # see frozen_running_stats
+        self.group = None  # see cross_rank_norm
+
+    def _group_moments(self, xf, axes):
+        """Mean and biased variance over the batch of every rank of
+        ``self.group``: the per-channel sum, sum of squares and count in one
+        ``all_reduce`` of one packed vector, the gradient flowing back through
+        it to every rank (flax's ``BatchNorm(axis_name=...)``)."""
+        count = xf.new_full((1,), xf.numel() // xf.shape[-1])
+        total, squares, count = all_reduce_sum([xf.sum(axes), (xf * xf).sum(axes), count],
+                                               self.group)
+        mean = total / count
+        var = torch.clamp_min(squares / count - mean * mean, 0.0)
+        return mean, var
 
     def forward(self, x, groups: int = 1):
         shape = x.shape
@@ -177,8 +214,11 @@ class BatchNorm(nn.Module):
         xf = at_least_f32(x)
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if self.group is None:
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            else:
+                mean, var = self._group_moments(xf, axes)
             if not self.frozen:
                 with torch.no_grad():
                     m = BN_MOMENTUM
@@ -204,6 +244,22 @@ def frozen_running_stats(module: nn.Module):
     finally:
         for m in norms:
             m.frozen = False
+
+
+@contextlib.contextmanager
+def cross_rank_norm(module: nn.Module, group):
+    """Within the block the BatchNorms of ``module`` reduce their training
+    statistics over the ranks of ``group`` (None: this rank's batch alone).
+    The data-parallel step holds it over its forward and backward, so a
+    rematerialised forward reduces again, in the same order on every rank."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class GroupNorm(nn.Module):

@@ -74,6 +74,10 @@ class Dense(nn.Module):
             _lecun_normal_(self.weight, c_in, generator)
 
     def forward(self, x):
+        tp = self.__dict__.get("tp")  # a column-parallel share (parallel.shard_params)
+        if tp is not None:
+            w = self.weight.to(x.dtype)
+            return tp.column(x, lambda v: F.linear(v, w)) + self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 

@@ -1,10 +1,11 @@
 """The ``train()`` orchestrator: data -> train step on the device -> ckpts.
 
-Port of the single-device path of ``segmantic_tpu/train/trainer.py``:
-``default_preprocessing``, ``SegmentationModel`` (create / load for
-``arch="unet"``, ``"segresnet"`` and ``"unetr"``), ``make_train_step``,
-``make_val_forward``, ``validate`` and ``train`` with the JAX package's
-keyword signature plus ``device``.
+Port of ``segmantic_tpu/train/trainer.py``: ``default_preprocessing``,
+``SegmentationModel`` (create / load for ``arch="unet"``, ``"segresnet"``
+and ``"unetr"``), ``make_train_step``, ``make_val_forward``, ``validate``
+and ``train`` with the JAX package's keyword signature plus ``device``, on
+one card or on the ranks of a mesh (``parallel/``: data parallelism with
+cross-rank BatchNorm, ZeRO-1, tensor-parallel convs).
 
 - Deterministic preprocessing runs once per volume into a host RAM cache
   with per-class crop indices (``data/cache.py``); each step a background
@@ -34,10 +35,10 @@ keyword signature plus ``device``.
   ``torch.profiler`` trace of epoch 1's steps goes there.
 
 2D (``spatial_dims=2``) and 3D models train, validate, save and load alike.
-Options of the JAX ``train()`` that the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item, and dropout in training
-raises as the JAX trainer does (``models.unet.DROPOUT_REFUSAL``); nothing is
-skipped silently and nothing falls back to the CPU.
+Dropout in training raises as the JAX trainer does
+(``models.unet.DROPOUT_REFUSAL``), and so do the JAX ``train()``'s refusals of
+a mesh it cannot build; nothing is skipped silently and nothing falls back to
+the CPU.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from ..data.dataset import PairedDataSet
@@ -64,12 +66,18 @@ from ..infer.sliding_window import BLEND_MODES, sliding_window_inference
 from ..metrics.overlap import confusion_matrix, dice_from_confusion
 from ..models.segresnet import SegResNet
 from ..models.unet import (
-    DROPOUT_REFUSAL, UNet, from_flax_variables, frozen_running_stats, to_flax_variables,
+    DROPOUT_REFUSAL, UNet, cross_rank_norm, from_flax_variables, frozen_running_stats,
+    to_flax_variables,
 )
 from ..models.unetr import UNETR
 from ..ops.fast_conv import space_to_depth
 from ..ops._cuda import resolve_device
 from ..ops.fused_conv import at_least_f32
+from ..parallel.comm import mean_grads_
+from ..parallel.mesh import (
+    gather_params, initialize_distributed, is_main, make_mesh, put_batch, replicate,
+    shard_opt_state, shard_params, unshard_params,
+)
 from ..transforms import spatial as TS
 from ..transforms.base import Compose
 from ..transforms.registry import build_pipeline
@@ -319,16 +327,27 @@ def _resolve_num_classes(num_classes: int, tissue_list: Optional[Path], datalist
     return num_classes
 
 
+def _rank_generator(generator: Optional[torch.Generator], index: int) -> torch.Generator:
+    """The augmentation stream of data index ``index``: a CPU generator seeded
+    from ``generator``'s seed and the index (the counterpart of the JAX
+    step's ``fold_in(key, axis_index("data"))``)."""
+    base = generator.initial_seed() if generator is not None else torch.initial_seed()
+    seed = np.random.SeedSequence([base, index]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed >> np.uint64(1)))
+
+
 def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     aug_cfg: AugmentConfig, patch_size: Sequence[int],
                     mixed_precision: bool, generator: Optional[torch.Generator] = None,
-                    accumulate_steps: int = 1, remat: bool = False):
+                    accumulate_steps: int = 1, remat: bool = False, mesh=None,
+                    zero: bool = False):
     """``step(image, label) -> loss``: augmentation, forward, Dice, backward
     and the optimizer update, in place on ``module`` (parameters and
     BatchNorm running statistics) and ``optimizer``.
 
-    image (B, *margin patch, C) and label (B, *margin patch) on the module's
-    device, the margin patch being the sampler's (the patch itself without
+    image (B, *margin patch, C) and label (B, *margin patch), the global batch
+    on the host or on the module's device (moved there without blocking),
+    the margin patch being the sampler's (the patch itself without
     spatial augmentation). The image is augmented in f32, except that a bf16
     image whose first augmentation is the bf16 interpolation is not upcast
     for it, and under ``mixed_precision`` it is fed to the model in bf16.
@@ -347,9 +366,35 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``jax.checkpoint`` over the JAX package's forward); the recomputation
     leaves the running statistics alone. A step of a module with dropout > 0
     raises ``DROPOUT_REFUSAL`` from its training forward, as the JAX step
-    cannot run one."""
+    cannot run one.
+
+    ``mesh`` (:func:`..parallel.make_mesh`, with a process group): the
+    per-rank step of the JAX package's ``shard_map`` body, taken when the
+    data axis is > 1 and divides the batch. Each rank keeps its rows of the
+    global batch (``put_batch``), augments them with its own stream (seeded
+    from ``generator``'s seed and its data index; the exact-count subsets
+    are ``round(p * local_B)``), runs the forward and backward on them
+    (kernels at local shapes; BatchNorm statistics reduced over the data
+    group), and the loss and gradients are averaged over the data group in
+    one flat ``all_reduce``; the update stays replicated. A batch the data
+    axis does not divide, or a data axis of 1, runs whole on every rank with
+    the caller's ``generator`` and no collective of the step's own (the JAX
+    package's GSPMD step). Layers that ``shard_params`` made column-parallel
+    gather their channels over the model group themselves.
+    ``zero`` (ZeRO-1, data axis > 1): the optimizer steps this rank's slices
+    (``parallel.shard_opt_state``): the gradients are reduce-scattered into
+    them, and the parameters all-gathered after the update (the bytes of one
+    all-reduce). A mesh without a process group (a world of one) is the
+    mesh-less step."""
     if accumulate_steps < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
+    if mesh is not None and not mesh.distributed:
+        mesh = None
+    n_data = mesh.shape["data"] if mesh is not None else 1
+    if zero and n_data < 2:
+        raise ValueError("zero=True needs a mesh with a data axis > 1")
+    if zero and mesh.shape["model"] > 1:
+        raise ValueError("zero_optimizer does not combine with model_parallel")
     # bf16 interpolation only when the step computes in bf16 anyway (the cast
     # after the augmentation would round as much)
     aug_cfg = dataclasses.replace(
@@ -357,6 +402,12 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
     patch_size = tuple(int(p) for p in patch_size)
     use_phase_logits = module.phase_top_ok() and all(p % 2 == 0 for p in patch_size)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    if zero:
+        shard_opt_state(mesh, optimizer, module)
+    # what the optimizer steps: the parameters, or under ZeRO their slices
+    targets = [p for group in optimizer.param_groups for p in group["params"]]
+    rank_generator = _rank_generator(generator, mesh.data_index) if n_data > 1 else None
+    device = next(module.parameters()).device
     acc: Dict[torch.Tensor, torch.Tensor] = {}  # running mean of the micro-batch grads
     micro = [0]  # micro-batches in acc
 
@@ -366,30 +417,46 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
     def recompute_context():
         return contextlib.nullcontext(), frozen_running_stats(module)
 
+    def sync(loss: torch.Tensor, group) -> torch.Tensor:
+        """Average the loss and the gradients over ``group`` (None: this rank's
+        batch was the whole one); under ZeRO the gradients go to the slices."""
+        if zero:
+            return _zero_grads(optimizer.zero_shards, loss, group, mesh)
+        return mean_grads_(params, [loss], group)[0]
+
     def step(image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         module.train()
+        local = n_data > 1 and image.shape[0] % n_data == 0
+        if local:
+            image, label = put_batch(mesh, image), put_batch(mesh, label)
+        image = image.to(device, non_blocking=True)
+        label = label.to(device, non_blocking=True)
         if not (aug_cfg.spatial and aug_cfg.interp_bf16
                 and image.dtype == torch.bfloat16):
             image = at_least_f32(image)
-        image, label = augment_batch(image, label, generator, aug_cfg, patch_size)
+        image, label = augment_batch(image, label, rank_generator if local else generator,
+                                     aug_cfg, patch_size)
         if mixed_precision:
             image = image.to(torch.bfloat16)
         optimizer.zero_grad(set_to_none=True)
-        if remat:
-            out = torch.utils.checkpoint.checkpoint(
-                forward, image.contiguous(), use_reentrant=False,
-                context_fn=recompute_context)
-        else:
-            out = forward(image.contiguous())
-        if use_phase_logits:
-            loss = dice_loss_phase(out, space_to_depth(label[..., None]))
-        else:
-            loss = dice_loss(out, label)
-        loss.backward()
+        group = mesh.data_group if local else None
+        with cross_rank_norm(module, group):
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    forward, image.contiguous(), use_reentrant=False,
+                    context_fn=recompute_context)
+            else:
+                out = forward(image.contiguous())
+            if use_phase_logits:
+                loss = dice_loss_phase(out, space_to_depth(label[..., None]))
+            else:
+                loss = dice_loss(out, label)
+            loss.backward()
+        loss = sync(loss.detach(), group)
         if accumulate_steps > 1:
             n = micro[0]
             with torch.no_grad():
-                for p in params:
+                for p in targets:
                     if p.grad is None:
                         continue
                     if n == 0:
@@ -398,14 +465,56 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
                         acc[p].add_((p.grad - acc[p]) / (n + 1))
             micro[0] = n + 1
             if micro[0] < accumulate_steps:
-                return loss.detach()
-            for p in params:
+                return loss
+            for p in targets:
                 p.grad = acc.pop(p, None)
             micro[0] = 0
         optimizer.step()
-        return loss.detach()
+        if zero:
+            _zero_gather(optimizer.zero_shards, mesh)
+        return loss
 
     return step
+
+
+def _zero_grads(shards, loss: torch.Tensor, group, mesh) -> torch.Tensor:
+    """ZeRO-1's gradient placement: each slice takes the mean over the data
+    group of its part of the gradient (``reduce_scatter``), a whole leaf the
+    mean of all of it (one flat ``all_reduce`` with the loss). ``group`` None:
+    every rank has the whole batch's gradient and slices its part."""
+    n, i = mesh.shape["data"], mesh.data_index
+    whole = []
+    for p, piece, axis in shards:
+        g, p.grad = p.grad, None
+        if g is None:
+            continue
+        if axis is None:
+            piece.grad = g
+            whole.append(piece)
+        elif group is None:
+            k = piece.shape[axis]
+            piece.grad = g.narrow(axis, i * k, k).clone()
+        else:
+            full = g.movedim(axis, 0).contiguous()
+            part = torch.empty((full.shape[0] // n,) + full.shape[1:], dtype=g.dtype,
+                               device=g.device)
+            dist.reduce_scatter_tensor(part, full, group=group)
+            piece.grad = (part / n).movedim(0, axis)
+    return mean_grads_(whole, [loss], group)[0]
+
+
+def _zero_gather(shards, mesh) -> None:
+    """ZeRO-1's parameter all-gather after the update of the slices."""
+    n = mesh.shape["data"]
+    with torch.no_grad():
+        for p, piece, axis in shards:
+            if axis is None:
+                continue
+            local = piece.movedim(axis, 0).contiguous()
+            full = torch.empty((n * local.shape[0],) + local.shape[1:], dtype=local.dtype,
+                               device=local.device)
+            dist.all_gather_into_tensor(full, local, group=mesh.data_group)
+            p.copy_(full.movedim(0, axis))
 
 
 def validate(
@@ -417,12 +526,15 @@ def validate(
     val_forward=None,
     overlap: float = 0.25,
     blend_mode: str = "gaussian",
+    mesh=None,
 ) -> Tuple[float, float]:
     """Sliding-window validation -> (mean val_dice excluding background,
     mean val_loss), on the module's device: Dice loss on the blended
     logits (``blend_mode`` "gaussian" or "constant"), per-class Dice over the
     classes present in label or prediction. ``roi`` defaults to 160 along
-    each of the module's ``spatial_dims`` axes."""
+    each of the module's ``spatial_dims`` axes. With a ``mesh`` the windows
+    of each volume are shared over its data axis and every rank gets the same
+    blended logits, hence the same numbers."""
     roi = list(roi) if roi else [160] * module.spatial_dims
     device = next(module.parameters()).device
     if val_forward is None:
@@ -433,7 +545,7 @@ def validate(
         image = np.moveaxis(vol.image.numpy(), 0, -1)  # (*spatial, C)
         logits = sliding_window_inference(image, roi, sw_batch_size, val_forward,
                                           overlap=overlap, mode=blend_mode,
-                                          num_classes=num_classes, device=device)
+                                          num_classes=num_classes, device=device, mesh=mesh)
         # beside the logits: on the host where the volume was streamed
         label = torch.as_tensor(vol.label.numpy()[0].astype(np.int64), device=logits.device)
         with torch.no_grad():
@@ -446,15 +558,16 @@ def validate(
     return float(np.nanmean(dices)), float(np.mean(losses))
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
-
-
-def _check_ported(*, model_parallel, zero_optimizer, dropout) -> None:
-    if model_parallel != 1 or zero_optimizer:
-        raise _not_ported("model_parallel > 1 and zero_optimizer", "Parallel")
-    if dropout > 0:
-        raise NotImplementedError(DROPOUT_REFUSAL)
+def _check_parallel(*, model_parallel: int, zero_optimizer: bool, world: int) -> None:
+    """The JAX ``train()``'s refusals of a mesh it cannot build, with its
+    messages (a rank of the port stands for a device there)."""
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"model_parallel={model_parallel} must divide the device count "
+                         f"({world})")
+    if zero_optimizer and model_parallel > 1:
+        raise ValueError("zero_optimizer does not combine with model_parallel")
+    if zero_optimizer and world // model_parallel < 2:
+        raise ValueError("zero_optimizer needs more than one device")
 
 
 def _start_profiler(device: torch.device):
@@ -566,12 +679,32 @@ def train(
     :func:`make_train_step`'s; ``val_blend_mode`` ("gaussian" or "constant")
     is the validation's window blend; ``profile_dir`` receives a
     ``torch.profiler`` trace of the steps of epoch 1 (with CUDA activity on
-    the card), as the JAX package writes a ``jax.profiler`` trace there."""
-    _check_ported(model_parallel=model_parallel, zero_optimizer=zero_optimizer,
-                  dropout=dropout)
+    the card), as the JAX package writes a ``jax.profiler`` trace there.
+
+    On N ranks (``torchrun --nproc-per-node N``; :func:`..parallel.
+    initialize_distributed` reads its environment) every rank trains on a
+    (N / ``model_parallel``, ``model_parallel``) mesh: the global batch is
+    ``batch_size * num_samples`` whatever N (every rank's sampler draws it
+    from ``seed`` and the step keeps the rank's rows), gradients and
+    BatchNorm statistics reduce over the data axis, ``model_parallel`` > 1
+    makes the wide kernels column-parallel over the model axis
+    (``parallel.shard_params``), and ``zero_optimizer`` slices the optimizer
+    moments over the data axis (ZeRO-1). Validation on N ranks shares each
+    volume's windows over the data axis (in memory: a mesh never streams), so
+    every rank computes the same val_dice and val_loss and the schedule and
+    early stopping agree; only rank 0 writes
+    files (Dataset.json, checkpoints, history.json, TensorBoard scalars, the
+    profiler trace) and prints the epochs."""
+    if dropout > 0:
+        raise NotImplementedError(DROPOUT_REFUSAL)
     if val_blend_mode not in BLEND_MODES:
         raise ValueError(f"val_blend_mode must be one of {BLEND_MODES}, got {val_blend_mode!r}")
     device = resolve_device(device)
+    initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
+    _check_parallel(model_parallel=model_parallel, zero_optimizer=zero_optimizer,
+                    world=dist.get_world_size() if dist.is_initialized() else 1)
+    mesh = make_mesh(model=model_parallel)
+    main = is_main(mesh)
     optimizer_cfg = dict(DEFAULT_OPTIMIZER)
     optimizer_cfg.update(optimizer or {})
     scheduler_cfg = dict(DEFAULT_LR_SCHEDULING)
@@ -594,7 +727,13 @@ def train(
             act=act, num_res_units=num_res_units, norm=norm, arch=arch,
             arch_params=arch_params, seed=seed, device=device,
         )
-    module = model.module.train().requires_grad_(True)
+    module = replicate(mesh, model.module.train().requires_grad_(True))
+    if model_parallel > 1:
+        shard_params(mesh, module)
+        # validation runs the whole model: a replica of it on every rank
+        val_model = SegmentationModel.create(**model.hparams, device=device)
+    else:
+        val_model = model
     patch_size = model.spatial_size
     val_roi = list(val_roi_size) if val_roi_size else [160] * model.spatial_dims
     if isinstance(module, UNETR) and tuple(val_roi) != module.spatial_size:
@@ -611,7 +750,8 @@ def train(
                                 random_seed=seed)
     else:
         raise ValueError("provide either datalist or image_dir+labels_dir")
-    (output_dir / "Dataset.json").write_text(dataset.dump_dataset())
+    if main:
+        (output_dir / "Dataset.json").write_text(dataset.dump_dataset())
 
     pre = build_pipeline(preprocessing) or default_preprocessing(["image", "label"], spacing)
     train_cache = VolumeCache(dataset.training_files(), pre, num_classes,
@@ -633,7 +773,8 @@ def train(
     aug_cfg = AugmentConfig(spatial=augment_spatial, intensity=augment_intensity)
     train_step = make_train_step(module, opt, aug_cfg, patch_size, mixed_precision,
                                  generator=torch.Generator().manual_seed(seed),
-                                 accumulate_steps=accumulate_steps, remat=remat)
+                                 accumulate_steps=accumulate_steps, remat=remat,
+                                 mesh=mesh, zero=zero_optimizer)
     scheduler = LRScheduler(optimizer_cfg["lr"], scheduler_cfg)
     ckpts = TopKCheckpoints(output_dir, k=3)
     steps_per_epoch = max(1, math.ceil(len(train_cache) / batch_size))
@@ -641,12 +782,12 @@ def train(
 
     best_dice, best_epoch, since_best = 0.0, -1, 0
     history: List[Dict[str, float]] = []
-    writer = _make_tb_writer(output_dir)
+    writer = _make_tb_writer(output_dir) if main else None
     loader = PrefetchLoader(sampler) if host_augment is None else None
     profiler = None
     try:
         for epoch in range(max_epochs):
-            if profile_dir and epoch == 1:
+            if profile_dir and epoch == 1 and main:
                 profiler = _start_profiler(device)
             t0 = time.time()
             epoch_loss = 0.0
@@ -658,27 +799,33 @@ def train(
                         train_cache, host_augment, batch_size, num_samples, seed, epoch,
                         step_i)
                 # the sampler's bf16 wire is a CPU bf16 tensor; the host
-                # augmentation hands over f32 numpy, as in the JAX trainer
+                # augmentation hands over f32 numpy, as in the JAX trainer; the
+                # step uploads this rank's rows
                 image_t = image_b if torch.is_tensor(image_b) else torch.from_numpy(image_b)
-                image_d = image_t.to(device, non_blocking=True)
-                label_d = torch.from_numpy(label_b).to(device, non_blocking=True)
-                epoch_loss += float(train_step(image_d, label_d))
+                epoch_loss += float(train_step(image_t, torch.from_numpy(label_b)))
             epoch_loss /= steps_per_epoch
             train_seconds = time.time() - t0
             if profiler is not None:
                 trace = _stop_profiler(profiler, Path(profile_dir), device)
                 profiler = None
                 print(f"wrote profiler trace to {trace}")
-            # labelled voxels per second of the training epoch (host clock;
-            # float(loss) synchronises every step)
+            # labelled voxels per second of the training epoch across the
+            # whole mesh (host clock; float(loss) synchronises every step)
             voxels_per_sec = voxels_per_step * steps_per_epoch / max(train_seconds, 1e-9)
+
+            # the whole state on every rank: column-parallel kernels gathered
+            state = gather_params(mesh, module)
+            if val_model is not model:
+                val_model.module.load_state_dict(state)
 
             # --- validation epoch ------------------------------------------
             if len(val_cache) > 0:
                 val_dice, val_loss = validate(
-                    module, val_cache, num_classes, roi=val_roi,
-                    val_forward=make_val_forward(module), overlap=val_overlap,
+                    val_model.module, val_cache, num_classes, roi=val_roi,
+                    val_forward=make_val_forward(val_model.module), overlap=val_overlap,
                     blend_mode=val_blend_mode,
+                    # a world of one keeps the mesh-less window's streaming rule
+                    mesh=mesh if mesh.distributed else None,
                 )
             else:
                 val_dice, val_loss = float("nan"), epoch_loss
@@ -698,25 +845,29 @@ def train(
             if writer is not None:
                 for tag in _TB_TAGS:
                     writer.add_scalar(tag, record[tag], epoch)
-            print(f"epoch {epoch}: train_loss={epoch_loss:.4f} val_loss={val_loss:.4f} "
-                  f"val_dice={val_dice:.4f} lr={lr:.2e}")
+            if main:
+                print(f"epoch {epoch}: train_loss={epoch_loss:.4f} val_loss={val_loss:.4f} "
+                      f"val_dice={val_dice:.4f} lr={lr:.2e}")
 
             if not np.isfinite(val_loss):
-                print("non-finite val_loss — stopping")
+                if main:
+                    print("non-finite val_loss — stopping")
                 break
             if np.isfinite(val_dice) and val_dice > best_dice:
                 best_dice, best_epoch, since_best = val_dice, epoch, 0
             else:
                 since_best += 1
-            variables = model.variables
-            if np.isfinite(val_dice):
-                ckpts.update(epoch, val_loss, val_dice, variables, model.hparams)
-            # always-current snapshot for interrupted-run resume
-            save_checkpoint(output_dir / "last.ckpt", variables, model.hparams,
-                            metrics={"epoch": epoch, "val_loss": val_loss,
-                                     "val_dice": val_dice})
+            if main:
+                variables = to_flax_variables(state)
+                if np.isfinite(val_dice):
+                    ckpts.update(epoch, val_loss, val_dice, variables, model.hparams)
+                # always-current snapshot for interrupted-run resume
+                save_checkpoint(output_dir / "last.ckpt", variables, model.hparams,
+                                metrics={"epoch": epoch, "val_loss": val_loss,
+                                         "val_dice": val_dice})
             if since_best >= early_stop_patience:
-                print(f"early stopping at epoch {epoch} (patience {early_stop_patience})")
+                if main:
+                    print(f"early stopping at epoch {epoch} (patience {early_stop_patience})")
                 break
     finally:
         if profiler is not None:
@@ -726,8 +877,10 @@ def train(
         if writer is not None:
             writer.close()
 
-    module.eval().requires_grad_(False)
-    (output_dir / "history.json").write_text(json.dumps(history, cls=PathEncoder, indent=2))
+    unshard_params(mesh, module).eval().requires_grad_(False)
+    if main:
+        (output_dir / "history.json").write_text(
+            json.dumps(history, cls=PathEncoder, indent=2))
     return TrainResult(output_dir=output_dir, best_checkpoint=ckpts.best,
                        best_val_dice=best_dice, best_val_epoch=best_epoch,
                        history=history, model=model)

@@ -421,7 +421,7 @@ def test_every_port_module_imports_with_jax_and_segmantic_tpu_blocked():
                 "i2i.train", "commands.i2i_cli", "ops.resample", "ops.gaussian",
                 "detect.transforms", "metrics.distance", "image.modality", "image.utils",
                 "image.make_mixed_modal_dataset", "data.iseg", "utils.flops",
-                "utils.device"):
+                "utils.device", "parallel.mesh", "parallel.comm"):
         assert f"segmantic_tpu_torch.{pkg}" in names
     script = textwrap.dedent(f"""
         import importlib, sys

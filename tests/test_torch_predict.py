@@ -161,7 +161,19 @@ def test_segment_volume_with_pre_matches_jax(data, case):
     np.testing.assert_array_equal(again.numpy(), got.numpy())
 
 
-def test_predict_mesh_is_not_ported(data):
-    ckpt, images, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: Parallel"):
-        ppredict.predict(ckpt, images, mesh=object(), device="cpu")
+def test_predict_mesh_is_not_ported(data, tmp_path):
+    """``predict(mesh=)`` is ported: a mesh of one (no process group) gives the
+    mesh-less result, files included (two ranks: test_torch_parallel_infer)."""
+    from segmantic_tpu_torch.parallel import make_mesh
+
+    ckpt, images, labels = data
+    want = ppredict.predict(ckpt, images, labels, output_dir=tmp_path / "plain",
+                            save_confusion_plots=False, device="cpu")
+    got = ppredict.predict(ckpt, images, labels, output_dir=tmp_path / "mesh",
+                           save_confusion_plots=False, mesh=make_mesh(), device="cpu")
+    assert [r.dice for r in got] == [r.dice for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(read_volume(g.saved_to).numpy(),
+                                      read_volume(w.saved_to).numpy())
+    assert ((tmp_path / "mesh" / "mean_dice.txt").read_text()
+            == (tmp_path / "plain" / "mean_dice.txt").read_text())

@@ -63,6 +63,14 @@ def test_bf16_wire_matches_jax_wire():
 
 
 def test_unported_modes_raise():
-    vol = np.zeros((8, 8, 8, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sw.sliding_window_inference(vol, (8, 8, 8), 1, _torch_predictor, mesh=object())
+    """The mesh modes are ported: over a mesh of one (no process group) window
+    and volume sharding give the mesh-less result (two ranks:
+    test_torch_parallel_sw)."""
+    from segmantic_tpu_torch.parallel import make_mesh
+
+    vol = np.random.default_rng(2).standard_normal((20, 17, 12, 1)).astype(np.float32)
+    want = sw.sliding_window_inference(vol, (8, 8, 8), 3, _torch_predictor, device="cpu")
+    for shard_volume in (False, True):
+        got = sw.sliding_window_inference(vol, (8, 8, 8), 3, _torch_predictor, device="cpu",
+                                          mesh=make_mesh(), shard_volume=shard_volume)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())

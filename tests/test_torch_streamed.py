@@ -185,13 +185,21 @@ def test_streams_names_host_volumes_only():
 
 
 def test_a_mesh_still_raises(low_threshold):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        sw.sliding_window_inference(_volume((24, 24, 24)), (16, 16, 16), 4, _torch_predictor,
-                                    device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        sw.sliding_window_inference(_volume((24, 24, 24)), (16, 16, 16), 4, _torch_predictor,
-                                    device="cpu", shard_volume=True)
+    """A mesh never streams, as in the JAX package: a mesh of one gives the
+    in-memory result of a volume above the threshold; ``shard_volume`` without
+    a mesh is ignored and streams."""
+    from segmantic_tpu_torch.parallel import make_mesh
+
+    vol = _volume((24, 24, 24))
+    want = sw.sliding_window_inference(torch.from_numpy(vol), (16, 16, 16), 4,
+                                       _torch_predictor, device="cpu")  # in memory
+    got = sw.sliding_window_inference(vol, (16, 16, 16), 4, _torch_predictor, device="cpu",
+                                      mesh=make_mesh())
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert low_threshold == []
+    sw.sliding_window_inference(vol, (16, 16, 16), 4, _torch_predictor, device="cpu",
+                                shard_volume=True)
+    assert low_threshold == [torch.device("cpu")]
 
 
 def test_the_threshold_is_the_jax_packages():
