@@ -45,7 +45,11 @@ window against the in-memory path (``[parallel-sw]``), a pix2pix iteration
 through the mesh path (``[parallel-i2i]``), and two ranks sharing the card
 over gloo: the data-parallel step at a local batch of 4 against one rank at
 8, ZeRO-1 against the replicated update and tensor parallelism against data
-parallelism (``[parallel-dp-2]``; NCCL refuses two ranks on one device).
+parallelism (``[parallel-dp-2]``; NCCL refuses two ranks on one device),
+and the JAX package's multi-host rule on two torchrun nodes of one rank each
+sharing the card over gloo: each node's sampler draws its own rows and the
+f32 step on both nodes is held against one process on the nodes' rows
+(``[parallel-nodes]``).
 
     python3 chip_smoke.py
 
@@ -1836,11 +1840,13 @@ def run_cross_validate(torch, work: Path):
     one scenario config (flagship defaults, max_epochs 1, device cuda), two
     folds trained one after the other in subprocesses of the port's CLI, then
     predict() on the card with each fold's checkpoints. Launches are this
-    process's (the evaluation); the folds' training runs in the subprocesses."""
+    process's (the evaluation); the folds' training runs in the subprocesses.
+    Prints the launch each fold took: torchrun on every card where
+    ``fold_ranks`` counts more than one, the plain process at one card."""
     import numpy as np
 
     from segmantic_tpu_torch.image.labels import save_tissue_list
-    from segmantic_tpu_torch.train.cross_validate import cross_validate
+    from segmantic_tpu_torch.train.cross_validate import cross_validate, fold_ranks
     from segmantic_tpu_torch.utils import config
 
     _labelled_cases(work / "data", [f"case{i}" for i in range(4)], (CV_SIZE,) * 3, 80)
@@ -1850,13 +1856,20 @@ def run_cross_validate(torch, work: Path):
     config.dump(CV_SCENARIO, work / "configs" / "flagship.yml")
     counters = _reset_counters()
     t0 = time.perf_counter()
-    runs = cross_validate(image_dir=work / "data" / "image", labels_dir=work / "data" / "label",
+    runs = cross_validate(image_dir=work / "data" / "image",
+                          labels_dir=work / "data" / "label",
                           tissue_list=work / "tissues.txt", output_dir=work / "cv",
                           config_files_dir=work / "configs",
                           test_image_dir=work / "test" / "image",
                           test_labels_dir=work / "test" / "label", num_splits=2,
                           device=DEVICE)
     seconds = time.perf_counter() - t0
+    cards = fold_ranks(CV_SCENARIO["device"])
+    for run in runs:
+        torchrun = run.argv[2] == "torch.distributed.run"
+        print(f"  fold {run.fold_dir.name} launch ({cards} card(s) counted): "
+              f"{'torchrun ' + ' '.join(run.argv[3:6]) if torchrun else 'plain'}: "
+              f"{' '.join(run.argv[1:])}")
     launches = {name: c.count for name, c in counters.items()}
     for run in runs:
         ckpts = sorted(p.name for p in run.fold_dir.glob("*.ckpt"))
@@ -3669,6 +3682,185 @@ def run_parallel_dp2(torch, work: Path):
     return launches
 
 
+NODE_SEED = 30  # the nodes' samplers are seeded NODE_SEED + node, as train() seeds them
+NODE_VOLUMES = 2  # 128^3 phantoms in each node's cache
+
+
+def write_node_volumes(work: Path) -> None:
+    """The nodes' training volumes: z-scored 128^3 labelled phantoms (what
+    the default preprocessing would cache), as .npy files both nodes load."""
+    import numpy as np
+
+    work.mkdir(parents=True, exist_ok=True)
+    for i in range(NODE_VOLUMES):
+        img, lbl = labelled_phantom((128, 128, 128), 70 + i)
+        np.save(work / f"image{i}.npy", ((img - img.mean()) / img.std()).astype(np.float32))
+        np.save(work / f"label{i}.npy", lbl)
+
+
+def node_sampler(torch, work: Path, node: int, margin: int = 0, bf16: bool = False):
+    """Node ``node``'s ``PatchSampler`` over the phantoms of ``work``: 4 rows
+    of 96^3 (+ 2 * margin) a batch, seeded ``NODE_SEED + node``."""
+    import numpy as np
+
+    from segmantic_tpu_torch.core.volume import Volume
+    from segmantic_tpu_torch.data.cache import PatchSampler, VolumeCache
+
+    files = [{"image": Volume(data=np.load(work / f"image{i}.npy")[None], affine=np.eye(4)),
+              "label": Volume(data=np.load(work / f"label{i}.npy")[None], affine=np.eye(4))}
+             for i in range(NODE_VOLUMES)]
+    cache = VolumeCache(files, lambda sample: sample, NUM_CLASSES)
+    return PatchSampler(cache, patch_size=TRAIN_PATCH, batch_size=LOCAL_BATCH, num_samples=4,
+                        margin=margin, seed=NODE_SEED + node,
+                        image_wire_dtype=torch.bfloat16 if bf16 else np.float32)
+
+
+def _node_rank(rank: int, port: int, work: str) -> None:
+    """One node of ``[parallel-nodes]``: a rank that torchrun would start with
+    ``GROUP_RANK`` = rank, ``GROUP_WORLD_SIZE`` 2, ``LOCAL_WORLD_SIZE`` 1, on
+    the one card over gloo."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from segmantic_tpu_torch.parallel import initialize_distributed, make_mesh
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                           backend="gloo", local_world_size=1)
+    torch.cuda.set_device(0)
+    work = Path(work)
+    out = {}
+    try:
+        mesh = make_mesh()
+        out["mesh"] = (mesh.process_index, mesh.process_count, mesh.shape["data"])
+        # this node's own rows, drawn as train() draws them
+        image, label = node_sampler(torch, work, mesh.process_index).sample_batch()
+        out["rows"] = (torch.from_numpy(image), torch.from_numpy(label))
+        out["f32"] = _f32_step(torch, mesh, torch.from_numpy(image).cuda(),
+                               torch.from_numpy(label).cuda())
+        # one augmented bf16 step on this node's margin rows: kernels 1-6, 8, 9
+        model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=0, device="cuda")
+        module = model.module.train().requires_grad_(True)
+        step = make_train_step(module, make_optimizer(module.parameters(), {"lr": 1e-4}),
+                               AugmentConfig(spatial=True, intensity=True), TRAIN_PATCH, True,
+                               generator=torch.Generator().manual_seed(0), mesh=mesh)
+        margin, margin_label = node_sampler(torch, work, mesh.process_index,
+                                            margin=TRAIN_PATCH[0] // 4, bf16=True).sample_batch()
+        margin = margin.to("cuda")
+        margin_label = torch.from_numpy(margin_label).cuda()
+        step(margin, margin_label)
+        torch.cuda.synchronize()
+        counters = _reset_counters()
+        t0 = time.perf_counter()
+        out["aug_loss"] = step(margin, margin_label).item()
+        out["aug_s"] = time.perf_counter() - t0
+        out["aug_launches"] = _launches(counters)
+        # one pix2pix iteration on this node's 8 of the 16 slices: i2i's
+        # averaging over the data group of the two nodes
+        src, dst = i2i_rows(torch)
+        half = I2I_BATCH // 2
+        rows = slice(mesh.process_index * half, (mesh.process_index + 1) * half)
+        out["i2i"] = pix2pix_once(torch, mesh, src[rows], dst[rows])
+        torch.save(out, work / f"node{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel_nodes(torch, work: Path):
+    """``[parallel-nodes]``: the JAX package's multi-host rule on two torchrun
+    nodes of one rank each, both on the one card over gloo. Each node's
+    ``PatchSampler`` over 128^3 phantoms is seeded ``NODE_SEED + node`` and
+    draws 4 rows of its own; the f32 step of the flagship on the two nodes
+    (the global batch: node 0's rows, then node 1's) against the one-process
+    f32 step on those 8 rows, within ``[train-parity]``'s limits; then one
+    augmented bf16 step on each node's 4 margin rows of 144^3, with each
+    rank's launches by kernel (kernels 1-6, 8 and 9 at the per-rank shapes)."""
+    import torch.multiprocessing as mp
+
+    write_node_volumes(work)
+    rows = [node_sampler(torch, work, node).sample_batch() for node in range(2)]
+    image = torch.cat([torch.from_numpy(r[0]) for r in rows])
+    label = torch.cat([torch.from_numpy(r[1]) for r in rows])
+    ref = _f32_step(torch, None, image.cuda(), label.cuda())
+    other = _f32_step(torch, None, image.flip(0).cuda(), label.flip(0).cuda())
+    src, dst = i2i_rows(torch)
+    i2i_ref = pix2pix_once(torch, None, src, dst)
+    i2i_other = pix2pix_once(torch, None, src[::-1].copy(), dst[::-1].copy())
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_node_rank, args=(_free_port(), str(work)), nprocs=2, join=True)
+    print(f"  two nodes spawned, ran and joined in {time.perf_counter() - t0:.1f} s")
+    nodes = [torch.load(work / f"node{r}.pt") for r in range(2)]
+    for r, out in enumerate(nodes):
+        if out["mesh"] != (r, 2, 2):
+            _fail(f"[parallel-nodes] rank {r} sees (node, nodes, data) {out['mesh']}")
+        if not (torch.equal(out["rows"][0], torch.from_numpy(rows[r][0]))
+                and torch.equal(out["rows"][1], torch.from_numpy(rows[r][1]))):
+            _fail(f"[parallel-nodes] node {r} drew other rows than its sampler seeded "
+                  f"{NODE_SEED + r}")
+        _judge_step(f"node {r}: f32 step, 2 nodes x 4 rows vs 1 process x 8", out["f32"], ref,
+                    other)
+        print(f"  node {r}: f32 step launches {out['f32'][3]}")
+        print(f"  node {r}: augmented bf16 step (4 rows of 144^3 -> 96^3) launches "
+              f"{out['aug_launches']}; {out['aug_s'] * 1e3:.1f} ms host to .item(); loss "
+              f"{out['aug_loss']:.5f}")
+    if torch.equal(nodes[0]["rows"][1], nodes[1]["rows"][1]):
+        _fail("[parallel-nodes] both nodes drew the same rows")
+    if nodes[0]["f32"][0] != nodes[1]["f32"][0]:
+        _fail("[parallel-nodes] the two nodes hold different losses")
+    _judge_i2i_nodes(torch, [out["i2i"] for out in nodes], i2i_ref, i2i_other)
+    for out in nodes:
+        for name in ("fused_conv", "fused_conv_dw", "phase_conv", "phase_conv_dw",
+                     "dice_phase_sums", "dice_phase_dx"):
+            if min(out["f32"][3][name], out["aug_launches"][name]) <= 0:
+                _fail(f"[parallel-nodes] {name} did not launch on every node")
+        if out["aug_launches"]["shear_group"] <= 0:
+            _fail("[parallel-nodes] the shear-group kernel did not launch on every node")
+    launches = {}
+    for out in nodes:
+        _add_launches(launches, out["f32"][3])
+        _add_launches(launches, out["aug_launches"])
+        _add_launches(launches, out["i2i"][2])
+    return launches
+
+
+def _judge_i2i_nodes(torch, nodes, one, other):
+    """The two nodes' pix2pix iteration (each on its 8 slices) against one
+    process on the 16: both losses 1e-4 relative (``test_torch_i2i_train``'s
+    limit); each gradient tensor k of the iteration (the D step's of the
+    discriminator, the G step's of the generator) within ``[train-parity]``'s
+    rule, 2 * e[k] + 1e-3 * max(max|g[k]|, 1e-2 * the largest gradient of its
+    network), where e[k] is the distance of ``other`` (one process on the
+    slices in reverse order) from ``one``; both nodes bit-equal. A gradient
+    left unaveraged over the nodes is a half batch's, O(1) of it away. The
+    parameters are not compared: Adam's first step moves an element by about
+    lr * sign(g), so one whose gradient is rounding noise flips by 2 lr."""
+    (l_one, _, _, g_one), g_other = one, other[3]
+    floor = {net: 1e-2 * max(g.abs().max().item() for k, g in g_one.items()
+                             if k.startswith(net + "."))
+             for net in ("gen", "disc")}
+    for r, (losses, _, launches, grads) in enumerate(nodes):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l_one))
+        worst = max(((grads[k] - g).abs().max().item()
+                     / (2 * (g_other[k] - g).abs().max().item()
+                        + 1e-3 * max(g.abs().max().item(), floor[k.split(".")[0]])), k)
+                    for k, g in g_one.items())
+        print(f"  node {r}: pix2pix on 8 of 16 slices vs 1 process on 16: D loss "
+              f"{losses[0]:.7f} vs {l_one[0]:.7f}, G loss {losses[1]:.7f} vs {l_one[1]:.7f} "
+              f"(rel {rel:.3e}, limit 1e-4); worst gradient {worst[0]:.3f} of its limit at "
+              f"{worst[1]}; launches {launches}")
+        if not (rel <= 1e-4 and worst[0] <= 1.0):
+            _fail(f"[parallel-nodes] node {r}'s pix2pix iteration disagrees with one process")
+    if nodes[0][0] != nodes[1][0] or any(
+            not torch.equal(nodes[0][3][k], nodes[1][3][k]) for k in nodes[0][3]):
+        _fail("[parallel-nodes] the two nodes' pix2pix iterations differ")
+
+
 def run_parallel_sw(torch, ckpt: Path):
     """``[parallel-sw]``: the served 256 x 256 x 176 phantom through the
     flagship, roi 96^3, sw-batch 4, at a world of one over NCCL: the
@@ -3729,6 +3921,46 @@ def run_parallel_sw(torch, ckpt: Path):
     return launches, numbers
 
 
+I2I_LR = 2e-4  # the i2i CLI's Adam learning rate
+
+
+def i2i_rows(torch):
+    """The 16 slices of 256^2 that ``[parallel-i2i]`` and ``[parallel-nodes]``
+    translate: (source, target) f32 channel-last arrays."""
+    import numpy as np
+
+    t1, t2 = i2i_pair((I2I_SLICE, I2I_SLICE, I2I_BATCH), 70)
+    return tuple((np.moveaxis(t, 2, 0)[..., None] / 500.0 - 1.0).astype(np.float32)
+                 for t in (t1, t2))
+
+
+def pix2pix_once(torch, mesh, src, dst):
+    """One pix2pix iteration at the CLI's width from the seed-0 networks,
+    cuDNN's algorithms deterministic: ((D loss, G loss), the generator's
+    parameters on the host, the launches by kernel, the gradients of the
+    iteration on the host: the discriminator's of the D step and the
+    generator's of the G step, keyed "disc." / "gen.")."""
+    from segmantic_tpu_torch.i2i import train as i2i_train
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen, disc = i2i_train._init_pix2pix(src, dst, I2I_BASE, I2I_BLOCKS, 0, "cuda")
+        d_step, g_step = i2i_train.make_pix2pix_steps(
+            gen, disc, i2i_train._make_optim(gen.parameters(), I2I_LR),
+            i2i_train._make_optim(disc.parameters(), I2I_LR), 100.0, mesh=mesh)
+        counters = _reset_counters()
+        losses = (d_step(src, dst).item(), g_step(src, dst)[0].item())
+        torch.cuda.synchronize()
+        grads = {f"{name}.{k}": p.grad.detach().cpu()
+                 for name, net in (("gen", gen), ("disc", disc))
+                 for k, p in net.named_parameters()}
+        return (losses, {k: p.detach().cpu() for k, p in gen.named_parameters()},
+                _launches(counters), grads)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def run_parallel_i2i(torch):
     """``[parallel-i2i]``: one pix2pix iteration at the CLI's width (base
     64, 6 blocks, 16 x 256^2 slices, f32, Adam 2e-4) through the mesh path at
@@ -3739,31 +3971,17 @@ def run_parallel_i2i(torch):
     ``all_reduce`` over one rank and a division by 1, so the iteration is the
     same; an lr term would let any gradient through, since one Adam step
     moves an element by about lr whatever the gradient."""
-    import numpy as np
-
-    from segmantic_tpu_torch.i2i import train as i2i_train
     from segmantic_tpu_torch.parallel import make_mesh
 
-    t1, t2 = i2i_pair((I2I_SLICE, I2I_SLICE, I2I_BATCH), 70)
-    src = (np.moveaxis(t1, 2, 0)[..., None] / 500.0 - 1.0).astype(np.float32)
-    dst = (np.moveaxis(t2, 2, 0)[..., None] / 500.0 - 1.0).astype(np.float32)
-    lr = 2e-4
+    src, dst = i2i_rows(torch)
     out, launches = {}, {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     for name, mesh in (("mesh-less", None), ("mesh", make_mesh())):
-        gen, disc = i2i_train._init_pix2pix(src, dst, I2I_BASE, I2I_BLOCKS, 0, "cuda")
-        d_step, g_step = i2i_train.make_pix2pix_steps(
-            gen, disc, i2i_train._make_optim(gen.parameters(), lr),
-            i2i_train._make_optim(disc.parameters(), lr), 100.0, mesh=mesh)
-        counters = _reset_counters()
-        losses = (d_step(src, dst).item(), g_step(src, dst)[0].item())
-        torch.cuda.synchronize()
-        launches[name] = _launches(counters)
-        out[name] = (losses, {k: p.detach().cpu() for k, p in gen.named_parameters()})
+        if name == "mesh" and mesh.data_group is None:
+            _fail("[parallel-i2i]: the mesh at a world of one has no data group")
+        losses, params, launches[name], _ = pix2pix_once(torch, mesh, src, dst)
+        out[name] = (losses, params)
         print(f"  {name}: D loss {losses[0]:.7f}, G loss {losses[1]:.7f}, launches "
               f"{launches[name]}")
-    torch.backends.cudnn.deterministic = deterministic
     (lm, pm), (lr_, pr) = out["mesh"], out["mesh-less"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lm, lr_))
     worst = max(((pm[k] - p).abs().max().item() / (1e-6 * p.abs().max().item() + 1e-30), k)
@@ -3922,7 +4140,13 @@ def run_parallel(torch, ckpt: Path, work: Path):
     dp2_launches = run_parallel_dp2(torch, work / "dp2")
     print(f"[parallel] the five Parallel phases: {time.perf_counter() - t0:.1f} s; step ms "
           f"{dp_numbers}; sliding window s {sw_numbers}")
-    return (dp_launches, sw_launches, i2i_launches, dp2_launches)
+    t0 = time.perf_counter()
+    print("[parallel-nodes] two torchrun nodes of one rank each on the one card over gloo: "
+          f"each node's sampler seeded {NODE_SEED} + node draws {LOCAL_BATCH} rows; the "
+          "flagship's f32 step on both nodes vs one process on the 8 rows, node-major")
+    nodes_launches = run_parallel_nodes(torch, work / "nodes")
+    print(f"[parallel-nodes] {time.perf_counter() - t0:.1f} s")
+    return (dp_launches, sw_launches, i2i_launches, dp2_launches, nodes_launches)
 
 
 def _card() -> str:
@@ -4113,7 +4337,7 @@ def main() -> None:
                 m[key] += r[key]
             m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
         print(f"[i2i] the four i2i phases: {time.perf_counter() - i2i_t0:.1f} s")
-        par_dp, par_sw, par_i2i, par_dp2 = run_parallel(torch, ckpt, work)
+        par_dp, par_sw, par_i2i, par_dp2, par_nodes = run_parallel(torch, ckpt, work)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
@@ -4134,7 +4358,7 @@ def main() -> None:
           f"{tr_launches}, i2i-parity 3D {par_launches}; pix2pix {p2p_numbers}; cyclegan "
           f"{cg_numbers}; translate seconds {tr_numbers}")
     print(f"launches: parallel-dp {par_dp}, parallel-sw {par_sw}, parallel-i2i {par_i2i}, "
-          f"parallel-dp-2 (both ranks) {par_dp2}")
+          f"parallel-dp-2 (both ranks) {par_dp2}, parallel-nodes (both nodes) {par_nodes}")
     print(f"launches: label-gather {gather_launches} (detect, distance, sampler: none); "
           f"label-gather {gather_numbers}; sampler host ms {sampler_ms}; detect "
           f"{detect_numbers}; distance {dist_numbers}")
@@ -4142,7 +4366,7 @@ def main() -> None:
              arch_launches["segresnet"],
              arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
              t2d_launches, s2d_launches, p2d_launches, st_launches, p2p_launches, cg_launches,
-             tr_launches, par_launches, par_dp, par_sw, par_i2i, par_dp2)
+             tr_launches, par_launches, par_dp, par_sw, par_i2i, par_dp2, par_nodes)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(path[name] for path in paths),

@@ -5,11 +5,16 @@ Port of ``segmantic_tpu/commands/i2i_cli.py``: the ``pix2pix`` (paired),
 ``cyclegan`` (unpaired) and ``translate`` subcommands with the JAX flags and
 defaults, plus ``--device`` (default ``cuda``, which fails where CUDA is not
 available). Checkpoints are the JAX package's, readable by either CLI.
-``pix2pix`` and ``cyclegan`` train data-parallel on N cards of one host when
-launched by torchrun, one process a card (each rank takes its rows of every
-batch)::
+``pix2pix`` and ``cyclegan`` train data-parallel on N cards when launched by
+torchrun, one process a card (each rank takes its rows of every batch)::
 
     torchrun --nproc-per-node N -m segmantic_tpu_torch.commands.i2i_cli pix2pix ...
+
+On M nodes (``--nnodes M --node-rank m --rdzv-backend c10d --rdzv-endpoint
+host:port`` on each) every node feeds its own batches, as every JAX process
+does, and the global batch is the nodes' batches in node order. The first
+rank of each node writes the checkpoint, so on a filesystem the nodes share
+each node needs its own ``--output-dir``.
 """
 
 from __future__ import annotations

@@ -14,9 +14,24 @@ torchrun, one process a card::
     torchrun --nproc-per-node N -m segmantic_tpu_torch.commands.unet_cli \
         train-config -c cfg.json
 
-(``model_parallel`` / ``zero_optimizer`` split the mesh as in the JAX
-package). ``cross-validate`` trains each fold in a subprocess of one process,
-so a fold trains on one card.
+and on M hosts by one torchrun agent a host, each given the same rendezvous::
+
+    torchrun --nnodes M --node-rank m --nproc-per-node N --rdzv-backend c10d \
+        --rdzv-endpoint host0:29400 -m segmantic_tpu_torch.commands.unet_cli \
+        train-config -c cfg.json
+
+A node is a JAX process there: its sampler draws ``batch_size * num_samples``
+rows seeded ``seed + node``, the global batch is M times that, and the first
+rank of each node writes the run's files, so on a filesystem the nodes share
+each node's config needs its own ``output_dir`` (``model_parallel`` must
+divide N; ``model_parallel`` / ``zero_optimizer`` split the mesh as in the
+JAX package). ``cross-validate`` launches each fold's ``train-config``
+through ``python -m torch.distributed.run --standalone --nproc-per-node N``
+when the scenario trains on the card (``device: cuda``) and N > 1 cards are
+visible (``torch.cuda.device_count()``, which honours
+``CUDA_VISIBLE_DEVICES``), so a fold trains on every card of the host, as the
+JAX fold takes every local chip; with one card, a named card (``cuda:k``) or
+``device: cpu``, a fold is one plain process.
 """
 
 from __future__ import annotations

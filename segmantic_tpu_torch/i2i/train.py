@@ -11,8 +11,11 @@ all ranks (``parallel.make_mesh``), as the JAX ones over all devices: the
 networks are replicated from rank 0, each rank takes its rows of every batch
 whose row count the data axis divides (``put_batch``), the D and G
 gradients and losses are averaged over the data axis in one flat
-``all_reduce`` each (the average GSPMD gives the JAX package), and rank 0
-alone writes the checkpoint and prints. A world of one (no process group) is
+``all_reduce`` each (the average GSPMD gives the JAX package), and the first
+rank of each node writes the checkpoint and prints. On several torchrun
+nodes each node passes its own ``batches`` and the global batch is the
+nodes' batches in node order (the JAX multi-host ``put_batch``): each rank
+takes its rows of its node's batch. A world of one (no process group) is
 the single-card loop.
 
 The networks of a run are built by :func:`_init_pix2pix` /
@@ -36,7 +39,8 @@ import torch
 
 from ..ops._cuda import resolve_device
 from ..parallel.comm import mean_grads_
-from ..parallel.mesh import initialize_distributed, is_main, make_mesh, put_batch, replicate
+from ..parallel.mesh import (
+    initialize_distributed, is_main, make_mesh, put_batch, replicate, splits_batch)
 from ..train.checkpoint import save_checkpoint
 from .models import PatchDiscriminator, ResnetGenerator, to_flax_variables
 
@@ -106,11 +110,12 @@ def _frozen(nets):
 
 
 def _on_rows(mesh, device, *batch):
-    """This rank's rows of each global batch array (all of them when the data
-    axis does not divide the rows) on ``device``, and the group to average
-    over (None: the rows are the whole batch)."""
-    local = mesh is not None and mesh.distributed and all(
-        b.shape[0] % mesh.shape["data"] == 0 for b in batch)
+    """This rank's rows of each batch array on ``device`` (on one node of the
+    global batch, all of them at a data axis of 1; on several nodes of this
+    node's batch), and the group to average over (None without a process
+    group, or on one node when the data axis does not divide the rows: the
+    rows are the whole batch)."""
+    local = all(splits_batch(mesh, b.shape[0]) for b in batch)
     rows = [torch.as_tensor(put_batch(mesh, b) if local else b, device=device)
             for b in batch]
     return rows, mesh.data_group if local else None
@@ -235,8 +240,9 @@ def train_pix2pix(
     """Paired translation: generator(src) ~ dst with LSGAN + L1, on ``device``.
 
     ``batches`` yields (source, target) channel-last arrays of identical
-    static shapes; on N ranks each rank iterates the same global batches and
-    takes its rows (the module's docstring)."""
+    static shapes; on N ranks of one node each rank iterates the same global
+    batches and takes its rows, on several nodes each node its own batches
+    (the module's docstring)."""
     device = resolve_device(device)
     initialize_distributed(backend="gloo" if device.type == "cpu" else "nccl")
     mesh = make_mesh()

@@ -137,8 +137,8 @@ def predict(
     ``channels``/``strides``/``dropout``/``gpu_ids`` are accepted for config
     compatibility -- hyperparameters actually come from the checkpoint.
     ``mesh`` (:func:`..parallel.make_mesh`): each volume's windows are shared
-    over its data axis; every rank computes the same results, and rank 0
-    alone writes the files and prints."""
+    over its data axis; every rank computes the same results, and the first
+    rank of each node (rank 0 on one node) writes the files and prints."""
     main = is_main(mesh)
     model = SegmentationModel.load(Path(model_file), device=device)
     num_classes = model.num_classes

@@ -13,6 +13,7 @@ from .mesh import (
     shard_batch,
     shard_opt_state,
     shard_params,
+    splits_batch,
     unshard_params,
     zero_placement,
 )
@@ -29,6 +30,7 @@ __all__ = [
     "shard_batch",
     "shard_opt_state",
     "shard_params",
+    "splits_batch",
     "unshard_params",
     "zero_placement",
 ]

@@ -1,19 +1,28 @@
-"""The (data, model) mesh of one host's ranks and the placement rules.
+"""The (data, model) mesh of the ranks and the placement rules.
 
 Port of ``segmantic_tpu/parallel/mesh.py`` under PyTorch's process model:
 one process per card (``torchrun --nproc-per-node N`` or
 ``torch.multiprocessing.spawn``), rank r computing on ``cuda:LOCAL_RANK``,
-where the JAX package drives every device from one process. The names are
-the JAX ones:
+where the JAX package drives every device of a host from one process. A JAX
+process (a host) is a torchrun node here: the agent whose ``LOCAL_WORLD_SIZE``
+ranks share ``GROUP_RANK``; torchrun numbers the ranks node by node. The names
+are the JAX ones:
 
 - :func:`initialize_distributed` starts the process group from torchrun's
-  environment (a no-op where none is set);
+  environment (a no-op where none is set); ``LOCAL_WORLD_SIZE`` gives the
+  nodes;
 - :func:`make_mesh` arranges the ranks as a (data, model) grid, rank
-  ``i * model + j`` at (i, j), as the JAX mesh reshapes its device list, with
-  a process group along each axis; a world of one needs no process group;
-- :func:`put_batch` / :func:`shard_batch` keep this rank's rows of a global
-  batch whose row count the data axis divides, and the whole batch otherwise
-  (the JAX package replicates such a batch);
+  ``i * model + j`` at (i, j), as the JAX mesh reshapes its process-major
+  device list, with a process group along each axis; a world of one needs no
+  process group. The mesh carries ``process_index`` / ``process_count``, the
+  node's index and the number of nodes (0 and 1 on one node);
+- :func:`put_batch` / :func:`shard_batch` keep this rank's rows of a batch.
+  On one node the batch is the global batch: a rank keeps its rows when the
+  data axis divides their count, else the whole batch (the JAX package
+  replicates such a batch). On several nodes each node passes its own
+  batch, and the global batch is the nodes' batches in node order (the
+  JAX package's ``make_array_from_process_local_data``): a rank keeps its
+  rows of its node's batch, by its data index within the node;
 - :func:`replicate` broadcasts a module's parameters and buffers from rank 0;
 - :func:`shard_params` is tensor parallelism: the rule of the JAX function
   (output-feature axis >= ``min_features`` and divisible by the model axis)
@@ -25,9 +34,10 @@ the JAX ones:
   tensor of the optimizer is sliced over the data axis along the largest
   axis that divides, chosen on the flax layout as the JAX rule chooses.
 
-The JAX package's multi-host rule (each process draws its own rows, seeded
-``seed + process_index``) is not this one: the port's world is one host's, and
-every rank draws the same global batch and keeps its rows.
+Across nodes the model axis stays inside a node: ``model`` must divide
+``LOCAL_WORLD_SIZE``, so that every row of the mesh lies on one node and is
+fed by one node's batch. A row across nodes would be fed by processes that
+draw different rows; :func:`make_mesh` refuses it.
 """
 
 from __future__ import annotations
@@ -45,20 +55,34 @@ from . import comm
 __all__ = [
     "Mesh", "initialize_distributed", "make_mesh", "put_batch", "shard_batch", "replicate",
     "flax_axes", "tp_placement", "shard_params", "gather_params", "unshard_params",
-    "zero_placement", "shard_opt_state", "TensorParallel", "is_main",
+    "zero_placement", "shard_opt_state", "TensorParallel", "is_main", "splits_batch",
 ]
+
+def _local_world_size(world: int) -> int:
+    """The ranks a node: torchrun's ``LOCAL_WORLD_SIZE``, the world where it
+    is not set (one node)."""
+    per_node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if per_node < 1 or world % per_node:
+        raise ValueError(f"{world} ranks do not form nodes of {per_node} ranks: the nodes "
+                         "must hold the same number of ranks")
+    return per_node
 
 
 def initialize_distributed(init_method: Optional[str] = None,
                            world_size: Optional[int] = None,
                            rank: Optional[int] = None,
                            backend: Optional[str] = None,
-                           local_rank: Optional[int] = None) -> bool:
+                           local_rank: Optional[int] = None,
+                           local_world_size: Optional[int] = None) -> bool:
     """Start the default process group; returns whether one is running.
 
     Without arguments it reads torchrun's ``MASTER_ADDR`` / ``MASTER_PORT`` /
-    ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` and does nothing when
-    ``WORLD_SIZE`` is not set (or a group is already running). The backend
+    ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` and does
+    nothing when ``WORLD_SIZE`` is not set (or a group is already running).
+    ``LOCAL_WORLD_SIZE`` is the ranks of a node (the world where it is not
+    set); torchrun numbers the ranks node by node, so rank r runs on node
+    ``r // LOCAL_WORLD_SIZE``. A ``local_world_size`` argument is exported as
+    ``LOCAL_WORLD_SIZE``, as torchrun sets it for its ranks. The backend
     defaults to NCCL where CUDA is available and gloo otherwise (the entry
     points pass NCCL for the card, gloo for ``device="cpu"``); under NCCL the
     process takes ``cuda:LOCAL_RANK`` as its device."""
@@ -70,6 +94,11 @@ def initialize_distributed(init_method: Optional[str] = None,
     world_size = int(world_size if world_size is not None else env["WORLD_SIZE"])
     rank = int(rank if rank is not None else env.get("RANK", 0))
     local_rank = int(local_rank if local_rank is not None else env.get("LOCAL_RANK", rank))
+    if local_world_size is not None:
+        if local_world_size < 1 or world_size % local_world_size:
+            raise ValueError(f"{world_size} ranks do not form nodes of {local_world_size} "
+                             "ranks: the nodes must hold the same number of ranks")
+        env["LOCAL_WORLD_SIZE"] = str(local_world_size)
     if init_method is None:
         init_method = (f"tcp://{env.get('MASTER_ADDR', 'localhost')}:"
                        f"{env.get('MASTER_PORT', '29500')}")
@@ -94,6 +123,8 @@ class Mesh:
     rank: int  # this process's global rank
     data_group: Any = None
     model_group: Any = None
+    process_index: int = 0  # this rank's node (the JAX process index)
+    process_count: int = 1  # the number of nodes (the JAX process count)
 
     @property
     def size(self) -> int:
@@ -110,6 +141,17 @@ class Mesh:
     @property
     def model_index(self) -> int:
         return self.position % self.shape["model"]
+
+    @property
+    def local_data(self) -> int:
+        """The data rows of the mesh on one node: the rows a node's batch is
+        split into."""
+        return self.shape["data"] // self.process_count
+
+    @property
+    def local_data_index(self) -> int:
+        """This rank's data index within its node."""
+        return self.data_index - self.process_index * self.local_data
 
     @property
     def distributed(self) -> bool:
@@ -134,7 +176,11 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: Optional[int] = Non
               model: int = 1) -> Mesh:
     """A (data, model) mesh over ``devices``, the global ranks (default: the
     world's). ``data`` defaults to ``len(devices) // model``. Every rank of
-    the world calls it alike (the axis groups are created collectively)."""
+    the world calls it alike (the axis groups are created collectively).
+
+    On more than one node the mesh takes every rank in order and ``model``
+    divides the ranks of a node (``LOCAL_WORLD_SIZE``), so that each node
+    holds whole rows of the mesh; anything else raises ``ValueError``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     devices = list(range(world)) if devices is None else [int(d) for d in devices]
@@ -150,33 +196,65 @@ def make_mesh(devices: Optional[Sequence[int]] = None, data: Optional[int] = Non
             raise ValueError(f"a mesh of {grid.size} ranks needs a running process group "
                              "(initialize_distributed)")
         return Mesh(shape, (0,), 0)
+    per_node = _local_world_size(world)
+    nodes = world // per_node
+    if nodes > 1 and (grid.reshape(-1).tolist() != list(range(world)) or per_node % model):
+        raise ValueError(
+            f"a ({data}, {model}) mesh over {nodes} nodes of {per_node} ranks: across nodes "
+            "the mesh takes every rank in order and model_parallel must divide the ranks of "
+            "a node (LOCAL_WORLD_SIZE), so that each row of the mesh is fed by one node's "
+            "batch")
     data_groups = [_group(grid[:, j]) for j in range(model)]
     model_groups = [_group(grid[i, :]) for i in range(data)]
     ranks = tuple(int(r) for r in grid.reshape(-1))
     if rank not in ranks:
         raise ValueError(f"rank {rank} is not in the mesh {ranks}")
     i, j = divmod(ranks.index(rank), model)
-    return Mesh(shape, ranks, rank, data_groups[j], model_groups[i])
+    return Mesh(shape, ranks, rank, data_groups[j], model_groups[i], rank // per_node,
+                nodes)
 
 
 def is_main(mesh: Optional[Mesh] = None) -> bool:
-    """Is this the rank that writes files (global rank 0)?"""
+    """Is this a rank that writes files: the first rank of its node (global
+    rank 0 on one node)? The JAX package writes from every process, a node
+    here."""
     if mesh is not None:
-        return mesh.rank == mesh.ranks[0]
-    return not dist.is_initialized() or dist.get_rank() == 0
+        return mesh.position % (mesh.size // mesh.process_count) == 0
+    return not dist.is_initialized() or \
+        dist.get_rank() % _local_world_size(dist.get_world_size()) == 0
+
+
+def splits_batch(mesh: Optional[Mesh], rows: int) -> bool:
+    """Does each rank take its rows of a batch of ``rows`` (:func:`put_batch`,
+    the gradients then averaged over the data group)? With a process group:
+    on one node when the data axis divides ``rows`` (at a data axis of 1 the
+    rows are the whole batch), on several nodes always (each node's batch is
+    its own)."""
+    if mesh is None or not mesh.distributed:
+        return False
+    return mesh.process_count > 1 or rows % mesh.shape["data"] == 0
 
 
 def put_batch(mesh: Optional[Mesh], x):
-    """This rank's rows of the global batch ``x`` (numpy or tensor) when the
-    data axis divides its row count, else the whole batch."""
+    """This rank's rows of ``x`` (numpy or tensor). On one node ``x`` is the
+    global batch: the rank's rows when the data axis divides their count,
+    else the whole batch. On several nodes ``x`` is this node's batch (the
+    global batch is the nodes' batches in node order): the rank's rows of it
+    by its data index within the node; the node's data rows must divide its
+    row count (``ValueError`` otherwise, as ``make_array_from_process_local_data``
+    refuses a local batch its devices cannot split)."""
     if mesh is None:
         return x
-    n = mesh.shape["data"]
+    n = mesh.local_data
     rows = x.shape[0]
-    if n == 1 or rows % n:
+    if mesh.process_count > 1:
+        if rows % n:
+            raise ValueError(f"a node's batch of {rows} rows does not split over its {n} "
+                             "data rows")
+    elif n == 1 or rows % n:
         return x
     k = rows // n
-    i = mesh.data_index
+    i = mesh.local_data_index
     return x[i * k:(i + 1) * k]
 
 

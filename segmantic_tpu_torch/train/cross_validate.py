@@ -4,15 +4,27 @@ Port of ``segmantic_tpu/train/cross_validate.py`` with ``device``:
 materialize fold datalists, then for each scenario config x fold rewrite the
 config (datalist = fold json, fresh output dir) and run training in a
 SUBPROCESS (``python -m segmantic_tpu_torch.commands.unet_cli train-config``)
-for isolation, then run the port's ``predict`` on ``device`` with every
-produced checkpoint on the held-out test directory. Each scenario config
-names its own training ``device`` (the port's ``train-config`` schema has
-it; the card by default).
+for isolation, then run the port's ``predict`` on ``device`` in this process
+with every produced checkpoint on the held-out test directory. Each scenario
+config names its own training ``device`` (the port's ``train-config`` schema
+has it; the card by default).
+
+A fold trains on every card of the host, as the JAX fold subprocess takes
+every local chip: where its scenario trains on the card (``device: cuda``,
+the default) and :func:`fold_ranks` counts N > 1 cards, the subprocess is ``python -m
+torch.distributed.run --standalone --nproc-per-node N -m
+segmantic_tpu_torch.commands.unet_cli train-config -c <fold>/config.yml``
+(``--standalone`` takes a free port, so folds in flight at once do not
+collide); with one card, a named card (``device: cuda:k``) or ``device:
+cpu`` it is the plain process above.
 
 ``max_parallel > 1`` keeps that many fold subprocesses in flight at once;
 each gets ``SEGMANTIC_FOLD_SLOT=<0..max_parallel-1>`` so a launcher can pin
 slots to disjoint devices (e.g. ``CUDA_VISIBLE_DEVICES`` per slot in a
-wrapper); with the default of 1 the flow is sequential. The JAX function
+wrapper); with the default of 1 the flow is sequential. On N > 1 cards each
+fold in flight takes all N, so every card holds ``max_parallel`` ranks at
+once; scenarios that name their cards (``device: cuda:k``) train one card
+each instead. The JAX function
 only prints whether each training succeeded; this one also returns, for
 each fold run, its exit code and its training and evaluation seconds.
 """
@@ -32,18 +44,30 @@ from ..image.labels import load_tissue_list
 from ..ops._cuda import resolve_device
 from ..utils import config
 
-__all__ = ["FoldRun", "cross_validate"]
+__all__ = ["FoldRun", "cross_validate", "fold_ranks"]
 
 
 @dataclasses.dataclass
 class FoldRun:
     """One scenario x fold: its output dir, the training subprocess's exit
-    code, and host-clock seconds from launch to exit and of the evaluation."""
+    code, host-clock seconds from launch to exit and of the evaluation, and
+    the command line that launched the training."""
 
     fold_dir: Path
     returncode: int
     train_seconds: float
     eval_seconds: float
+    argv: List[str]
+
+
+def fold_ranks(device: str) -> int:
+    """The processes a fold trains on: every visible card for a scenario on
+    the card, ``cuda`` (``torch.cuda.device_count()``, which honours
+    ``CUDA_VISIBLE_DEVICES``); one for a named card (``cuda:k``) or the CPU."""
+    import torch
+
+    device = torch.device(device)
+    return torch.cuda.device_count() if device.type == "cuda" and device.index is None else 1
 
 
 def cross_validate(
@@ -84,7 +108,7 @@ def cross_validate(
     )
 
     # materialize every scenario x fold job up front
-    jobs: List[Path] = []  # fold output dirs, config.yml inside each
+    jobs: List[tuple] = []  # (fold output dir with config.yml inside, its device)
     for config_file in sorted(Path(config_files_dir).iterdir()):
         if config_file.suffix not in (".json", ".yml", ".yaml"):
             continue
@@ -104,26 +128,28 @@ def cross_validate(
             data["output_dir"] = str(fold_out)
 
             (fold_out / "config.yml").write_text(config.dumps(data, is_json=False))
-            jobs.append(fold_out)
+            jobs.append((fold_out, data.get("device", "cuda")))
 
-    def launch(fold_out: Path, slot: int) -> sp.Popen:
+    def launch(fold_out: Path, fold_device: str, slot: int) -> tuple:
+        """Start the fold's training: (the process, its command line)."""
         print(f"start training: {fold_out}")
         repo_root = str(Path(__file__).resolve().parent.parent.parent)
         env = dict(os.environ)
         env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
         env["SEGMANTIC_FOLD_SLOT"] = str(slot)
-        return sp.Popen(
-            [
-                sys.executable,
-                "-m",
-                "segmantic_tpu_torch.commands.unet_cli",
-                "train-config",
-                "-c",
-                str(fold_out / "config.yml"),
-            ],
-            cwd=os.fspath(fold_out),
-            env=env,
-        )
+        ranks = fold_ranks(fold_device)
+        torchrun = (["torch.distributed.run", "--standalone", "--nproc-per-node",
+                     str(ranks), "-m"] if ranks > 1 else [])
+        argv = [
+            sys.executable,
+            "-m",
+            *torchrun,
+            "segmantic_tpu_torch.commands.unet_cli",
+            "train-config",
+            "-c",
+            str(fold_out / "config.yml"),
+        ]
+        return sp.Popen(argv, cwd=os.fspath(fold_out), env=env), argv
 
     def evaluate(fold_out: Path) -> None:
         if not (test_image_dir and test_labels_dir):
@@ -154,19 +180,20 @@ def cross_validate(
     # max_parallel=1 flow sequential)
     width = max(1, int(max_parallel))
     queue = list(jobs)
-    running: List[tuple] = []  # (Popen, fold_out, slot, launch time)
+    running: List[tuple] = []  # ((Popen, argv), fold_out, slot, launch time)
     free_slots = list(range(width))
     runs: List[FoldRun] = []
     while queue or running:
         while queue and free_slots:
             slot = free_slots.pop(0)
-            fold_out = queue.pop(0)
-            running.append((launch(fold_out, slot), fold_out, slot, time.perf_counter()))
-        proc, fold_out, slot, t0 = running.pop(0)
+            fold_out, fold_device = queue.pop(0)
+            running.append((launch(fold_out, fold_device, slot), fold_out, slot,
+                            time.perf_counter()))
+        (proc, argv), fold_out, slot, t0 = running.pop(0)
         rc = proc.wait()
         t1 = time.perf_counter()
         free_slots.append(slot)
         print(f"training finished : {rc == 0}")
         evaluate(fold_out)
-        runs.append(FoldRun(fold_out, rc, t1 - t0, time.perf_counter() - t1))
+        runs.append(FoldRun(fold_out, rc, t1 - t0, time.perf_counter() - t1, argv))
     return runs

@@ -76,6 +76,7 @@ from ..ops.fused_conv import at_least_f32
 from ..parallel.comm import mean_grads_
 from ..parallel.mesh import (
     gather_params, initialize_distributed, is_main, make_mesh, put_batch, replicate,
+    splits_batch,
     shard_opt_state, shard_params, unshard_params,
 )
 from ..transforms import spatial as TS
@@ -370,16 +371,17 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     ``mesh`` (:func:`..parallel.make_mesh`, with a process group): the
     per-rank step of the JAX package's ``shard_map`` body, taken when the
-    data axis is > 1 and divides the batch. Each rank keeps its rows of the
-    global batch (``put_batch``), augments them with its own stream (seeded
-    from ``generator``'s seed and its data index; the exact-count subsets
-    are ``round(p * local_B)``), runs the forward and backward on them
-    (kernels at local shapes; BatchNorm statistics reduced over the data
-    group), and the loss and gradients are averaged over the data group in
-    one flat ``all_reduce``; the update stays replicated. A batch the data
-    axis does not divide, or a data axis of 1, runs whole on every rank with
-    the caller's ``generator`` and no collective of the step's own (the JAX
-    package's GSPMD step). Layers that ``shard_params`` made column-parallel
+    data axis is > 1 and divides the batch (``parallel.splits_batch``). Each
+    rank keeps its rows of the batch (``put_batch``: of the global batch on
+    one node, of its node's batch on several), augments them with its own
+    stream (seeded from ``generator``'s seed and its global data index; the
+    exact-count subsets are ``round(p * local_B)``), runs the forward and
+    backward on them (kernels at local shapes; BatchNorm statistics reduced
+    over the data group), and the loss and gradients are averaged over the
+    data group in one flat ``all_reduce``; the update stays replicated. On
+    one node a batch the data axis does not divide, or a data axis of 1,
+    runs whole on every rank with the caller's ``generator`` and no
+    collective of the step's own (the JAX package's GSPMD step). Layers that ``shard_params`` made column-parallel
     gather their channels over the model group themselves.
     ``zero`` (ZeRO-1, data axis > 1): the optimizer steps this rank's slices
     (``parallel.shard_opt_state``): the gradients are reduce-scattered into
@@ -426,7 +428,7 @@ def make_train_step(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     def step(image: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         module.train()
-        local = n_data > 1 and image.shape[0] % n_data == 0
+        local = n_data > 1 and splits_batch(mesh, image.shape[0])
         if local:
             image, label = put_batch(mesh, image), put_batch(mesh, label)
         image = image.to(device, non_blocking=True)
@@ -681,20 +683,28 @@ def train(
     ``torch.profiler`` trace of the steps of epoch 1 (with CUDA activity on
     the card), as the JAX package writes a ``jax.profiler`` trace there.
 
-    On N ranks (``torchrun --nproc-per-node N``; :func:`..parallel.
-    initialize_distributed` reads its environment) every rank trains on a
-    (N / ``model_parallel``, ``model_parallel``) mesh: the global batch is
-    ``batch_size * num_samples`` whatever N (every rank's sampler draws it
-    from ``seed`` and the step keeps the rank's rows), gradients and
-    BatchNorm statistics reduce over the data axis, ``model_parallel`` > 1
-    makes the wide kernels column-parallel over the model axis
-    (``parallel.shard_params``), and ``zero_optimizer`` slices the optimizer
-    moments over the data axis (ZeRO-1). Validation on N ranks shares each
-    volume's windows over the data axis (in memory: a mesh never streams), so
-    every rank computes the same val_dice and val_loss and the schedule and
-    early stopping agree; only rank 0 writes
+    On N ranks (``torchrun --nproc-per-node N``, on one node or several:
+    ``--nnodes M``; :func:`..parallel.initialize_distributed` reads its
+    environment) every rank trains on a (N / ``model_parallel``,
+    ``model_parallel``) mesh: gradients and BatchNorm statistics reduce over
+    the data axis, ``model_parallel`` > 1 makes the wide kernels
+    column-parallel over the model axis (``parallel.shard_params``; it must
+    divide a node's ranks), and ``zero_optimizer`` slices the optimizer
+    moments over the data axis (ZeRO-1). The batch is the JAX package's
+    multi-host rule with a node for a host: each node's sampler draws
+    ``batch_size * num_samples`` rows seeded ``seed + process_index``, the
+    global batch is the nodes' batches in node order, and each rank keeps its
+    rows of its node's batch; on one node that is ``batch_size *
+    num_samples`` whatever N. As in the JAX package, the config-driven host
+    ``augmentation`` is seeded (seed, epoch, step) alone, so every node feeds
+    the same rows there, and ``train_voxels_per_sec`` counts
+    ``batch_size * num_samples`` patches a step. Validation on N ranks shares
+    each volume's windows over the data axis (in memory: a mesh never
+    streams), so every rank computes the same val_dice and val_loss and the
+    schedule and early stopping agree. The first rank of each node writes the
     files (Dataset.json, checkpoints, history.json, TensorBoard scalars, the
-    profiler trace) and prints the epochs."""
+    profiler trace) and prints the epochs, as every JAX process does; on one
+    node that is rank 0."""
     if dropout > 0:
         raise NotImplementedError(DROPOUT_REFUSAL)
     if val_blend_mode not in BLEND_MODES:
@@ -760,10 +770,12 @@ def train(
                             cache_rate=cache_rate)
     # the margin feeds the rotation + zoom on the device (real-data borders)
     margin = max(patch_size) // 4 if augment_spatial else 0
-    # the bf16 wire halves the upload when the step computes in bf16 anyway
+    # the bf16 wire halves the upload when the step computes in bf16 anyway;
+    # each node draws its own rows (the JAX seed + process_index)
     sampler = PatchSampler(train_cache, patch_size=patch_size,
                            batch_size=batch_size * num_samples,
-                           num_samples=num_samples, margin=margin, seed=seed,
+                           num_samples=num_samples, margin=margin,
+                           seed=seed + mesh.process_index,
                            image_wire_dtype=torch.bfloat16 if mixed_precision else np.float32)
 
     host_augment = build_pipeline(augmentation)  # user-config path (host)
@@ -809,8 +821,9 @@ def train(
                 trace = _stop_profiler(profiler, Path(profile_dir), device)
                 profiler = None
                 print(f"wrote profiler trace to {trace}")
-            # labelled voxels per second of the training epoch across the
-            # whole mesh (host clock; float(loss) synchronises every step)
+            # labelled voxels per second of the training epoch, batch_size *
+            # num_samples patches a step as the JAX trainer counts them (one
+            # node's batch on several; host clock; float(loss) synchronises)
             voxels_per_sec = voxels_per_step * steps_per_epoch / max(train_seconds, 1e-9)
 
             # the whole state on every rank: column-parallel kernels gathered

@@ -60,6 +60,7 @@ from segmantic_tpu_torch.transforms.spatial import Spacingd
 from segmantic_tpu_torch.utils import config, file_iterators, schema
 from segmantic_tpu_torch.utils.json import PathEncoder
 from segmantic_tpu_torch.viz import plots
+from tests.test_torch_native_sync import one_native_library
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -196,26 +197,32 @@ def test_utils_match(paired_files, tmp_path):
     assert json.dumps(doc, cls=PathEncoder) == json.dumps(doc, cls=JPathEncoder)
 
 
+@pytest.fixture(scope="module")
+def native_library():
+    """Both packages' loaders on one finished library (built through the
+    port's atomic loader; a failure the JAX loader cached at collection
+    cleared): ``test_torch_native_sync.one_native_library``."""
+    return one_native_library()
+
+
 @pytest.mark.parametrize("order", [0, 1])
-def test_native_resampler_matches_numpy_and_the_original(order):
+def test_native_resampler_matches_numpy_and_the_original(order, native_library):
     """``Spacingd._resample`` asks ``native.available()`` and takes the native
     resampler or the numpy one by that answer; both give the same volume
     (1e-4 absolute: float32 coordinates in the library, float64 in numpy).
-    The original library binding is compared where it loaded in this process:
-    its loader may lose a race with a concurrent build and say no."""
+    The original library binding gives the same volume: the fixture holds
+    its loader to the port's library."""
     rng = np.random.default_rng(3)
     data = rng.standard_normal((1, 9, 10, 11)).astype(np.float32)
     m = np.concatenate([np.diag([0.7, 0.9, 1.2]), [[0.3], [-0.2], [0.5]]], axis=1)  # (3, 4)
     plain = resample_affine_np(data, m, (12, 11, 9), order=order)
     got = Spacingd._resample(data, m, (12, 11, 9), order)
     assert got.shape == plain.shape and got.dtype == plain.dtype
-    if not native.available():
+    if not native_library:
         np.testing.assert_array_equal(got, plain)
         return
     np.testing.assert_array_equal(got, native.resample_affine(data, m, (12, 11, 9), order=order))
-    if jnative.available():
-        np.testing.assert_array_equal(
-            got, jnative.resample_affine(data, m, (12, 11, 9), order=order))
+    np.testing.assert_array_equal(got, jnative.resample_affine(data, m, (12, 11, 9), order=order))
     if order == 1:
         np.testing.assert_allclose(got, plain, atol=1e-4)
     else:  # nearest picks may differ only where a coordinate lands on a tie

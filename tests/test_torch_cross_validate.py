@@ -8,10 +8,18 @@ byte-identical, the launched commands differ only in the package name, and
 ``SEGMANTIC_FOLD_SLOT`` is set the same way at ``max_parallel`` 1 and 2. Then
 the port alone trains a tiny 3D model on the CPU in two fold subprocesses at
 once and evaluates every checkpoint with its ``predict``.
+
+A fold trains on every card: with ``fold_ranks`` set to count 4 cards, a
+scenario on the card launches ``python -m torch.distributed.run --standalone
+--nproc-per-node 4`` in front of the JAX launch's module and arguments; at
+one card, and for a ``device: cpu`` scenario, the launch is the JAX one but
+for the package. With the count set to 2 for the CPU, two folds train on two
+gloo CPU ranks each through that torchrun launch and are evaluated.
 """
 
 from __future__ import annotations
 
+import json
 import random
 import shutil
 import subprocess
@@ -108,6 +116,7 @@ def test_cross_validate_returns_each_fold_run(dataset, monkeypatch):
     assert [(r.fold_dir.relative_to(dataset / "cv").as_posix(), r.returncode) for r in runs] \
         == [("other/0", 0), ("other/1", 0), ("small/0", 0), ("small/1", 0)]
     assert all(r.train_seconds >= 0 and r.eval_seconds >= 0 for r in runs)
+    assert [r.argv for r in runs] == [a["args"] for a in _Recorder.launched]
 
 
 def test_cross_validate_end_to_end_on_the_cpu(tmp_path):
@@ -143,3 +152,79 @@ def test_cross_validate_end_to_end_on_the_cpu(tmp_path):
         lines = (fold_out / "mean_dice.txt").read_text().splitlines()
         assert len(lines) == 2 and lines[-1].startswith("mean\t")
         assert np.isfinite(float(lines[0]))
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_a_fold_on_the_card_launches_torchrun_on_every_card(dataset, monkeypatch, cards):
+    """``small.yml`` trains on the card (the schema's default device),
+    ``other.json`` on the CPU; the card count is set, not read."""
+    monkeypatch.setattr(subprocess, "Popen", _Recorder)
+    seeded = random.Random
+    monkeypatch.setattr(random, "Random", lambda seed=None: seeded(7))
+    monkeypatch.setattr(pcv, "fold_ranks", lambda device: cards if device == "cuda" else 1)
+    out = dataset / "cv"
+    _, want_runs = _run(jcv.cross_validate, dataset, out, 2)
+    shutil.rmtree(out)
+    _, got_runs = _run(pcv.cross_validate, dataset, out, 2, device="cpu")
+    assert len(got_runs) == len(want_runs) == 4
+    for g, w in zip(got_runs, want_runs):
+        on_card = Path(g["cwd"]).parent.name == "small"
+        head = w["args"][:2]
+        if on_card and cards > 1:
+            head = head + ["torch.distributed.run", "--standalone", "--nproc-per-node",
+                           str(cards), "-m"]
+        assert g["args"] == head + ["segmantic_tpu_torch.commands.unet_cli"] + w["args"][3:]
+        assert g["cwd"] == w["cwd"] and g["slot"] == w["slot"]
+
+
+def test_fold_ranks_counts_visible_cards_on_the_card_and_one_on_the_cpu(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert pcv.fold_ranks("cuda") == 3
+    # a named card trains alone: its ranks would all land on that card
+    assert pcv.fold_ranks("cuda:0") == pcv.fold_ranks("cuda:1") == 1
+    assert pcv.fold_ranks("cpu") == 1
+
+
+def test_a_fold_on_two_cpu_ranks_trains_and_is_evaluated(tmp_path, monkeypatch):
+    """The count set to 2 for a ``device: cpu`` scenario: each fold's
+    ``train-config`` runs under torchrun on two gloo CPU ranks (both folds at
+    once, each torchrun on its own free port), then ``predict`` in this
+    process evaluates every checkpoint."""
+    monkeypatch.setattr(pcv, "fold_ranks", lambda device: 2)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    launched, real = [], subprocess.Popen
+
+    def popen(args, **kw):
+        launched.append(list(args))
+        return real(args, **kw)
+
+    monkeypatch.setattr(subprocess, "Popen", popen)
+    data = tmp_path / "data"
+    for i in range(4):
+        write_case(data, f"case{i}", (16, 16, 16), 20 + i, spacing=(1.0, 1.0, 1.0))
+    write_case(tmp_path / "test", "held_out", (18, 16, 16), 30, spacing=(1.0, 1.0, 1.0))
+    save_tissue_list({"A": 1, "B": 2}, tmp_path / "tissues.txt")
+    cfg = tmp_path / "configs"
+    cfg.mkdir()
+    config.dump({"num_classes": 3, "spatial_size": [16, 16, 16], "channels": [4, 8],
+                 "strides": [2], "num_res_units": 1, "max_epochs": 1, "batch_size": 2,
+                 "num_samples": 2, "mixed_precision": False, "val_roi_size": [16, 16, 16],
+                 "device": "cpu"}, cfg / "tiny.yml")
+    out = tmp_path / "cv"
+    runs = pcv.cross_validate(
+        image_dir=data / "image", labels_dir=data / "label", tissue_list=tmp_path / "tissues.txt",
+        output_dir=out, config_files_dir=cfg, test_image_dir=tmp_path / "test" / "image",
+        test_labels_dir=tmp_path / "test" / "label", num_splits=2, max_parallel=2,
+        device="cpu")
+    assert [r.returncode for r in runs] == [0, 0]
+    assert [a[2:7] for a in launched] == [
+        ["torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m"]] * 2
+    for fold in range(2):
+        fold_out = out / "tiny" / str(fold)
+        assert [p for p in fold_out.glob("*.ckpt") if p.name != "last.ckpt"], f"fold {fold}"
+        assert len(json.loads((fold_out / "history.json").read_text())) == 1
+        assert (fold_out / "held_out.nii.gz").exists()
+        lines = (fold_out / "mean_dice.txt").read_text().splitlines()
+        assert len(lines) == 2 and np.isfinite(float(lines[0]))

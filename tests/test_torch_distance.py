@@ -3,9 +3,11 @@
 Both packages take the native distance transform of ``native/`` when the
 library loads, scipy's exact one when it does not; each route gives the
 same statistics in both packages, and the two routes agree within 1e-5
-relative (the native transform returns f32). The library is built first
-through the port's atomic loader (module fixture), so the JAX loader finds a
-finished file and never runs its own ``make``.
+relative (the native transform returns f32). The module fixture holds both
+packages to one finished library (``test_torch_native_sync.one_native_library``:
+built through the port's atomic loader, the JAX loader's cached failure
+cleared), so a worker whose JAX loader cached a failure at collection does
+not send the JAX side to scipy while the port takes the library.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from segmantic_tpu import native as jnative
 from segmantic_tpu.metrics import distance as jdist
 from segmantic_tpu_torch import metrics, native
 from segmantic_tpu_torch.metrics import distance as tdist
+from tests.test_torch_native_sync import one_native_library
 
 
 @pytest.fixture(scope="module", autouse=True)
 def native_library():
-    return native.available()
+    return one_native_library()
 
 
 def _blob(rng, shape, radius, shift=0.0):
@@ -96,3 +99,19 @@ def test_binary_contour_and_exports_match(native_library):
         np.testing.assert_array_equal(
             native.edt_distance_to_foreground(pred, (0.9, 0.8, 1.2)),
             jnative.edt_distance_to_foreground(pred, (0.9, 0.8, 1.2)))
+
+
+def test_a_failure_the_jax_loader_cached_before_the_fixture_is_cleared():
+    """The fault this file's fixture repairs, set by hand: the JAX loader's
+    cached failure, as a worker caches it when it loads a half-linked file
+    at collection. The fixture's helper clears it, and the JAX Hausdorff
+    then takes the same route as the port's, bit for bit."""
+    with jnative._lock:
+        jnative._lib, jnative._load_failed = None, True
+    both = one_native_library()
+    assert jnative._load_failed == (not both)
+    assert both == jnative.available() == native.available()
+    pred, ref, spacing = _masks("3d-anisotropic")
+    got = tdist.hausdorff_surface_distance(pred, ref, spacing)
+    want = jdist.hausdorff_surface_distance(pred, ref, spacing)
+    np.testing.assert_array_equal([got[k] for k in sorted(got)], [want[k] for k in sorted(want)])

@@ -4,10 +4,13 @@
 ranks, each a ``python -m tests.test_torch_parallel_ranks`` subprocess (about
 4.5 s for two ranks that import torch): the keyword arguments go to every rank
 pickled, each rank returns its result pickled, and the process group meets in
-a file store under the test's temporary directory. This module imports torch
-and the port only, so the ranks never load JAX; the ``tests/test_torch_parallel_*``
-files hold the JAX side. The tests here need no second rank: the placement
-rules on a mesh object, ``put_batch`` and the world of one.
+a file store under the test's temporary directory. With ``nodes`` > 1 the
+ranks are that many torchrun nodes of ``world // nodes`` ranks each, numbered
+node by node: each rank passes ``local_world_size`` to
+``initialize_distributed``, which exports it as torchrun's ``LOCAL_WORLD_SIZE``. This module imports torch and the port only, so the ranks
+never load JAX; the ``tests/test_torch_parallel_*`` files hold the JAX side.
+The tests here need no second rank: the placement rules on a mesh object,
+``put_batch`` (on one node and on several) and the world of one.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from segmantic_tpu_torch.models.unet import UNet, from_flax_variables
 from segmantic_tpu_torch.parallel import mesh as pmesh
 
 REPO = Path(__file__).resolve().parent.parent
+# what torchrun sets for a rank; a test's ranks get none of it from the parent
+TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                "GROUP_RANK", "GROUP_WORLD_SIZE", "LOCAL_WORLD_SIZE")
 
 
 class Ranks:
@@ -34,19 +40,18 @@ class Ranks:
     returns each rank's result, rank 0 first, or raises with the ranks'
     output if any rank fails. The caller may compute meanwhile."""
 
-    def __init__(self, case: str, world: int, tmp: Path, **kw):
+    def __init__(self, case: str, world: int, tmp: Path, nodes: int = 1, **kw):
         self.tmp = Path(tmp)
         self.tmp.mkdir(parents=True, exist_ok=True)
         (self.tmp / "in.pkl").write_bytes(pickle.dumps(kw))
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env = {k: v for k, v in os.environ.items() if k not in TORCHRUN_ENV}
         env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
         self.procs = []
         for rank in range(world):
             with open(self.tmp / f"rank{rank}.log", "w") as log:
                 self.procs.append(subprocess.Popen(
                     [sys.executable, "-m", "tests.test_torch_parallel_ranks", case, str(rank),
-                     str(world), str(self.tmp)], cwd=REPO, env=env, stdout=log,
+                     str(world), str(self.tmp), str(nodes)], cwd=REPO, env=env, stdout=log,
                     stderr=subprocess.STDOUT))
 
     def wait(self, timeout: float = 240) -> List[Any]:
@@ -297,16 +302,98 @@ def train_cases(cases):
     return [train_case(**c) for c in cases]
 
 
+def sampler_spy(trainer):
+    """Make ``trainer.train`` build a ``PatchSampler`` that records its seed
+    and its first batch; returns (the records, the undo)."""
+    real = trainer.PatchSampler
+    drawn = []
+
+    class Recording(real):
+        def __init__(self, *args, seed=0, **kw):
+            super().__init__(*args, seed=seed, **kw)
+            self._record = {"seed": seed, "batch": None}
+            drawn.append(self._record)
+
+        def sample_batch(self):
+            image, label = super().sample_batch()
+            if self._record["batch"] is None:
+                self._record["batch"] = (np.array(image), np.array(label))
+            return image, label
+
+    trainer.PatchSampler = Recording
+    return drawn, lambda: setattr(trainer, "PatchSampler", real)
+
+
+def given_pix2pix(init):
+    """A stand-in for ``i2i.train._init_pix2pix`` that builds the networks
+    from the flax params ``init["gen"]`` / ``init["disc"]``."""
+    from segmantic_tpu_torch.i2i import models as tm
+
+    def build(src0, dst0, base_features, n_blocks, seed, device):
+        nd, cs, cd = src0.ndim - 2, src0.shape[-1], dst0.shape[-1]
+        gen = tm.ResnetGenerator(cs, cd, base_features, n_blocks, nd)
+        disc = tm.PatchDiscriminator(cs + cd, base_features, spatial_dims=nd)
+        for net, params in ((gen, init["gen"]), (disc, init["disc"])):
+            state = tm.from_flax_variables({"params": params})
+            net.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
+        return gen.to(device), disc.to(device)
+
+    return build
+
+
+def nodes_case(steps=(), i2i=(), train=(), refuse_model=None):
+    """The multi-node cases, each with its node's own inputs: ``steps``
+    (``steps_case`` with ``image`` / ``label`` one per node), ``i2i``
+    (``i2i_case`` with ``batches`` one per node and the flax ``init`` of the
+    networks handed to the trainer's seam), ``train`` (``train_case`` with the
+    sampler's seed and first batch recorded), and whether ``make_mesh(model=
+    refuse_model)`` raises; with this rank's node, mesh position and
+    ``is_main``."""
+    from segmantic_tpu_torch.i2i import train as ttrain
+    from segmantic_tpu_torch.train import trainer
+
+    the_mesh = pmesh.make_mesh()
+    node = the_mesh.process_index
+    out = dict(local_world_size=os.environ["LOCAL_WORLD_SIZE"],
+               process_index=the_mesh.process_index,
+               process_count=the_mesh.process_count, data_index=the_mesh.data_index,
+               main=pmesh.is_main(the_mesh), main_no_mesh=pmesh.is_main())
+    out["steps"] = [steps_case(**dict(c, image=c["image"][node], label=c["label"][node]))
+                    for c in steps]
+    out["i2i"] = []
+    for c in i2i:
+        real, ttrain._init_pix2pix = ttrain._init_pix2pix, given_pix2pix(c["init"])
+        try:
+            out["i2i"].append(i2i_case("pix2pix", c["batches"][node], c["kw"], c["out_root"]))
+        finally:
+            ttrain._init_pix2pix = real
+    out["train"] = []
+    for c in train:
+        drawn, undo = sampler_spy(trainer)
+        try:
+            out["train"].append(dict(train_case(**c), drawn=drawn))
+        finally:
+            undo()
+    if refuse_model:
+        try:
+            pmesh.make_mesh(model=refuse_model)
+            out["refused"] = None
+        except ValueError as err:
+            out["refused"] = str(err)
+    return out
+
+
 CASES = {"steps": steps_cases, "norm": norm_cases, "train": train_cases, "sw": sw_cases,
-         "predict": predict_case, "i2i": i2i_cases}
+         "predict": predict_case, "i2i": i2i_cases, "nodes": nodes_case}
 
 
-def _main(case: str, rank: int, world: int, tmp: str) -> None:
+def _main(case: str, rank: int, world: int, tmp: str, nodes: int = 1) -> None:
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
-                            world_size=world)
+    per_node = world // nodes
+    pmesh.initialize_distributed(init_method=f"file://{tmp}/store", world_size=world,
+                                 rank=rank, backend="gloo", local_world_size=per_node)
     try:
         kw = pickle.loads((Path(tmp) / "in.pkl").read_bytes())
         out = CASES[case](**kw)
@@ -331,6 +418,41 @@ def test_put_batch_keeps_this_ranks_rows_when_they_divide():
     np.testing.assert_array_equal(pmesh.put_batch(_fake_mesh(position=1), x[:5]), x[:5])
     got = pmesh.shard_batch(_fake_mesh(position=0), {"a": x, "b": (x, x)})
     assert got["a"].shape == (4, 1) and got["b"][1].shape == (4, 1)
+
+
+def test_put_batch_on_two_nodes_keeps_rows_of_the_nodes_batch():
+    """Two nodes of two ranks, mesh (4, 1): the global batch is the nodes'
+    batches in node order, so rank 3 (node 1, data index 3) keeps the second
+    half of its node's batch; a mesh (2, 2) keeps the whole node batch; a
+    node batch its data rows cannot split raises."""
+    def mesh(data, model, position):
+        ranks = tuple(range(4))
+        return pmesh.Mesh({"data": data, "model": model}, ranks, ranks[position],
+                          process_index=position // 2, process_count=2)
+
+    x = np.arange(6)[:, None]
+    assert pmesh.put_batch(mesh(4, 1, 3), x)[:, 0].tolist() == [3, 4, 5]
+    assert pmesh.put_batch(mesh(4, 1, 2), x)[:, 0].tolist() == [0, 1, 2]
+    assert mesh(4, 1, 3).local_data_index == 1 and mesh(4, 1, 3).data_index == 3
+    assert pmesh.put_batch(mesh(2, 2, 3), x).shape == (6, 1)
+    assert pmesh.splits_batch(mesh(4, 1, 0), 5) is False  # no process group
+    with pytest.raises(ValueError, match="does not split"):
+        pmesh.put_batch(mesh(4, 1, 1), x[:5])
+    assert [pmesh.is_main(mesh(4, 1, p)) for p in range(4)] == [True, False, True, False]
+
+
+def test_initialize_distributed_refuses_nodes_of_unequal_ranks(monkeypatch):
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="same number of ranks"):
+        pmesh.initialize_distributed(init_method="file:///nonexistent", world_size=4, rank=0,
+                                     backend="gloo", local_world_size=3)
+    assert "LOCAL_WORLD_SIZE" not in os.environ
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="same number of ranks"):
+        pmesh._local_world_size(4)
+    assert pmesh._local_world_size(6) == 3
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
+    assert pmesh._local_world_size(4) == 4
 
 
 def test_a_world_of_one_needs_no_process_group():
@@ -369,4 +491,4 @@ def test_shard_opt_state_slices_every_moment_on_its_flax_axis():
 
 
 if __name__ == "__main__":
-    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], int(sys.argv[5]))

@@ -8,8 +8,9 @@ through numpy; the two routes give the same bits, f32 and bf16 images (round
 to nearest even), uint8 and int32 label volumes, patches hanging outside the
 volume included. The port's bf16 batch is a CPU ``torch.bfloat16`` tensor
 (the JAX package's an ``ml_dtypes`` array): the bit patterns are compared.
-The library is built first through the port's atomic loader (module
-fixture), so the JAX loader finds a finished file and never runs ``make``.
+The module fixture holds both packages to one finished library
+(``test_torch_native_sync.one_native_library``), so the JAX sampler never
+takes numpy for a failure its loader cached at collection.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ from segmantic_tpu_torch import native
 from segmantic_tpu_torch.core.volume import Volume
 from segmantic_tpu_torch.data import cache
 from segmantic_tpu_torch.train import trainer
+from tests.test_torch_native_sync import one_native_library
 
 
 @pytest.fixture(scope="module", autouse=True)
 def native_library():
-    return native.available()
+    return one_native_library()
 
 
 def _volumes(label_dtype, nd=3):
