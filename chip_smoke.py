@@ -49,9 +49,17 @@ parallelism (``[parallel-dp-2]``; NCCL refuses two ranks on one device),
 and the JAX package's multi-host rule on two torchrun nodes of one rank each
 sharing the card over gloo: each node's sampler draws its own rows and the
 f32 step on both nodes is held against one process on the nodes' rows
-(``[parallel-nodes]``).
+(``[parallel-nodes]``). UNETR runs its default, lane-packed graph: its
+narrow regions in phase space on kernels 3-6 and its loss on the Dice
+kernels; ``[unetr-pack]`` holds kernels 3-6 at its phase-space conv shapes
+against their plain versions, times them beside their bounds and cuDNN, and
+runs the packed step against the unpacked one, interleaved.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases unetr-pack,unetr
+
+Without ``--phases`` every phase runs, in the order of the table ``PHASES``;
+with it, the named phases and the phases whose results they read.
 
 Needs one CUDA device, ``nvcc`` and the repository checkout around this file.
 Every phase raises on failure; the last line of standard output is
@@ -1893,27 +1901,32 @@ def run_cross_validate(torch, work: Path):
                       "eval_s": [round(r.eval_seconds, 3) for r in runs]}
 
 
-# the two other architectures at full width: train() / create() keywords and
-# the stride-1 3^3 convs of a forward (kernel 1 launches; the dx skip the
-# input layer's conv, so a step launches 2 * n - 1, and kernel 2 n)
+# the two other architectures at full width: train() / create() keywords, the
+# stride-1 3^3 convs of a forward on kernel 1 (``convs``) and in phase space on
+# kernels 3-4 (``phase_convs``), and which kernel takes the image (its dx is
+# skipped; packed UNETR's one-channel input conv runs on cuDNN): a step
+# launches 2 * n (less the input layer's) of each conv kernel, n of its dw
+# kernel, and the Dice kernels once each where the top runs in phase space
+# (packed UNETR: the phase Dice)
 ARCHS = {
     "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
-                  "convs": 25},
+                  "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False},
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
-              "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 22},
+              "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
+              "phase_convs": 7, "input": None, "phase_dice": True},
+    # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
+    # from the packed model's weights
+    "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
+                       "phase_dice": False},
 }
 # (architecture, stored x shape at the training batch, CO, launches of the
-# shape a forward): every stride-1 3^3 conv shape of the two that no earlier
-# phase times at batch 8
+# shape a forward): every stride-1 3^3 conv shape of the two on kernel 1 that
+# no earlier phase times at batch 8 (packed UNETR's 96^3 and 48^3 convs run in
+# phase space: UNETR_PACK_SHAPES)
 ARCH_CONV_SHAPES = [
     ("segresnet", (TRAIN_BATCH, 96, 96, 96, 1), 8, 1),
     ("segresnet", (TRAIN_BATCH, 96, 96, 96, 8), 8, 4),
-    ("unetr", (TRAIN_BATCH, 96, 96, 96, 1), 16, 1),
-    ("unetr", (TRAIN_BATCH, 96, 96, 96, 16), 16, 2),
-    ("unetr", (TRAIN_BATCH, 96, 96, 96, 32), 16, 1),
-    ("unetr", (TRAIN_BATCH, 48, 48, 48, 32), 32, 3),
-    ("unetr", (TRAIN_BATCH, 48, 48, 48, 64), 32, 1),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 32), 32, 2),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 64), 64, 3),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 128), 64, 1),
@@ -2017,6 +2030,19 @@ def _add_launches(total, got):
         total[name] = total.get(name, 0) + n
 
 
+def arch_launches(spec):
+    """({kernel: launches} of a forward, of a train step) for an ``ARCHS``
+    entry."""
+    per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"]}
+    per_step = {"fused_conv": 2 * spec["convs"], "phase_conv": 2 * spec["phase_convs"],
+                "fused_conv_dw": spec["convs"], "phase_conv_dw": spec["phase_convs"],
+                "dice_phase_sums": int(spec["phase_dice"]),
+                "dice_phase_dx": int(spec["phase_dice"])}
+    if spec["input"] is not None:
+        per_step[spec["input"]] -= 1
+    return per_fwd, per_step
+
+
 def run_arch(torch, arch: str, data: Path, work: Path):
     """One architecture at full width on the card, 8 classes: ``train()`` for
     two epochs on the phantoms of ``data`` (96^3 bf16 patches, batch 2 x 4,
@@ -2025,8 +2051,10 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     ``predict()`` with labels on one 256x256x176 phantom with its stage
     seconds, three requests through ``make_server(InferenceSession(...))``
     and the sliding window alone on one volume. Each path's launches are
-    counted from 0: kernel 1 ``convs`` a forward and ``2 * convs - 1`` a step,
-    kernel 2 ``convs`` a step, kernel 7 once a chunk, no other kernel."""
+    counted from 0: kernels 1 and 3-4 ``convs`` / ``phase_convs`` a forward
+    and twice that a step less the input layer's dx, kernels 2 and 5-6
+    ``convs`` / ``phase_convs`` a step, the Dice kernels once a step with
+    ``phase_dice``, kernel 7 once a chunk, no other kernel."""
     import numpy as np
 
     from segmantic_tpu_torch.infer.predict import predict
@@ -2037,14 +2065,12 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     )
 
     spec = ARCHS[arch]
-    fwd = spec["convs"]
-    per_step = {"fused_conv": 2 * fwd - 1, "fused_conv_dw": fwd}
+    per_fwd, per_step = arch_launches(spec)
     total = {}
 
     def expect(where, got, steps=0, chunks=0):
-        want = {name: 0 for name in got}
-        want["fused_conv"] = steps * per_step["fused_conv"] + chunks * fwd
-        want["fused_conv_dw"] = steps * per_step["fused_conv_dw"]
+        want = {name: steps * per_step.get(name, 0) + chunks * per_fwd.get(name, 0)
+                for name in got}
         want["blend"] = chunks
         print(f"  launches of {where}: {got}")
         if got != want:
@@ -2088,8 +2114,9 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     torch.cuda.synchronize()
     got = _launches(counters)
     print(f"  launches of one eval forward of {SW_BATCH} x 96^3 windows: {got}")
-    if got["fused_conv"] != fwd or sum(got.values()) != fwd:
-        _fail(f"{arch} eval forward: expected {fwd} launches of kernel 1 alone, got {got}")
+    want = {name: per_fwd.get(name, 0) for name in got}
+    if got != want:
+        _fail(f"{arch} eval forward: expected launches {want}, got {got}")
     _add_launches(total, got)
     ms, times, loss_hist, peak = warm_steps(torch, step, image, label, n=10)
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
@@ -2118,8 +2145,8 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     expect("predict()", got, chunks=got["blend"])
 
     (work / "serve").mkdir()
-    request_s, got, session = serve_requests(torch, ckpt, work / "serve",
-                                             required=("fused_conv", "blend"))
+    required = tuple(name for name, n in per_fwd.items() if n) + ("blend",)
+    request_s, got, session = serve_requests(torch, ckpt, work / "serve", required=required)
     print(f"  seconds per request: {[round(s, 3) for s in request_s]}")
     expect("the three requests", got, chunks=got["blend"])
     sw_s = device_seconds_per_volume(torch, session, SW_BATCH)
@@ -2147,6 +2174,240 @@ def arch_parity(torch):
         image, label = fixed_batch(torch, 1, 41, size=patch[0])
         print(f"  {arch} {kw}, batch 1 x {patch}")
         step_parity(torch, dict(num_classes=NUM_CLASSES, seed=3, **kw), image, label, patch)
+
+
+# [unetr-pack]: every phase-space conv shape of packed UNETR (feature 16) at the
+# training batch: (stored phase tensor, true CI, CO, launches a forward, layers);
+# the one-channel input conv runs on cuDNN (the faster of its two routes, timed
+# here), so its shape launches no kernel on the path and stays out of the
+# kernels line; it takes no dx (the image needs none), every other conv does
+UNETR_PACK_SHAPES = [
+    ((TRAIN_BATCH, 48, 48, 48, 8), 1, 16, 0, "encoder1.conv_0"),
+    ((TRAIN_BATCH, 48, 48, 48, 128), 16, 16, 2, "encoder1.conv_1, decoder2_conv.conv_1"),
+    ((TRAIN_BATCH, 48, 48, 48, 256), 32, 16, 1, "decoder2_conv.conv_0"),
+    ((TRAIN_BATCH, 24, 24, 24, 256), 32, 32, 3,
+     "encoder2_conv_2.conv_0, encoder2_conv_2.conv_1, decoder3_conv.conv_1"),
+    ((TRAIN_BATCH, 24, 24, 24, 512), 64, 32, 1, "decoder3_conv.conv_0"),
+]
+AB_ROUNDS, AB_STEPS = 4, 5  # the interleaved A/B: rounds of timed steps of each graph
+
+
+def check_unetr_pack_kernels(torch):
+    """Kernels 3-6 at every phase-space conv shape of packed UNETR, bf16 at
+    the training batch: the forward (limit 2e-2 * max|ref|), the input
+    gradient where CI differs from CO (the forward on the flipped, io-swapped
+    kernel, another shape; a square conv's dx has its forward's shape; limit
+    2e-2 * max|ref|) and the weight gradient (1e-3 * max|ref|) against
+    ``phase_conv_plain`` / ``phase_conv_dw_plain`` once, each with its launch
+    plan (or its CUDA-core body: a channel count off the tensor cores' rule)
+    and a repeated launch bit-equal, timed by CUDA-graph replay (median of 5
+    replays of 5 calls; the plain forward uploads its selection tensor, so it
+    is timed eagerly) beside the plain version, the bound and cuDNN on the
+    full-resolution view (the rearrangement not timed, as ``[kernels]``). For
+    the convs whose CI differs from CO, which the JAX package leaves to XLA,
+    the two routes a step could take are timed whole: the phase kernels
+    (forward, dx and dw) against cuDNN's forward, dgrad and wgrad on the
+    ``depth_to_space`` views with the rearrangements (the input layer takes no
+    dx). Returns {kernel: {...}} as :func:`check_kernels`, times and bounds
+    summed over the shapes the path launches, and {layers: (kernel route ms,
+    cuDNN route ms)}."""
+    import torch.nn.functional as F
+
+    from segmantic_tpu_torch.ops import fused_conv, phase_conv
+    from segmantic_tpu_torch.ops.fast_conv import depth_to_space, space_to_depth
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(12)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = torch.bfloat16
+    results, routes = {}, {}
+    reps = dict(n=5, launches=5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    def check(label, got, want, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        ok = err <= limit * ref
+        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e} = {limit:g} * max|ref| "
+              f"{ref:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{label} disagrees with its plain version")
+        return err
+
+    def ncdhw(t):  # channel-last (B, D, H, W, C) -> the NCDHW view cuDNN takes
+        return t.permute(0, 4, 1, 2, 3)
+
+    def conv_body(t, c_in, c_out):  # the forward's launch plan on phase tensor t
+        if not fused_conv.takes_tensor_cores(t, c_in):
+            return "CUDA-core body"
+        q = fused_conv.plan((t.shape[0],) + tuple(2 * v for v in t.shape[1:4]), c_in, c_out,
+                            2, sms)
+        return (f"brick {q.td}x{q.th}x{q.tw} in {q.warps} warps, N tile {q.nt}, "
+                f"{q.nbricks} bricks x {q.n_tiles} N tiles, tile fill {q.fill:.3f}")
+
+    def check_conv(label, t, wk, library):
+        """The forward kernel on phase tensor t and kernel wk against its plain
+        version, on repeat and timed beside ``library``: (error, kernel ms,
+        plain ms, library ms, bytes, operations)."""
+        c_in, c_out = wk.shape[-2:]
+        k = lambda: phase_conv.phase_conv(t, wk)  # noqa: E731
+        pl = lambda: phase_conv.phase_conv_plain(t, wk)  # noqa: E731
+        got = k()
+        err = check(label, got, pl(), 2e-2)
+        if not torch.equal(got, k()):
+            _fail(f"{label}: a repeated launch is not bit-equal")
+        ms, pms = _graph_ms(torch, k, **reps), _median_ms(torch, pl, n=3, warmup=1)
+        lms = _graph_ms(torch, library, **reps)
+        print(f"    {conv_body(t, c_in, c_out)}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"(eager), cuDNN at full resolution {lms:.4f} ms")
+        return err, ms, pms, lms, _nbytes(t, wk, got), 2 * 27 * c_in * c_out * (t.numel() // c_in)
+
+    for shape, ci, co, per_fwd, layers in UNETR_PACK_SHAPES:
+        launched = results if per_fwd else {}  # an unlaunched shape stays out of the line
+        p = randn(*shape)
+        w = randn(3, 3, 3, ci, co, scale=(27 * ci) ** -0.5)
+        gy = randn(*shape[:4], 8 * co)
+        full = (shape[0],) + tuple(2 * v for v in shape[1:4])
+        label = f"p{shape} CI {ci} -> CO {co} ({layers}; {per_fwd} a forward)"
+        x_full, g_full = depth_to_space(p, ci), depth_to_space(gy, co)
+        wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+        err, ms, pms, lms, nbytes, ops = check_conv(
+            f"phase_conv {label}", p, w, lambda: F.conv3d(ncdhw(x_full), wc, padding=1))
+        _record(launched, "phase_conv", err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
+                peak=PEAK_BF16, library_ms=lms)
+
+        with_dx = ci > 1  # the layer that takes the one-channel image has no dx
+        wt = fused_conv.flip_io(w)
+        if with_dx and ci != co:
+            err, ms, pms, lms, nbytes, ops = check_conv(
+                f"phase_conv dx (L {8 * co} -> {8 * ci}) {label}", gy, wt,
+                lambda: torch.nn.grad.conv3d_input(ncdhw(x_full).shape, wc, ncdhw(g_full),
+                                                   padding=1))
+            _record(launched, "phase_conv", err=err, ms=ms, plain_ms=pms, nbytes=nbytes,
+                    ops=ops, peak=PEAK_BF16, library_ms=lms)
+
+        if fused_conv.takes_dw_tensor_cores(p, ci, co):
+            d = fused_conv.dw_plan(full, ci, co, sms)
+            body = (f"brick {d.td}x{d.th}x{d.tw}, CK x NT {d.ck}x{d.nt}, {d.splits} splits, "
+                    f"{d.grid[0] * d.grid[1]} blocks of {d.warps} warps, K fill {d.fill:.3f}")
+        else:
+            body = "CUDA-core body"
+        k = lambda: phase_conv.phase_conv_dw(p, gy)  # noqa: E731
+        pl = lambda: phase_conv.phase_conv_dw_plain(p, gy)  # noqa: E731
+        got = k()
+        err = check(f"phase_conv_dw {label}", got, pl(), 1e-3)
+        if not torch.equal(got, k()):
+            _fail(f"phase_conv_dw {label}: a repeated launch is not bit-equal")
+        slow = dict(n=1, launches=1, warmup=1)  # the plain f32 dw: 60-340 ms a call
+        ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **slow)
+        wshape = (co, ci, 3, 3, 3)
+        lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            ncdhw(x_full), wshape, ncdhw(g_full), padding=1), **reps)
+        print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
+              f"{lms:.4f} ms")
+        _record(launched, "phase_conv_dw", err=err, ms=ms, plain_ms=pms,
+                nbytes=_nbytes(p, gy, got), ops=2 * 27 * ci * co * (p.numel() // ci),
+                peak=PEAK_BF16, library_ms=lms)
+
+        if ci == co:
+            continue
+
+        def kernel_route():
+            phase_conv.phase_conv(p, w)
+            if with_dx:
+                phase_conv.phase_conv(gy, wt)
+            phase_conv.phase_conv_dw(p, gy)
+
+        def cudnn_route():
+            xf, gf = ncdhw(depth_to_space(p, ci)), ncdhw(depth_to_space(gy, co))
+            space_to_depth(F.conv3d(xf, wc, padding=1).permute(0, 2, 3, 4, 1))
+            if with_dx:
+                space_to_depth(torch.nn.grad.conv3d_input(
+                    xf.shape, wc, gf, padding=1).permute(0, 2, 3, 4, 1))
+            torch.nn.grad.conv3d_weight(xf, wshape, gf, padding=1)
+
+        kms, cms = _graph_ms(torch, kernel_route, **reps), _graph_ms(torch, cudnn_route, **reps)
+        routes[layers] = (kms, cms)
+        print(f"    a step's {'forward, dx and dw' if with_dx else 'forward and dw'}: phase "
+              f"kernels {kms:.4f} ms, cuDNN on the depth_to_space views with the "
+              f"rearrangements {cms:.4f} ms ({'kernels' if kms <= cms else 'cuDNN'} faster)")
+    return results, routes
+
+
+def unetr_pack_ab(torch):
+    """The packed UNETR step against the unpacked one at full width (feature
+    16, 8 classes), from the same weights on one fixed 8 x 96^3 bf16 batch
+    (Adam 1e-3, flips off): the first step of each with its launches (packed:
+    kernels 1-6 and the Dice kernels, ``ARCHS["unetr"]``; unpacked: kernels
+    1-2 alone, 43 and 22) and the two losses; then, interleaved A B B A,
+    ``AB_ROUNDS`` rounds of :func:`warm_steps` (3 warm-up and ``AB_STEPS``
+    timed steps, CUDA events) of each with each graph's peak memory, and
+    three steps of each under ``torch.profiler``: device kernel ms a step and
+    the busy share (kernel ms over the profiled wall ms).
+    Returns the packed step's launches and the numbers."""
+    from segmantic_tpu_torch.models.unetr import UNETR
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.optim import make_optimizer
+    from segmantic_tpu_torch.train.trainer import SegmentationModel, make_train_step
+
+    kw = ARCHS["unetr"]["create"]
+    model = SegmentationModel.create(num_classes=NUM_CLASSES, seed=1, device=DEVICE, **kw)
+    packed = model.module
+    unpacked = UNETR(spatial_size=kw["spatial_size"], out_channels=NUM_CLASSES, pack=False,
+                     **kw.get("arch_params", {}))
+    unpacked.load_state_dict(packed.state_dict())
+    if not packed.pack or not packed.phase_top_ok() or unpacked.phase_top_ok():
+        _fail("create(arch='unetr') is not the packed graph")
+    image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    image, label = image.to(DEVICE, torch.bfloat16), label.to(DEVICE)
+    steps, launches, losses = {}, {}, {}
+    for name, module in (("packed", packed), ("unpacked", unpacked.to(DEVICE))):
+        module = module.train().requires_grad_(True)
+        opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-3})
+        steps[name] = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
+                                      mixed_precision=True)
+        counters = _reset_counters()
+        losses[name] = steps[name](image, label).item()
+        launches[name] = _launches(counters)
+        print(f"  {name}: first-step loss {losses[name]:.6f}, launches {launches[name]}")
+    for name, spec in (("packed", ARCHS["unetr"]), ("unpacked", ARCHS["unetr-unpacked"])):
+        per_step = arch_launches(spec)[1]
+        want = {k: per_step.get(k, 0) for k in launches[name]}
+        if launches[name] != want:
+            _fail(f"the {name} UNETR step launched {launches[name]}, expected {want}")
+    rel = abs(losses["packed"] - losses["unpacked"]) / abs(losses["unpacked"])
+    print(f"  first-step losses {rel:.3e} apart, relative (bf16; the same function)")
+    if rel > 1e-2:
+        _fail("the packed and unpacked UNETR steps disagree on the first loss")
+    times = {name: [] for name in steps}
+    peaks = {name: 0.0 for name in steps}
+    order = list(steps)
+    for r in range(AB_ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            _, t, _, peak = warm_steps(torch, steps[name], image, label, n=AB_STEPS)
+            times[name] += t
+            peaks[name] = max(peaks[name], peak)
+    numbers = {}
+    for name in steps:
+        prof = _step_profile(torch, lambda: [steps[name](image, label) for _ in range(3)])
+        if not prof["device_ms"]:
+            _fail("torch.profiler saw no kernel time on the card")
+        ms = statistics.median(times[name])
+        numbers[name] = {"step_ms": ms, "min_ms": min(times[name]), "max_ms": max(times[name]),
+                         "kernel_ms": prof["device_ms"] / 3, "busy": prof["device_ms"] /
+                         prof["wall_ms"], "peak_mib": peaks[name]}
+        print(f"  {name}: warm step median {ms:.2f} ms (min {min(times[name]):.2f}, max "
+              f"{max(times[name]):.2f}; {len(times[name])} steps in {AB_ROUNDS} interleaved "
+              f"rounds), {image[..., 0].numel() / ms * 1e3:.4g} labelled voxels/s, peak "
+              f"{peaks[name]:.0f} MiB; torch.profiler over 3 steps: {prof['device_ms'] / 3:.2f}"
+              f" ms of kernels a step, busy share {numbers[name]['busy']:.3f}")
+    ratio = numbers["packed"]["step_ms"] / numbers["unpacked"]["step_ms"]
+    print(f"  packed / unpacked step: {ratio:.3f}; kernel ms "
+          f"{numbers['packed']['kernel_ms'] / numbers['unpacked']['kernel_ms']:.3f}")
+    return launches["packed"], numbers
 
 
 def run_train_extras(torch, data: Path, out: Path):
@@ -4109,7 +4370,8 @@ def check_local_kernels(torch):
 
 def run_parallel(torch, ckpt: Path, work: Path):
     """The four Parallel phases and the local-batch kernels; the world of one
-    over NCCL lives from ``[parallel-dp]`` to ``[parallel-i2i]``."""
+    over NCCL lives from ``[parallel-dp]`` to ``[parallel-i2i]``. Returns
+    {path: launches}."""
     import torch.distributed as dist
 
     from segmantic_tpu_torch.parallel import initialize_distributed
@@ -4140,13 +4402,8 @@ def run_parallel(torch, ckpt: Path, work: Path):
     dp2_launches = run_parallel_dp2(torch, work / "dp2")
     print(f"[parallel] the five Parallel phases: {time.perf_counter() - t0:.1f} s; step ms "
           f"{dp_numbers}; sliding window s {sw_numbers}")
-    t0 = time.perf_counter()
-    print("[parallel-nodes] two torchrun nodes of one rank each on the one card over gloo: "
-          f"each node's sampler seeded {NODE_SEED} + node draws {LOCAL_BATCH} rows; the "
-          "flagship's f32 step on both nodes vs one process on the 8 rows, node-major")
-    nodes_launches = run_parallel_nodes(torch, work / "nodes")
-    print(f"[parallel-nodes] {time.perf_counter() - t0:.1f} s")
-    return (dp_launches, sw_launches, i2i_launches, dp2_launches, nodes_launches)
+    return {"parallel-dp": dp_launches, "parallel-sw": sw_launches,
+            "parallel-i2i": i2i_launches, "parallel-dp-2 (both ranks)": dp2_launches}
 
 
 def _card() -> str:
@@ -4159,7 +4416,383 @@ def _card() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
 
 
-def main() -> None:
+class Run:
+    """What the phases of one run share: the scratch directory, the measured
+    kernels ({kernel: {"max_abs_err", "ms", ...}}, summed over the phases
+    that time them), each driven path's launches and numbers, and the
+    flagship checkpoint (written when a phase first asks for it)."""
+
+    def __init__(self, torch, work: Path):
+        self.torch = torch
+        self.work = work
+        self.measured = {}
+        self.launches = {}  # path -> {kernel: launches}
+        self.numbers = {}  # path -> what it printed to keep
+        self.done = {}  # phase -> its own result
+        self.phase_s = {}
+        self._ckpt = None
+
+    def ckpt(self) -> Path:
+        if self._ckpt is None:
+            self._ckpt = self.work / "flagship.ckpt"
+            make_checkpoint(self.torch, self._ckpt)
+        return self._ckpt
+
+    def measure(self, results) -> None:
+        """Add a phase's kernel results: times and bounds summed, the largest
+        error kept."""
+        for name, r in results.items():
+            m = self.measured.setdefault(name, {
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": None})
+            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+                m[key] += r[key]
+            if r["library_ms"] is not None:
+                m["library_ms"] = (m["library_ms"] or 0.0) + r["library_ms"]
+            m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
+
+    def path(self, name: str, launches, numbers=None) -> None:
+        self.launches[name] = launches
+        if numbers is not None:
+            self.numbers[name] = numbers
+
+
+# -- the phases, in the order of a whole run -----------------------------------
+
+
+def phase_kernels(run: Run) -> None:
+    print("[kernels] each kernel vs its plain version on the card "
+          "(cudnn.allow_tf32=False, matmul precision 'highest')")
+    run.measure(check_kernels(run.torch))
+
+
+def phase_train_kernels(run: Run) -> None:
+    print("[train-kernels] weight-gradient kernels and autograd Functions vs their "
+          "plain versions, batch 8")
+    run.measure(check_train_kernels(run.torch))
+
+
+def phase_aug_kernels(run: Run) -> None:
+    print("[aug-kernels] the shear-group kernel vs its plain version, three groups of the "
+          "144^3 -> 96^3 chain, 5 samples, each with its launch plan; odd shapes once")
+    run.measure(check_aug_kernels(run.torch))
+
+
+def phase_dice_kernels(run: Run) -> None:
+    print("[dice-kernels] the phase-Dice kernels vs their plain versions, "
+          "xp (8,48,48,48,64), and the loss Function vs autograd")
+    run.measure(check_dice_kernels(run.torch))
+
+
+def phase_arch_kernels(run: Run) -> None:
+    print("[arch-kernels] kernels 1 and 2 at the new conv shapes of SegResNet and UNETR, "
+          "bf16, batch 8, vs their plain versions and cuDNN")
+    run.measure(check_arch_kernels(run.torch))
+
+
+def phase_serve(run: Run) -> None:
+    torch = run.torch
+    print("[serve] flagship UNet (16-32-64-128-256, 8 classes, roi 96^3, "
+          "sw-batch 4, overlap 0.25) through the HTTP server")
+    ckpt = run.ckpt()
+    seconds, launches, session = serve_requests(torch, ckpt, run.work)
+    print(f"  seconds per request: {[round(s, 3) for s in seconds]}")
+    for sw_batch in (SW_BATCH, 16):  # the server's default, and the JAX benchmark's
+        print(f"  sliding window on the card, one 256x256x176 volume (upload, "
+              f"{-(-48 // sw_batch)} chunks of {sw_batch} x 96^3, blend with the weight "
+              f"map): {device_seconds_per_volume(torch, session, sw_batch):.4f} s "
+              f"(host clock to a synchronise, median of 5)")
+    run.path("serve", launches)
+    print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
+    parity(torch, ckpt, session)
+
+
+def phase_distance(run: Run) -> None:
+    print("[distance] hausdorff_surface_distance and hausdorff_pointwise_distance, classes "
+          "1-7, [serve]'s served 256x256x176 labels against the phantom's, spacing "
+          f"{DIST_SPACING}, on the host through the native distance transform")
+    run.numbers["distance"] = run_distance(run.torch, run.work)
+
+
+def phase_train(run: Run) -> None:
+    print("[train] train() with the flagship defaults (96^3 patches, batch 2 x 4 "
+          "samples, bf16, Adam 1e-4, phase Dice, roi-160 validation, top-3 ckpts) "
+          "on 4 + 1 phantoms of 128^3, 8 classes")
+    launches, numbers = run_train(run.torch, run.work / "train")
+    run.path("train", launches, numbers)
+
+
+def phase_train_parity(run: Run) -> None:
+    print("[train-parity] one f32 train step, batch 2 x 96^3: card vs CPU")
+    train_parity(run.torch)
+
+
+def phase_train_aug(run: Run) -> None:
+    print("[train-aug] train(augment_spatial=True, augment_intensity=True) with the "
+          "flagship defaults (144^3 margin patches -> 96^3) on the same phantoms")
+    run.path("train-aug", *run_train_aug(run.torch, run.work / "train", run.work / "run_aug"))
+
+
+def phase_label_gather(run: Run) -> None:
+    print("[label-gather] the flagship's augmented step (8 x 144^3 bf16 margin patches -> "
+          "96^3, spatial and intensity, spatial_subset) with label_affine_gather=True and "
+          "False, interleaved")
+    run.path("label-gather", *run_label_gather(run.torch))
+
+
+def phase_sampler(run: Run) -> None:
+    print("[sampler] PatchSampler, 8 x 144^3 margin batches (batch 2 x 4 samples, margin "
+          "24, bf16 wire) from a cached 256x256x176 volume: the native crop vs the numpy "
+          "route and its cast")
+    run.numbers["sampler host ms"] = run_sampler(run.torch)
+
+
+def phase_detect(run: Run) -> None:
+    print(f"[detect] VertHeatMap on the card: a 1 mm spine crop {SPINE_SHAPE} uint8, "
+          f"{SPINE_LEVELS} vertebra labels ({SPINE_LEVELS + 1} channels), gamma 1000")
+    run.numbers["detect"] = run_detect(run.torch)
+
+
+def phase_train_config(run: Run) -> None:
+    print("[train-config] train(preprocessing=<config>, augmentation=<config>) with the "
+          "flagship defaults: the default preprocessing spelled out as _target_ entries, "
+          "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
+    run.path("train-config", *run_train_config(run.torch, run.work / "train",
+                                               run.work / "run_cfg",
+                                               run.numbers["train"]["step_ms"]))
+
+
+def _phase_arch(arch: str, title: str):
+    def phase(run: Run) -> None:
+        print(f"[{arch}] {title} at full width, 8 classes: train() on the same phantoms, "
+              "the warm step, predict() on a labelled 256x256x176 phantom, three requests")
+        run.path(arch, *run_arch(run.torch, arch, run.work / "train", run.work / arch))
+    return phase
+
+
+def phase_arch_parity(run: Run) -> None:
+    print("[arch-parity] one f32 train step of SegResNet and UNETR: card vs the f64 CPU "
+          "step")
+    arch_parity(run.torch)
+
+
+def phase_unetr_pack(run: Run) -> None:
+    print("[unetr-pack] packed UNETR (feature 16, the default graph): kernels 3-6 at its "
+          "phase-space conv shapes, bf16, batch 8, vs their plain versions, the bound and "
+          "cuDNN, and the routes of the CI != CO convs; then the packed step vs the "
+          "unpacked one, interleaved, on a fixed 8 x 96^3 bf16 batch")
+    results, routes = check_unetr_pack_kernels(run.torch)
+    run.measure(results)
+    launches, numbers = unetr_pack_ab(run.torch)
+    numbers["routes_ms"] = routes
+    run.path("unetr-pack", launches, numbers)
+
+
+def phase_train_extras(run: Run) -> None:
+    print("[train-extras] flagship train() with accumulate_steps=2, remat=True, "
+          "val_blend_mode='constant' and a profile_dir; the step with and without remat")
+    run.path("train-extras", *run_train_extras(run.torch, run.work / "train",
+                                               run.work / "extras"))
+
+
+def phase_flops(run: Run) -> None:
+    print("[flops] utils.flops.flagship_step_flops at 8 x 96^3 and the warm steps of "
+          "[train], [segresnet] and [unetr]: the model's share of the bf16 peak")
+    report_flops(run.torch, {"unet": run.numbers["train"]["step_ms"],
+                             "segresnet": run.numbers["segresnet"]["step_ms"],
+                             "unetr": run.numbers["unetr"]["step_ms"]})
+
+
+def phase_train_2d(run: Run) -> None:
+    print("[train-2d] the flagship UNet in 2D at full width (16-32-64-128-256, strides "
+          "2^4, 2 residual units, BatchNorm, PReLU, 8 classes, 256^2 patches): train() "
+          "on 4 + 1 labelled 512^2 phantoms; the warm step on a fixed 16 x 256^2 bf16 "
+          "batch, Adam, plain and with the fused augmentation; the 2D SegResNet's, plain")
+    launches, numbers, run.done["ckpt_2d"] = run_train_2d(run.torch, run.work / "train2d")
+    run.path("train-2d", launches, numbers)
+
+
+def phase_train_parity_2d(run: Run) -> None:
+    print("[train-parity-2d] one f32 train step of the 2D UNet and the 2D SegResNet, "
+          "batch 2 x 256^2: card vs the f64 CPU step")
+    train_parity_2d(run.torch)
+
+
+def phase_serve_2d(run: Run) -> None:
+    print("[serve-2d] the 2D checkpoint behind make_server: a 1024 x 1024 image, roi "
+          "256^2, overlap 0.25, sw-batch 16; against the CPU forward")
+    run.path("serve-2d", *run_serve_2d(run.torch, run.done["ckpt_2d"], run.work / "serve2d"))
+
+
+def phase_predict_2d(run: Run) -> None:
+    print("[predict-2d] predict(test_labels=...) with the 2D checkpoint on a labelled "
+          "1024 x 1024 phantom (sw-batch 4); against the CPU forward")
+    run.path("predict-2d", *run_predict_2d(run.torch, run.done["ckpt_2d"],
+                                           run.work / "predict2d"))
+
+
+def phase_predict(run: Run) -> None:
+    print("[predict] predict(test_labels=...) with the flagship checkpoint on two labelled "
+          "256x256x176 phantoms (roi 96^3, sw-batch 4, overlap 0.25, bf16)")
+    run.path("predict", *run_predict(run.torch, run.ckpt(), run.work / "predict"))
+
+
+def phase_ensemble(run: Run) -> None:
+    print("[ensemble] ensemble_creator() in mean, vote and select_best over three flagship "
+          "checkpoints on one labelled 256x256x176 phantom (roi 96^3, overlap 0.5)")
+    run.path("ensemble", *run_ensemble(run.torch, run.work / "ensemble"))
+
+
+def phase_cross_validate(run: Run) -> None:
+    print("[cross-validate] cross_validate() on four 128^3 phantoms plus one test "
+          "phantom, one flagship scenario (max_epochs 1, device cuda), 2 folds")
+    run.path("cross-validate", *run_cross_validate(run.torch, run.work / "cv"))
+
+
+def phase_streamed(run: Run) -> None:
+    print("[streamed] the flagship checkpoint on a 512 x 512 x 896 f32 host numpy volume, "
+          "8 classes, roi 96^3, overlap 0.25, sw-batch 16: streamed from host memory by "
+          "the sliding window's own rule; against the in-memory path on the card")
+    run.path("streamed", *run_streamed(run.torch, run.ckpt()))
+
+
+def phase_i2i_pix2pix(run: Run) -> None:
+    print(f"[i2i-pix2pix] train_pix2pix at the CLI's width (base {I2I_BASE}, {I2I_BLOCKS} "
+          f"blocks, batch {I2I_BATCH}, lr 2e-4, lambda_l1 100) on {I2I_SLICE}^2 slices of "
+          f"{len(I2I_DEPTHS)} synthetic T1-like / T2-like pairs, {I2I_STEPS} iterations, f32")
+    launches, numbers, run.done["p2p_ckpt"], run.done["i2i_pairs"] = run_i2i_pix2pix(
+        run.torch, run.work / "i2i")
+    run.path("i2i-pix2pix", launches, numbers)
+
+
+def phase_i2i_cyclegan(run: Run) -> None:
+    print(f"[i2i-cyclegan] train_cyclegan at the CLI's defaults (base {I2I_BASE}, "
+          f"{I2I_BLOCKS} blocks, batch {I2I_BATCH}) over the same volumes unpaired, "
+          f"{I2I_CG_STEPS} iterations, f32")
+    launches, numbers, run.done["cg_ckpt"] = run_i2i_cyclegan(run.torch, run.work / "i2i",
+                                                             run.done["i2i_pairs"])
+    run.path("i2i-cyclegan", launches, numbers)
+
+
+def phase_i2i_translate(run: Run) -> None:
+    print("[i2i-translate] load_generator on both checkpoints, translate_volume of a "
+          f"{I2I_SLICE}x{I2I_SLICE}x{I2I_DEPTHS[0]} volume: pix2pix and both CycleGAN "
+          "directions")
+    run.path("i2i-translate", *run_i2i_translate(run.torch, run.done["p2p_ckpt"],
+                                                 run.done["cg_ckpt"],
+                                                 run.done["i2i_pairs"][0][0]))
+
+
+def phase_i2i_parity(run: Run) -> None:
+    print("[i2i-parity] one f32 pix2pix iteration on the card against the f64 CPU iteration: "
+          f"2D at full width (2 x {I2I_SLICE}^2), and a 3D generator and discriminator "
+          f"(1 x {I2I_PARITY_3D}^3, base 16, 2 blocks) through kernels 1 and 2; the 3D "
+          "generator's f32 conv shapes on both kernels")
+    run.path("i2i-parity 3D", i2i_parity(run.torch))
+    run.measure(check_i2i_kernels(run.torch))
+
+
+def phase_parallel(run: Run) -> None:
+    for name, launches in run_parallel(run.torch, run.ckpt(), run.work).items():
+        run.path(name, launches)
+
+
+def phase_parallel_nodes(run: Run) -> None:
+    print("[parallel-nodes] two torchrun nodes of one rank each on the one card over gloo: "
+          f"each node's sampler seeded {NODE_SEED} + node draws {LOCAL_BATCH} rows; the "
+          "flagship's f32 step on both nodes vs one process on the 8 rows, node-major")
+    run.path("parallel-nodes (both nodes)", run_parallel_nodes(run.torch,
+                                                               run.work / "nodes"))
+
+
+# name -> (function, the phases whose results it reads); a whole run runs
+# every phase in this order, ``--phases`` the named ones and what they read
+PHASES = {
+    "kernels": (phase_kernels, ()),
+    "train-kernels": (phase_train_kernels, ()),
+    "aug-kernels": (phase_aug_kernels, ()),
+    "dice-kernels": (phase_dice_kernels, ()),
+    "arch-kernels": (phase_arch_kernels, ()),
+    "serve": (phase_serve, ()),
+    "distance": (phase_distance, ("serve",)),
+    "train": (phase_train, ()),
+    "train-parity": (phase_train_parity, ()),
+    "train-aug": (phase_train_aug, ("train",)),
+    "label-gather": (phase_label_gather, ()),
+    "sampler": (phase_sampler, ()),
+    "detect": (phase_detect, ()),
+    "train-config": (phase_train_config, ("train",)),
+    "segresnet": (_phase_arch("segresnet", "SegResNet (init_filters 8, blocks (1, 2, 2, 4) / "
+                                           "(1, 1, 1), GroupNorm, ReLU)"), ("train",)),
+    "unetr": (_phase_arch("unetr", "UNETR (hidden 768, 12 layers, 12 heads, MLP 3072, "
+                                   "feature 16, patch 16, InstanceNorm, packed; val roi "
+                                   "96^3)"), ("train",)),
+    "arch-parity": (phase_arch_parity, ()),
+    "unetr-pack": (phase_unetr_pack, ()),
+    "train-extras": (phase_train_extras, ("train",)),
+    "flops": (phase_flops, ("train", "segresnet", "unetr")),
+    "train-2d": (phase_train_2d, ()),
+    "train-parity-2d": (phase_train_parity_2d, ()),
+    "serve-2d": (phase_serve_2d, ("train-2d",)),
+    "predict-2d": (phase_predict_2d, ("train-2d",)),
+    "predict": (phase_predict, ()),
+    "ensemble": (phase_ensemble, ()),
+    "cross-validate": (phase_cross_validate, ()),
+    "streamed": (phase_streamed, ()),
+    "i2i-pix2pix": (phase_i2i_pix2pix, ()),
+    "i2i-cyclegan": (phase_i2i_cyclegan, ("i2i-pix2pix",)),
+    "i2i-translate": (phase_i2i_translate, ("i2i-pix2pix", "i2i-cyclegan")),
+    "i2i-parity": (phase_i2i_parity, ()),
+    "parallel": (phase_parallel, ()),
+    "parallel-nodes": (phase_parallel_nodes, ()),
+}
+
+
+def selected_phases(names) -> list:
+    """The phases to run, in table order: all of them for ``None``, else the
+    named ones and, transitively, the phases they read."""
+    if names is None:
+        return list(PHASES)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        _fail(f"unknown phases {unknown}; the phases are {list(PHASES)}")
+    want, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in want:
+            want.add(name)
+            todo.extend(PHASES[name][1])
+    return [n for n in PHASES if n in want]
+
+
+def _kernel_line(run: Run) -> list:
+    """Every kernel with its launches summed over the driven paths and its
+    measured numbers (null where no phase of this run measured it)."""
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        m = run.measured.get(name)
+        row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+               "launches": sum(path.get(name, 0) for path in run.launches.values())}
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"):
+            row[key] = None if m is None else m[key]
+        row["bound_by"] = None if m is None else (
+            "bytes" if m["bytes_ms"] >= m["ops_ms"] else "operations")
+        kernels.append(row)
+    return kernels
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port "
+                                     "(every phase by default).")
+    parser.add_argument("--phases", help="comma-separated phases to run (with the phases "
+                        "they read), of: " + ", ".join(PHASES))
+    args = parser.parse_args(argv)
+    names = None if args.phases is None else [n.strip() for n in args.phases.split(",")
+                                              if n.strip()]
+    phases = selected_phases(names)
+
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -4174,6 +4807,8 @@ def main() -> None:
     print(_card())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    if names is not None:
+        print(f"[phases] {', '.join(phases)}")
 
     run_t0 = t0 = time.perf_counter()
     lib = _cuda.build()
@@ -4190,194 +4825,23 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    print("[kernels] each kernel vs its plain version on the card "
-          "(cudnn.allow_tf32=False, matmul precision 'highest')")
-    measured = check_kernels(torch)
-    print("[train-kernels] weight-gradient kernels and autograd Functions vs their "
-          "plain versions, batch 8")
-    measured.update(check_train_kernels(torch))
-    print("[aug-kernels] the shear-group kernel vs its plain version, three groups of the "
-          "144^3 -> 96^3 chain, 5 samples, each with its launch plan; odd shapes once")
-    measured.update(check_aug_kernels(torch))
-    print("[dice-kernels] the phase-Dice kernels vs their plain versions, "
-          "xp (8,48,48,48,64), and the loss Function vs autograd")
-    measured.update(check_dice_kernels(torch))
-    print("[arch-kernels] kernels 1 and 2 at the new conv shapes of SegResNet and UNETR, "
-          "bf16, batch 8, vs their plain versions and cuDNN")
-    for name, r in check_arch_kernels(torch).items():
-        m = measured[name]
-        for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "library_ms"):
-            m[key] += r[key]
-        m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
-
-    print("[serve] flagship UNet (16-32-64-128-256, 8 classes, roi 96^3, "
-          "sw-batch 4, overlap 0.25) through the HTTP server")
     with tempfile.TemporaryDirectory() as td:
-        work = Path(td)
-        ckpt = work / "flagship.ckpt"
-        make_checkpoint(torch, ckpt)
-        seconds, launches, session = serve_requests(torch, ckpt, work)
-        print(f"  seconds per request: {[round(s, 3) for s in seconds]}")
-        for sw_batch in (SW_BATCH, 16):  # the server's default, and the JAX benchmark's
-            print(f"  sliding window on the card, one 256x256x176 volume (upload, "
-                  f"{-(-48 // sw_batch)} chunks of {sw_batch} x 96^3, blend with the weight "
-                  f"map): {device_seconds_per_volume(torch, session, sw_batch):.4f} s "
-                  f"(host clock to a synchronise, median of 5)")
-        print("[parity] 4 x 96^3 windows: folded forward on the card vs the CPU")
-        parity(torch, ckpt, session)
-        del session
-        print("[distance] hausdorff_surface_distance and hausdorff_pointwise_distance, classes "
-              "1-7, [serve]'s served 256x256x176 labels against the phantom's, spacing "
-              f"{DIST_SPACING}, on the host through the native distance transform")
-        t0 = time.perf_counter()
-        dist_numbers = run_distance(torch, work)
-        new_phase_s = {"distance": time.perf_counter() - t0}
-        print("[train] train() with the flagship defaults (96^3 patches, batch 2 x 4 "
-              "samples, bf16, Adam 1e-4, phase Dice, roi-160 validation, top-3 ckpts) "
-              "on 4 + 1 phantoms of 128^3, 8 classes")
-        train_launches, train_numbers = run_train(torch, work / "train")
-        print("[train-parity] one f32 train step, batch 2 x 96^3: card vs CPU")
-        train_parity(torch)
-        print("[train-aug] train(augment_spatial=True, augment_intensity=True) with the "
-              "flagship defaults (144^3 margin patches -> 96^3) on the same phantoms")
-        aug_launches, aug_numbers = run_train_aug(torch, work / "train", work / "run_aug")
-        print("[label-gather] the flagship's augmented step (8 x 144^3 bf16 margin patches -> "
-              "96^3, spatial and intensity, spatial_subset) with label_affine_gather=True and "
-              "False, interleaved")
-        t0 = time.perf_counter()
-        gather_launches, gather_numbers = run_label_gather(torch)
-        new_phase_s["label-gather"] = time.perf_counter() - t0
-        print("[sampler] PatchSampler, 8 x 144^3 margin batches (batch 2 x 4 samples, margin "
-              "24, bf16 wire) from a cached 256x256x176 volume: the native crop vs the numpy "
-              "route and its cast")
-        t0 = time.perf_counter()
-        sampler_ms = run_sampler(torch)
-        new_phase_s["sampler"] = time.perf_counter() - t0
-        print(f"[detect] VertHeatMap on the card: a 1 mm spine crop {SPINE_SHAPE} uint8, "
-              f"{SPINE_LEVELS} vertebra labels ({SPINE_LEVELS + 1} channels), gamma 1000")
-        t0 = time.perf_counter()
-        detect_numbers = run_detect(torch)
-        new_phase_s["detect"] = time.perf_counter() - t0
-        print(f"[phase-seconds] label-gather, sampler, detect, distance: "
-              f"{ {k: round(v, 1) for k, v in new_phase_s.items()} } s")
-        print("[train-config] train(preprocessing=<config>, augmentation=<config>) with the "
-              "flagship defaults: the default preprocessing spelled out as _target_ entries, "
-              "a host augmentation pipeline (4 x 96^3 crops a volume), on the same phantoms")
-        cfg_launches, cfg_numbers = run_train_config(torch, work / "train", work / "run_cfg",
-                                                     train_numbers["step_ms"])
-        arch_launches, arch_numbers = {}, {}
-        for arch, title in (("segresnet", "SegResNet (init_filters 8, blocks (1, 2, 2, 4) / "
-                                          "(1, 1, 1), GroupNorm, ReLU)"),
-                            ("unetr", "UNETR (hidden 768, 12 layers, 12 heads, MLP 3072, "
-                                      "feature 16, patch 16, InstanceNorm; val roi 96^3)")):
-            print(f"[{arch}] {title} at full width, 8 classes: train() on the same phantoms, "
-                  "the warm step, predict() on a labelled 256x256x176 phantom, three requests")
-            arch_launches[arch], arch_numbers[arch] = run_arch(torch, arch, work / "train",
-                                                               work / arch)
-        print("[arch-parity] one f32 train step of SegResNet and UNETR: card vs the f64 CPU "
-              "step")
-        arch_parity(torch)
-        print("[train-extras] flagship train() with accumulate_steps=2, remat=True, "
-              "val_blend_mode='constant' and a profile_dir; the step with and without remat")
-        extras_launches, extras_numbers = run_train_extras(torch, work / "train",
-                                                           work / "extras")
-        print("[flops] utils.flops.flagship_step_flops at 8 x 96^3 and the warm steps of "
-              "[train], [segresnet] and [unetr]: the model's share of the bf16 peak")
-        report_flops(torch, {"unet": train_numbers["step_ms"],
-                             "segresnet": arch_numbers["segresnet"]["step_ms"],
-                             "unetr": arch_numbers["unetr"]["step_ms"]})
-        print("[train-2d] the flagship UNet in 2D at full width (16-32-64-128-256, strides "
-              "2^4, 2 residual units, BatchNorm, PReLU, 8 classes, 256^2 patches): train() "
-              "on 4 + 1 labelled 512^2 phantoms; the warm step on a fixed 16 x 256^2 bf16 "
-              "batch, Adam, plain and with the fused augmentation; the 2D SegResNet's, plain")
-        t2d_launches, t2d_numbers, ckpt_2d = run_train_2d(torch, work / "train2d")
-        print("[train-parity-2d] one f32 train step of the 2D UNet and the 2D SegResNet, "
-              "batch 2 x 256^2: card vs the f64 CPU step")
-        train_parity_2d(torch)
-        print("[serve-2d] the 2D checkpoint behind make_server: a 1024 x 1024 image, roi "
-              "256^2, overlap 0.25, sw-batch 16; against the CPU forward")
-        s2d_launches, s2d_numbers = run_serve_2d(torch, ckpt_2d, work / "serve2d")
-        print("[predict-2d] predict(test_labels=...) with the 2D checkpoint on a labelled "
-              "1024 x 1024 phantom (sw-batch 4); against the CPU forward")
-        p2d_launches, p2d_numbers = run_predict_2d(torch, ckpt_2d, work / "predict2d")
-        print("[predict] predict(test_labels=...) with the flagship checkpoint on two labelled "
-              "256x256x176 phantoms (roi 96^3, sw-batch 4, overlap 0.25, bf16)")
-        pred_launches, pred_numbers = run_predict(torch, ckpt, work / "predict")
-        print("[ensemble] ensemble_creator() in mean, vote and select_best over three flagship "
-              "checkpoints on one labelled 256x256x176 phantom (roi 96^3, overlap 0.5)")
-        ens_launches, ens_numbers = run_ensemble(torch, work / "ensemble")
-        print("[cross-validate] cross_validate() on four 128^3 phantoms plus one test "
-              "phantom, one flagship scenario (max_epochs 1, device cuda), 2 folds")
-        cv_launches, cv_numbers = run_cross_validate(torch, work / "cv")
-        print("[streamed] the flagship checkpoint on a 512 x 512 x 896 f32 host numpy volume, "
-              "8 classes, roi 96^3, overlap 0.25, sw-batch 16: streamed from host memory by "
-              "the sliding window's own rule; against the in-memory path on the card")
-        st_launches, st_numbers = run_streamed(torch, ckpt)
-        i2i_t0 = time.perf_counter()
-        print(f"[i2i-pix2pix] train_pix2pix at the CLI's width (base {I2I_BASE}, {I2I_BLOCKS} "
-              f"blocks, batch {I2I_BATCH}, lr 2e-4, lambda_l1 100) on {I2I_SLICE}^2 slices of "
-              f"{len(I2I_DEPTHS)} synthetic T1-like / T2-like pairs, {I2I_STEPS} iterations, f32")
-        p2p_launches, p2p_numbers, p2p_ckpt, i2i_pairs = run_i2i_pix2pix(torch, work / "i2i")
-        print(f"[i2i-cyclegan] train_cyclegan at the CLI's defaults (base {I2I_BASE}, "
-              f"{I2I_BLOCKS} blocks, batch {I2I_BATCH}) over the same volumes unpaired, "
-              f"{I2I_CG_STEPS} iterations, f32")
-        cg_launches, cg_numbers, cg_ckpt = run_i2i_cyclegan(torch, work / "i2i", i2i_pairs)
-        print("[i2i-translate] load_generator on both checkpoints, translate_volume of a "
-              f"{I2I_SLICE}x{I2I_SLICE}x{I2I_DEPTHS[0]} volume: pix2pix and both CycleGAN "
-              "directions")
-        tr_launches, tr_numbers = run_i2i_translate(torch, p2p_ckpt, cg_ckpt, i2i_pairs[0][0])
-        print("[i2i-parity] one f32 pix2pix iteration on the card against the f64 CPU iteration: "
-              f"2D at full width (2 x {I2I_SLICE}^2), and a 3D generator and discriminator "
-              f"(1 x {I2I_PARITY_3D}^3, base 16, 2 blocks) through kernels 1 and 2; the 3D "
-              "generator's f32 conv shapes on both kernels")
-        par_launches = i2i_parity(torch)
-        for name, r in check_i2i_kernels(torch).items():
-            m = measured[name]
-            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "library_ms"):
-                m[key] += r[key]
-            m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
-        print(f"[i2i] the four i2i phases: {time.perf_counter() - i2i_t0:.1f} s")
-        par_dp, par_sw, par_i2i, par_dp2, par_nodes = run_parallel(torch, ckpt, work)
+        run = Run(torch, Path(td))
+        for name in phases:
+            t0 = time.perf_counter()
+            PHASES[name][0](run)
+            run.phase_s[name] = time.perf_counter() - t0
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "segmantic_tpu"))
     if loaded:
         _fail(f"JAX or the JAX package was imported: {loaded[:5]}")
-    print(f"launches: serve {launches}, train {train_launches}, train-aug {aug_launches}, "
-          f"train-config {cfg_launches}, segresnet {arch_launches['segresnet']}, unetr "
-          f"{arch_launches['unetr']}, train-extras {extras_launches}, predict "
-          f"{pred_launches}, ensemble {ens_launches}, cross-validate {cv_launches}; train "
-          f"step {train_numbers}; augmented {aug_numbers}; config-driven {cfg_numbers}; "
-          f"segresnet {arch_numbers['segresnet']}; unetr {arch_numbers['unetr']}; extras "
-          f"{extras_numbers}; predict {pred_numbers}; ensemble seconds {ens_numbers}; "
-          f"cross-validate {cv_numbers}")
-    print(f"launches: train-2d {t2d_launches}, serve-2d {s2d_launches}, predict-2d "
-          f"{p2d_launches}, streamed {st_launches}; train-2d {t2d_numbers}; serve-2d "
-          f"{s2d_numbers}; predict-2d {p2d_numbers}; streamed {st_numbers}")
-    print(f"launches: i2i-pix2pix {p2p_launches}, i2i-cyclegan {cg_launches}, i2i-translate "
-          f"{tr_launches}, i2i-parity 3D {par_launches}; pix2pix {p2p_numbers}; cyclegan "
-          f"{cg_numbers}; translate seconds {tr_numbers}")
-    print(f"launches: parallel-dp {par_dp}, parallel-sw {par_sw}, parallel-i2i {par_i2i}, "
-          f"parallel-dp-2 (both ranks) {par_dp2}, parallel-nodes (both nodes) {par_nodes}")
-    print(f"launches: label-gather {gather_launches} (detect, distance, sampler: none); "
-          f"label-gather {gather_numbers}; sampler host ms {sampler_ms}; detect "
-          f"{detect_numbers}; distance {dist_numbers}")
-    paths = (launches, train_launches, aug_launches, gather_launches, cfg_launches,
-             arch_launches["segresnet"],
-             arch_launches["unetr"], extras_launches, pred_launches, ens_launches, cv_launches,
-             t2d_launches, s2d_launches, p2d_launches, st_launches, p2p_launches, cg_launches,
-             tr_launches, par_launches, par_dp, par_sw, par_i2i, par_dp2, par_nodes)
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": sum(path[name] for path in paths),
-         "max_abs_err": measured[name]["max_abs_err"],
-         "ms": measured[name]["ms"], "plain_ms": measured[name]["plain_ms"],
-         "bound_ms": measured[name]["bound_ms"],
-         "bound_by": ("bytes" if measured[name]["bytes_ms"] >= measured[name]["ops_ms"]
-                      else "operations"),
-         "library_ms": measured[name]["library_ms"]}
-        for name, (src, replaces) in KERNELS.items()
-    ]
+    print(f"[phase-seconds] { {k: round(v, 1) for k, v in run.phase_s.items()} }")
+    for path, launches in run.launches.items():
+        print(f"launches: {path} {launches}")
+    for path, numbers in run.numbers.items():
+        print(f"numbers: {path} {numbers}")
+    kernels = _kernel_line(run)
     print(_card())  # again, in the output's tail beside the numbers
     print(f"[total] {time.perf_counter() - run_t0:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))

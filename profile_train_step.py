@@ -2,14 +2,15 @@
 the flagship UNet (16-32-64-128-256, 8 classes) on one fixed 8 x 96^3 bf16
 batch, Adam, the phase-major Dice, as ``train()`` runs it by default; with
 ``--arch segresnet`` or ``--arch unetr`` that architecture at full width
-(the JAX package's defaults, 8 classes; the plain Dice); with
+(the JAX package's defaults, 8 classes; SegResNet with the plain Dice,
+UNETR packed, with the phase-major Dice on its phase-space head); with
 ``--augment`` the step ``train(augment_spatial=True, augment_intensity=True)``
 runs, on one fixed 8 x 144^3 bf16 margin batch (rotation + zoom through the
 shear-group kernel, intensity ops, flips, Gibbs and spike).
 
     python3 profile_train_step.py [--steps 3] [--arch unet|segresnet|unetr] [--augment]
 
-Prints the card's name and power limit; for the UNet the two phase-Dice
+Prints the card's name and power limit; for the UNet and UNETR the two phase-Dice
 kernels alone at the step's shape by CUDA-graph replay; forward + loss,
 backward and the
 optimizer step timed apart (CUDA events, median of 10); the whole step
@@ -108,15 +109,16 @@ def main() -> None:
     image32, label = image32.cuda(), label.cuda()
     image = image32.to(torch.bfloat16)
     target = space_to_depth(label[..., None])
-    if (args.arch == "unet") != module.phase_top_ok():
-        sys.exit("profile_train_step: only the flagship's top stage runs in phase space")
+    phase = module.phase_top_ok()  # the UNet's top stage, packed UNETR's head
+    if phase != (args.arch != "segresnet"):
+        sys.exit("profile_train_step: the top runs in phase space for the UNet and UNETR only")
 
     def forward():
-        if args.arch != "unet":
+        if not phase:
             return dice_loss(module(image), label)
         return dice_loss_phase(module(image, phase_logits=True), target)
 
-    if args.arch == "unet":
+    if phase:
         with torch.no_grad():
             xp = module(image, phase_logits=True)
         hot, cold = (torch.randn((BATCH, xp.shape[-1]), device="cuda") for _ in range(2))

@@ -22,11 +22,13 @@ biased variance) and updates the running statistics as flax does; in
 ``eval()`` mode it uses the running statistics. In 3D every stride-1 3^3 conv
 goes through :func:`..ops.fused_conv.conv3d_grad` and every phase-space conv
 through :func:`..ops.phase_conv.phase_conv_grad` (the hand-written kernels on
-the card, their plain versions on the CPU); strided convs, conv-transposes
-and 1x1 projections are ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX
-package leaves them to XLA. In 2D every conv is ``F.conv2d`` /
-``F.conv_transpose2d`` (the phase-space convs too, on the expanded kernel),
-as the JAX package's 2D convs are XLA: its Pallas routes are 3D only.
+the card, their plain versions on the CPU) but one from a single true
+channel (``F.conv3d`` on the full-resolution view, ``Conv._conv``); strided
+convs, conv-transposes and 1x1 projections are ``F.conv3d`` /
+``F.conv_transpose3d``, as the JAX package leaves them to XLA. In 2D every
+conv is ``F.conv2d`` / ``F.conv_transpose2d`` (the phase-space convs too, on
+the expanded kernel), as the JAX package's 2D convs are XLA: its Pallas
+routes are 3D only.
 Training with dropout > 0 raises :data:`DROPOUT_REFUSAL`, as the JAX trainer
 does. The folded, kernel-backed serving forward is
 :mod:`segmantic_tpu_torch.infer.executor`, tested against this one.
@@ -44,8 +46,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fast_conv import (
-    conv_same, depth_to_space, phase_conv_s1_plain, space_to_depth, subpixel_phase_conv,
-    tile_phase,
+    conv_same, depth_to_space, phase_conv_s1_plain, phase_pointwise_conv, space_to_depth,
+    subpixel_phase_conv, subpixel_phase_conv_k2, tile_phase,
 )
 from ..ops.fused_conv import at_least_f32, conv3d_grad
 from ..ops.phase_conv import phase_conv_grad
@@ -106,8 +108,8 @@ class Conv(nn.Module):
         tp = self.__dict__.get("tp")  # a column-parallel share (parallel.shard_params)
         if tp is not None:
             if phase:
-                raise ValueError("a phase-space conv is never sharded (its channels are "
-                                 "below shard_params' min_features)")
+                raise ValueError("a phase-space conv is never sharded "
+                                 "(tp_placement keeps the phase region whole)")
             return tp.column(x, lambda v: self._conv(v, w, None, False)) + b
         return self._conv(x, w, b, phase)
 
@@ -115,8 +117,20 @@ class Conv(nn.Module):
         """The conv on x with kernel w (*k, I, O) and bias b (None: none, never
         in phase space), by the route of its shape: kernels 1-2 for a
         stride-1 3^3 conv in 3D, kernels 3-6 in phase space, XLA-SAME
-        ``F.conv`` otherwise."""
+        ``F.conv`` otherwise; a 1^nd kernel in phase space is the
+        block-diagonal product of ``phase_pointwise_conv``. A 3D phase-space
+        3^3 conv from one true channel to several (packed UNETR's input
+        layer) runs as ``F.conv3d`` on the full-resolution view: cuDNN takes
+        its forward and weight gradient in 3.72 ms at 8 x 96^3 x 1 -> 16
+        against the phase kernels' 6.88 ms, whose one-channel bodies are the
+        CUDA-core ones (PERF.md, PR 16). That is the only shape the rule was
+        measured at; a 1 -> 1 conv (a one-class UNet's phase-space top stage)
+        stays on the phase kernels."""
+        if phase and w.shape[0] == 1:
+            return phase_pointwise_conv(x, w, b)
         if self.nd == 3:
+            if phase and w.shape[-2] == 1 < w.shape[-1]:
+                return space_to_depth(conv_same(depth_to_space(x, 1), w, b))
             if phase:
                 return phase_conv_grad(x, w) + tile_phase(b)
             if self.stride == 1 and w.shape[:3] == (3, 3, 3):
@@ -155,11 +169,16 @@ class ConvTranspose(nn.Module):
     def forward(self, x, phase_out: bool = False):
         """``phase_out``: return the phase-major tensor (B, *S, 2^nd * Co) of
         the 2x-upsampled output at input resolution (subpixel factorisation,
-        stride 2 kernel 3 only)."""
-        if phase_out:
-            y = subpixel_phase_conv(x, self.dhwio().to(x.dtype))
-            return y + tile_phase(self.bias.to(x.dtype), self.nd)
+        stride 2, kernel 3 or 2)."""
         tp = self.__dict__.get("tp")  # a column-parallel share (parallel.shard_params)
+        if phase_out:
+            if tp is not None:
+                raise ValueError("a phase-space conv-transpose is never sharded "
+                                 "(tp_placement keeps the phase region whole)")
+            subpixel = subpixel_phase_conv_k2 if self.weight.shape[-1] == 2 else \
+                subpixel_phase_conv
+            y = subpixel(x, self.dhwio().to(x.dtype))
+            return y + tile_phase(self.bias.to(x.dtype), self.nd)
         if tp is not None:
             return tp.column(x, lambda v: self._conv_t(v, None)) + self.bias.to(x.dtype)
         return self._conv_t(x, self.bias.to(x.dtype))

@@ -1,8 +1,7 @@
 """UNETR (Hatamizadeh et al., 2021; MONAI topology) as torch modules, 3D.
 
-Port of ``segmantic_tpu/models/unetr.py``, the unpacked graph
-(``SEGMANTIC_UNETR_PACK=off``; packed and unpacked compute the same function
-with the same parameter tree):
+Port of ``segmantic_tpu/models/unetr.py``, both of its graphs, which compute
+the same function with the same parameter tree:
 
 - a ViT encoder: non-overlapping 16^3 patch embedding (a stride-16 conv), a
   learnable position embedding, pre-LN transformer blocks (LayerNorm eps
@@ -14,13 +13,29 @@ with the same parameter tree):
 - a decoder from the last tap: deconv x2, concatenate the skip, two 3^3
   convs, four stages to full resolution, then a 1^3 conv head.
 
+Packed (``pack=True``, the default, as the JAX package's
+``SEGMANTIC_UNETR_PACK=on``): the two narrow regions, full resolution at
+C = f and half resolution at C = 2f, run in subpixel phase space. Their
+tensors are phase-major at half their resolution (2x2x2 blocks folded into
+the channels, :func:`..ops.fast_conv.space_to_depth`): the input of
+``encoder1``, the last ``encoder2`` stage, ``decoder3`` and ``decoder2``. The
+kernel-2 deconvs into them are one product onto the phase channels
+(``subpixel_phase_conv_k2``), the skips join by ``phase_concat``, the 3^3
+convs run on the phase-space kernels (:func:`..ops.phase_conv.phase_conv_grad`;
+the one-channel input conv on cuDNN over the full-resolution view, the faster
+route at that shape: ``models.unet.Conv._conv``),
+the norms reduce over (spatial, phase) per true channel, the head is the
+block-diagonal ``phase_pointwise_conv``, and one ``depth_to_space`` gives
+the logits (or ``forward(phase_logits=True)`` returns the phase-major ones,
+which the trainer's phase Dice takes). ``pack=False`` runs the plain graph.
+
 Channel-last (B, D, H, W, C) in and out, parameters cast to the input's
 dtype at use, InstanceNorm by default (f32 statistics). The attention is
 plain torch as the JAX package leaves it to XLA: ``torch.matmul`` in the
 input's dtype, the query scaled by 1/sqrt(head_dim), softmax in f32, then
-cast. The patch embedding and the head are ``F.conv3d``, the kernel-2
-deconvs ``F.conv_transpose3d``; every stride-1 3^3 conv (the conv blocks,
-``nn.Conv`` in the JAX module) runs through
+cast. The patch embedding and the plain head are ``F.conv3d``, the plain
+kernel-2 deconvs ``F.conv_transpose3d``; every other stride-1 3^3 conv (the
+conv blocks, ``nn.Conv`` in the JAX module) runs through
 :func:`..ops.fused_conv.conv3d_grad`, the hand-written kernels on the card.
 
 The position embedding ties the parameters to the token grid, so the model
@@ -37,11 +52,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.fast_conv import depth_to_space, phase_concat, space_to_depth
 from ..ops.fused_conv import at_least_f32
 from .unet import Conv, ConvTranspose, PReLU, _lecun_normal_, activation, make_norm
 
 __all__ = ["LayerNorm", "Dense", "MultiHeadDotProductAttention", "TransformerBlock",
-           "ConvBlock", "DeconvBlock", "UNETR"]
+           "ConvBlock", "DeconvBlock", "UNETR", "mark_phase_space"]
 
 LN_EPS = 1e-6
 
@@ -145,13 +161,16 @@ class TransformerBlock(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """(3^3 conv -> norm -> act) twice, the UNETR basic block."""
+    """(3^3 conv -> norm -> act) twice, the UNETR basic block. ``phase``: its
+    tensors are phase-major, the convs run in phase space and the norms
+    reduce over the 8 phases too (same parameters)."""
 
     def __init__(self, c_in: int, features: int, norm: str = "INSTANCE",
-                 act: str = "RELU", generator=None):
+                 act: str = "RELU", generator=None, phase: bool = False):
         super().__init__()
         self.act = act.upper()
         self.act_fn = None if self.act == "PRELU" else activation(self.act)
+        self.phase = phase
         c = c_in
         for i in range(2):
             self.add_module(f"conv_{i}", Conv(c, features, 3, 1, generator))
@@ -161,39 +180,58 @@ class ConvBlock(nn.Module):
             if self.act == "PRELU":
                 self.add_module(f"PReLU_{i}", PReLU())
             c = features
+        if phase:
+            mark_phase_space(self)
 
     def forward(self, x):
         for i in range(2):
-            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"conv_{i}")(x, phase=self.phase)
             norm = getattr(self, f"Norm_{i}", None)
             if norm is not None:
-                x = norm(x)
+                x = norm(x, groups=8 if self.phase else 1)
             x = getattr(self, f"PReLU_{i}")(x) if self.act_fn is None else self.act_fn(x)
         return x
 
 
 class DeconvBlock(nn.Module):
-    """Stride-2 kernel-2 transposed conv: an exact 2x upsample."""
+    """Stride-2 kernel-2 transposed conv: an exact 2x upsample. ``phase_out``:
+    it returns the phase-major tensor of the upsampled volume at the input's
+    resolution (same parameters)."""
 
-    def __init__(self, c_in: int, features: int, generator=None):
+    def __init__(self, c_in: int, features: int, generator=None, phase_out: bool = False):
         super().__init__()
         self.deconv = ConvTranspose(c_in, features, 2, 2, generator)
+        self.phase_out = phase_out
+        if phase_out:
+            mark_phase_space(self)
 
     def forward(self, x):
-        return self.deconv(x)
+        return self.deconv(x, phase_out=self.phase_out)
+
+
+def mark_phase_space(module: nn.Module) -> None:
+    """Mark the layers of ``module`` as phase-space ones: their outputs are
+    phase-major, so ``parallel.tp_placement`` keeps them whole (an all-gather
+    of column slices would interleave the phases wrongly)."""
+    for m in module.modules():
+        if isinstance(m, (Conv, ConvTranspose)):
+            m.phase_space = True
 
 
 class UNETR(nn.Module):
     """ViT encoder + progressive-deconv decoder for ``spatial_size`` inputs.
 
     Defaults are MONAI's / the JAX package's: hidden 768, 12 layers, 12
-    heads, MLP 3072, feature size 16, patch 16, InstanceNorm, ReLU."""
+    heads, MLP 3072, feature size 16, patch 16, InstanceNorm, ReLU, and the
+    packed graph (``pack``; see the module's docstring). ``pack`` changes no
+    parameter, so a checkpoint loads into either graph."""
 
     def __init__(self, spatial_size: Sequence[int], spatial_dims: int = 3,
                  in_channels: int = 1, out_channels: int = 2, hidden_size: int = 768,
                  num_layers: int = 12, num_heads: int = 12, mlp_dim: int = 3072,
                  feature_size: int = 16, patch_size: int = 16, norm: str = "INSTANCE",
-                 act: str = "RELU", generator: Optional[torch.Generator] = None):
+                 act: str = "RELU", generator: Optional[torch.Generator] = None,
+                 pack: bool = True):
         super().__init__()
         if spatial_dims != 3:
             raise ValueError("UNETR is 3D: expected (N, D, H, W, C) input")
@@ -212,6 +250,7 @@ class UNETR(nn.Module):
         self.num_layers = num_layers
         self.feature_size = feature_size
         self.patch_size = patch_size
+        self.pack = pack  # spatial % 16 == 0 gives the even sizes packing needs
         self.grid = tuple(s // patch_size for s in spatial_size)
         g = generator
         f, hid = feature_size, hidden_size
@@ -225,33 +264,40 @@ class UNETR(nn.Module):
             self.add_module(f"block_{i}", TransformerBlock(hid, num_heads, mlp_dim, g))
         self.encoder_norm = LayerNorm(hid)
 
-        self.encoder1 = ConvBlock(in_channels, f, **common)
+        self.encoder1 = ConvBlock(in_channels, f, phase=pack, **common)
         for name, n_up, feats in (("encoder2", 3, 2 * f), ("encoder3", 2, 4 * f),
                                   ("encoder4", 1, 8 * f)):
             c = hid
             for j in range(n_up):
-                self.add_module(f"{name}_up_{j}", DeconvBlock(c, feats, g))
-                self.add_module(f"{name}_conv_{j}", ConvBlock(feats, feats, **common))
+                # packed, the last (half-resolution, 2f) encoder2 stage is phase-major
+                ph = pack and name == "encoder2" and j == n_up - 1
+                self.add_module(f"{name}_up_{j}", DeconvBlock(c, feats, g, phase_out=ph))
+                self.add_module(f"{name}_conv_{j}", ConvBlock(feats, feats, phase=ph,
+                                                              **common))
                 c = feats
         c = hid
         for name, feats in (("decoder5", 8 * f), ("decoder4", 4 * f), ("decoder3", 2 * f),
                             ("decoder2", f)):
-            self.add_module(f"{name}_up", DeconvBlock(c, feats, g))
-            self.add_module(f"{name}_conv", ConvBlock(2 * feats, feats, **common))
+            ph = pack and name in ("decoder3", "decoder2")
+            self.add_module(f"{name}_up", DeconvBlock(c, feats, g, phase_out=ph))
+            self.add_module(f"{name}_conv", ConvBlock(2 * feats, feats, phase=ph, **common))
             c = feats
         self.out = Conv(f, out_channels, 1, 1, g)
+        if pack:
+            mark_phase_space(self.out)
 
     def phase_top_ok(self) -> bool:
-        """False: the port runs UNETR unpacked, so there is no phase-major
-        head for the trainer's phase Dice (lane packing through the phase
-        kernels: ROADMAP Queue 2)."""
-        return False
+        """Packed, the head's tensor before its ``depth_to_space`` is the
+        phase-major logits tensor (lane ``phase * classes + class``), which
+        the trainer's phase Dice takes."""
+        return self.pack
 
     def forward(self, x: torch.Tensor, phase_logits: bool = False) -> torch.Tensor:
-        """Logits (N, D, H, W, classes) of an input of ``spatial_size``."""
-        if phase_logits:
-            raise ValueError("the port's UNETR runs unpacked and emits no phase logits "
-                             "(lane packing: ROADMAP Queue 2)")
+        """Logits (N, D, H, W, classes) of an input of ``spatial_size``, or
+        with ``phase_logits`` (packed only) the phase-major logits
+        (N, D/2, H/2, W/2, 8 * classes)."""
+        if phase_logits and not self.pack:
+            raise ValueError("UNETR emits phase logits only packed (UNETR(pack=True))")
         if x.ndim != 5:
             raise ValueError("UNETR is 3D: expected (N, D, H, W, C) input")
         spatial = tuple(x.shape[1:4])
@@ -282,13 +328,22 @@ class UNETR(nn.Module):
                 y = getattr(self, f"{name}_conv_{j}")(getattr(self, f"{name}_up_{j}")(y))
             return y
 
-        enc1 = self.encoder1(x)
+        enc1 = self.encoder1(space_to_depth(x) if self.pack else x)
         enc2 = up(taps.get(1, z), "encoder2", 3)
         enc3 = up(taps.get(2, z), "encoder3", 2)
         enc4 = up(taps.get(3, z), "encoder4", 1)
         y = grid_view(z12)
         for name, skip in (("decoder5", enc4), ("decoder4", enc3), ("decoder3", enc2),
                            ("decoder2", enc1)):
-            y = getattr(self, f"{name}_up")(y)
-            y = getattr(self, f"{name}_conv")(torch.cat([y, skip], dim=-1))
-        return self.out(y)
+            up_block = getattr(self, f"{name}_up")
+            if up_block.phase_out:
+                y = phase_concat(up_block(y), skip)
+            else:
+                y = torch.cat([up_block(y), skip], dim=-1)
+            y = getattr(self, f"{name}_conv")(y)
+            if name == "decoder3" and self.pack:  # decoder2's deconv reads the volume
+                y = depth_to_space(y, 2 * self.feature_size)
+        if not self.pack:
+            return self.out(y)
+        out = self.out(y, phase=True)
+        return out if phase_logits else depth_to_space(out, self.out_channels)

@@ -1,11 +1,13 @@
 """Phase-space (subpixel) conv identities used by the eval forward.
 
 Port of the subset of ``segmantic_tpu/ops/fast_conv.py`` that the folded
-eval forward runs: the subpixel conv-transpose in phase space
-(``subpixel_phase_conv``), the phase-major ``depth_to_space`` /
-``space_to_depth`` pair, ``tile_phase`` and the block-space expansion of a
-stride-1 3^3 kernel (``expand_s1_kernel``), plus the XLA-SAME convs and
-conv-transposes the plain model uses.
+eval forward and the phase-space models run: the subpixel conv-transposes in
+phase space (``subpixel_phase_conv``, kernel 3; ``subpixel_phase_conv_k2``,
+kernel 2), the kernel-1 conv in phase space (``phase_pointwise_conv``), the
+phase-major channel concat (``phase_concat``), the phase-major
+``depth_to_space`` / ``space_to_depth`` pair, ``tile_phase`` and the
+block-space expansion of a stride-1 3^3 kernel (``expand_s1_kernel``), plus
+the XLA-SAME convs and conv-transposes the plain model uses.
 
 Every function takes 2D or 3D tensors (the rank of x). Layouts follow the JAX
 package: tensors are channel-last (B, *S, C), kernels (*k, I, O) (DHWIO in
@@ -25,6 +27,9 @@ __all__ = [
     "conv_same",
     "conv_transpose_same",
     "subpixel_phase_conv",
+    "subpixel_phase_conv_k2",
+    "phase_pointwise_conv",
+    "phase_concat",
     "expand_s1_kernel",
     "phase_conv_s1_plain",
     "tile_phase",
@@ -123,6 +128,44 @@ def subpixel_phase_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wsub = torch.einsum(spec, w, *([sel] * nd)).reshape((2,) * nd + (ci, 2**nd * co))
     xp = F.pad(_channels_first(x), (1, 0) * nd)
     return _channels_last(_CONV[nd](xp, _oi(wsub).to(x.dtype)))
+
+
+def subpixel_phase_conv_k2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Phase tensor (B, *S, 2^nd * Co) of the stride-2 kernel-2 SAME
+    conv-transpose of x (B, *S, Ci) with w (*2^nd, Ci, Co), whose
+    ``depth_to_space`` is the 2x upsampled output. Per axis
+    ``y[2d + p] = w[1 - p] x[d]``: each output phase sees one tap, so the
+    upsample is one (Ci -> 2^nd * Co) product with the spatially reversed
+    kernel."""
+    nd = x.ndim - 2
+    ci, co = w.shape[-2], w.shape[-1]
+    wr = w.flip(tuple(range(nd)))  # tap 1 - p feeds phase p
+    wp = wr.permute((nd,) + tuple(range(nd)) + (nd + 1,)).reshape(ci, 2**nd * co)
+    return torch.matmul(x, wp.to(x.dtype))
+
+
+def phase_pointwise_conv(p: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
+    """Kernel-1 conv (w (*1^nd, Ci, Co)) of the volume the phase tensor p
+    (B, *S, 2^nd * Ci) stands for, as a phase tensor: block-diagonal over the
+    phases, one shared (Ci -> Co) product on the (..., 2^nd, Ci) view."""
+    nd = p.ndim - 2
+    g = 2**nd
+    ci, co = w.shape[-2], w.shape[-1]
+    y = torch.matmul(p.reshape(p.shape[:-1] + (g, ci)), w.reshape(ci, co).to(p.dtype))
+    y = y.reshape(p.shape[:-1] + (g * co,))
+    if bias is not None:
+        y = y + tile_phase(bias, nd).to(y.dtype)
+    return y
+
+
+def phase_concat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Phase tensor of the channel concat of the volumes two phase tensors
+    stand for: concat on the true-channel axis of the (..., 2^nd, C) views."""
+    g = 2 ** (a.ndim - 2)
+    ca, cb = a.shape[-1] // g, b.shape[-1] // g
+    y = torch.cat([a.reshape(a.shape[:-1] + (g, ca)), b.reshape(b.shape[:-1] + (g, cb))],
+                  dim=-1)
+    return y.reshape(a.shape[:-1] + (g * (ca + cb),))
 
 
 def expand_s1_kernel(w: torch.Tensor) -> torch.Tensor:

@@ -311,13 +311,16 @@ def tp_placement(module: torch.nn.Module, model_size: int,
                  min_features: int = 64) -> Dict[str, int]:
     """{state_dict key: torch axis} of the tensors the JAX ``shard_params``
     rule shards over 'model': those whose flax output-feature axis (the last)
-    is >= ``min_features`` and divisible by ``model_size``."""
+    is >= ``min_features`` and divisible by ``model_size``, except the
+    layers of a phase-space region (``phase_space``, packed UNETR's), which
+    stay whole: their outputs are phase-major, and gathering their column
+    slices as plain channels would interleave the phases wrongly."""
     out: Dict[str, int] = {}
     if model_size <= 1:
         return out
     names = {id(t): k for k, t in module.state_dict(keep_vars=True).items()}
     for owner, name, t in _owners(module):
-        if t.ndim < 1:
+        if t.ndim < 1 or getattr(owner, "phase_space", False):
             continue
         axis = flax_axes(owner, name, t.ndim)[-1]
         if t.shape[axis] >= min_features and t.shape[axis] % model_size == 0:
@@ -357,7 +360,8 @@ def shard_params(mesh: Mesh, module: torch.nn.Module,
     on the local kernel, the output channels all-gathered over the model
     group, the input's gradient summed over it). The 1-D vectors it picks
     (bias, norm scale and shift, running statistics) stay whole; so do
-    UNETR's attention projections and position embedding. Returns {key:
+    UNETR's attention projections and position embedding, and the layers of
+    its phase-space region (:func:`tp_placement`). Returns {key:
     axis} of the sliced kernels. A model axis of 1 changes nothing."""
     m = mesh.shape["model"]
     picked = tp_placement(module, m, min_features)

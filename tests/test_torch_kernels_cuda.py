@@ -517,6 +517,76 @@ def test_phase_conv_grad_function(cuda, dtype, tol):
         _close(a, b, tol)
 
 
+# (stored phase tensor, CI, CO): the phase-space convs of packed UNETR
+# (feature 16) at batch 2; CI = 1 (the input layer) runs the CUDA-core bodies
+UNETR_PACK_SHAPES = [((2, 48, 48, 48, 8), 1, 16), ((2, 48, 48, 48, 128), 16, 16),
+                     ((2, 48, 48, 48, 256), 32, 16), ((2, 24, 24, 24, 256), 32, 32),
+                     ((2, 24, 24, 24, 512), 64, 32)]
+
+
+@pytest.mark.parametrize("shape,ci,co", UNETR_PACK_SHAPES)
+def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
+    """Kernels 3-6 at packed UNETR's shapes, bf16: the forward, the input
+    gradient (the forward on the flipped, io-swapped kernel) and the weight
+    gradient against their plain versions, each launch bit-equal on repeat."""
+    g = torch.Generator().manual_seed(21)
+    p = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(torch.bfloat16)
+    gy = _randn(g, *shape[:4], 8 * co).to(torch.bfloat16)
+    wt = fused_conv.flip_io(w)
+    assert fused_conv.takes_tensor_cores(p, ci) == (ci % 8 == 0)
+    phase_conv.counter.reset()
+    phase_conv.dw_counter.reset()
+    got, dx, dw = phase_conv.phase_conv(p, w), phase_conv.phase_conv(gy, wt), \
+        phase_conv.phase_conv_dw(p, gy)
+    assert phase_conv.counter.count == 2 and phase_conv.dw_counter.count == 1
+    assert got.shape == shape[:4] + (8 * co,) and dx.shape == shape
+    _close(got, phase_conv.phase_conv_plain(p, w), 2e-2)
+    _close(dx, phase_conv.phase_conv_plain(gy, wt), 2e-2)
+    _close(dw, phase_conv.phase_conv_dw_plain(p, gy), 1e-3)
+    assert torch.equal(got, phase_conv.phase_conv(p, w))
+    assert torch.equal(dx, phase_conv.phase_conv(gy, wt))
+    assert torch.equal(dw, phase_conv.phase_conv_dw(p, gy))
+
+
+def test_packed_unetr_step_runs_on_the_phase_and_dice_kernels(cuda):
+    """One f32 step of a small packed UNETR (32^3, feature 8) on the card:
+    kernels 3-4 run 7 of its 8 phase-space convs forward and backward (the
+    one-channel input conv runs on cuDNN), kernels 5-6 their 7 weight
+    gradients, kernel 9 the loss once each; the loss and every gradient against the same step on the
+    CPU, within 1e-3 * max(max|ref| of the tensor, 1e-2 * max|ref| over all
+    gradients) (the floor takes in the conv biases in front of an
+    InstanceNorm, whose true gradient is zero)."""
+    from segmantic_tpu_torch.models.unetr import UNETR
+    from segmantic_tpu_torch.train.augment import AugmentConfig
+    from segmantic_tpu_torch.train.trainer import make_train_step
+
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 32, 32, 32, 1), generator=gen)
+    y = torch.randint(0, 3, (2, 32, 32, 32), generator=gen).to(torch.uint8)
+    out = []
+    for device in ("cpu", cuda):
+        model = UNETR((32, 32, 32), out_channels=3, hidden_size=32, num_layers=4,
+                      num_heads=4, mlp_dim=64, feature_size=8,
+                      generator=torch.Generator().manual_seed(9)).to(device).train()
+        step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                               AugmentConfig(flip_prob=0.0), (32, 32, 32), False)
+        for c in (phase_conv.counter, phase_conv.dw_counter, phase_dice.sums_counter,
+                  phase_dice.dx_counter):
+            c.reset()
+        loss = step(x, y).item()
+        out.append((loss, {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    assert model.pack and model.phase_top_ok()
+    assert (phase_conv.counter.count, phase_conv.dw_counter.count) == (14, 7)
+    assert (phase_dice.sums_counter.count, phase_dice.dx_counter.count) == (1, 1)
+    (want_loss, want), (got_loss, got) = out
+    assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)
+    floor = 1e-2 * max(g.abs().max().item() for g in want.values())
+    for k, ref in want.items():
+        err = (got[k] - ref).abs().max().item()
+        assert err <= 1e-3 * max(ref.abs().max().item(), floor), k
+
+
 def _group_inputs(g, full, out_shape, samples, channels, dtype, cuda):
     """A batch, per-sample coefficients and the three groups' specs of the
     chain for ``full`` -> ``out_shape`` at the augmentation's default bounds."""

@@ -88,6 +88,10 @@ def build_model(arch: str, model_kw: Dict, variables: Dict) -> torch.nn.Module:
         from segmantic_tpu_torch.models.segresnet import SegResNet
 
         module = SegResNet(**model_kw)
+    elif arch == "unetr":
+        from segmantic_tpu_torch.models.unetr import UNETR
+
+        module = UNETR(**model_kw)
     else:
         raise ValueError(arch)
     state = from_flax_variables(variables)
@@ -144,6 +148,25 @@ def steps_case(arch, model_kw, variables, image, label, patch, n_steps=2,
 
 def steps_cases(cases):
     return [steps_case(**c) for c in cases]
+
+
+def forward_case(arch, model_kw, variables, image, model=1, steps=None):
+    """The eval forward of the module on a mesh with a model axis of
+    ``model`` (its kernels sliced by ``shard_params``): the logits and the
+    sliced keys; with ``steps``, :func:`steps_case` of those keywords too."""
+    the_mesh = pmesh.make_mesh(model=model)
+    module = pmesh.replicate(the_mesh, build_model(arch, model_kw, variables))
+    sliced = pmesh.shard_params(the_mesh, module) if model > 1 else {}
+    with torch.no_grad():
+        logits = module.eval()(torch.from_numpy(image)).numpy()
+    out = dict(logits=logits, sliced=sorted(sliced))
+    if steps is not None:
+        out["steps"] = steps_case(**steps)
+    return out
+
+
+def forward_cases(cases):
+    return [forward_case(**c) for c in cases]
 
 
 def norm_case(x, groups, weight, dtype="float32"):
@@ -383,8 +406,9 @@ def nodes_case(steps=(), i2i=(), train=(), refuse_model=None):
     return out
 
 
-CASES = {"steps": steps_cases, "norm": norm_cases, "train": train_cases, "sw": sw_cases,
-         "predict": predict_case, "i2i": i2i_cases, "nodes": nodes_case}
+CASES = {"steps": steps_cases, "forward": forward_cases, "norm": norm_cases,
+         "train": train_cases, "sw": sw_cases, "predict": predict_case, "i2i": i2i_cases,
+         "nodes": nodes_case}
 
 
 def _main(case: str, rank: int, world: int, tmp: str, nodes: int = 1) -> None:

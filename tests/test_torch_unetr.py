@@ -6,9 +6,10 @@ tree filled from a numpy seed, bridged into the torch modules; both packages
 run on the same numpy inputs:
 
 - the forward in f32 against the JAX module with lane packing on and off
-  (``SEGMANTIC_UNETR_PACK``: the same function, the port runs it unpacked),
-  and in bf16 (against the f32 reference, as the JAX bf16 forward is judged);
-  every parameter gradient of the Dice loss;
+  (``SEGMANTIC_UNETR_PACK``; the port's ``UNETR(pack=True)`` and
+  ``pack=False``), and the unpacked graph in bf16 (against the f32
+  reference, as the JAX bf16 forward is judged); every parameter gradient of
+  the Dice loss, unpacked (the packed graph's: ``test_torch_unetr_pack.py``);
 - the transformer block's pieces (LayerNorm eps 1e-6, the attention, flax's
   tanh GELU) through the block against ``TransformerBlock``;
 - a checkpoint written by either package's saver read by the other's
@@ -78,8 +79,8 @@ def _variables(module, x, seed, **kw):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _bridge(variables):
-    model = punetr.UNETR(spatial_size=SIZE, **CFG)
+def _bridge(variables, pack: bool = True):
+    model = punetr.UNETR(spatial_size=SIZE, pack=pack, **CFG)
     state = from_flax_variables(jax.tree_util.tree_map(np.asarray, variables))
     assert set(state) == set(model.state_dict())
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in state.items()})
@@ -128,7 +129,8 @@ def test_forward_matches_flax_f32_packed_or_not(case, monkeypatch, pack):
     assert junetr.pack_on() == (pack == "on")
     want = np.asarray(jax.jit(lambda v, x: module.apply(v, x, training=False))(
         variables, jnp.asarray(x)))
-    model = _bridge(variables)
+    model = _bridge(variables, pack=pack == "on")
+    assert model.pack == (pack == "on")
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
     assert got.shape == SHAPE[:4] + (3,)
@@ -146,7 +148,7 @@ def test_forward_bf16_within_bf16_rounding_of_flax(case, monkeypatch):
     want = np.asarray(fwd(variables, jnp.asarray(x)))
     jax16 = np.asarray(fwd(variables, jnp.asarray(x, jnp.bfloat16))).astype(np.float32)
     with torch.no_grad():
-        got = _bridge(variables)(torch.from_numpy(x).to(torch.bfloat16))
+        got = _bridge(variables, pack=False)(torch.from_numpy(x).to(torch.bfloat16))
     assert got.dtype == torch.bfloat16
     limit = 2e-2 * np.abs(want).max()
     assert np.abs(jax16 - want).max() <= limit
@@ -171,7 +173,7 @@ def test_gradients_match_flax(case, monkeypatch):
 
         want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
         want_grads = jax.tree_util.tree_map(np.asarray, want_grads)
-    model = _bridge(variables).double().train().requires_grad_(True)
+    model = _bridge(variables, pack=False).double().train().requires_grad_(True)
     loss = losses.dice_loss(model(torch.from_numpy(x).double()), torch.from_numpy(labels))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), **TOL)
@@ -201,15 +203,21 @@ def test_transformer_block_matches_flax(dtype):
 
 
 def test_input_checks(case):
+    """Packed (the default) the model emits the phase-major logits on
+    request and the trainer's phase Dice takes them; unpacked it refuses."""
     _, variables, x, _ = case
     model = _bridge(variables)
     with pytest.raises(ValueError, match="position embedding"):
         model(torch.zeros(1, 48, 32, 32, 1))
     with pytest.raises(ValueError, match="divisible by patch"):
         model(torch.zeros(1, 40, 32, 32, 1))
+    assert model.phase_top_ok()
+    with torch.no_grad():
+        assert model(torch.from_numpy(x), phase_logits=True).shape == (2, 16, 16, 16, 24)
+    unpacked = _bridge(variables, pack=False)
+    assert not unpacked.phase_top_ok()
     with pytest.raises(ValueError, match="phase logits"):
-        model(torch.from_numpy(x), phase_logits=True)
-    assert not model.phase_top_ok()
+        unpacked(torch.from_numpy(x), phase_logits=True)
     with pytest.raises(ValueError, match="patch_size=16"):
         punetr.UNETR(spatial_size=SIZE, patch_size=8, **CFG)
     with pytest.raises(ValueError, match="requires spatial_size"):
@@ -266,8 +274,9 @@ def test_train_two_epochs_on_cpu_and_its_refusals(phantoms, tmp_path):  # noqa: 
 
 def test_predict_label_maps_match_jax(jax_model, ckpt, tmp_path, monkeypatch):
     """The port's ``predict`` on the JAX checkpoint against the JAX
-    package's ``segment_volume`` on the same model, both forwards in f32."""
-    monkeypatch.setenv("SEGMANTIC_UNETR_PACK", "off")
+    package's ``segment_volume`` on the same model, both forwards in f32,
+    both packed (each package's default)."""
+    monkeypatch.setenv("SEGMANTIC_UNETR_PACK", "on")
     images, labels = zip(*(write_case(tmp_path / "data", f"c{i}", shape, i)
                            for i, shape in enumerate([(36, 30, 28), (40, 34, 33)])))
     f32_forwards(monkeypatch, jpredict, ppredict)
