@@ -208,6 +208,46 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
+    """(body, text with its launch plan, tile fill) of the conv kernel on
+    input x of a conv over c to co channels, full-resolution ``dims``."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    body = fused_conv.conv_body(x, c)
+    if body == "tensor_cores":
+        p = fused_conv.plan(dims, c, co, 2, sms)
+        return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile "
+                      f"{p.nt}, {p.nbricks} bricks x {p.n_tiles} N tiles, tile fill "
+                      f"{p.fill:.3f}"), p.fill
+    if body == "few_channels":
+        p = fused_conv.fewc_plan(dims, c, co, phase, sms)
+        return body, (f"few-channel body: plane tile {p.th}x{p.tw} ({p.rows} positions a "
+                      f"step), {p.nitems} items of {p.seg} planes over {p.grid_x} blocks x "
+                      f"{p.n_tiles} N tiles of {p.nt}, tile fill {p.fill:.3f}"), p.fill
+    return body, "CUDA-core body", 1.0
+
+
+def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
+    """(body, text with its launch plan, K fill) of the dw kernel on input x
+    of a conv over c to co channels, full-resolution ``dims``."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    body = fused_conv.dw_body(x, c, co)
+    if body == "tensor_cores":
+        p = fused_conv.dw_plan(dims, c, co, sms)
+        return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, "
+                      f"{p.splits} splits, {p.grid[0] * p.grid[1]} blocks of {p.warps} warps, "
+                      f"K fill {p.fill:.3f}, workspace {p.workspace * 4 / 1e6:.2f} MB, "
+                      f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
+    if body == "few_channels":
+        p = fused_conv.fewc_dw_plan(dims, c, co, phase, sms)
+        return body, (f"few-channel body: plane tile {p.th}x{p.tw} ({p.rows} positions a "
+                      f"step), {p.nitems} items of {p.seg} planes over {p.grid_x} splits x "
+                      f"{p.n_tiles} N tiles of {p.nt}, K fill {p.fill:.3f}, "
+                      f"{'one launch' if p.grid_x == 1 else 'kernel + reduce'}"), p.fill
+    return body, "CUDA-core body", 1.0
+
+
 def check_kernels(torch):
     """Each kernel against its plain version at the serving path's shapes.
 
@@ -324,15 +364,27 @@ def check_kernels(torch):
                         library_ms=lms)
 
     # ragged shapes, untimed: extents that are a multiple of no brick, CO = 5
-    # (scalar stores), C = 24 (a chunk padded to 32), bf16 -> f32 output, and
-    # bf16 with C = 3 (no 16-byte channel vector: the CUDA-core body by the
-    # wrapper's shape rule), each one launch
+    # (scalar stores), C = 24 (a chunk padded to 32), C = 12 (no 16-byte
+    # channel vector above 8: the CUDA-core body), bf16 -> f32 output, and
+    # bf16 with C = 1, 2, 3, 7 (no 16-byte channel vector: the few-channel body
+    # by the wrapper's rule; W * C whole 16-byte pieces or not) and CO = 1 (a
+    # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch
     for name, shape, c, co in [("fused_conv", (2, 20, 22, 26, 24), 24, 5),
                                ("fused_conv", (2, 20, 22, 26, 16), 16, 8),
                                ("fused_conv", (2, 5, 7, 9, 3), 3, 5),
+                               ("fused_conv", (2, 5, 7, 9, 12), 12, 5),
+                               ("fused_conv", (2, 5, 7, 9, 1), 1, 8),
+                               ("fused_conv", (2, 6, 10, 32, 2), 2, 16),
+                               ("fused_conv", (1, 4, 6, 17, 7), 7, 24),
+                               ("fused_conv", (2, 5, 7, 16, 1), 1, 1),
                                ("phase_conv", (2, 10, 11, 13, 8 * 24), 24, 5),
                                ("phase_conv", (1, 5, 7, 9, 8 * 8), 8, 16),
-                               ("phase_conv", (1, 3, 4, 5, 8 * 3), 3, 3)]:
+                               ("phase_conv", (1, 3, 4, 5, 8 * 3), 3, 3),
+                               ("phase_conv", (1, 3, 4, 5, 8 * 12), 12, 5),
+                               ("phase_conv", (2, 3, 4, 5, 8), 1, 16),
+                               ("phase_conv", (1, 3, 4, 8, 8 * 2), 2, 8),
+                               ("phase_conv", (1, 2, 3, 4, 8 * 7), 7, 5),
+                               ("phase_conv", (1, 3, 4, 5, 8), 1, 1)]:
         x = randn(*shape).to(bf16)
         w = randn(3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(bf16)
         kw = dict(bias=randn(co, scale=0.1), scale=randn(co).abs() + 0.5,
@@ -341,7 +393,10 @@ def check_kernels(torch):
         mod, fn, plain = ((fused_conv, fused_conv.conv3d, fused_conv.conv3d_plain)
                           if name == "fused_conv"
                           else (phase_conv, phase_conv.phase_conv, phase_conv.phase_conv_plain))
-        body = "tensor-core" if fused_conv.takes_tensor_cores(x, c) else "CUDA-core"
+        body = fused_conv.conv_body(x, c)
+        if body != ("few_channels" if c < 8 else
+                    "tensor_cores" if c % 8 == 0 else "cuda_cores"):
+            _fail(f"{name} ragged {shape}: the rule sends C = {c} to the {body} body")
         for out_dtype in (bf16, torch.float32):
             before = mod.counter.count
             compare(name, f"ragged {tuple(shape)} C={c}->{co} out {str(out_dtype)[6:]} "
@@ -350,6 +405,9 @@ def check_kernels(torch):
                     lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
+            if body == "few_channels" and not torch.equal(
+                    fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
+                _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
 
     check_blend(torch, results)
     return results
@@ -531,23 +589,26 @@ def report_dice_sass(lib: Path) -> None:
 
 
 def report_conv_build(lib: Path) -> None:
-    """What ptxas reports for the tensor-core kernels (the conv body
-    ``conv3_mma_kernel`` and the weight-gradient body ``conv3_dw_mma_kernel``:
-    registers and spills per instantiation, from the build log beside the
-    library) and, where the toolkit has ``cuobjdump``, how many tensor-core
-    (HMMA), ``ldmatrix`` (LDSM) and asynchronous copy (LDGSTS) opcodes
-    their SASS holds. Spills fail nothing; a kernel without HMMA does."""
+    """What ptxas reports for the tensor-core kernels (the conv bodies
+    ``conv3_mma_kernel`` and ``conv3_fewc_kernel``, the weight-gradient bodies
+    ``conv3_dw_mma_kernel`` and ``conv3_fewc_dw_kernel``: registers and
+    spills per instantiation, from the build log beside the library) and,
+    where the toolkit has ``cuobjdump``, how many tensor-core (HMMA),
+    ``ldmatrix`` (LDSM) and asynchronous copy (LDGSTS) opcodes their SASS
+    holds. Spills fail nothing; a kernel without HMMA does."""
     import re
     import shutil
 
-    names = ("conv3_mma_kernel", "conv3_dw_mma_kernel")
+    names = ("conv3_mma_kernel", "conv3_dw_mma_kernel", "conv3_fewc_kernel",
+             "conv3_fewc_dw_kernel")
     for name in names:
         found = []
         for line, regs, _, spill in _ptxas_reports(lib, name):
             m = re.search(name + r".*?(Dense|Phase)LayoutELi(\d+)ELi(\d+)", line)
             if m:
                 found.append((m.group(1).lower(), int(m.group(2)), int(m.group(3)), regs, spill))
-        print(f"  ptxas, {name}<layout, CK, NT>: {len(found)} instantiations, registers "
+        params = "C, NT" if "fewc" in name else "CK, NT"
+        print(f"  ptxas, {name}<layout, {params}>: {len(found)} instantiations, registers "
               f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
               f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
               + ", ".join(f"{lay[0]}{ck}x{nt}:{regs}" for lay, ck, nt, regs, _ in sorted(found)))
@@ -681,7 +742,8 @@ def check_train_kernels(torch):
                  else f"p{x_shape} C={c_true}") + f" ({per_step} per step)"
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            if fused_conv.takes_dw_tensor_cores(x, c_true, co_true) != (dtype == bf16):
+            want_body = "tensor_cores" if dtype == bf16 else "cuda_cores"
+            if fused_conv.dw_body(x, c_true, co_true) != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
             got = kernel(x, dy)
@@ -718,19 +780,26 @@ def check_train_kernels(torch):
     # odd shapes, untimed, bf16: extents that are a multiple of no brick; CO = 24
     # (a padded or a third N tile); C = 12 and CO = 20 (no 16-byte channel vector:
     # the CUDA-core body by the rule); one brick, so one split and no reduce
-    # launch; a phase shape with ragged full-resolution bricks
+    # launch; a phase shape with ragged full-resolution bricks; C = 1, 2, 7 and a
+    # 1 -> 1 weight gradient in both layouts (the few-channel body, any CO; CO
+    # % 8 != 0 staged value by value)
     odd = [("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
            ("fused_conv_dw", (2, 10, 11, 13, 12), 16), ("fused_conv_dw", (2, 5, 7, 9, 16), 20),
            ("fused_conv_dw", (1, 6, 6, 6, 8), 8), ("phase_conv_dw", (1, 5, 7, 9, 8 * 8), 8 * 16),
-           ("phase_conv_dw", (2, 10, 11, 13, 8 * 24), 8 * 8)]
+           ("phase_conv_dw", (2, 10, 11, 13, 8 * 24), 8 * 8),
+           ("fused_conv_dw", (2, 5, 7, 9, 1), 8), ("fused_conv_dw", (2, 6, 10, 32, 2), 16),
+           ("fused_conv_dw", (1, 4, 6, 17, 7), 24), ("fused_conv_dw", (2, 5, 7, 16, 1), 1),
+           ("phase_conv_dw", (2, 3, 4, 5, 8), 8 * 16), ("phase_conv_dw", (1, 3, 4, 8, 8 * 2), 8 * 8),
+           ("phase_conv_dw", (1, 2, 3, 4, 8 * 7), 8 * 5), ("phase_conv_dw", (1, 3, 4, 5, 8), 8)]
     for name, x_shape, co in odd:
         mod, kernel, plain = modules(name)
         x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
         dims, c_true, co_true = geometry(name, x, dy)
-        tensor_cores = fused_conv.takes_dw_tensor_cores(x, c_true, co_true)
-        if tensor_cores != (c_true % 8 == 0 and co_true % 8 == 0):
+        body, text, _ = dw_body_text(x, c_true, co_true, dims, name == "phase_conv_dw", sms)
+        want_body = ("few_channels" if c_true < 8 else "tensor_cores"
+                     if c_true % 8 == 0 and co_true % 8 == 0 else "cuda_cores")
+        if body != want_body:
             _fail(f"{name} {x_shape}->{co}: the rule between the bodies")
-        text = plan_text(dims, c_true, co_true)[1] if tensor_cores else "CUDA-core body"
         before = mod.dw_counter.count
         got = kernel(x, dy)
         compare(f"{name} odd {x_shape} C={c_true}->{co_true} ({text})", got, plain(x, dy),
@@ -1904,7 +1973,7 @@ def run_cross_validate(torch, work: Path):
 # the two other architectures at full width: train() / create() keywords, the
 # stride-1 3^3 convs of a forward on kernel 1 (``convs``) and in phase space on
 # kernels 3-4 (``phase_convs``), and which kernel takes the image (its dx is
-# skipped; packed UNETR's one-channel input conv runs on cuDNN): a step
+# skipped; packed UNETR's one-channel input conv runs in phase space): a step
 # launches 2 * n (less the input layer's) of each conv kernel, n of its dw
 # kernel, and the Dice kernels once each where the top runs in phase space
 # (packed UNETR: the phase Dice)
@@ -1914,7 +1983,7 @@ ARCHS = {
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
-              "phase_convs": 7, "input": None, "phase_dice": True},
+              "phase_convs": 8, "input": "phase_conv", "phase_dice": True},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
@@ -1923,10 +1992,12 @@ ARCHS = {
 # (architecture, stored x shape at the training batch, CO, launches of the
 # shape a forward): every stride-1 3^3 conv shape of the two on kernel 1 that
 # no earlier phase times at batch 8 (packed UNETR's 96^3 and 48^3 convs run in
-# phase space: UNETR_PACK_SHAPES)
+# phase space: UNETR_PACK_SHAPES), and UNETR(pack=False)'s one-channel input
+# layer, which [unetr-pack]'s A/B runs (packed UNETR: 0 a forward)
 ARCH_CONV_SHAPES = [
     ("segresnet", (TRAIN_BATCH, 96, 96, 96, 1), 8, 1),
     ("segresnet", (TRAIN_BATCH, 96, 96, 96, 8), 8, 4),
+    ("unetr", (TRAIN_BATCH, 96, 96, 96, 1), 16, 0),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 32), 32, 2),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 64), 64, 3),
     ("unetr", (TRAIN_BATCH, 24, 24, 24, 128), 64, 1),
@@ -1941,12 +2012,15 @@ def check_arch_kernels(torch):
     """Kernels 1 and 2 at every new conv shape of SegResNet and UNETR, bf16 at
     the training batch: the forward (limit 2e-2 * max|ref|, as ``[kernels]``)
     and the weight gradient (1e-3 * max|ref|, as ``[train-kernels]``) against
-    their plain versions once, each with its launch plan (or its CUDA-core
-    body: C = 1), timed by CUDA-graph replay beside the plain version and
+    their plain versions once and bit-equal on a repeated launch, each with
+    its body and launch plan (C = 1: the few-channel bodies), timed by
+    CUDA-graph replay beside the plain version and
     cuDNN (``F.conv3d``; ``torch.nn.grad.conv3d_weight`` on the bf16
     tensors; median of 5 replays of 5 calls, the plain weight gradient at
     96^3 one replay of one call). Returns {kernel: {...}} as
-    :func:`check_kernels`, times and bounds summed over these shapes."""
+    :func:`check_kernels`, times and bounds summed over the shapes the default
+    paths launch (UNETR(pack=False)'s input layer is checked and timed but
+    left out)."""
     import torch.nn.functional as F
 
     from segmantic_tpu_torch.ops import fused_conv
@@ -1979,43 +2053,43 @@ def check_arch_kernels(torch):
         dy = randn(*shape[:4], co)
         dims = tuple(shape[:4])
         label = f"{arch} x{shape}->{co} ({per_fwd} a forward)"
+        if not per_fwd:
+            label += " [the unpacked A/B's shape: checked, off the kernels line]"
+        launched = results if per_fwd else {}  # an unlaunched shape stays out of the line
         # the plain f32 wgrad takes 60-320 ms at 96^3: one timed replay of one call
         slow = dict(n=1, launches=1, warmup=1) if x.numel() * co > 2 ** 28 else reps
 
-        if fused_conv.takes_tensor_cores(x, c):
-            p = fused_conv.plan(dims, c, co, 2, sms)
-            body = (f"brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile {p.nt}, "
-                    f"{p.nbricks} bricks x {p.n_tiles} N tiles, tile fill {p.fill:.3f}")
-        else:
-            body = "CUDA-core body"
+        kind, body, _ = conv_body_text(x, c, co, dims, False, sms)
+        if kind != ("few_channels" if c < 8 else "tensor_cores"):
+            _fail(f"fused_conv {label}: the rule sends C = {c} to the {kind} body")
         k = lambda: fused_conv.conv3d(x, w)  # noqa: E731
         pl = lambda: fused_conv.conv3d_plain(x, w)  # noqa: E731
-        err = check(f"fused_conv {label}", k(), pl(), 2e-2)
+        got = k()
+        err = check(f"fused_conv {label}", got, pl(), 2e-2)
+        if not torch.equal(got, k()):
+            _fail(f"fused_conv {label}: a repeated launch is not bit-equal")
         xc = x.permute(0, 4, 1, 2, 3)
         wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
         ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **reps)
         lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
-        _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms,
+        _record(launched, "fused_conv", err=err, ms=ms, plain_ms=pms,
                 nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
                 peak=PEAK_BF16, library_ms=lms)
 
-        if fused_conv.takes_dw_tensor_cores(x, c, co):
-            p = fused_conv.dw_plan(dims, c, co, sms)
-            body = (f"brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, {p.splits} splits, "
-                    f"{p.grid[0] * p.grid[1]} blocks of {p.warps} warps, K fill {p.fill:.3f}")
-        else:
-            body = "CUDA-core body"
+        body = dw_body_text(x, c, co, dims, False, sms)[1]
         k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
         pl = lambda: fused_conv.conv3d_dw_plain(x, dy)  # noqa: E731
         got = k()
         err = check(f"fused_conv_dw {label}", got, pl(), 1e-3)
+        if not torch.equal(got, k()):
+            _fail(f"fused_conv_dw {label}: a repeated launch is not bit-equal")
         ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **slow)
         lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
             xc, (co, c, 3, 3, 3), dy.permute(0, 4, 1, 2, 3), padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
               f"{lms:.4f} ms")
-        _record(results, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
+        _record(launched, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
                 nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
                 peak=PEAK_BF16, library_ms=lms)
     return results
@@ -2041,6 +2115,24 @@ def arch_launches(spec):
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
+
+
+def input_layer_route(torch, module) -> str:
+    """Which kernel and body take the model's 3^3 conv of the one-channel
+    image at the training batch, with the body's launch plan."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if hasattr(module, "conv_init"):  # SegResNet
+        conv, phase = module.conv_init, False
+    else:  # UNETR: its first block, in phase space where packed
+        conv, phase = module.encoder1.conv_0, module.encoder1.phase
+    c, co = conv.weight.shape[1], conv.weight.shape[0]
+    dims = (TRAIN_BATCH,) + TRAIN_PATCH
+    probe = torch.empty((1, 1, 1, 1, 1), dtype=torch.bfloat16)
+    kernel = "phase_conv / phase_conv_dw" if phase else "fused_conv / fused_conv_dw"
+    view = (f"p {tuple(v // 2 for v in TRAIN_PATCH)} x {8 * c}" if phase
+            else f"{TRAIN_PATCH[0]}^3 x {c}")
+    return (f"{view} -> {co}, {kernel}: conv {conv_body_text(probe, c, co, dims, phase, sms)[1]};"
+            f" dw {dw_body_text(probe, c, co, dims, phase, sms)[1]}")
 
 
 def run_arch(torch, arch: str, data: Path, work: Path):
@@ -2126,6 +2218,13 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     print(f"  loss over 13 steps: {[round(v, 5) for v in loss_hist]}")
     if not all(np.isfinite(loss_hist)) or not loss_hist[-1] < loss_hist[0] - 1e-3:
         _fail(f"{arch}: the loss did not fall over 13 steps on a fixed batch")
+    prof = _step_profile(torch, lambda: [step(image, label) for _ in range(3)])
+    if not prof["device_ms"]:
+        _fail("torch.profiler saw no kernel time on the card")
+    kernel_ms, busy = prof["device_ms"] / 3, prof["device_ms"] / prof["wall_ms"]
+    print(f"  torch.profiler over 3 steps: {kernel_ms:.2f} ms of kernels a step, busy share "
+          f"{busy:.3f}")
+    print(f"  the image's 3^3 input layer: {input_layer_route(torch, module)}")
     del module, opt, step, model
 
     ckpt = result.best_checkpoint
@@ -2153,8 +2252,9 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     print(f"  sliding window on the card, one 256x256x176 volume (upload, 12 chunks of "
           f"{SW_BATCH} x 96^3, blend with the weight map): {sw_s:.4f} s (median of 5)")
     del session
-    return total, {"train_s": train_s, "step_ms": ms, "peak_mib": peak, "predict_s": pred_s,
-                   "request_s": request_s, "sliding_window_s": sw_s}
+    return total, {"train_s": train_s, "step_ms": ms, "kernel_ms": kernel_ms, "busy": busy,
+                   "peak_mib": peak, "predict_s": pred_s, "request_s": request_s,
+                   "sliding_window_s": sw_s}
 
 
 # [arch-parity]: (create() keywords, patch) of each architecture's f32 step
@@ -2178,11 +2278,11 @@ def arch_parity(torch):
 
 # [unetr-pack]: every phase-space conv shape of packed UNETR (feature 16) at the
 # training batch: (stored phase tensor, true CI, CO, launches a forward, layers);
-# the one-channel input conv runs on cuDNN (the faster of its two routes, timed
-# here), so its shape launches no kernel on the path and stays out of the
-# kernels line; it takes no dx (the image needs none), every other conv does
+# the one-channel input conv runs on the few-channel bodies of kernels 3-6 (the
+# faster of its two routes, both timed here) and takes no dx (the image needs
+# none), every other conv does
 UNETR_PACK_SHAPES = [
-    ((TRAIN_BATCH, 48, 48, 48, 8), 1, 16, 0, "encoder1.conv_0"),
+    ((TRAIN_BATCH, 48, 48, 48, 8), 1, 16, 1, "encoder1.conv_0"),
     ((TRAIN_BATCH, 48, 48, 48, 128), 16, 16, 2, "encoder1.conv_1, decoder2_conv.conv_1"),
     ((TRAIN_BATCH, 48, 48, 48, 256), 32, 16, 1, "decoder2_conv.conv_0"),
     ((TRAIN_BATCH, 24, 24, 24, 256), 32, 32, 3,
@@ -2198,9 +2298,9 @@ def check_unetr_pack_kernels(torch):
     gradient where CI differs from CO (the forward on the flipped, io-swapped
     kernel, another shape; a square conv's dx has its forward's shape; limit
     2e-2 * max|ref|) and the weight gradient (1e-3 * max|ref|) against
-    ``phase_conv_plain`` / ``phase_conv_dw_plain`` once, each with its launch
-    plan (or its CUDA-core body: a channel count off the tensor cores' rule)
-    and a repeated launch bit-equal, timed by CUDA-graph replay (median of 5
+    ``phase_conv_plain`` / ``phase_conv_dw_plain`` once, each with its body
+    and launch plan (CI = 1: the few-channel bodies) and a repeated launch
+    bit-equal, timed by CUDA-graph replay (median of 5
     replays of 5 calls; the plain forward uploads its selection tensor, so it
     is timed eagerly) beside the plain version, the bound and cuDNN on the
     full-resolution view (the rearrangement not timed, as ``[kernels]``). For
@@ -2210,7 +2310,8 @@ def check_unetr_pack_kernels(torch):
     ``depth_to_space`` views with the rearrangements (the input layer takes no
     dx). Returns {kernel: {...}} as :func:`check_kernels`, times and bounds
     summed over the shapes the path launches, and {layers: (kernel route ms,
-    cuDNN route ms)}."""
+    cuDNN route ms)}; the input layer's f32 pair too (its CUDA-core phase
+    bodies against cuDNN with TF32 off and on), under "<layers> f32"."""
     import torch.nn.functional as F
 
     from segmantic_tpu_torch.ops import fused_conv, phase_conv
@@ -2240,13 +2341,12 @@ def check_unetr_pack_kernels(torch):
     def ncdhw(t):  # channel-last (B, D, H, W, C) -> the NCDHW view cuDNN takes
         return t.permute(0, 4, 1, 2, 3)
 
-    def conv_body(t, c_in, c_out):  # the forward's launch plan on phase tensor t
-        if not fused_conv.takes_tensor_cores(t, c_in):
-            return "CUDA-core body"
-        q = fused_conv.plan((t.shape[0],) + tuple(2 * v for v in t.shape[1:4]), c_in, c_out,
-                            2, sms)
-        return (f"brick {q.td}x{q.th}x{q.tw} in {q.warps} warps, N tile {q.nt}, "
-                f"{q.nbricks} bricks x {q.n_tiles} N tiles, tile fill {q.fill:.3f}")
+    def conv_body(t, c_in, c_out):  # the forward's body and launch plan on phase tensor t
+        full = (t.shape[0],) + tuple(2 * v for v in t.shape[1:4])
+        kind, text, _ = conv_body_text(t, c_in, c_out, full, True, sms)
+        if kind != ("few_channels" if c_in < 8 else "tensor_cores"):
+            _fail(f"phase_conv p{tuple(t.shape)}: the rule sends CI = {c_in} to the {kind} body")
+        return text
 
     def check_conv(label, t, wk, library):
         """The forward kernel on phase tensor t and kernel wk against its plain
@@ -2289,12 +2389,7 @@ def check_unetr_pack_kernels(torch):
             _record(launched, "phase_conv", err=err, ms=ms, plain_ms=pms, nbytes=nbytes,
                     ops=ops, peak=PEAK_BF16, library_ms=lms)
 
-        if fused_conv.takes_dw_tensor_cores(p, ci, co):
-            d = fused_conv.dw_plan(full, ci, co, sms)
-            body = (f"brick {d.td}x{d.th}x{d.tw}, CK x NT {d.ck}x{d.nt}, {d.splits} splits, "
-                    f"{d.grid[0] * d.grid[1]} blocks of {d.warps} warps, K fill {d.fill:.3f}")
-        else:
-            body = "CUDA-core body"
+        body = dw_body_text(p, ci, co, full, True, sms)[1]
         k = lambda: phase_conv.phase_conv_dw(p, gy)  # noqa: E731
         pl = lambda: phase_conv.phase_conv_dw_plain(p, gy)  # noqa: E731
         got = k()
@@ -2334,6 +2429,32 @@ def check_unetr_pack_kernels(torch):
         print(f"    a step's {'forward, dx and dw' if with_dx else 'forward and dw'}: phase "
               f"kernels {kms:.4f} ms, cuDNN on the depth_to_space views with the "
               f"rearrangements {cms:.4f} ms ({'kernels' if kms <= cms else 'cuDNN'} faster)")
+        if ci == 1:  # f32 (mixed_precision=False) takes the CUDA-core phase bodies
+            p32, gy32, w32, wc32 = p.float(), gy.float(), w.float(), wc.float()
+            kind = conv_body_text(p32, ci, co, full, True, sms)[0]
+            if kind != "cuda_cores" or fused_conv.dw_body(p32, ci, co) != "cuda_cores":
+                _fail(f"phase_conv {label}: the rule sends f32 to the {kind} body")
+
+            def kernel_f32():
+                phase_conv.phase_conv(p32, w32)
+                phase_conv.phase_conv_dw(p32, gy32)
+
+            def cudnn_f32():
+                xf, gf = ncdhw(depth_to_space(p32, ci)), ncdhw(depth_to_space(gy32, co))
+                space_to_depth(F.conv3d(xf, wc32, padding=1).permute(0, 2, 3, 4, 1))
+                torch.nn.grad.conv3d_weight(xf, wshape, gf, padding=1)
+
+            kms, cms = _graph_ms(torch, kernel_f32, **reps), _graph_ms(torch, cudnn_f32, **reps)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for cuDNN
+            try:
+                tms = _graph_ms(torch, cudnn_f32, **reps)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            routes[f"{layers} f32"] = (kms, cms, tms)
+            print(f"    f32, a step's forward and dw: phase kernels (CUDA-core bodies) "
+                  f"{kms:.4f} ms, cuDNN on the depth_to_space views {cms:.4f} ms with "
+                  f"TF32 off, {tms:.4f} ms with TF32 on")
     return results, routes
 
 

@@ -20,10 +20,13 @@
 // from a 3-D halo brick staged once by 16-byte cp.async into a ring of
 // buffers, weights pre-packed and resident, brick shape picked per launch so
 // that 12^3 and 6^3 fill the rows, 16-byte stores of whole channel vectors.
-// f32 input keeps the CUDA-core body of conv3.cuh (segk_fused_conv3), which
-// agrees with the CPU to ~1e-6 where TF32 would not; bf16 input whose channel
-// count is no multiple of 8 (no 16-byte channel vector) takes it too.
-#include "conv3_mma.cuh"
+// bf16 input with C = 1..7 (the 96^3 one-channel input layer of SegResNet
+// and UNETR) runs the few-channel body of conv3_fewc.cuh
+// (segk_fused_conv3_fewc): the same mma.sync on input planes staged along W,
+// a rolling window of three along D. f32 input keeps the CUDA-core body of
+// conv3.cuh (segk_fused_conv3), which agrees with the CPU to ~1e-6 where TF32
+// would not; bf16 input with C > 8 and no multiple of 8 takes it too.
+#include "conv3_fewc.cuh"
 
 extern "C" int segk_fused_conv3(const void* x, const void* w, const float* scale,
                                 const float* shift, const float* alpha, int relu_mode,
@@ -42,4 +45,14 @@ extern "C" int segk_fused_conv3_mma(const void* x, const void* wp, const float* 
   return segk::launch_conv3_mma<segk::DenseLayout>(
       x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C, CO, out_bf16, td, th, tw,
       warps, nt, ck, stages, resident, grid_x, smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_fewc(const void* x, const void* wp, const float* scale,
+                                     const float* shift, const float* alpha, int relu_mode,
+                                     void* out, int B, int D, int H, int W, int C, int CO,
+                                     int out_bf16, int th, int tw, int seg, int nt, int grid_x,
+                                     int smem_bytes, int vec, void* stream) {
+  return segk::launch_conv3_fewc<segk::DenseLayout>(x, wp, scale, shift, alpha, relu_mode, out,
+                                                    B, D, H, W, C, CO, out_bf16, th, tw, seg, nt,
+                                                    grid_x, smem_bytes, vec, stream);
 }

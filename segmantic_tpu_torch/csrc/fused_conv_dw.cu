@@ -13,8 +13,9 @@
 // so the work is a long contraction; at the bottom (6^3 x 256 -> 256) there
 // are 1,728 positions and 1.77 M outputs. bf16 input with C % 8 == 0 and
 // CO % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh, which says what
-// bounds it and what its design does about that); everything else is
-// CUDA-core f32 FMA work.
+// bounds it and what its design does about that), bf16 input with C = 1..7
+// and any CO the few-channel body (conv3_fewc_dw.cuh: the 96^3 one-channel
+// input layer); everything else is CUDA-core f32 FMA work.
 // What the CUDA-core design does about it (conv3_dw.cuh): output channels and the
 // three input-plane offsets spread over grid.y and grid.z, and the position
 // tiles over as many splits as it takes to put ~4 blocks on every SM; the
@@ -22,6 +23,7 @@
 // result is deterministic without atomics.
 #include "conv3_dw.cuh"
 #include "conv3_dw_mma.cuh"
+#include "conv3_fewc_dw.cuh"
 
 extern "C" long long segk_conv3_dw_workspace(int B, int D, int H, int W, int C, int CO) {
   return segk::dw_workspace(segk::dw_plan(B, D, H, W, C, CO), C, CO);
@@ -41,4 +43,13 @@ extern "C" int segk_fused_conv3_dw_mma(const void* x, const void* dy, float* ws,
   return segk::launch_conv3_dw_mma<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, td,
                                                       th, tw, ck, nt, splits, stages,
                                                       smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_dw_fewc(const void* x, const void* dy, float* ws, float* out,
+                                        int B, int D, int H, int W, int C, int CO, int th,
+                                        int tw, int seg, int nt, int splits, int smem_bytes,
+                                        int vec_x, int vec_dy, void* stream) {
+  return segk::launch_conv3_dw_fewc<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, th,
+                                                       tw, seg, nt, splits, smem_bytes, vec_x,
+                                                       vec_dy, stream);
 }

@@ -25,10 +25,15 @@
 // PhaseLayout address map: each 16-byte piece of the halo brick is one
 // cp.async at the mapped address (neighbouring lanes take neighbouring phases
 // of one line), C = 8 pairs two taps into one k16 step, and the epilogue
-// stores each voxel's whole channel vector at its mapped address. f32 input,
-// and bf16 input with C no multiple of 8, keep the CUDA-core body of
-// conv3.cuh (segk_phase_conv3).
-#include "conv3_mma.cuh"
+// stores each voxel's whole channel vector at its mapped address. bf16 input
+// with C = 1..7 (packed UNETR's one-channel input layer, 48^3 x 8 standing for
+// 96^3 x 1) runs the few-channel body of conv3_fewc.cuh
+// (segk_phase_conv3_fewc): 16-byte pieces of a row of block voxels staged as
+// they lie, and each lane's rows share one output phase, so its tap offsets
+// through the index map are constants. f32 input, and bf16 input with C > 8
+// and no multiple of 8, keep the CUDA-core body of conv3.cuh
+// (segk_phase_conv3).
+#include "conv3_fewc.cuh"
 
 extern "C" int segk_phase_conv3(const void* p, const void* w, const float* scale,
                                 const float* shift, const float* alpha, int relu_mode,
@@ -47,4 +52,14 @@ extern "C" int segk_phase_conv3_mma(const void* p, const void* wp, const float* 
   return segk::launch_conv3_mma<segk::PhaseLayout>(
       p, wp, scale, shift, alpha, relu_mode, out, B, D2, H2, W2, C, CO, out_bf16, td, th, tw,
       warps, nt, ck, stages, resident, grid_x, smem_bytes, stream);
+}
+
+extern "C" int segk_phase_conv3_fewc(const void* p, const void* wp, const float* scale,
+                                     const float* shift, const float* alpha, int relu_mode,
+                                     void* out, int B, int D2, int H2, int W2, int C, int CO,
+                                     int out_bf16, int th, int tw, int seg, int nt, int grid_x,
+                                     int smem_bytes, int vec, void* stream) {
+  return segk::launch_conv3_fewc<segk::PhaseLayout>(p, wp, scale, shift, alpha, relu_mode, out,
+                                                    B, D2, H2, W2, C, CO, out_bf16, th, tw, seg,
+                                                    nt, grid_x, smem_bytes, vec, stream);
 }

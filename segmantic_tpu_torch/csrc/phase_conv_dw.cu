@@ -27,9 +27,11 @@
 // (conv3_dw.cuh: f32 input, odd channel counts); bf16 input with Ci % 8 == 0
 // and Co % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh), which stages
 // 16-byte channel vectors through the same index map and keeps one partial
-// per split.
+// per split; bf16 input with Ci = 1..7 and any Co runs the few-channel body
+// (conv3_fewc_dw.cuh), which stages the rows of block voxels as they lie.
 #include "conv3_dw.cuh"
 #include "conv3_dw_mma.cuh"
+#include "conv3_fewc_dw.cuh"
 
 extern "C" int segk_phase_conv3_dw(const void* p, const void* g, float* ws, float* out,
                                    int B, int D2, int H2, int W2, int C, int CO,
@@ -45,4 +47,13 @@ extern "C" int segk_phase_conv3_dw_mma(const void* p, const void* g, float* ws, 
   return segk::launch_conv3_dw_mma<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO, td,
                                                       th, tw, ck, nt, splits, stages,
                                                       smem_bytes, stream);
+}
+
+extern "C" int segk_phase_conv3_dw_fewc(const void* p, const void* g, float* ws, float* out,
+                                        int B, int D2, int H2, int W2, int C, int CO, int th,
+                                        int tw, int seg, int nt, int splits, int smem_bytes,
+                                        int vec_x, int vec_dy, void* stream) {
+  return segk::launch_conv3_dw_fewc<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO, th,
+                                                       tw, seg, nt, splits, smem_bytes, vec_x,
+                                                       vec_dy, stream);
 }

@@ -118,19 +118,15 @@ class Conv(nn.Module):
         in phase space), by the route of its shape: kernels 1-2 for a
         stride-1 3^3 conv in 3D, kernels 3-6 in phase space, XLA-SAME
         ``F.conv`` otherwise; a 1^nd kernel in phase space is the
-        block-diagonal product of ``phase_pointwise_conv``. A 3D phase-space
-        3^3 conv from one true channel to several (packed UNETR's input
-        layer) runs as ``F.conv3d`` on the full-resolution view: cuDNN takes
-        its forward and weight gradient in 3.72 ms at 8 x 96^3 x 1 -> 16
-        against the phase kernels' 6.88 ms, whose one-channel bodies are the
-        CUDA-core ones (PERF.md, PR 16). That is the only shape the rule was
-        measured at; a 1 -> 1 conv (a one-class UNet's phase-space top stage)
-        stays on the phase kernels."""
+        block-diagonal product of ``phase_pointwise_conv``. A phase-space
+        conv from one true channel (packed UNETR's input layer) in f32 runs
+        on the CUDA-core phase bodies: 7.16 ms a step's forward and weight
+        gradient at 8 x 96^3 x 1 -> 16, against cuDNN's 2.98 ms on the
+        full-resolution view with TF32 and 108.1 ms without (PERF.md);
+        bf16 takes the few-channel bodies (0.25 ms)."""
         if phase and w.shape[0] == 1:
             return phase_pointwise_conv(x, w, b)
         if self.nd == 3:
-            if phase and w.shape[-2] == 1 < w.shape[-1]:
-                return space_to_depth(conv_same(depth_to_space(x, 1), w, b))
             if phase:
                 return phase_conv_grad(x, w) + tile_phase(b)
             if self.stride == 1 and w.shape[:3] == (3, 3, 3):

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "segk_phase_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_fused_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
+    "segk_fused_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
+    "segk_phase_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_blend": [_P] * 5 + [_I] * 17 + [_P],
     "segk_blend_blocks_per_sm": [_I] * 2,
     "segk_fused_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
@@ -49,6 +51,8 @@ _SIGNATURES = {
     "segk_conv3_dw_workspace": [_I] * 6,
     "segk_fused_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    "segk_fused_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    "segk_phase_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],
     "segk_shear_group_blocks_per_sm": [_I] * 6,
     "segk_shear_group_global": [_P] * 7 + [_I] * 12 + [_P],

@@ -9,28 +9,33 @@ packing.
 
 ``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` and
 ``conv3d_dw`` the kernel ``csrc/fused_conv_dw.cu`` for tensors on a CUDA
-device (each kernel has two bodies, see below); for tensors on the CPU they
+device (each kernel has three bodies, see below); for tensors on the CPU they
 run :func:`conv3d_plain` and :func:`conv3d_dw_plain`, the plain PyTorch
 versions. :func:`conv3d_grad` is
 the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has two bodies, chosen by :func:`takes_tensor_cores` from the
+The conv kernel has three bodies, named by :func:`conv_body` from the
 input's type and channel count. bf16 input whose channel count is a multiple
 of 8 runs the tensor-core body (``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo
-brick staged by ``cp.async``) with the launch geometry of :func:`plan` and the
-weights packed by :func:`pack_weights`. f32 input keeps the CUDA-core body
-(``csrc/conv3.cuh``), whose f32 FMAs agree with the CPU to ~1e-6 where TF32
-would not; bf16 input with any other channel count (no 16-byte channel vector
-to stage) takes it too. Either way the wrapper launches its kernel or raises.
+brick staged by ``cp.async``) with the launch geometry of :func:`plan`; bf16
+input with C = 1..7 (the one-channel input layer of SegResNet and UNETR) the
+few-channel body (``csrc/conv3_fewc.cuh``: ``mma.sync`` on input planes
+staged along W, a rolling window of three along D) with the geometry of
+:func:`fewc_plan`; both take the weights packed by :func:`pack_weights`. f32
+input keeps the CUDA-core body (``csrc/conv3.cuh``), whose f32 FMAs agree with
+the CPU to ~1e-6 where TF32 would not; bf16 input with any other channel count
+takes it too. Either way the wrapper launches its kernel or raises.
 
-The dw kernel has two bodies as well, chosen by :func:`takes_dw_tensor_cores`:
-bf16 input with C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
+The dw kernel has three bodies as well, named by :func:`dw_body`: bf16 input
+with C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
 (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on ``ldmatrix.trans`` operands, one
 staged halo brick of x and brick of dy per step) with the launch geometry of
-:func:`dw_plan`; f32 input and every other channel count keep the CUDA-core
-body (``csrc/conv3_dw.cuh``), whose plan lives on the C side.
+:func:`dw_plan`; bf16 input with C = 1..7 and any CO the few-channel body
+(``csrc/conv3_fewc_dw.cuh``) with the geometry of :func:`fewc_dw_plan`; f32
+input and every other channel count keep the CUDA-core body
+(``csrc/conv3_dw.cuh``), whose plan lives on the C side.
 """
 
 from __future__ import annotations
@@ -48,8 +53,8 @@ from . import _cuda
 __all__ = [
     "conv3d", "conv3d_plain", "conv3d_dw", "conv3d_dw_plain", "conv3d_grad",
     "counter", "dw_counter", "RELU_MODES", "ConvPlan", "plan", "pack_weights",
-    "unpack_weights", "takes_tensor_cores", "DwPlan", "dw_plan",
-    "takes_dw_tensor_cores",
+    "unpack_weights", "conv_body", "DwPlan", "dw_plan", "dw_body", "FewcPlan",
+    "fewc_plan", "fewc_dw_plan",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -134,13 +139,19 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 _SMS = 132  # streaming multiprocessors of an H100
 
 
-def takes_tensor_cores(x: torch.Tensor, c: int) -> bool:
-    """The shape rule between the two bodies of the conv kernel, for input x
-    of a conv over c input channels (``weights.shape[-2]``; a phase-major
-    tensor carries 8 * c lanes): bf16 input whose channel vector is a whole
-    number of 16-byte pieces (c % 8 == 0) runs the tensor-core body; f32 input
-    and every other bf16 channel count run the CUDA-core body."""
-    return x.dtype == torch.bfloat16 and c % 8 == 0
+def conv_body(x: torch.Tensor, c: int) -> str:
+    """The body of the conv kernel that takes input x of a conv over c input
+    channels (``weights.shape[-2]``; a phase-major tensor carries 8 * c
+    lanes): ``"tensor_cores"`` for bf16 input whose channel vector is a whole
+    number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16 input
+    with c = 1..7, ``"cuda_cores"`` for f32 input and every other bf16 channel
+    count."""
+    if x.dtype == torch.bfloat16:
+        if c % 8 == 0:
+            return "tensor_cores"
+        if c < 8:
+            return "few_channels"
+    return "cuda_cores"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,7 +184,11 @@ def _pitch(n: int) -> int:
 
 def _chunking(c: int) -> Tuple[int, int, int]:
     """(ck, nchunks, K rows per chunk). C = 8 pairs two taps into one k16
-    step: 28 taps of 8 rows, the last all zero."""
+    step: 28 taps of 8 rows, the last all zero. C = 1..7 (the few-channel
+    body): one chunk of the 27 * C (tap, channel) rows, padded with zero rows
+    to whole k16 steps (C = 1: 32)."""
+    if c < 8:
+        return c, 1, -(-27 * c // 16) * 16
     if c == 8:
         return 8, 1, 224
     ck = 16 if c == 16 else 32
@@ -271,12 +286,14 @@ def plan(dims: Tuple[int, int, int, int], c: int, co: int, out_bytes: int = 2,
 
 
 def pack_weights(weights: torch.Tensor, nt: int) -> torch.Tensor:
-    """DHWIO weights (3, 3, 3, C, CO), C % 8 == 0, in the order the
-    tensor-core body reads: (N tiles, chunks, K rows, nt) with K row
-    ``tap * ck + ci`` inside a chunk of ck input channels, CO padded with zero
-    columns to a multiple of nt and C with zero rows to a multiple of ck; for
-    C = 8 one chunk of 28 taps x 8 rows whose last tap is zero (K = 216 padded
-    to a multiple of 16 here, not in the input)."""
+    """DHWIO weights (3, 3, 3, C, CO) in the order the tensor-core body (C %
+    8 == 0) or the few-channel body (C = 1..7) reads: (N tiles, chunks, K
+    rows, nt) with K row ``tap * ck + ci`` inside a chunk of ck input
+    channels, CO padded with zero columns to a multiple of nt and C with zero
+    rows to a multiple of ck; for C = 8 one chunk of 28 taps x 8 rows whose
+    last tap is zero (K = 216 padded to a multiple of 16 here, not in the
+    input); for C = 1..7 one chunk of the 27 * C rows and zero rows up to a
+    multiple of 16."""
     c, co = weights.shape[-2:]
     ck, nchunks, krows = _chunking(c)
     n_tiles = -(-co // nt)
@@ -301,13 +318,157 @@ def unpack_weights(packed: torch.Tensor, c: int, co: int) -> torch.Tensor:
     return w[:, :c, :co].reshape(3, 3, 3, c, co).contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class FewcPlan:
+    """Launch geometry of the few-channel conv body (``csrc/conv3_fewc.cuh``)
+    or weight-gradient body (``csrc/conv3_fewc_dw.cuh``), as the C entry
+    points take it. A step multiplies the ``rows`` (256 or 512) output
+    positions of one plane tile of ``th x tw`` full-resolution positions (the
+    phase layout: a plane of block voxels, two full-resolution planes, of
+    th / 2 x tw / 2 block voxels x 8 phases); an item is ``seg`` consecutive
+    planes of one tile column of one sample, and ``grid_x`` persistent blocks
+    (per N tile) walk the items ``blockIdx.x, blockIdx.x + grid_x, ...``. The
+    weight gradient keeps one partial a block (``grid_x`` splits)."""
+
+    th: int
+    tw: int
+    rows: int  # output positions of a plane step
+    seg: int  # planes an item walks
+    nt: int  # output channels per N tile
+    n_tiles: int  # grid.y
+    grid_x: int  # persistent blocks, the weight gradient's splits
+    smem_bytes: int
+    nitems: int
+    blocks_per_sm: int
+    fill: float  # real output positions / positions multiplied
+    workspace: int  # weight gradient: f32 values of the partials (0: one split, or the conv)
+
+
+_FEWC_MAX_ROWS = 512  # output positions of a plane step (csrc/conv3_fewc.cuh FEWC_MAX_ROWS)
+_FEWC_SLOTS = 6  # staged input planes (FEWC_SLOTS), two more as mirrors
+_FEWC_DY_SLOTS = 4
+_FEWC_SEGS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
+
+
+def _round_to(n: int, mod: int, rem: int) -> int:
+    """n rounded up to the next value that leaves rem modulo mod (``fewc_round``)."""
+    return n + (rem - n) % mod
+
+
+def fewc_pitches(phase: bool, c: int, th: int, tw: int) -> Tuple[int, int]:
+    """(row, plane) pitch in elements of a staged input plane
+    (``fewc_row_pitch``, ``fewc_plane_pitch``): a dense row holds tw voxels
+    and the voxel before and after inside two extra 16-byte pieces, a phase
+    row tw / 2 + 2 block voxels of 8 * c values."""
+    rp = _round_to((tw // 2 + 2) * 8 * c if phase else tw * c + 16, 32, 16)
+    rows = th // 2 + 2 if phase else th + 2
+    return rp, _round_to(rows * rp, 64, 32)
+
+
+def fewc_smem_bytes(phase: bool, c: int, nt: int, th: int, tw: int) -> int:
+    """``fewc_smem_bytes`` of ``csrc/conv3_fewc.cuh``: row tables, resident
+    weights, the ring of input planes with its two mirrors."""
+    sp = fewc_pitches(phase, c, th, tw)[1]
+    return 3 * _FEWC_MAX_ROWS * 4 + _chunking(c)[2] * _pitch(nt) + (_FEWC_SLOTS + 2) * sp * 2
+
+
+def fewc_dw_smem_bytes(phase: bool, c: int, nt: int, th: int, tw: int) -> int:
+    """``fewc_dw_smem_bytes`` of ``csrc/conv3_fewc.cuh``: row tables, the ring
+    of input planes, the ring of dy planes (which then holds the warps' sum)."""
+    sp = fewc_pitches(phase, c, th, tw)[1]
+    rows = 2 * th * tw if phase else th * tw
+    return (3 * _FEWC_MAX_ROWS * 4 + (_FEWC_SLOTS + 2) * sp * 2
+            + _FEWC_DY_SLOTS * rows * nt * 2)  # dy rows unpadded, swizzled
+
+
+def _fewc_tiles(phase: bool):
+    """Plane tiles (th, tw, rows) of 256 or 512 output positions: dense, tw a
+    multiple of 16 (a k16 step or m16 tile is 16 voxels of one row); phase,
+    th / 2 x tw / 2 block voxels x 8 phases with th even and tw / 2 even (two
+    neighbouring block voxels of one row)."""
+    if phase:
+        return [(rows // 2 // tw, tw, rows) for rows in (256, 512) for tw in (4, 8, 16, 32, 64)
+                if rows // 2 // tw % 2 == 0]
+    return [(rows // tw, tw, rows) for rows in (256, 512) for tw in (16, 32, 64, 128, 256)]
+
+
+def _fewc_plan(dims, c: int, co: int, phase: bool, per_sm: int, sms: int, smem_fn,
+               workspace: bool) -> FewcPlan:
+    b, d, h, w = dims
+    if not 1 <= c <= 7 or co < 1:
+        raise ValueError(f"the few-channel bodies take C = 1..7 and CO >= 1, got C = {c}, "
+                         f"CO = {co}")
+    if phase and (d % 2 or h % 2 or w % 2):
+        raise ValueError(f"a phase-major tensor stands for even extents, got {dims}")
+    nt = 8 if co <= 8 else 16
+    n_tiles = -(-co // nt)
+    planes = d // 2 if phase else d
+    best = None
+    for th, tw, rows in _fewc_tiles(phase):
+        nty, ntx = -(-h // th), -(-w // tw)
+        fill = h * w / (nty * th * ntx * tw)
+        smem = smem_fn(phase, c, nt, th, tw)
+        blocks = min(per_sm, _SM_SMEM // (smem + 1024))
+        if blocks < 1 or smem > SMEM_LIMIT:
+            continue
+        for seg in sorted({s for s in _FEWC_SEGS if s < planes} | {planes}):
+            nitems = b * nty * ntx * -(-planes // seg)
+            if nitems >= 2 ** 31:
+                continue
+            grid_x = min(nitems, blocks * sms)
+            # the busiest block's plane steps, in units of 256 positions plus half
+            # a unit a step for its barrier and wait (H100, measured), and half a
+            # unit an item for its two extra planes and the turn to a new column
+            cost = -(-nitems // grid_x) * (min(seg, planes) * (rows / 256 + 0.5) + 0.5)
+            key = (cost, -fill, -tw)
+            if best is None or key < best[0]:
+                best = key, FewcPlan(
+                    th=th, tw=tw, rows=rows, seg=seg, nt=nt, n_tiles=n_tiles, grid_x=grid_x,
+                    smem_bytes=smem, nitems=nitems, blocks_per_sm=blocks, fill=fill,
+                    workspace=grid_x * 27 * c * co if workspace and grid_x > 1 else 0)
+    if best is None:
+        raise ValueError(f"no few-channel launch plan for dims {dims}, C = {c}, CO = {co}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def fewc_plan(dims: Tuple[int, int, int, int], c: int, co: int, phase: bool = False,
+              sms: int = _SMS) -> FewcPlan:
+    """The plane tile, step, segment length and grid of one launch of the
+    few-channel conv body for a (B, D, H, W) grid of output positions (full
+    resolution for the phase layout, ``phase=True``), C = 1..7 input and CO
+    output channels: the N tile (8 for CO <= 8, else 16) and, among the tiles
+    of 256 or 512 positions and a few segment lengths, the least work on the
+    busiest block at three blocks a multiprocessor for C <= 2 and two above
+    (``fewc_conv_blocks``), then the best fill, then the widest tile. The
+    output type does not enter: the body stores from its registers."""
+    return _fewc_plan(dims, c, co, phase, 3 if c <= 2 else 2, sms, fewc_smem_bytes,
+                      workspace=False)
+
+
+@functools.lru_cache(maxsize=None)
+def fewc_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, phase: bool = False,
+                 sms: int = _SMS) -> FewcPlan:
+    """The same choice for the few-channel weight-gradient body, at two
+    blocks a multiprocessor for C <= 2 and one above (``fewc_dw_blocks``: the
+    accumulators of 27 * C rows take the registers); every block is one split
+    with its partial in the workspace."""
+    return _fewc_plan(dims, c, co, phase, 2 if c <= 2 else 1, sms, fewc_dw_smem_bytes,
+                      workspace=True)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
 def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
                  out, full_dims, packed_cache: Optional[dict] = None) -> None:
-    """Shared launch of the two conv3 kernels (dense and phase layouts):
-    ``entry`` on its CUDA-core body, or ``entry + "_mma"`` on the tensor-core
-    body where :func:`takes_tensor_cores` says so. ``packed_cache`` keeps the
-    packed weights between calls with constant weights (serving), keyed by the
-    N tile."""
+    """Shared launch of the two conv3 kernels (dense and phase layouts,
+    ``entry`` ``segk_fused_conv3`` or ``segk_phase_conv3``) on the body
+    :func:`conv_body` names: ``entry`` (CUDA cores), ``entry + "_mma"``
+    (tensor cores, :func:`plan`) or ``entry + "_fewc"`` (few channels,
+    :func:`fewc_plan`). ``packed_cache`` keeps the packed weights between
+    calls with constant weights (serving), keyed by the N tile."""
     for t, name in ((x, "x"), (weights, "weights"), (out, "out")):
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
@@ -319,7 +480,8 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     head = (x.data_ptr(), s.data_ptr(), t.data_ptr(),
             None if a is None else a.data_ptr(), RELU_MODES[relu_mode], out.data_ptr(),
             b, d, h, w, c, co)
-    if not takes_tensor_cores(x, c):
+    body = conv_body(x, c)
+    if body == "cuda_cores":
         if b * d > 65535:  # one grid row per (b, d) plane: CUDA's grid.z limit
             raise ValueError(f"batch * depth = {b * d} exceeds 65535 planes")
         _cuda.launch(entry, head[0], weights.data_ptr(), *head[1:],
@@ -328,16 +490,23 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
-    p = plan((b, d, h, w), c, co, out.element_size(),
-             torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    phase = entry == "segk_phase_conv3"
+    p = (fewc_plan((b, d, h, w), c, co, phase, sms)
+         if body == "few_channels" else plan((b, d, h, w), c, co, out.element_size(), sms))
     packed = None if packed_cache is None else packed_cache.get(p.nt)
     if packed is None:
         packed = pack_weights(weights, p.nt)
         if packed_cache is not None:
             packed_cache[p.nt] = packed
-    _cuda.launch(entry + "_mma", head[0], packed.data_ptr(), *head[1:],
-                 int(out.dtype == torch.bfloat16), p.td, p.th, p.tw, p.warps, p.nt, p.ck,
-                 p.stages, int(p.resident), p.grid_x, p.smem_bytes)
+    out_bf16 = int(out.dtype == torch.bfloat16)
+    if body == "few_channels":
+        vec = int(_aligned(x) and (phase or (w * c) % 8 == 0))  # whole 16-byte pieces a row
+        _cuda.launch(entry + "_fewc", head[0], packed.data_ptr(), *head[1:], out_bf16, p.th,
+                     p.tw, p.seg, p.nt, p.grid_x, p.smem_bytes, vec)
+        return
+    _cuda.launch(entry + "_mma", head[0], packed.data_ptr(), *head[1:], out_bf16, p.td, p.th,
+                 p.tw, p.warps, p.nt, p.ck, p.stages, int(p.resident), p.grid_x, p.smem_bytes)
 
 
 def conv3d(
@@ -354,8 +523,9 @@ def conv3d(
     """Fused stride-1 SAME 3^3 conv: y = (conv(x) + bias) * scale + shift,
     then the activation. f32 accumulation; bf16 or f32 in, out in
     ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
-    C % 8 == 0 runs the tensor-core body, anything else the CUDA-core body
-    (:func:`takes_tensor_cores`); one launch either way."""
+    C % 8 == 0 runs the tensor-core body, bf16 with C = 1..7 the few-channel
+    body, anything else the CUDA-core body (:func:`conv_body`); one launch
+    either way."""
     out_dtype = out_dtype or x.dtype
     if x.ndim != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
@@ -393,13 +563,18 @@ def check_dw_args(x, dy) -> None:
                          f"{tuple(dy.shape)}")
 
 
-def takes_dw_tensor_cores(x: torch.Tensor, c: int, co: int) -> bool:
-    """The shape rule between the two bodies of the dw kernel, for input x of
-    a conv from c to co true channels: bf16 input whose two channel vectors
-    are whole numbers of 16-byte pieces (c % 8 == 0 and co % 8 == 0) runs the
-    tensor-core body; f32 input and every other bf16 channel count run the
-    CUDA-core body."""
-    return x.dtype == torch.bfloat16 and c > 0 and co > 0 and c % 8 == 0 and co % 8 == 0
+def dw_body(x: torch.Tensor, c: int, co: int) -> str:
+    """The body of the dw kernel that takes input x of a conv from c to co
+    true channels: ``"tensor_cores"`` for bf16 input whose two channel vectors
+    are whole numbers of 16-byte pieces (c % 8 == 0 and co % 8 == 0),
+    ``"few_channels"`` for bf16 input with c = 1..7 and any co,
+    ``"cuda_cores"`` for f32 input and every other bf16 channel count."""
+    if x.dtype == torch.bfloat16 and c > 0 and co > 0:
+        if c % 8 == 0 and co % 8 == 0:
+            return "tensor_cores"
+        if c < 8:
+            return "few_channels"
+    return "cuda_cores"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -526,17 +701,19 @@ def dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -
 
 
 def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tensor:
-    """Shared launch of the two dw kernels (dense and phase layouts):
-    ``entry + "_mma"`` on the tensor-core body with the geometry of
-    :func:`dw_plan` where :func:`takes_dw_tensor_cores` says so, else ``entry``
-    on the CUDA-core body, whose plan and workspace size the C side computes.
-    With more than one split the partials go to a workspace and a second
-    kernel sums them in a fixed order."""
+    """Shared launch of the two dw kernels (dense and phase layouts, ``entry``
+    ``segk_fused_conv3_dw`` or ``segk_phase_conv3_dw``) on the body
+    :func:`dw_body` names: ``entry + "_mma"`` (tensor cores, :func:`dw_plan`),
+    ``entry + "_fewc"`` (few channels, :func:`fewc_dw_plan`) or ``entry`` (CUDA
+    cores, whose plan and workspace size the C side computes). With more than
+    one split the partials go to a workspace and a second kernel sums them in
+    a fixed order."""
     for t, name in ((x, "x"), (dy, "dy")):
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
-    if not takes_dw_tensor_cores(x, c, co):
+    body = dw_body(x, c, co)
+    if body == "cuda_cores":
         n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
         ws = torch.empty(n, dtype=torch.float32, device=x.device)
         _cuda.launch(entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
@@ -545,8 +722,19 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
-    p = dw_plan((b, d, h, w), c, co,
-                torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if body == "few_channels":
+        phase = entry == "segk_phase_conv3_dw"
+        p = fewc_dw_plan((b, d, h, w), c, co, phase, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.grid_x > 1 \
+            else out
+        vec_x = int(_aligned(x) and (phase or (w * c) % 8 == 0))
+        vec_dy = int(_aligned(dy) and co % 8 == 0)
+        _cuda.launch(entry + "_fewc", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w, c, co, p.th, p.tw, p.seg, p.nt, p.grid_x,
+                     p.smem_bytes, vec_x, vec_dy)
+        return out
+    p = dw_plan((b, d, h, w), c, co, sms)
     ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 else out
     _cuda.launch(entry + "_mma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
                  b, d, h, w, c, co, p.td, p.th, p.tw, p.ck, p.nt, p.splits, p.stages,
@@ -560,7 +748,8 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
     device bf16 input with C % 8 == 0 and CO % 8 == 0 runs the tensor-core
-    body, anything else the CUDA-core body (:func:`takes_dw_tensor_cores`)."""
+    body, bf16 with C = 1..7 the few-channel body, anything else the CUDA-core
+    body (:func:`dw_body`)."""
     if x.ndim != 5 or dy.ndim != 5:
         raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")
     check_dw_args(x, dy)

@@ -12,12 +12,13 @@ same epilogue as :mod:`.fused_conv` (bias, folded-norm scale/shift,
 activation).
 
 ``phase_conv`` launches ``csrc/phase_conv.cu`` and ``phase_conv_dw``
-``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors,
-the conv on the tensor-core body for bf16 input with Ci % 8 == 0 and on the
-CUDA-core body otherwise (``fused_conv.takes_tensor_cores``), the weight
-gradient likewise for bf16 input with Ci % 8 == 0 and Co % 8 == 0
-(``fused_conv.takes_dw_tensor_cores``, launch plan ``fused_conv.dw_plan``);
-CPU tensors run :func:`phase_conv_plain` and :func:`phase_conv_dw_plain`.
+``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors on
+the body ``fused_conv.conv_body`` / ``dw_body`` names: the tensor-core body
+for bf16 input with Ci % 8 == 0 (the weight gradient: and Co % 8 == 0; launch
+plans ``fused_conv.plan`` / ``dw_plan``), the few-channel body for bf16 input
+with Ci = 1..7 (packed UNETR's one-channel input layer; ``fused_conv.fewc_plan``
+/ ``fewc_dw_plan`` with ``phase=True``), the CUDA-core body otherwise; CPU
+tensors run :func:`phase_conv_plain` and :func:`phase_conv_dw_plain`.
 :func:`phase_conv_grad` is the ``torch.autograd.Function`` over both.
 """
 

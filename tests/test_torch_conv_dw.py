@@ -17,7 +17,7 @@ The kernel itself runs only on the card (``tests/test_torch_kernels_cuda.py``,
   ``conv3d_packed_dw`` and ``phase_conv_gemm_dw`` in interpret mode on the
   same numpy-seeded inputs (1e-4 absolute + relative, as
   ``test_torch_train_ops.py``);
-- the rule between the two bodies, one case per branch.
+- the rule between the three bodies, cases of each branch (``dw_body``).
 """
 
 from __future__ import annotations
@@ -98,14 +98,14 @@ def test_dw_plan_refuses_other_channel_counts(c, co):
 
 
 @pytest.mark.parametrize("dtype,c,co,expect", [
-    (torch.bfloat16, 16, 16, True), (torch.bfloat16, 8, 24, True),
-    (torch.float32, 16, 16, False),  # f32 keeps its f32 FMAs
-    (torch.bfloat16, 12, 16, False), (torch.bfloat16, 16, 20, False),
-    (torch.bfloat16, 3, 5, False),
+    (torch.bfloat16, 16, 16, "tensor_cores"), (torch.bfloat16, 8, 24, "tensor_cores"),
+    (torch.float32, 16, 16, "cuda_cores"),  # f32 keeps its f32 FMAs
+    (torch.bfloat16, 12, 16, "cuda_cores"), (torch.bfloat16, 16, 20, "cuda_cores"),
+    (torch.bfloat16, 3, 5, "few_channels"),  # C = 1..7: the few-channel body, any CO
 ])
 def test_route_rule(dtype, c, co, expect):
     x = torch.zeros((1, 2, 2, 2, max(c, 1)), dtype=dtype)
-    assert fused_conv.takes_dw_tensor_cores(x, c, co) is expect
+    assert fused_conv.dw_body(x, c, co) == expect
 
 
 def test_cuda_launcher_refuses_cpu_tensors():

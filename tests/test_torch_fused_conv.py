@@ -165,10 +165,13 @@ def test_plan_is_sane_at_ragged_shapes(dims, c, co):
 
 
 def test_plan_refuses_channel_counts_without_16_byte_vectors():
+    """The tensor-core plan refuses C % 8 != 0; the rule sends those channel
+    counts elsewhere: bf16 C = 1..7 to the few-channel body, f32 and bf16
+    C = 12 to the CUDA-core body."""
     with pytest.raises(ValueError, match="C % 8"):
         fused_conv.plan((1, 8, 8, 8), 12, 8)
     x = torch.zeros((1, 2, 2, 2, 16), dtype=torch.bfloat16)
-    assert fused_conv.takes_tensor_cores(x, 16)
-    assert not fused_conv.takes_tensor_cores(x.float(), 16)
-    assert not fused_conv.takes_tensor_cores(x[..., :12], 12)
-    assert not fused_conv.takes_tensor_cores(torch.zeros((1, 2, 2, 2, 24)).bfloat16(), 3)
+    assert fused_conv.conv_body(x, 16) == "tensor_cores"
+    assert fused_conv.conv_body(x.float(), 16) == "cuda_cores"
+    assert fused_conv.conv_body(x[..., :12], 12) == "cuda_cores"
+    assert fused_conv.conv_body(torch.zeros((1, 2, 2, 2, 24)).bfloat16(), 3) == "few_channels"

@@ -9,14 +9,16 @@ has only PyTorch; ``tests/conftest.py`` imports JAX, so skip it there:
 Tolerances: f32 1e-4 * max|ref| (summation order over up to 27 * 256 terms,
 TF32 off for the plain version); bf16 2e-2 * max|ref| (the plain version
 rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
-bf16 convs with C % 8 == 0 run the tensor-core body, f32 and the other bf16
-channel counts the CUDA-core body; a repeated conv launch is bit-equal.
+bf16 convs with C % 8 == 0 run the tensor-core body, bf16 with C = 1..7 the
+few-channel body, f32 and the other bf16 channel counts the CUDA-core body; a
+repeated conv launch is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
 bit-equal (fixed-order reduction). bf16 weight gradients with C % 8 == 0 and
 CO % 8 == 0 run the tensor-core dw body, held to 1e-3 * max|ref| at every dw
 shape of a flagship step (both sides sum the same exactly upcast products in
-f32, in another order); f32 and the other channel counts the CUDA-core body.
+f32, in another order), bf16 with C = 1..7 and any CO the few-channel dw body,
+held to the same; f32 and the other channel counts the CUDA-core body.
 The shear group does two products and one sum per output: order 0 and the
 bf16-weight mode are bit-equal to the plain version, f32 within 1e-6 *
 max|ref| (the plain version's matrix product may fuse the multiply and add).
@@ -66,6 +68,7 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("shape,co,relu_mode", [
     ((2, 5, 7, 9, 3), 5, "prelu"),  # ragged tiles, C and CO below a tile
+    ((2, 5, 7, 9, 12), 5, "prelu"),  # bf16: C % 8 != 0 above 8, the CUDA-core body
     ((4, 12, 12, 12, 64), 64, "relu"),
     ((1, 6, 6, 6, 128), 256, "none"),  # several channel chunks and CO tiles
     ((4, 6, 6, 6, 128), 128, "prelu"),  # the bottom of the flagship UNet
@@ -89,7 +92,7 @@ def test_fused_conv(cuda, shape, co, relu_mode, dtype, tol):
     cache = {}  # the packed weights kept between calls, as the executor keeps them
     for _ in range(2):
         assert torch.equal(got, fused_conv.conv3d(x, w, packed_cache=cache, **kw))
-    assert len(cache) == int(fused_conv.takes_tensor_cores(x, shape[-1]))
+    assert len(cache) == int(fused_conv.conv_body(x, shape[-1]) != "cuda_cores")
 
 
 @pytest.mark.parametrize("shape,co", [
@@ -119,6 +122,7 @@ def test_conv_refuses_a_sample_beyond_32_bit_offsets(cuda):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("shape,ci,co", [
     ((1, 3, 4, 5, 24), 3, 3),
+    ((1, 3, 4, 5, 96), 12, 5),  # bf16: C % 8 != 0 above 8, the CUDA-core body
     ((2, 6, 8, 16, 64), 8, 8),  # the top decoder stage's L = 64
     ((1, 4, 4, 4, 128), 16, 16),  # the second stage's L = 128
     ((2, 10, 11, 13, 64), 8, 8),  # full-resolution extents a multiple of no brick
@@ -328,7 +332,7 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     g = torch.Generator().manual_seed(16)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
-    assert fused_conv.takes_dw_tensor_cores(x, c_true, co_true)
+    assert fused_conv.dw_body(x, c_true, co_true) == "tensor_cores"
     mod.dw_counter.reset()
     got = kernel(x, dy)
     assert mod.dw_counter.count == 1 and got.dtype == torch.float32
@@ -340,7 +344,7 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
 
 # (stored shape of x at the training batch, CO): the stride-1 3^3 conv shapes
 # of SegResNet and UNETR at full width that the flagship has not, the input
-# layers' C = 1 (the CUDA-core bodies) and the 96^3 batch-8 ones among them
+# layers' C = 1 (the few-channel bodies) and the 96^3 batch-8 ones among them
 ARCH_SHAPES = [
     ((8, 96, 96, 96, 1), 8), ((8, 96, 96, 96, 8), 8), ((8, 96, 96, 96, 1), 16),
     ((8, 96, 96, 96, 16), 16), ((8, 96, 96, 96, 32), 16), ((8, 48, 48, 48, 32), 32),
@@ -354,7 +358,8 @@ def test_arch_conv_shapes(cuda, shape, co):
     g = torch.Generator().manual_seed(17)
     x = _randn(g, *shape).to(torch.bfloat16)
     w = _randn(g, 3, 3, 3, shape[-1], co, scale=(27 * shape[-1]) ** -0.5).to(torch.bfloat16)
-    assert fused_conv.takes_tensor_cores(x, shape[-1]) == (shape[-1] % 8 == 0)
+    assert fused_conv.conv_body(x, shape[-1]) == (
+        "tensor_cores" if shape[-1] % 8 == 0 else "few_channels")
     fused_conv.counter.reset()
     got = fused_conv.conv3d(x, w)
     assert fused_conv.counter.count == 1 and got.shape == shape[:4] + (co,)
@@ -367,7 +372,8 @@ def test_arch_dw_shapes(cuda, shape, co):
     g = torch.Generator().manual_seed(18)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
-    assert fused_conv.takes_dw_tensor_cores(x, shape[-1], co) == (shape[-1] % 8 == 0)
+    assert fused_conv.dw_body(x, shape[-1], co) == (
+        "tensor_cores" if shape[-1] % 8 == 0 else "few_channels")
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, shape[-1], co)
@@ -389,8 +395,7 @@ def test_i2i_generator_conv_shapes_f32(cuda, shape, co):
     x = _randn(g, *shape)
     w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5)
     dy = _randn(g, *shape[:4], co)
-    assert not fused_conv.takes_tensor_cores(x, c)
-    assert not fused_conv.takes_dw_tensor_cores(x, c, co)
+    assert fused_conv.conv_body(x, c) == fused_conv.dw_body(x, c, co) == "cuda_cores"
     fused_conv.counter.reset()
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d(x, w)
@@ -437,12 +442,79 @@ def test_dw_other_channel_counts_keep_the_cuda_core_body(cuda, shape, co):
     g = torch.Generator().manual_seed(17)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
-    assert not fused_conv.takes_dw_tensor_cores(x, shape[-1], co)
+    assert fused_conv.dw_body(x, shape[-1], co) == "cuda_cores"
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.dw_counter.count == 1
     _close(got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
     assert torch.equal(got, fused_conv.conv3d_dw(x, dy))
+
+
+# (layout, stored shape of x, true CO): the few-channel bodies (bf16, C = 1..7)
+# at ragged extents, W * C whole 16-byte pieces or not, CO below, at and over
+# an N tile, the one-class UNet's 1 -> 1, and the three 96^3 rows
+FEWC = [
+    ("dense", (2, 5, 7, 9, 1), 8), ("dense", (2, 5, 7, 9, 3), 5), ("dense", (2, 6, 10, 32, 2), 16),
+    ("dense", (1, 4, 6, 17, 7), 24), ("dense", (2, 5, 7, 16, 1), 1), ("dense", (1, 9, 40, 48, 2), 16),
+    ("phase", (2, 3, 4, 5, 8), 16), ("phase", (1, 3, 4, 8, 16), 8), ("phase", (1, 2, 3, 4, 56), 5),
+    ("phase", (1, 3, 4, 5, 8), 1), ("phase", (1, 5, 7, 18, 24), 20),
+    ("dense", (8, 96, 96, 96, 1), 8), ("dense", (8, 96, 96, 96, 1), 16),
+    ("phase", (8, 48, 48, 48, 8), 16),
+]
+
+
+@pytest.mark.parametrize("layout,shape,co", FEWC)
+def test_few_channel_bodies(cuda, layout, shape, co):
+    """The conv (bf16 and f32 out, prelu epilogue) and the weight gradient
+    against their plain versions, one counted launch each, bit-equal on
+    repeat."""
+    g = torch.Generator().manual_seed(22)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    c = shape[-1] // 8 if layout == "phase" else shape[-1]
+    stored_co = 8 * co if layout == "phase" else co
+    dy = _randn(g, *shape[:4], stored_co).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, co), scale=_randn(g, co).abs() + 0.5, shift=_randn(g, co),
+              alpha=torch.tensor([0.2], device=cuda), relu_mode="prelu")
+    mod = phase_conv if layout == "phase" else fused_conv
+    conv, plain = ((phase_conv.phase_conv, phase_conv.phase_conv_plain) if layout == "phase"
+                   else (fused_conv.conv3d, fused_conv.conv3d_plain))
+    dwk, dwp = ((phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain) if layout == "phase"
+                else (fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain))
+    assert fused_conv.conv_body(x, c) == fused_conv.dw_body(x, c, co) == "few_channels"
+    for out_dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-2)):
+        mod.counter.reset()
+        got = conv(x, w, out_dtype=out_dtype, **kw)
+        assert mod.counter.count == 1 and got.dtype == out_dtype
+        _close(got, plain(x, w, out_dtype=out_dtype, **kw), tol)
+        assert torch.equal(got, conv(x, w, out_dtype=out_dtype, **kw))
+    mod.dw_counter.reset()
+    got = dwk(x, dy)
+    assert mod.dw_counter.count == 1 and got.shape == (3, 3, 3, c, co)
+    _close(got, dwp(x, dy), 1e-3)
+    assert torch.equal(got, dwk(x, dy))
+
+
+def test_few_channel_launchers_refuse_a_plan_with_another_shared_memory_sum(cuda):
+    x = torch.zeros((1, 4, 6, 16, 1), dtype=torch.bfloat16, device=cuda)
+    dims = (1, 4, 6, 16)
+    p = fused_conv.fewc_plan(dims, 1, 8)
+    wp = fused_conv.pack_weights(torch.zeros((3, 3, 3, 1, 8), dtype=torch.bfloat16,
+                                             device=cuda), p.nt)
+    out = torch.empty((1, 4, 6, 16, 8), dtype=torch.bfloat16, device=cuda)
+    s, t = fused_conv._epilogue_vectors(8, None, None, None, cuda)
+    args = (x.data_ptr(), wp.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0, out.data_ptr(),
+            *dims, 1, 8, 1, p.th, p.tw, p.seg, p.nt, p.grid_x)
+    _cuda.launch("segk_fused_conv3_fewc", *args, p.smem_bytes, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_fewc", *args, p.smem_bytes + 16, 1)
+    q = fused_conv.fewc_dw_plan(dims, 1, 8)
+    dw = torch.empty((3, 3, 3, 1, 8), device=cuda)
+    args = (x.data_ptr(), out.data_ptr(), dw.data_ptr(), dw.data_ptr(), *dims, 1, 8, q.th, q.tw,
+            q.seg, q.nt, 1)
+    _cuda.launch("segk_fused_conv3_dw_fewc", *args, q.smem_bytes, 1, 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_fewc", *args, q.smem_bytes - 16, 1, 1)
 
 
 def test_dw_launcher_refuses_a_plan_with_another_shared_memory_sum(cuda):
@@ -470,7 +542,7 @@ def test_bf16_grad_functions_take_the_tensor_core_dw_body(cuda, name):
         mod, fn, dw = phase_conv, phase_conv.phase_conv_grad, phase_conv.phase_conv_dw
         x, c, co = _randn(g, 2, 4, 6, 8, 64).to(torch.bfloat16), 8, 8
     w = _randn(g, 3, 3, 3, c, co, scale=0.1).to(torch.bfloat16).requires_grad_()
-    assert fused_conv.takes_dw_tensor_cores(x, c, co)
+    assert fused_conv.dw_body(x, c, co) == "tensor_cores"
     out = fn(x, w)
     cot = _randn(g, *out.shape).to(torch.bfloat16)
     mod.dw_counter.reset()
@@ -518,7 +590,7 @@ def test_phase_conv_grad_function(cuda, dtype, tol):
 
 
 # (stored phase tensor, CI, CO): the phase-space convs of packed UNETR
-# (feature 16) at batch 2; CI = 1 (the input layer) runs the CUDA-core bodies
+# (feature 16) at batch 2; CI = 1 (the input layer) runs the few-channel bodies
 UNETR_PACK_SHAPES = [((2, 48, 48, 48, 8), 1, 16), ((2, 48, 48, 48, 128), 16, 16),
                      ((2, 48, 48, 48, 256), 32, 16), ((2, 24, 24, 24, 256), 32, 32),
                      ((2, 24, 24, 24, 512), 64, 32)]
@@ -534,7 +606,7 @@ def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
     w = _randn(g, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(torch.bfloat16)
     gy = _randn(g, *shape[:4], 8 * co).to(torch.bfloat16)
     wt = fused_conv.flip_io(w)
-    assert fused_conv.takes_tensor_cores(p, ci) == (ci % 8 == 0)
+    assert fused_conv.conv_body(p, ci) == ("tensor_cores" if ci % 8 == 0 else "few_channels")
     phase_conv.counter.reset()
     phase_conv.dw_counter.reset()
     got, dx, dw = phase_conv.phase_conv(p, w), phase_conv.phase_conv(gy, wt), \
@@ -551,9 +623,9 @@ def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
 
 def test_packed_unetr_step_runs_on_the_phase_and_dice_kernels(cuda):
     """One f32 step of a small packed UNETR (32^3, feature 8) on the card:
-    kernels 3-4 run 7 of its 8 phase-space convs forward and backward (the
-    one-channel input conv runs on cuDNN), kernels 5-6 their 7 weight
-    gradients, kernel 9 the loss once each; the loss and every gradient against the same step on the
+    kernels 3-4 run its 8 phase-space convs forward and 7 backward (the
+    one-channel input conv takes no input gradient), kernels 5-6 their 8
+    weight gradients, kernel 9 the loss once each; the loss and every gradient against the same step on the
     CPU, within 1e-3 * max(max|ref| of the tensor, 1e-2 * max|ref| over all
     gradients) (the floor takes in the conv biases in front of an
     InstanceNorm, whose true gradient is zero)."""
@@ -577,7 +649,7 @@ def test_packed_unetr_step_runs_on_the_phase_and_dice_kernels(cuda):
         loss = step(x, y).item()
         out.append((loss, {k: p.grad.cpu() for k, p in model.named_parameters()}))
     assert model.pack and model.phase_top_ok()
-    assert (phase_conv.counter.count, phase_conv.dw_counter.count) == (14, 7)
+    assert (phase_conv.counter.count, phase_conv.dw_counter.count) == (15, 8)
     assert (phase_dice.sums_counter.count, phase_dice.dx_counter.count) == (1, 1)
     (want_loss, want), (got_loss, got) = out
     assert abs(got_loss - want_loss) <= 1e-5 * abs(want_loss)

@@ -39,7 +39,7 @@ from segmantic_tpu.models import unetr as junetr
 from segmantic_tpu.ops import fast_conv as jfc
 from segmantic_tpu_torch.infer.ensemble import ensemble_creator
 from segmantic_tpu_torch.models import unetr as punetr
-from segmantic_tpu_torch.models.unet import UNet, from_flax_variables, to_flax_variables
+from segmantic_tpu_torch.models.unet import Conv, UNet, from_flax_variables, to_flax_variables
 from segmantic_tpu_torch.ops import fast_conv as pfc
 from segmantic_tpu_torch.ops import phase_conv
 from segmantic_tpu_torch.serve import InferenceSession
@@ -122,16 +122,17 @@ def test_subpixel_k2_is_the_conv_transpose(case):
 
 
 def test_one_channel_phase_conv_takes_the_full_resolution_view(case, monkeypatch):
-    """A phase-space 3^3 conv from one true channel (the input layer) is the
-    conv of the full-resolution view, rearranged: the phase conv is not
-    called, the result is the phase tensor of the plain conv, and its
-    gradient reaches the kernel."""
+    """A phase-space 3^3 conv from one true channel (the input layer) takes
+    the values of the plain conv of the full-resolution view, to 1e-6 (only
+    the summation order differs), on the phase conv (kernels 3-6 on the card,
+    whose few-channel bodies beat cuDNN on that view): called once, on the
+    one-channel phase tensor, and its gradient reaches the kernel."""
     _, variables, x, _ = case
     conv = _bridge(variables).encoder1.conv_0
     calls = _count_phase_convs(monkeypatch)
     xt = torch.from_numpy(x)
     got = conv(pfc.space_to_depth(xt), phase=True)
-    assert not calls and got.shape == (2, 16, 16, 16, 8 * 8)
+    assert calls == [(2, 16, 16, 16, 8)] and got.shape == (2, 16, 16, 16, 8 * 8)
     with torch.no_grad():
         want = pfc.space_to_depth(conv(xt))
     np.testing.assert_allclose(got.detach().numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
@@ -141,9 +142,9 @@ def test_one_channel_phase_conv_takes_the_full_resolution_view(case, monkeypatch
 
 
 def test_one_to_one_phase_conv_stays_on_the_phase_kernel(monkeypatch):
-    """The full-resolution route takes one true channel to several only: a
-    one-class UNet's phase-space top stage (its residual unit 1 -> 1) runs
-    its convs on the phase conv."""
+    """A one-class UNet's phase-space top stage (its residual unit 1 -> 1)
+    runs its convs on the phase conv too, with the values of the plain conv
+    of the full-resolution view."""
     model = UNet(out_channels=1, channels=(4, 8), strides=(2,), num_res_units=1,
                  generator=torch.Generator().manual_seed(35)).eval()
     assert model.phase_top_ok()
@@ -153,6 +154,14 @@ def test_one_to_one_phase_conv_stays_on_the_phase_kernel(monkeypatch):
     with torch.no_grad():
         assert model(x).shape == (1, 8, 8, 8, 1)
     assert calls and all(shape == (1, 4, 4, 4, 8) for shape in calls)
+    conv = next(m for m in model.modules()
+                if isinstance(m, Conv) and tuple(m.weight.shape) == (1, 1, 3, 3, 3))
+    p = pfc.space_to_depth(torch.from_numpy(np.random.default_rng(37).standard_normal(
+        (1, 8, 8, 8, 1)).astype(np.float32)))
+    with torch.no_grad():
+        got = conv(p, phase=True)
+        want = pfc.space_to_depth(conv(pfc.depth_to_space(p, 1)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
 def test_packed_forward_and_phase_logits_match_jax(case, packed_jax):
@@ -246,9 +255,9 @@ def _count_phase_convs(monkeypatch):
 def test_eval_paths_run_the_packed_forward(case, tmp_path, monkeypatch):
     """``make_val_forward`` (bf16), ``InferenceSession`` and
     ``ensemble_creator`` on a packed checkpoint: each window's forward runs
-    7 phase-space convs on the phase conv (the one-channel input conv takes
-    the full-resolution view), builds no autograd graph, and the logits and
-    label maps are full resolution."""
+    8 phase-space convs on the phase conv (the one-channel input conv
+    included), builds no autograd graph, and the logits and label maps are
+    full resolution."""
     _, variables, x, _ = case
     model = SegmentationModel.create(num_classes=3, spatial_size=SIZE, arch="unetr",
                                      arch_params=ARCH, device="cpu")
@@ -258,14 +267,14 @@ def test_eval_paths_run_the_packed_forward(case, tmp_path, monkeypatch):
     calls = _count_phase_convs(monkeypatch)
     logits = trainer.make_val_forward(model.module)(torch.from_numpy(x))
     assert logits.shape == SHAPE[:4] + (3,) and logits.dtype == torch.float32
-    assert logits.grad_fn is None and len(calls) == 7
+    assert logits.grad_fn is None and len(calls) == 8
     image, label = write_case(tmp_path / "data", "c0", (36, 30, 28), 0)
     del calls[:]
     session = InferenceSession(ckpt, sw_batch_size=2, device="cpu")
     assert session.model.module.pack
     session.segment_bytes(image.read_bytes())
-    assert calls and len(calls) % 7 == 0
+    assert calls and len(calls) % 8 == 0
     del calls[:]
     saved = ensemble_creator([ckpt, ckpt], [image], [label], output_dir=tmp_path / "ens",
                              combination_mode="mean", roi_size=SIZE, device="cpu")
-    assert calls and len(calls) % 7 == 0 and len(saved) == 1
+    assert calls and len(calls) % 8 == 0 and len(saved) == 1
