@@ -112,7 +112,17 @@ KERNELS = {
                         "exp/pallas_dice_ab.py:110"),
     "dice_phase_dx": ("segmantic_tpu_torch/csrc/phase_dice.cu",
                       "exp/pallas_dice_ab.py:181"),
+    # the deep-channel bodies of kernels 1 and 2 (bf16, C, CO >= 64), on their
+    # own lines beside the kernels' totals above, which include them
+    "fused_conv_wgmma": ("segmantic_tpu_torch/csrc/conv3_wgmma.cuh",
+                         "segmantic_tpu/ops/pallas_conv.py:173"),
+    "fused_conv_dw_wgmma": ("segmantic_tpu_torch/csrc/conv3_dw_wgmma.cuh",
+                            "segmantic_tpu/ops/pallas_conv.py:289"),
 }
+# the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
+# that, the input gradients) and 3 weight gradients a step (the dw body's rule
+# takes CO >= 128)
+FLAGSHIP_DEEP, FLAGSHIP_DEEP_DW = 5, 3
 # published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
@@ -183,7 +193,8 @@ def _graph_ms(torch, fn, n: int = 10, launches: int = 10, warmup: int = 3) -> fl
     return _median_ms(torch, graph.replay, n=n, warmup=warmup) / launches
 
 
-def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=None):
+def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=None,
+            echo=True):
     """Add one timed shape of kernel ``name`` to ``results``: times and bounds
     sum over a kernel's shapes, the error is the largest. ``nbytes``: every
     input read once and every output written once; ``ops``: floating-point
@@ -200,8 +211,9 @@ def _record(results, name, *, err, ms, plain_ms, nbytes, ops, peak, library_ms=N
     r["ops_ms"] += ops_ms
     if library_ms is not None:
         r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
-    print(f"    bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
-          f" ms, {ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
+    if echo:
+        print(f"    bound {max(bytes_ms, ops_ms):.4f} ms ({nbytes / 1e6:.1f} MB -> {bytes_ms:.4f}"
+              f" ms, {ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
 
 
 def _nbytes(*tensors) -> int:
@@ -213,7 +225,15 @@ def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
     input x of a conv over c to co channels, full-resolution ``dims``."""
     from segmantic_tpu_torch.ops import fused_conv
 
-    body = fused_conv.conv_body(x, c)
+    body = fused_conv.conv_body(x, c, co, phase)
+    if body == "deep_channels":
+        p = fused_conv.deep_plan(dims, c, co, 2, sms)
+        return body, (f"deep-channel body (wgmma): brick {p.td}x{p.th}x{p.tw}, {p.nwg} "
+                      f"warpgroups of {p.spw} m64 slab(s), N tile {p.nt}, {p.nbricks} bricks x "
+                      f"{p.n_tiles} N "
+                      f"tiles x {p.splits} K splits = {p.blocks} blocks, ring of {p.stages}, "
+                      f"tile fill {p.fill:.3f}, "
+                      f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.plan(dims, c, co, 2, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile "
@@ -232,7 +252,15 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
     of a conv over c to co channels, full-resolution ``dims``."""
     from segmantic_tpu_torch.ops import fused_conv
 
-    body = fused_conv.dw_body(x, c, co)
+    body = fused_conv.dw_body(x, c, co, phase)
+    if body == "deep_channels":
+        p = fused_conv.deep_dw_plan(dims, c, co, sms)
+        return body, (f"deep-channel body (wgmma): brick {p.td}x{p.th}x{p.tw}, N tile {p.nt}, "
+                      f"{p.nwg * p.tpw} taps a block of {p.nwg} warpgroups, {p.splits} splits, "
+                      f"{p.grid[0] * p.grid[1]} "
+                      f"blocks, ring of {p.stages}, K fill {p.fill:.3f}, workspace "
+                      f"{p.workspace * 4 / 1e6:.2f} MB, "
+                      f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.dw_plan(dims, c, co, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, "
@@ -246,6 +274,69 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"{p.n_tiles} N tiles of {p.nt}, K fill {p.fill:.3f}, "
                       f"{'one launch' if p.grid_x == 1 else 'kernel + reduce'}"), p.fill
     return body, "CUDA-core body", 1.0
+
+
+def tensor_core_conv_ms(torch, x, w) -> float:
+    """Device ms of the tensor-core conv body (``conv3_mma.cuh``, what kernel 1
+    ran at every bf16 C % 8 == 0 shape before the deep-channel body) on the
+    same tensors, called through its C entry point with its own plan; no
+    epilogue, bf16 out."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_ = x.shape[:4]
+    c, co = w.shape[-2:]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = fused_conv.plan((b, d, h, w_), c, co, 2, sms)
+    packed = fused_conv.pack_weights(w, p.nt)
+    s, t = fused_conv._epilogue_vectors(co, None, None, None, x.device)
+    out = torch.empty((b, d, h, w_, co), dtype=torch.bfloat16, device=x.device)
+    return _graph_ms(torch, lambda: _cuda.launch(
+        "segk_fused_conv3_mma", x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(),
+        None, 0, out.data_ptr(), b, d, h, w_, c, co, 1, p.td, p.th, p.tw, p.warps, p.nt, p.ck,
+        p.stages, int(p.resident), p.grid_x, p.smem_bytes))
+
+
+def tensor_core_dw_ms(torch, x, dy) -> float:
+    """Device ms of the tensor-core dw body (``conv3_dw_mma.cuh``) on the same
+    tensors, called through its C entry point with its own plan (and its
+    reduce launch)."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_ = x.shape[:4]
+    c, co = x.shape[-1], dy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = fused_conv.dw_plan((b, d, h, w_), c, co, sms)
+    ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+    return _graph_ms(torch, lambda: _cuda.launch(
+        "segk_fused_conv3_dw_mma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        b, d, h, w_, c, co, p.td, p.th, p.tw, p.ck, p.nt, p.splits, p.stages, p.smem_bytes))
+
+
+def deep_dw_entry_ms(torch, x, dy):
+    """(max|d| over max|ref|, device ms) of the deep-channel dw body
+    (``conv3_dw_wgmma.cuh``) on the same tensors, called through its C entry
+    point with its own plan: the row's time on the new body where the rule
+    (CO >= 128) keeps the tensor-core body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_ = x.shape[:4]
+    c, co = x.shape[-1], dy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = fused_conv.deep_dw_plan((b, d, h, w_), c, co, sms)
+    ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+
+    def run():
+        _cuda.launch("segk_fused_conv3_dw_wgmma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, c, co, p.td, p.th, p.tw, p.nt, p.tpw, p.nwg,
+                     p.splits, p.stages, p.smem_bytes)
+
+    run()
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
 
 
 def check_kernels(torch):
@@ -320,19 +411,26 @@ def check_kernels(torch):
             if dtype == bf16:
                 if not torch.equal(k(), k()):
                     _fail(f"fused_conv {label}: a repeated bf16 launch is not bit-equal")
-                plan_text, fill = fill_of(tuple(shape[:4]), shape[-1], co)
+                body, plan_text, fill = conv_body_text(x, shape[-1], co, tuple(shape[:4]),
+                                                       False, sms)
                 ms, pms = _graph_ms(torch, k), _graph_ms(torch, p)
                 lms = cudnn_conv_ms(x, w, kw["bias"].to(dtype))
                 print(f"    bf16, repeated launch bit-equal; {plan_text}")
                 print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
                       f"plain {pms:.4f} ms, cuDNN conv3d + bias {lms:.4f} ms")
+                if body == "deep_channels":
+                    print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
+                          f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
                 if fill < 0.75:
                     _fail(f"fused_conv {label}: tile fill {fill:.3f} < 0.75")
                 positions = x.numel() // shape[-1]
-                _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms,
-                        nbytes=_nbytes(x, w, k(), *(v for v in kw.values() if torch.is_tensor(v))),
-                        ops=2 * 27 * shape[-1] * co * positions, peak=PEAK_BF16,
-                        library_ms=lms)
+                for name in ("fused_conv",) + (("fused_conv_wgmma",)
+                                               if body == "deep_channels" else ()):
+                    _record(results, name, err=err, ms=ms, plain_ms=pms,
+                            nbytes=_nbytes(x, w, k(),
+                                           *(v for v in kw.values() if torch.is_tensor(v))),
+                            ops=2 * 27 * shape[-1] * co * positions, peak=PEAK_BF16,
+                            library_ms=lms, echo=name == "fused_conv")
 
     for shape, c in [((4, 48, 48, 48, 64), 8), ((4, 24, 24, 24, 128), 16)]:
         label = f"p{tuple(shape)} C={c}"
@@ -369,7 +467,10 @@ def check_kernels(torch):
     # bf16 with C = 1, 2, 3, 7 (no 16-byte channel vector: the few-channel body
     # by the wrapper's rule; W * C whole 16-byte pieces or not) and CO = 1 (a
     # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch
-    for name, shape, c, co in [("fused_conv", (2, 20, 22, 26, 24), 24, 5),
+    for name, shape, c, co in [("fused_conv", (2, 5, 7, 9, 64), 64, 192),
+                               ("fused_conv", (2, 5, 7, 9, 96), 96, 72),
+                               ("fused_conv", (1, 6, 6, 6, 72), 72, 64),
+                               ("fused_conv", (2, 20, 22, 26, 24), 24, 5),
                                ("fused_conv", (2, 20, 22, 26, 16), 16, 8),
                                ("fused_conv", (2, 5, 7, 9, 3), 3, 5),
                                ("fused_conv", (2, 5, 7, 9, 12), 12, 5),
@@ -393,8 +494,9 @@ def check_kernels(torch):
         mod, fn, plain = ((fused_conv, fused_conv.conv3d, fused_conv.conv3d_plain)
                           if name == "fused_conv"
                           else (phase_conv, phase_conv.phase_conv, phase_conv.phase_conv_plain))
-        body = fused_conv.conv_body(x, c)
+        body = fused_conv.conv_body(x, c, co, name == "phase_conv")
         if body != ("few_channels" if c < 8 else
+                    "deep_channels" if name == "fused_conv" and min(c, co) >= 64 else
                     "tensor_cores" if c % 8 == 0 else "cuda_cores"):
             _fail(f"{name} ragged {shape}: the rule sends C = {c} to the {body} body")
         for out_dtype in (bf16, torch.float32):
@@ -405,7 +507,7 @@ def check_kernels(torch):
                     lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
-            if body == "few_channels" and not torch.equal(
+            if body in ("few_channels", "deep_channels") and not torch.equal(
                     fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
                 _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
 
@@ -612,12 +714,37 @@ def report_conv_build(lib: Path) -> None:
               f"{min(f[3] for f in found)}-{max(f[3] for f in found)}, spill bytes "
               f"{sum(f[4] for f in found)}, shared memory dynamic (the plan's smem_bytes); "
               + ", ".join(f"{lay[0]}{ck}x{nt}:{regs}" for lay, ck, nt, regs, _ in sorted(found)))
+    deep = ("conv3_wgmma_kernel", "conv3_dw_wgmma_kernel")
+    for name in deep:  # the deep-channel bodies: <NT, SPW, NWG> and <NT, TPW, NWG>
+        found = set()  # a header's kernel is reported by each source that compiles it
+        for line, regs, _, spill in _ptxas_reports(lib, name):
+            m = re.search(name + r"ILi(\d+)ELi(\d+)ELi(\d+)", line)
+            if m:
+                found.add((int(m.group(1)), int(m.group(2)), int(m.group(3)), regs, spill))
+        print(f"  ptxas, {name}<NT, {'TPW' if 'dw' in name else 'SPW'}, NWG>: {len(found)} "
+              f"instantiations, registers {min(f[3] for f in found)}-{max(f[3] for f in found)}"
+              f", spill bytes {sum(f[4] for f in found)}; "
+              + ", ".join(f"{nt}x{k}x{g}:{regs}" for nt, k, g, regs, _ in sorted(found)))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         print("  cuobjdump not found: SASS not inspected")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300).stdout
+    deep_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0, "UBLKCP": 0} for name in deep}
+    inside = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = next((name for name in deep if name in line), None)
+        elif inside:
+            for key in deep_counts[inside]:
+                if f" {key}." in line or f" {key} " in line:
+                    deep_counts[inside][key] += 1
+    for name, c in deep_counts.items():
+        print(f"  SASS of the {name} instantiations: {c['HGMMA']} HGMMA (wgmma), {c['LDSM']} "
+              f"LDSM (ldmatrix), {c['UTMALDG']} UTMALDG (TMA), {c['UBLKCP']} UBLKCP (bulk copy)")
+        if not c["HGMMA"] or not c["LDSM"] or not c["UTMALDG"]:
+            _fail(f"{name} holds no HGMMA, no LDSM or no UTMALDG opcode")
     counts = {name: {"HMMA": 0, "LDSM": 0, "LDGSTS": 0} for name in names}
     inside = None
     for line in sass.splitlines():
@@ -634,6 +761,15 @@ def report_conv_build(lib: Path) -> None:
             _fail(f"{name} holds no HMMA, no LDSM or no LDGSTS opcode")
 
 
+def _deep_counters():
+    """The deep-channel bodies' own counters (their launches also count in
+    kernel 1's and 2's): read by the paths that run deep convs on purpose."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return {"fused_conv_wgmma": fused_conv.deep_counter,
+            "fused_conv_dw_wgmma": fused_conv.deep_dw_counter}
+
+
 def _counters():
     from segmantic_tpu_torch.ops import blend, fused_conv, fused_shear, phase_conv, phase_dice
 
@@ -642,6 +778,57 @@ def _counters():
             "phase_conv_dw": phase_conv.dw_counter, "shear_group": fused_shear.counter,
             "dice_phase_sums": phase_dice.sums_counter,
             "dice_phase_dx": phase_dice.dx_counter}
+
+
+def check_deep_dx(torch, results, arch: str, x_shape, co: int, g, per_step: int) -> None:
+    """The input gradient of a deep conv x_shape -> co: ``conv3d(dy,
+    flip_io(w))``, a conv co -> C on the deep-channel body, against its plain
+    version (2e-2 * max|ref|), bit-equal on repeat, timed beside the
+    tensor-core body and cuDNN's bf16 dgrad (``conv3d_input``); recorded as
+    kernel 1 and its deep body."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c = x_shape[-1]
+    dy = torch.randn((*x_shape[:4], co), generator=g, device=g.device).to(dev, bf16)
+    w = (torch.randn((3, 3, 3, c, co), generator=g, device=g.device)
+         * (27 * c) ** -0.5).to(dev, bf16)
+    wf = fused_conv.flip_io(w)
+    label = f"{arch} dx of x{tuple(x_shape)}->{co}: dy{tuple(dy.shape)}->{c} ({per_step} a step)"
+    body, text, fill = conv_body_text(dy, co, c, tuple(x_shape[:4]), False, sms)
+    if body != "deep_channels":
+        _fail(f"fused_conv {label}: the rule sends it to the {body} body")
+    before = fused_conv.deep_counter.count
+    cache = {}  # the packed weights, packed once: the kernel's time alone
+    k = lambda: fused_conv.conv3d(dy, wf, packed_cache=cache)  # noqa: E731
+    pl = lambda: fused_conv.conv3d_plain(dy, wf)  # noqa: E731
+    got, want = k(), pl()
+    torch.cuda.synchronize()
+    if fused_conv.deep_counter.count != before + 1:
+        _fail(f"fused_conv {label}: not one launch of the deep-channel body")
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    print(f"  fused_conv {label}: max|d| {err:.3e} (limit {2e-2 * ref:.3e} = 2e-2 * max|ref| "
+          f"{ref:.3e}) {'ok' if err <= 2e-2 * ref else 'FAIL'}")
+    if err > 2e-2 * ref:
+        _fail(f"fused_conv {label} disagrees with its plain version")
+    if not torch.equal(got, k()):
+        _fail(f"fused_conv {label}: a repeated launch is not bit-equal")
+    xs = (x_shape[0], c, *x_shape[1:4])
+    dyc = dy.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2).contiguous()
+    ms, pms = _graph_ms(torch, k), _graph_ms(torch, pl)
+    lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_input(xs, wc, dyc, padding=1))
+    oms = tensor_core_conv_ms(torch, dy, wf)
+    print(f"    {text}; bit-equal on repeat; kernel {ms:.4f} ms, tensor-core body {oms:.4f} "
+          f"ms, plain {pms:.4f} ms, cuDNN bf16 dgrad {lms:.4f} ms")
+    if fill < 0.75:
+        _fail(f"fused_conv {label}: tile fill {fill:.3f} < 0.75")
+    for name in ("fused_conv", "fused_conv_wgmma"):
+        _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(dy, w, got),
+                ops=2 * 27 * c * co * (dy.numel() // co), peak=PEAK_BF16, library_ms=lms,
+                echo=name == "fused_conv")
 
 
 def check_train_kernels(torch):
@@ -702,13 +889,6 @@ def check_train_kernels(torch):
         full = (x.shape[0],) + tuple(2 * v for v in x.shape[1:4])
         return full, x.shape[-1] // 8, dy.shape[-1] // 8
 
-    def plan_text(dims, c, co):
-        p = fused_conv.dw_plan(dims, c, co, sms)
-        return p, (f"brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, {p.splits} splits, "
-                   f"{p.grid[0] * p.grid[1]} blocks of {p.warps} warps, K fill {p.fill:.3f}, "
-                   f"workspace {p.workspace * 4 / 1e6:.2f} MB, "
-                   f"{'one launch' if p.splits == 1 else 'kernel + reduce'}")
-
     def cuda_core_ms(name, x, dy):
         """The CUDA-core body on the same tensors, by its C entry point."""
         (b, d, h, w), c, co = geometry(name, x, dy)
@@ -740,10 +920,12 @@ def check_train_kernels(torch):
         dims, c_true, co_true = geometry(name, x32, dy32)
         label = (f"x{x_shape}->{co}" if name == "fused_conv_dw"
                  else f"p{x_shape} C={c_true}") + f" ({per_step} per step)"
+        deep = name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            want_body = "tensor_cores" if dtype == bf16 else "cuda_cores"
-            if fused_conv.dw_body(x, c_true, co_true) != want_body:
+            want_body = ("cuda_cores" if dtype != bf16 else
+                         "deep_channels" if deep else "tensor_cores")
+            if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
             got = kernel(x, dy)
@@ -752,10 +934,10 @@ def check_train_kernels(torch):
             err = compare(f"{name} {label}", got, plain(x, dy), dtype, 1e-3)
         if not torch.equal(got, kernel(x, dy)):
             _fail(f"{name} {label}: a repeated bf16 launch is not bit-equal")
-        p, text = plan_text(dims, c_true, co_true)
+        _, text, fill = dw_body_text(x, c_true, co_true, dims, name == "phase_conv_dw", sms)
         print(f"    bf16, repeated launch bit-equal; {text}")
-        if p.fill < 0.75:
-            _fail(f"{name} {label}: K fill {p.fill:.3f} < 0.75")
+        if fill < 0.75:
+            _fail(f"{name} {label}: K fill {fill:.3f} < 0.75")
         ms = _graph_ms(torch, lambda: kernel(x, dy))
         oms = cuda_core_ms(name, x, dy)
         # the plain f32 wgrad takes up to ~0.1 s at the top stages: fewer replays
@@ -773,9 +955,23 @@ def check_train_kernels(torch):
             dyc.permute(0, 4, 1, 2, 3), padding=1))
         print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, CUDA-core "
               f"body {oms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
-        _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
-                ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
-                library_ms=cms)
+        if deep:
+            print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+                  f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
+        elif name == "fused_conv_dw" and min(c_true, co_true) >= 64:
+            rel, dms = deep_dw_entry_ms(torch, x, dy)
+            print(f"    the deep-channel body (conv3_dw_wgmma.cuh, left out by the rule at CO < "
+                  f"128) on the same tensors: {dms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+            if rel > 1e-3:
+                _fail(f"{name} {label}: the deep-channel body disagrees")
+        for rec in (name,) + (("fused_conv_dw_wgmma",) if deep else ()):
+            _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                    ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
+                    library_ms=cms, echo=rec == name)
+
+    # the input gradient of the flagship's one CI != CO deep conv (128 -> 256 at
+    # 6^3): the conv 256 -> 128 with flipped weights, on the deep-channel body
+    check_deep_dx(torch, results, "flagship", (B, 6, 6, 6, 128), 256, g, 1)
 
     # odd shapes, untimed, bf16: extents that are a multiple of no brick; CO = 24
     # (a padded or a third N tile); C = 12 and CO = 20 (no 16-byte channel vector:
@@ -783,7 +979,9 @@ def check_train_kernels(torch):
     # launch; a phase shape with ragged full-resolution bricks; C = 1, 2, 7 and a
     # 1 -> 1 weight gradient in both layouts (the few-channel body, any CO; CO
     # % 8 != 0 staged value by value)
-    odd = [("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
+    odd = [("fused_conv_dw", (2, 5, 7, 9, 64), 192), ("fused_conv_dw", (2, 5, 7, 9, 96), 72),
+           ("fused_conv_dw", (1, 6, 6, 6, 72), 64),
+           ("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
            ("fused_conv_dw", (2, 10, 11, 13, 12), 16), ("fused_conv_dw", (2, 5, 7, 9, 16), 20),
            ("fused_conv_dw", (1, 6, 6, 6, 8), 8), ("phase_conv_dw", (1, 5, 7, 9, 8 * 8), 8 * 16),
            ("phase_conv_dw", (2, 10, 11, 13, 8 * 24), 8 * 8),
@@ -796,7 +994,9 @@ def check_train_kernels(torch):
         x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
         dims, c_true, co_true = geometry(name, x, dy)
         body, text, _ = dw_body_text(x, c_true, co_true, dims, name == "phase_conv_dw", sms)
-        want_body = ("few_channels" if c_true < 8 else "tensor_cores"
+        want_body = ("few_channels" if c_true < 8 else "deep_channels"
+                     if name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
+                     else "tensor_cores"
                      if c_true % 8 == 0 and co_true % 8 == 0 else "cuda_cores")
         if body != want_body:
             _fail(f"{name} {x_shape}->{co}: the rule between the bodies")
@@ -1281,9 +1481,7 @@ def run_train(torch, work: Path):
         img, lbl = labelled_phantom((128, 128, 128), 10 + i)
         write_nifti(work / "image" / f"case{i}.nii.gz", img, np.eye(4))
         write_nifti(work / "label" / f"case{i}.nii.gz", lbl, np.eye(4))
-    counters = _counters()
-    for c in counters.values():
-        c.reset()
+    counters = _reset_counters()
     t0 = time.perf_counter()
     result = train(image_dir=work / "image", labels_dir=work / "label",
                    output_dir=work / "run", num_classes=NUM_CLASSES, max_epochs=2,
@@ -1291,6 +1489,7 @@ def run_train(torch, work: Path):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: c.count for name, c in counters.items()}
+    launches.update(_launches(_deep_counters()))  # the deep convs on the deep-channel bodies
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -1317,6 +1516,15 @@ def run_train(torch, work: Path):
     step = make_train_step(module, opt, AugmentConfig(flip_prob=0.0), TRAIN_PATCH,
                            mixed_precision=True)
     image, label = fixed_batch(torch, TRAIN_BATCH, 20)
+    _reset_counters()
+    deep = _deep_counters()
+    step(image.cuda(), label.cuda())
+    torch.cuda.synchronize()
+    want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW}
+    print(f"  deep-channel bodies, one step: {_launches(deep)} (expected {want})")
+    if _launches(deep) != want:
+        _fail(f"the flagship's deep convs (fwd, dx, dw) did not all run on the deep-channel "
+              f"bodies: {_launches(deep)}, expected {want}")
     ms, times, loss_hist, peak = warm_steps(torch, step, image.cuda(), label.cuda())
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
     print(f"  fixed batch {TRAIN_BATCH}x96^3 bf16, Adam lr 1e-3: warm step median {ms:.2f} ms "
@@ -1739,6 +1947,9 @@ def parity(torch, ckpt: Path, session):
 
 
 def _reset_counters():
+    """Every counter to 0, the deep bodies' too; returns the eight kernels'."""
+    for c in _deep_counters().values():
+        c.reset()
     counters = _counters()
     for c in counters.values():
         c.reset()
@@ -1976,18 +2187,20 @@ def run_cross_validate(torch, work: Path):
 # skipped; packed UNETR's one-channel input conv runs in phase space): a step
 # launches 2 * n (less the input layer's) of each conv kernel, n of its dw
 # kernel, and the Dice kernels once each where the top runs in phase space
-# (packed UNETR: the phase Dice)
+# (packed UNETR: the phase Dice); ``deep``: of kernel 1's convs, those on the
+# deep-channel body a forward (twice that a step), and of kernel 2's a step
 ARCHS = {
     "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
-                  "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False},
+                  "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False,
+                  "deep": (8, 0)},
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
-              "phase_convs": 8, "input": "phase_conv", "phase_dice": True},
+              "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4)},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
-                       "phase_dice": False},
+                       "phase_dice": False, "deep": (10, 4)},
 }
 # (architecture, stored x shape at the training batch, CO, launches of the
 # shape a forward): every stride-1 3^3 conv shape of the two on kernel 1 that
@@ -2014,7 +2227,8 @@ def check_arch_kernels(torch):
     and the weight gradient (1e-3 * max|ref|, as ``[train-kernels]``) against
     their plain versions once and bit-equal on a repeated launch, each with
     its body and launch plan (C = 1: the few-channel bodies), timed by
-    CUDA-graph replay beside the plain version and
+    CUDA-graph replay (the forward with its weights packed once, as
+    ``[kernels]``) beside the plain version and
     cuDNN (``F.conv3d``; ``torch.nn.grad.conv3d_weight`` on the bf16
     tensors; median of 5 replays of 5 calls, the plain weight gradient at
     96^3 one replay of one call). Returns {kernel: {...}} as
@@ -2060,9 +2274,11 @@ def check_arch_kernels(torch):
         slow = dict(n=1, launches=1, warmup=1) if x.numel() * co > 2 ** 28 else reps
 
         kind, body, _ = conv_body_text(x, c, co, dims, False, sms)
-        if kind != ("few_channels" if c < 8 else "tensor_cores"):
+        deep = min(c, co) >= 64
+        if kind != ("few_channels" if c < 8 else "deep_channels" if deep else "tensor_cores"):
             _fail(f"fused_conv {label}: the rule sends C = {c} to the {kind} body")
-        k = lambda: fused_conv.conv3d(x, w)  # noqa: E731
+        cache = {}  # the packed weights, packed once: the kernel's time alone
+        k = lambda: fused_conv.conv3d(x, w, packed_cache=cache)  # noqa: E731
         pl = lambda: fused_conv.conv3d_plain(x, w)  # noqa: E731
         got = k()
         err = check(f"fused_conv {label}", got, pl(), 2e-2)
@@ -2073,9 +2289,13 @@ def check_arch_kernels(torch):
         ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **reps)
         lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
-        _record(launched, "fused_conv", err=err, ms=ms, plain_ms=pms,
-                nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
-                peak=PEAK_BF16, library_ms=lms)
+        if deep:
+            print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
+                  f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
+        for name in ("fused_conv",) + (("fused_conv_wgmma",) if deep else ()):
+            _record(launched, name, err=err, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
+                    peak=PEAK_BF16, library_ms=lms, echo=name == "fused_conv")
 
         body = dw_body_text(x, c, co, dims, False, sms)[1]
         k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
@@ -2089,9 +2309,22 @@ def check_arch_kernels(torch):
             xc, (co, c, 3, 3, 3), dy.permute(0, 4, 1, 2, 3), padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
               f"{lms:.4f} ms")
-        _record(launched, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
-                nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
-                peak=PEAK_BF16, library_ms=lms)
+        deep_dw = c >= 64 and co >= 128
+        if deep_dw:
+            print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+                  f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
+        elif deep:
+            rel, dms = deep_dw_entry_ms(torch, x, dy)
+            print(f"    the deep-channel body (conv3_dw_wgmma.cuh, left out by the rule at CO < "
+                  f"128) on the same tensors: {dms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+            if rel > 1e-3:
+                _fail(f"fused_conv_dw {label}: the deep-channel body disagrees")
+        for name in ("fused_conv_dw",) + (("fused_conv_dw_wgmma",) if deep_dw else ()):
+            _record(launched, name, err=err, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
+                    peak=PEAK_BF16, library_ms=lms, echo=name == "fused_conv_dw")
+        if deep and c != co:  # the input gradient: the conv co -> c with flipped weights
+            check_deep_dx(torch, results, arch, shape, co, g, per_fwd)
     return results
 
 
@@ -2107,11 +2340,14 @@ def _add_launches(total, got):
 def arch_launches(spec):
     """({kernel: launches} of a forward, of a train step) for an ``ARCHS``
     entry."""
-    per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"]}
+    deep, deep_dw = spec["deep"]
+    per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"],
+               "fused_conv_wgmma": deep}
     per_step = {"fused_conv": 2 * spec["convs"], "phase_conv": 2 * spec["phase_convs"],
                 "fused_conv_dw": spec["convs"], "phase_conv_dw": spec["phase_convs"],
                 "dice_phase_sums": int(spec["phase_dice"]),
-                "dice_phase_dx": int(spec["phase_dice"])}
+                "dice_phase_dx": int(spec["phase_dice"]),
+                "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -2146,7 +2382,9 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     counted from 0: kernels 1 and 3-4 ``convs`` / ``phase_convs`` a forward
     and twice that a step less the input layer's dx, kernels 2 and 5-6
     ``convs`` / ``phase_convs`` a step, the Dice kernels once a step with
-    ``phase_dice``, kernel 7 once a chunk, no other kernel."""
+    ``phase_dice``, kernel 7 once a chunk, no other kernel; of kernel 1's
+    and 2's, ``deep`` a forward (twice a step) and ``deep`` weight gradients a
+    step on the deep-channel bodies."""
     import numpy as np
 
     from segmantic_tpu_torch.infer.predict import predict
@@ -2159,6 +2397,9 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     spec = ARCHS[arch]
     per_fwd, per_step = arch_launches(spec)
     total = {}
+
+    def launched(counters):  # the eight kernels' and the deep bodies'
+        return {**_launches(counters), **_launches(_deep_counters())}
 
     def expect(where, got, steps=0, chunks=0):
         want = {name: steps * per_step.get(name, 0) + chunks * per_fwd.get(name, 0)
@@ -2175,7 +2416,7 @@ def run_arch(torch, arch: str, data: Path, work: Path):
                    num_classes=NUM_CLASSES, max_epochs=2, seed=0, **spec["train"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    got = _launches(counters)
+    got = launched(counters)
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -2200,11 +2441,11 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     counters = _reset_counters()
     step(image, label)
     torch.cuda.synchronize()
-    expect("one train step", _launches(counters), steps=1)
+    expect("one train step", launched(counters), steps=1)
     counters = _reset_counters()
     make_val_forward(module)(image[:SW_BATCH])
     torch.cuda.synchronize()
-    got = _launches(counters)
+    got = launched(counters)
     print(f"  launches of one eval forward of {SW_BATCH} x 96^3 windows: {got}")
     want = {name: per_fwd.get(name, 0) for name in got}
     if got != want:
@@ -2235,7 +2476,7 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     res = predict(ckpt, images, labels, output_dir=work / "pred", tissue_dict=CLASS_NAMES,
                   device=DEVICE, save_confusion_plots=False)[0]
     pred_s = time.perf_counter() - t0
-    got = _launches(counters)
+    got = launched(counters)
     print(f"  predict(): {pred_s:.2f} s with the model's load; dice {res.dice:.5f}; seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in res.seconds.items()))
     saved, _ = read_nifti(res.saved_to)
@@ -2244,7 +2485,8 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     expect("predict()", got, chunks=got["blend"])
 
     (work / "serve").mkdir()
-    required = tuple(name for name, n in per_fwd.items() if n) + ("blend",)
+    required = tuple(name for name, n in per_fwd.items() if n and name in _counters())
+    required += ("blend",)
     request_s, got, session = serve_requests(torch, ckpt, work / "serve", required=required)
     print(f"  seconds per request: {[round(s, 3) for s in request_s]}")
     expect("the three requests", got, chunks=got["blend"])

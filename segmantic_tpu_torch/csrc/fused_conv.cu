@@ -26,7 +26,12 @@
 // a rolling window of three along D. f32 input keeps the CUDA-core body of
 // conv3.cuh (segk_fused_conv3), which agrees with the CPU to ~1e-6 where TF32
 // would not; bf16 input with C > 8 and no multiple of 8 takes it too.
+// bf16 input with C, CO >= 64 runs the deep-channel body of conv3_wgmma.cuh
+// (segk_fused_conv3_wgmma): wgmma with the halo and the weight tiles brought
+// by TMA and bulk copies, an N tile covering CO, split-K where the bricks are
+// too few to fill the card.
 #include "conv3_fewc.cuh"
+#include "conv3_wgmma.cuh"
 
 extern "C" int segk_fused_conv3(const void* x, const void* w, const float* scale,
                                 const float* shift, const float* alpha, int relu_mode,
@@ -55,4 +60,15 @@ extern "C" int segk_fused_conv3_fewc(const void* x, const void* wp, const float*
   return segk::launch_conv3_fewc<segk::DenseLayout>(x, wp, scale, shift, alpha, relu_mode, out,
                                                     B, D, H, W, C, CO, out_bf16, th, tw, seg, nt,
                                                     grid_x, smem_bytes, vec, stream);
+}
+
+extern "C" int segk_fused_conv3_wgmma(const void* x, const void* wp, const float* scale,
+                                      const float* shift, const float* alpha, int relu_mode,
+                                      void* out, float* ws, int B, int D, int H, int W, int C,
+                                      int CO, int out_bf16, int td, int th, int tw, int nt,
+                                      int spw, int nwg, int splits, int stages, int smem_bytes,
+                                      void* stream) {
+  return segk::launch_conv3_wgmma(x, wp, scale, shift, alpha, relu_mode, out, ws, B, D, H, W, C,
+                                  CO, out_bf16, td, th, tw, nt, spw, nwg, splits, stages,
+                                  smem_bytes, stream);
 }

@@ -15,7 +15,9 @@
 // CO % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh, which says what
 // bounds it and what its design does about that), bf16 input with C = 1..7
 // and any CO the few-channel body (conv3_fewc_dw.cuh: the 96^3 one-channel
-// input layer); everything else is CUDA-core f32 FMA work.
+// input layer), bf16 input with C, CO >= 64 the deep-channel body
+// (conv3_dw_wgmma.cuh: wgmma on a TMA-staged halo of x and brick of dy);
+// everything else is CUDA-core f32 FMA work.
 // What the CUDA-core design does about it (conv3_dw.cuh): output channels and the
 // three input-plane offsets spread over grid.y and grid.z, and the position
 // tiles over as many splits as it takes to put ~4 blocks on every SM; the
@@ -23,6 +25,7 @@
 // result is deterministic without atomics.
 #include "conv3_dw.cuh"
 #include "conv3_dw_mma.cuh"
+#include "conv3_dw_wgmma.cuh"
 #include "conv3_fewc_dw.cuh"
 
 extern "C" long long segk_conv3_dw_workspace(int B, int D, int H, int W, int C, int CO) {
@@ -52,4 +55,12 @@ extern "C" int segk_fused_conv3_dw_fewc(const void* x, const void* dy, float* ws
   return segk::launch_conv3_dw_fewc<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, th,
                                                        tw, seg, nt, splits, smem_bytes, vec_x,
                                                        vec_dy, stream);
+}
+
+extern "C" int segk_fused_conv3_dw_wgmma(const void* x, const void* dy, float* ws, float* out,
+                                         int B, int D, int H, int W, int C, int CO, int td,
+                                         int th, int tw, int nt, int tpw, int nwg, int splits,
+                                         int stages, int smem_bytes, void* stream) {
+  return segk::launch_conv3_dw_wgmma(x, dy, ws, out, B, D, H, W, C, CO, td, th, tw, nt, tpw, nwg,
+                                     splits, stages, smem_bytes, stream);
 }

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "segk_phase_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_fused_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
+    "segk_fused_conv3_wgmma": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 16 + [_P],
     "segk_fused_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_blend": [_P] * 5 + [_I] * 17 + [_P],
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "segk_conv3_dw_workspace": [_I] * 6,
     "segk_fused_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    "segk_fused_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "segk_fused_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],

@@ -9,17 +9,21 @@ packing.
 
 ``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` and
 ``conv3d_dw`` the kernel ``csrc/fused_conv_dw.cu`` for tensors on a CUDA
-device (each kernel has three bodies, see below); for tensors on the CPU they
+device (each kernel has four bodies, see below); for tensors on the CPU they
 run :func:`conv3d_plain` and :func:`conv3d_dw_plain`, the plain PyTorch
 versions. :func:`conv3d_grad` is
 the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has three bodies, named by :func:`conv_body` from the
-input's type and channel count. bf16 input whose channel count is a multiple
-of 8 runs the tensor-core body (``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo
-brick staged by ``cp.async``) with the launch geometry of :func:`plan`; bf16
+The conv kernel has four bodies, named by :func:`conv_body` from the input's
+type, layout and channel counts. bf16 input in the dense layout with C, CO >=
+64 runs the deep-channel body (``csrc/conv3_wgmma.cuh``: ``wgmma`` with the
+halo and the weight tiles brought by TMA, split-K at small volumes) with the
+geometry of :func:`deep_plan` and the weights of :func:`pack_weights_deep`;
+other bf16 input whose channel count is a multiple of 8 runs the tensor-core
+body (``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo brick staged by
+``cp.async``) with the launch geometry of :func:`plan`; bf16
 input with C = 1..7 (the one-channel input layer of SegResNet and UNETR) the
 few-channel body (``csrc/conv3_fewc.cuh``: ``mma.sync`` on input planes
 staged along W, a rolling window of three along D) with the geometry of
@@ -28,8 +32,11 @@ input keeps the CUDA-core body (``csrc/conv3.cuh``), whose f32 FMAs agree with
 the CPU to ~1e-6 where TF32 would not; bf16 input with any other channel count
 takes it too. Either way the wrapper launches its kernel or raises.
 
-The dw kernel has three bodies as well, named by :func:`dw_body`: bf16 input
-with C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
+The dw kernel has four bodies as well, named by :func:`dw_body`: bf16 input
+in the dense layout with C >= 64 and CO >= 128 runs the deep-channel body
+(``csrc/conv3_dw_wgmma.cuh``: ``wgmma`` on a TMA-staged halo of x and brick
+of dy) with the geometry of :func:`deep_dw_plan`; other bf16 input with
+C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
 (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on ``ldmatrix.trans`` operands, one
 staged halo brick of x and brick of dy per step) with the launch geometry of
 :func:`dw_plan`; bf16 input with C = 1..7 and any CO the few-channel body
@@ -54,12 +61,16 @@ __all__ = [
     "conv3d", "conv3d_plain", "conv3d_dw", "conv3d_dw_plain", "conv3d_grad",
     "counter", "dw_counter", "RELU_MODES", "ConvPlan", "plan", "pack_weights",
     "unpack_weights", "conv_body", "DwPlan", "dw_plan", "dw_body", "FewcPlan",
-    "fewc_plan", "fewc_dw_plan",
+    "fewc_plan", "fewc_dw_plan", "deep_counter", "deep_dw_counter", "DeepPlan", "deep_plan",
+    "DeepDwPlan", "deep_dw_plan", "pack_weights_deep", "unpack_weights_deep",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
 counter = _cuda.LaunchCounter("fused_conv")
 dw_counter = _cuda.LaunchCounter("fused_conv_dw")
+# the deep-channel bodies' own launches, also counted by the two above
+deep_counter = _cuda.LaunchCounter("fused_conv_wgmma")
+deep_dw_counter = _cuda.LaunchCounter("fused_conv_dw_wgmma")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -139,13 +150,32 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
 _SMS = 132  # streaming multiprocessors of an H100
 
 
-def conv_body(x: torch.Tensor, c: int) -> str:
-    """The body of the conv kernel that takes input x of a conv over c input
-    channels (``weights.shape[-2]``; a phase-major tensor carries 8 * c
-    lanes): ``"tensor_cores"`` for bf16 input whose channel vector is a whole
-    number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16 input
-    with c = 1..7, ``"cuda_cores"`` for f32 input and every other bf16 channel
-    count."""
+# The deep-channel bodies' least channel counts, set from the rows timed on an
+# H100 beside the tensor-core bodies (PERF.md): the conv body is faster at
+# every row with C, CO >= 64; the dw body at every row from CO = 128, while at
+# CO = 64 its 64-wide N tile was 13% slower at 12^3 and within 7% at 24^3.
+DEEP_MIN_C = 64
+DEEP_MIN_CO = 64
+DEEP_DW_MIN_CO = 128
+
+
+def _deep(x: torch.Tensor, c: int, co: int, phase: bool, min_co: int) -> bool:
+    return (x.dtype == torch.bfloat16 and not phase and c % 8 == 0 and co % 8 == 0
+            and c >= DEEP_MIN_C and co >= min_co)
+
+
+def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
+    """The body of the conv kernel that takes input x of a conv from c to co
+    channels (``weights.shape[-2:]``; a phase-major tensor, ``phase=True``,
+    carries 8 * c lanes): ``"deep_channels"`` for bf16 input in the dense
+    layout with c, co >= 64 and both multiples of 8 (``csrc/conv3_wgmma.cuh``;
+    the input gradient, the conv co -> c, takes the same rule),
+    ``"tensor_cores"`` for any other bf16 input whose channel vector is a
+    whole number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16
+    input with c = 1..7, ``"cuda_cores"`` for f32 input and every other bf16
+    channel count."""
+    if _deep(x, c, co, phase, DEEP_MIN_CO):
+        return "deep_channels"
     if x.dtype == torch.bfloat16:
         if c % 8 == 0:
             return "tensor_cores"
@@ -457,6 +487,185 @@ def fewc_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, phase: bool =
                       workspace=True)
 
 
+# -- the deep-channel bodies (csrc/conv3_wgmma.cuh, csrc/conv3_dw_wgmma.cuh) --
+
+_WG_CHUNK = 64  # input channels of a K block: one 128-byte swizzled row
+_DEEP_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (2, 3, 4, 6, 8, 12),
+                                             (4, 6, 8, 12, 16, 24))
+                if 32 < b[0] * b[1] * b[2] <= 256]
+# a block's tensor-core and L2 rates in its cost count, cycles of one H100
+# multiprocessor: 4096 bf16 operations a cycle dense, of which the wgmma
+# chains reach ~85%, the bytes the L2 feeds it a cycle when every
+# multiprocessor loads, and each commit group's exposed latency (fitted to
+# the bodies' times on an H100)
+_MMA_EFF = 0.85
+_L2_BYTES = 28
+_GROUP_CYCLES = 250
+_WGMMA_CYCLES = 16  # a wgmma's issue beyond its N / 2 cycles of work
+
+
+def _round1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def deep_halo_bytes(td: int, th: int, tw: int) -> int:
+    """``wgmma_halo_bytes``: 64 channels (128 bytes) of each halo position of
+    a brick, rounded to the 128-byte swizzle's period of 1024 bytes."""
+    return _round1024((td + 2) * (th + 2) * (tw + 2) * 128)
+
+
+def deep_smem_bytes(nt: int, td: int, th: int, tw: int, stages: int) -> int:
+    """``wgmma_smem_bytes`` of ``csrc/conv3_wgmma.cuh``: 1024 bytes to align
+    the base, 1024 of barriers, two halo buffers, ``stages`` weight tiles of
+    nt rows x 128 bytes."""
+    return 2048 + 2 * deep_halo_bytes(td, th, tw) + stages * nt * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepPlan:
+    """Launch geometry of the deep-channel conv body, as the C entry point
+    takes it. A block of ``nwg`` consumer warpgroups (``spw`` slabs of 64 M
+    rows each) multiplies the ``td * th * tw`` positions of one brick by ``nt``
+    output channels over the K blocks ``[split * nkb // splits, (split + 1) *
+    nkb // splits)`` of its split; grid (nbricks, n_tiles, splits)."""
+
+    td: int
+    th: int
+    tw: int
+    spw: int  # m64 slabs a consumer warpgroup multiplies
+    nwg: int  # consumer warpgroups a block (2 or 3), besides the producer's
+    nt: int  # output channels per block (the wgmma's N)
+    n_tiles: int
+    nkb: int  # K blocks: chunks of 64 input channels x 27 taps
+    splits: int  # K splits, f32 partials summed by a second kernel
+    stages: int  # ring of weight tiles
+    nbricks: int
+    smem_bytes: int
+    workspace: int  # f32 values of the partials: splits * positions * CO, 0 with one split
+    fill: float  # real output positions / M rows multiplied
+    blocks: int
+
+
+def _deep_candidates(dims, c: int, co: int, out_bytes: int, sms: int):
+    """Every (cost key, DeepPlan) :func:`deep_plan` chooses among."""
+    b, d, h, w = dims
+    positions = b * d * h * w
+    nkb = -(-c // _WG_CHUNK) * 27
+    for nt in (64, 128):
+        if nt > 64 and nt >= 2 * co:
+            continue  # a tile more than half padding columns
+        n_tiles = -(-co // nt)
+        for spw, nwg in ((1, 2), (2, 2), (1, 3)):
+            if nt * spw > 128:  # the spill-free instances: 64 accumulators a thread at most
+                continue
+            rows_max = 64 * nwg * spw
+            for td, th, tw in _DEEP_BRICKS:
+                rows = td * th * tw
+                if not rows_max // 2 < rows <= rows_max:
+                    continue
+                nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+                if nbricks >= 2 ** 31:
+                    continue
+                fill = positions / (nbricks * rows_max)
+                stages = next((st for st in (6, 5, 4, 3, 2)
+                               if deep_smem_bytes(nt, td, th, tw, st) <= SMEM_LIMIT), None)
+                if stages is None:
+                    continue
+                smem = deep_smem_bytes(nt, td, th, tw, stages)
+                halo = (td + 2) * (th + 2) * (tw + 2) * 128
+                # a K block of a block, in cycles: its 4 x 2 x spw wgmma of nt / 2
+                # cycles each, or the weight tile and its share of the halo from
+                # the L2, plus the exposed wait of its commit group
+                mma = 4 * spw * (nt / 2 + _WGMMA_CYCLES) * nwg / _MMA_EFF
+                l2 = (nt * 128 + halo / 27) / _L2_BYTES
+                per_kb = max(mma, l2) + _GROUP_CYCLES
+                for splits in sorted({1, 2, 3, 4, 6, 8, 9, 12, 16, 18, 27} | {nkb}):
+                    if splits > nkb:
+                        continue
+                    blocks = nbricks * n_tiles * splits
+                    cycles = -(-blocks // sms) * (-(-nkb // splits) * per_kb + 2500)
+                    if splits > 1:  # the partials out and back, and the second launch
+                        cycles += (2 * splits * 4 + out_bytes) * positions * co / (sms * 32) + 4000
+                    yield (fill < 0.7, cycles, -fill, splits), DeepPlan(
+                        td=td, th=th, tw=tw, spw=spw, nwg=nwg, nt=nt, n_tiles=n_tiles, nkb=nkb,
+                        splits=splits, stages=stages, nbricks=nbricks, smem_bytes=smem,
+                        workspace=splits * positions * co if splits > 1 else 0, fill=fill,
+                        blocks=blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def deep_plan(dims: Tuple[int, int, int, int], c: int, co: int, out_bytes: int = 2,
+              sms: int = _SMS) -> DeepPlan:
+    """The brick, N tile, slabs, ring and K splits of one launch of the
+    deep-channel conv body for a (B, D, H, W) grid of output positions, C
+    input and CO output channels, ``out_bytes`` per output value.
+
+    Among N tiles of 64 or 128, two consumer warpgroups of one or two slabs
+    of 64 rows or three of one (at most 64 accumulators a thread: the
+    spill-free instances), the bricks of a fixed list that fill more than
+    half the block's rows, and a few split counts, it takes the
+    cheapest by a rough count of cycles on the busiest of ``sms``
+    multiprocessors (each K block's wgmma or its bytes from the L2, a block's
+    start and end, and for more than one split the partials and the second
+    launch), among those whose M rows are at least 70% real output positions
+    where any is. The ring takes as many weight tiles (2-6) as fit."""
+    if c % 8 or co % 8 or c < 8 or co < 8:
+        raise ValueError(f"the deep-channel conv body needs C % 8 == 0 and CO % 8 == 0, got "
+                         f"C = {c}, CO = {co}")
+    found = min(_deep_candidates(dims, c, co, out_bytes, sms), key=lambda kp: kp[0],
+                default=None)
+    if found is None:
+        raise ValueError(f"no deep-channel launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
+def _swizzle128(w: torch.Tensor) -> torch.Tensor:
+    """Rows of 64 bf16 values (..., n, 64) in the 128-byte swizzle: the
+    16-byte piece j of row n lies at piece j ^ (n % 8). Its own inverse."""
+    n = w.shape[-2]
+    rows, cols = torch.arange(n, device=w.device), torch.arange(8, device=w.device)
+    idx = cols.unsqueeze(0) ^ (rows % 8).unsqueeze(1)  # (n, 8), made on w's device
+    pieces = w.reshape(*w.shape[:-1], 8, 8)
+    idx = idx.reshape(n, 8, 1).expand(*pieces.shape)
+    return torch.gather(pieces, -2, idx).reshape(w.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_pack_index(c: int, co: int, nt: int, device: torch.device) -> torch.Tensor:
+    """Where each value of :func:`pack_weights_deep`'s result comes from in
+    the flattened DHWIO weights, 27 * c * co (the element past their end)
+    for padding: the packing as one gather. Made on ``device``, once a
+    shape."""
+    nch, n_tiles = -(-c // _WG_CHUNK), -(-co // nt)
+    src = torch.arange(27 * c * co, device=device).reshape(27, c, co)
+    src = F.pad(src, (0, n_tiles * nt - co, 0, nch * _WG_CHUNK - c), value=27 * c * co)
+    # (tap, chunk, k, tile, n) -> (tile, chunk, tap, n, k)
+    src = src.reshape(27, nch, _WG_CHUNK, n_tiles, nt).permute(3, 1, 0, 4, 2)
+    return _swizzle128(src.reshape(n_tiles, nch * 27, nt, _WG_CHUNK)).contiguous()
+
+
+def pack_weights_deep(weights: torch.Tensor, nt: int) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, C, CO) in the order the deep-channel conv body
+    reads: (N tiles, K blocks, nt, 64), K block ``chunk * 27 + tap`` of 64
+    input channels, each (tap, chunk) tile nt rows (output channels) of 64 k
+    values, K-major and 128-byte swizzled as a wgmma descriptor reads it; C
+    padded with zero rows to a multiple of 64, CO with zero columns to a
+    multiple of nt. One gather by a cached index (the weights change every
+    step and are packed at every call)."""
+    c, co = weights.shape[-2:]
+    index = _deep_pack_index(c, co, nt, weights.device)
+    return F.pad(weights.reshape(-1), (0, 1))[index]
+
+
+def unpack_weights_deep(packed: torch.Tensor, c: int, co: int) -> torch.Tensor:
+    """Inverse of :func:`pack_weights_deep`: the DHWIO weights (3, 3, 3, c, co)."""
+    n_tiles, nkb, nt, _ = packed.shape
+    nch = nkb // 27
+    w = _swizzle128(packed).reshape(n_tiles, nch, 27, nt, _WG_CHUNK).permute(2, 1, 4, 0, 3)
+    w = w.reshape(27, nch * _WG_CHUNK, n_tiles * nt)
+    return w[:, :c, :co].reshape(3, 3, 3, c, co).contiguous()
+
+
 def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
@@ -466,9 +675,11 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     """Shared launch of the two conv3 kernels (dense and phase layouts,
     ``entry`` ``segk_fused_conv3`` or ``segk_phase_conv3``) on the body
     :func:`conv_body` names: ``entry`` (CUDA cores), ``entry + "_mma"``
-    (tensor cores, :func:`plan`) or ``entry + "_fewc"`` (few channels,
-    :func:`fewc_plan`). ``packed_cache`` keeps the packed weights between
-    calls with constant weights (serving), keyed by the N tile."""
+    (tensor cores, :func:`plan`), ``entry + "_fewc"`` (few channels,
+    :func:`fewc_plan`) or ``entry + "_wgmma"`` (deep channels, dense only,
+    :func:`deep_plan`; counted by ``deep_counter`` too). ``packed_cache``
+    keeps the packed weights between calls with constant weights (serving),
+    keyed by the N tile (and the body)."""
     for t, name in ((x, "x"), (weights, "weights"), (out, "out")):
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
@@ -480,7 +691,8 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     head = (x.data_ptr(), s.data_ptr(), t.data_ptr(),
             None if a is None else a.data_ptr(), RELU_MODES[relu_mode], out.data_ptr(),
             b, d, h, w, c, co)
-    body = conv_body(x, c)
+    phase = entry == "segk_phase_conv3"
+    body = conv_body(x, c, co, phase)
     if body == "cuda_cores":
         if b * d > 65535:  # one grid row per (b, d) plane: CUDA's grid.z limit
             raise ValueError(f"batch * depth = {b * d} exceeds 65535 planes")
@@ -490,8 +702,26 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
+    out_bf16 = int(out.dtype == torch.bfloat16)
+    if body == "deep_channels":
+        if not _aligned(x):
+            raise ValueError("the deep-channel body reads x by TMA: x must be 16-byte aligned")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = deep_plan((b, d, h, w), c, co, out.element_size(), sms)
+        key = ("deep", p.nt)
+        packed = None if packed_cache is None else packed_cache.get(key)
+        if packed is None:
+            packed = pack_weights_deep(weights, p.nt)
+            if packed_cache is not None:
+                packed_cache[key] = packed
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 \
+            else out
+        _cuda.launch(entry + "_wgmma", head[0], packed.data_ptr(), *head[1:6], ws.data_ptr(),
+                     *head[6:], out_bf16, p.td, p.th, p.tw, p.nt, p.spw, p.nwg, p.splits,
+                     p.stages, p.smem_bytes)
+        deep_counter.count += 1
+        return
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    phase = entry == "segk_phase_conv3"
     p = (fewc_plan((b, d, h, w), c, co, phase, sms)
          if body == "few_channels" else plan((b, d, h, w), c, co, out.element_size(), sms))
     packed = None if packed_cache is None else packed_cache.get(p.nt)
@@ -499,7 +729,6 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
         packed = pack_weights(weights, p.nt)
         if packed_cache is not None:
             packed_cache[p.nt] = packed
-    out_bf16 = int(out.dtype == torch.bfloat16)
     if body == "few_channels":
         vec = int(_aligned(x) and (phase or (w * c) % 8 == 0))  # whole 16-byte pieces a row
         _cuda.launch(entry + "_fewc", head[0], packed.data_ptr(), *head[1:], out_bf16, p.th,
@@ -523,9 +752,9 @@ def conv3d(
     """Fused stride-1 SAME 3^3 conv: y = (conv(x) + bias) * scale + shift,
     then the activation. f32 accumulation; bf16 or f32 in, out in
     ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
-    C % 8 == 0 runs the tensor-core body, bf16 with C = 1..7 the few-channel
-    body, anything else the CUDA-core body (:func:`conv_body`); one launch
-    either way."""
+    C, CO >= 64 runs the deep-channel body (one launch, or two with split-K),
+    other bf16 with C % 8 == 0 the tensor-core body, bf16 with C = 1..7 the
+    few-channel body, anything else the CUDA-core body (:func:`conv_body`)."""
     out_dtype = out_dtype or x.dtype
     if x.ndim != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
@@ -563,13 +792,17 @@ def check_dw_args(x, dy) -> None:
                          f"{tuple(dy.shape)}")
 
 
-def dw_body(x: torch.Tensor, c: int, co: int) -> str:
+def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     """The body of the dw kernel that takes input x of a conv from c to co
-    true channels: ``"tensor_cores"`` for bf16 input whose two channel vectors
-    are whole numbers of 16-byte pieces (c % 8 == 0 and co % 8 == 0),
-    ``"few_channels"`` for bf16 input with c = 1..7 and any co,
+    true channels: ``"deep_channels"`` for bf16 input in the dense layout with
+    c >= 64, co >= 128 and both multiples of 8 (``csrc/conv3_dw_wgmma.cuh``),
+    ``"tensor_cores"`` for any other bf16 input whose
+    two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
+    co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
     ``"cuda_cores"`` for f32 input and every other bf16 channel count."""
     if x.dtype == torch.bfloat16 and c > 0 and co > 0:
+        if _deep(x, c, co, phase, DEEP_DW_MIN_CO):
+            return "deep_channels"
         if c % 8 == 0 and co % 8 == 0:
             return "tensor_cores"
         if c < 8:
@@ -700,11 +933,130 @@ def dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -
     return found[1]
 
 
+def deep_dw_rows16(td: int, th: int, tw: int) -> int:
+    """``dw_wgmma_rows16``: a brick's positions rounded up to whole k16 steps."""
+    return -(-td * th * tw // 16) * 16
+
+
+def deep_dw_smem_bytes(nt: int, td: int, th: int, tw: int, stages: int) -> int:
+    """``dw_wgmma_smem_bytes`` of ``csrc/conv3_dw_wgmma.cuh``: 1024 bytes to
+    align the base, 1024 of barriers and the K rows' table, ``stages`` slots of
+    one x halo and nt / 64 blocks of rows16 dy rows of 128 bytes."""
+    slot = deep_halo_bytes(td, th, tw) + nt // 64 * deep_dw_rows16(td, th, tw) * 128
+    return 2048 + stages * slot
+
+
+_DEEP_DW_MAX_ROWS = 128  # DW_WG_MAX_ROWS: eight k16 steps of A fragments in registers
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepDwPlan:
+    """Launch geometry of the deep-channel dw body, as the C entry point
+    takes it. A block of ``nwg`` consumer warpgroups owns ``nwg * tpw`` taps
+    (tap group ``tg``: taps ``tg * nwg * tpw ...``, none past 26), a chunk of 64
+    input channels and ``nt`` output channels, and walks the bricks
+    ``split, split + splits, ...`` of ``td * th * tw`` positions; grid
+    (splits, n_tg * n_ci * n_co), the tap group fastest."""
+
+    td: int
+    th: int
+    tw: int
+    nt: int
+    tpw: int  # taps a consumer warpgroup accumulates
+    nwg: int  # consumer warpgroups a block (2 or 3), besides the producer's
+    n_tg: int
+    n_ci: int
+    n_co: int
+    splits: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    workspace: int  # f32 values: splits * 27 * C * CO, 0 with one split
+    nbricks: int
+    fill: float  # real positions / K rows multiplied
+
+
+def _deep_dw_candidates(dims, c: int, co: int, sms: int):
+    """Every (cost key, DeepDwPlan) :func:`deep_dw_plan` chooses among."""
+    b, d, h, w = dims
+    positions = b * d * h * w
+    n_ci = -(-c // _WG_CHUNK)
+    for nt in (64, 128):
+        if nt > 64 and nt >= 2 * co:
+            continue
+        n_co = -(-co // nt)
+        for tpw, nwg in ((1, 2), (2, 2), (1, 3)):
+            if nt * tpw > 128:  # the spill-free instances
+                continue
+            n_tg = -(-27 // (nwg * tpw))
+            tiles = n_tg * n_ci * n_co
+            if tiles > 65535:
+                continue
+            for td, th, tw in _DEEP_BRICKS:
+                rows = td * th * tw
+                if rows > _DEEP_DW_MAX_ROWS:
+                    continue
+                rows16 = deep_dw_rows16(td, th, tw)
+                nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+                if nbricks >= 2 ** 31:
+                    continue
+                fill = positions / (nbricks * rows16)
+                stages = next((st for st in (4, 3, 2)
+                               if deep_dw_smem_bytes(nt, td, th, tw, st) <= SMEM_LIMIT), None)
+                if stages is None:
+                    continue
+                smem = deep_dw_smem_bytes(nt, td, th, tw, stages)
+                # a brick of a block, in cycles: its halo and dy bytes from the L2,
+                # or its taps' commit groups, each loaded, multiplied and drained
+                # (~400 cycles exposed), a warpgroup's one after another and the
+                # warpgroups' overlapping little on the shared tensor cores (1.1
+                # each, fitted on an H100)
+                group = (rows16 // 16) * (nt / 2 + _WGMMA_CYCLES) / _MMA_EFF + 400
+                l2 = ((td + 2) * (th + 2) * (tw + 2) + nt // 64 * rows) * 128 / _L2_BYTES
+                per_brick = max(l2, 1.1 * nwg * tpw * group)
+                for splits in sorted({1, 2, 3, 4, 6, 8, 12, 16, 24, 32} | {nbricks}):
+                    if splits > nbricks:
+                        continue
+                    blocks = tiles * splits
+                    cycles = -(-blocks // sms) * (-(-nbricks // splits) * per_brick + 2500)
+                    if splits > 1:
+                        cycles += 2 * splits * 27 * c * co * 4 / (sms * 32) + 4000
+                    yield (fill < 0.7, cycles, -fill, splits), DeepDwPlan(
+                        td=td, th=th, tw=tw, nt=nt, tpw=tpw, nwg=nwg, n_tg=n_tg, n_ci=n_ci,
+                        n_co=n_co,
+                        splits=splits, stages=stages, grid=(splits, tiles), smem_bytes=smem,
+                        workspace=splits * 27 * c * co if splits > 1 else 0, nbricks=nbricks,
+                        fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def deep_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -> DeepDwPlan:
+    """The brick, N tile, taps a warpgroup, ring and position splits of one
+    launch of the deep-channel dw body for a (B, D, H, W) grid of positions,
+    C input and CO output channels: among N tiles of 64 or 128 and one or two
+    taps a warpgroup (at most 64 accumulators a thread), the bricks of a fixed list of at most 128 positions and
+    a few split counts, the cheapest by a rough count of cycles on the
+    busiest of ``sms`` multiprocessors (each brick's wgmma or its bytes from
+    the L2, a block's start and end, and for more than one split the
+    partials and the second launch), among those whose K rows are at least
+    70% real positions where any is. The ring takes as many slots (2-4) as
+    fit."""
+    if c % 8 or co % 8 or c < 8 or co < 8:
+        raise ValueError("the deep-channel dw body needs C % 8 == 0 and CO % 8 == 0, "
+                         f"got C = {c}, CO = {co}")
+    found = min(_deep_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no deep-channel dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
 def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tensor:
     """Shared launch of the two dw kernels (dense and phase layouts, ``entry``
     ``segk_fused_conv3_dw`` or ``segk_phase_conv3_dw``) on the body
-    :func:`dw_body` names: ``entry + "_mma"`` (tensor cores, :func:`dw_plan`),
-    ``entry + "_fewc"`` (few channels, :func:`fewc_dw_plan`) or ``entry`` (CUDA
+    :func:`dw_body` names: ``entry + "_wgmma"`` (deep channels, dense only,
+    :func:`deep_dw_plan`; counted by ``deep_dw_counter`` too), ``entry +
+    "_mma"`` (tensor cores, :func:`dw_plan`), ``entry + "_fewc"`` (few
+    channels, :func:`fewc_dw_plan`) or ``entry`` (CUDA
     cores, whose plan and workspace size the C side computes). With more than
     one split the partials go to a workspace and a second kernel sums them in
     a fixed order."""
@@ -712,7 +1064,8 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
         _cuda.check_cuda(t, name)
     b, d, h, w = full_dims
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
-    body = dw_body(x, c, co)
+    phase = entry == "segk_phase_conv3_dw"
+    body = dw_body(x, c, co, phase)
     if body == "cuda_cores":
         n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
         ws = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -723,8 +1076,19 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if body == "deep_channels":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the deep-channel dw body reads x and dy by TMA: both must be "
+                             "16-byte aligned")
+        p = deep_dw_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 \
+            else out
+        _cuda.launch(entry + "_wgmma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w, c, co, p.td, p.th, p.tw, p.nt, p.tpw, p.nwg,
+                     p.splits, p.stages, p.smem_bytes)
+        deep_dw_counter.count += 1
+        return out
     if body == "few_channels":
-        phase = entry == "segk_phase_conv3_dw"
         p = fewc_dw_plan((b, d, h, w), c, co, phase, sms)
         ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.grid_x > 1 \
             else out
@@ -747,9 +1111,10 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     ``dw[t, ci, co] = sum_{b,p} x[b, p+t-1, ci] * dy[b, p, co]``, f32
     accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
-    device bf16 input with C % 8 == 0 and CO % 8 == 0 runs the tensor-core
-    body, bf16 with C = 1..7 the few-channel body, anything else the CUDA-core
-    body (:func:`dw_body`)."""
+    device bf16 input with C >= 64 and CO >= 128 runs the deep-channel body,
+    other bf16 with C % 8 == 0 and CO % 8 == 0 the tensor-core body, bf16 with
+    C = 1..7 the few-channel body, anything else the CUDA-core body
+    (:func:`dw_body`)."""
     if x.ndim != 5 or dy.ndim != 5:
         raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")
     check_dw_args(x, dy)

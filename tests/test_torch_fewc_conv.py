@@ -155,7 +155,7 @@ def test_three_way_route_rule(dtype, c, co):
         conv, dw = "tensor_cores", ("tensor_cores" if co % 8 == 0 else "cuda_cores")
     else:
         conv, dw = "few_channels", "few_channels"
-    assert fused_conv.conv_body(x, c) == conv
+    assert fused_conv.conv_body(x, c, co) == conv
     assert fused_conv.dw_body(x, c, co) == dw
 
 

@@ -171,7 +171,7 @@ def test_plan_refuses_channel_counts_without_16_byte_vectors():
     with pytest.raises(ValueError, match="C % 8"):
         fused_conv.plan((1, 8, 8, 8), 12, 8)
     x = torch.zeros((1, 2, 2, 2, 16), dtype=torch.bfloat16)
-    assert fused_conv.conv_body(x, 16) == "tensor_cores"
-    assert fused_conv.conv_body(x.float(), 16) == "cuda_cores"
-    assert fused_conv.conv_body(x[..., :12], 12) == "cuda_cores"
-    assert fused_conv.conv_body(torch.zeros((1, 2, 2, 2, 24)).bfloat16(), 3) == "few_channels"
+    assert fused_conv.conv_body(x, 16, 16) == "tensor_cores"
+    assert fused_conv.conv_body(x.float(), 16, 16) == "cuda_cores"
+    assert fused_conv.conv_body(x[..., :12], 12, 16) == "cuda_cores"
+    assert fused_conv.conv_body(torch.zeros((1, 2, 2, 2, 24)).bfloat16(), 3, 16) == "few_channels"

@@ -9,13 +9,15 @@ has only PyTorch; ``tests/conftest.py`` imports JAX, so skip it there:
 Tolerances: f32 1e-4 * max|ref| (summation order over up to 27 * 256 terms,
 TF32 off for the plain version); bf16 2e-2 * max|ref| (the plain version
 rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
-bf16 convs with C % 8 == 0 run the tensor-core body, bf16 with C = 1..7 the
+bf16 convs with C, CO >= 64 (dense) run the deep-channel body, other bf16
+convs with C % 8 == 0 the tensor-core body, bf16 with C = 1..7 the
 few-channel body, f32 and the other bf16 channel counts the CUDA-core body; a
 repeated conv launch is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
-bit-equal (fixed-order reduction). bf16 weight gradients with C % 8 == 0 and
-CO % 8 == 0 run the tensor-core dw body, held to 1e-3 * max|ref| at every dw
+bit-equal (fixed-order reduction). bf16 weight gradients with C >= 64 and
+CO >= 128 (dense) run the deep-channel dw body, others with C % 8 == 0 and
+CO % 8 == 0 the tensor-core dw body, held to 1e-3 * max|ref| at every dw
 shape of a flagship step (both sides sum the same exactly upcast products in
 f32, in another order), bf16 with C = 1..7 and any CO the few-channel dw body,
 held to the same; f32 and the other channel counts the CUDA-core body.
@@ -92,7 +94,7 @@ def test_fused_conv(cuda, shape, co, relu_mode, dtype, tol):
     cache = {}  # the packed weights kept between calls, as the executor keeps them
     for _ in range(2):
         assert torch.equal(got, fused_conv.conv3d(x, w, packed_cache=cache, **kw))
-    assert len(cache) == int(fused_conv.conv_body(x, shape[-1]) != "cuda_cores")
+    assert len(cache) == int(fused_conv.conv_body(x, shape[-1], co) != "cuda_cores")
 
 
 @pytest.mark.parametrize("shape,co", [
@@ -332,7 +334,9 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     g = torch.Generator().manual_seed(16)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
-    assert fused_conv.dw_body(x, c_true, co_true) == "tensor_cores"
+    deep = layout == "dense" and c_true >= 64 and co_true >= 128  # the deep-channel dw rule
+    assert fused_conv.dw_body(x, c_true, co_true, layout == "phase") == (
+        "deep_channels" if deep else "tensor_cores")
     mod.dw_counter.reset()
     got = kernel(x, dy)
     assert mod.dw_counter.count == 1 and got.dtype == torch.float32
@@ -358,8 +362,9 @@ def test_arch_conv_shapes(cuda, shape, co):
     g = torch.Generator().manual_seed(17)
     x = _randn(g, *shape).to(torch.bfloat16)
     w = _randn(g, 3, 3, 3, shape[-1], co, scale=(27 * shape[-1]) ** -0.5).to(torch.bfloat16)
-    assert fused_conv.conv_body(x, shape[-1]) == (
-        "tensor_cores" if shape[-1] % 8 == 0 else "few_channels")
+    assert fused_conv.conv_body(x, shape[-1], co) == (
+        "few_channels" if shape[-1] < 8 else
+        "deep_channels" if min(shape[-1], co) >= 64 else "tensor_cores")
     fused_conv.counter.reset()
     got = fused_conv.conv3d(x, w)
     assert fused_conv.counter.count == 1 and got.shape == shape[:4] + (co,)
@@ -373,12 +378,128 @@ def test_arch_dw_shapes(cuda, shape, co):
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
     assert fused_conv.dw_body(x, shape[-1], co) == (
-        "tensor_cores" if shape[-1] % 8 == 0 else "few_channels")
+        "few_channels" if shape[-1] < 8 else
+        "deep_channels" if shape[-1] >= 64 and co >= 128 else "tensor_cores")
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, shape[-1], co)
     _close(got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
     assert torch.equal(got, fused_conv.conv3d_dw(x, dy))
+
+
+# the deep-channel bodies (csrc/conv3_wgmma.cuh, conv3_dw_wgmma.cuh; bf16,
+# dense, C >= 64 and CO >= 64, the dw from CO = 128): UNETR's and the
+# flagship's deep rows, the input gradients of the CI != CO convs (CO -> C),
+# and ragged shapes (extents a multiple of no brick, C = 64 -> 192, CO = 72, a
+# second chunk mostly padding at C = 72 or 96, W = 70)
+DEEP_ROWS = [
+    ((8, 12, 12, 12, 256), 128), ((8, 12, 12, 12, 128), 128), ((8, 24, 24, 24, 128), 64),
+    ((8, 24, 24, 24, 64), 64), ((8, 12, 12, 12, 64), 64), ((4, 12, 12, 12, 64), 64),
+    ((4, 6, 6, 6, 128), 128), ((4, 6, 6, 6, 128), 256), ((4, 6, 6, 6, 256), 256),
+    ((8, 6, 6, 6, 256), 128), ((8, 12, 12, 12, 128), 256), ((8, 24, 24, 24, 64), 128),
+]
+DEEP_RAGGED = [((2, 5, 7, 9, 64), 192), ((2, 5, 7, 9, 96), 72), ((1, 6, 6, 6, 72), 64),
+               ((1, 3, 4, 70, 64), 64)]
+
+
+@pytest.mark.parametrize("shape,co", DEEP_ROWS + DEEP_RAGGED)
+def test_deep_channel_conv_body(cuda, shape, co):
+    """The forward on the deep-channel body: bf16 and f32 output against the
+    plain version, one counted launch of the body each, bit-equal on repeat
+    (the split-K partials are summed in a fixed order)."""
+    g = torch.Generator().manual_seed(23)
+    c = shape[-1]
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, co), scale=_randn(g, co).abs() + 0.5, shift=_randn(g, co),
+              alpha=torch.tensor([0.2], device=cuda), relu_mode="prelu")
+    assert fused_conv.conv_body(x, c, co) == "deep_channels"
+    for out_dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-2)):
+        fused_conv.counter.reset()
+        fused_conv.deep_counter.reset()
+        got = fused_conv.conv3d(x, w, out_dtype=out_dtype, **kw)
+        assert fused_conv.counter.count == fused_conv.deep_counter.count == 1
+        assert got.dtype == out_dtype and got.shape == shape[:4] + (co,)
+        _close(got, fused_conv.conv3d_plain(x, w, out_dtype=out_dtype, **kw), tol)
+        assert torch.equal(got, fused_conv.conv3d(x, w, out_dtype=out_dtype, **kw))
+
+
+@pytest.mark.parametrize("shape,co", DEEP_ROWS + DEEP_RAGGED)
+def test_deep_channel_dw_body(cuda, shape, co):
+    """The weight gradient on the deep-channel body, 1e-3 * max|ref| (both
+    sides sum exactly upcast products in f32), bit-equal on repeat: through
+    the wrapper where the rule takes it (CO >= 128), else through its entry
+    point with its own plan."""
+    g = torch.Generator().manual_seed(24)
+    c = shape[-1]
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    if co >= 128:
+        assert fused_conv.dw_body(x, c, co) == "deep_channels"
+        fused_conv.deep_dw_counter.reset()
+        got = fused_conv.conv3d_dw(x, dy)
+        assert fused_conv.deep_dw_counter.count == 1
+        again = fused_conv.conv3d_dw(x, dy)
+    else:
+        assert fused_conv.dw_body(x, c, co) == "tensor_cores"
+        p = fused_conv.deep_dw_plan(tuple(shape[:4]), c, co)
+        ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=cuda)
+
+        def entry():
+            out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=cuda)
+            _cuda.launch("segk_fused_conv3_dw_wgmma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), *shape[:4], c, co, p.td, p.th, p.tw, p.nt, p.tpw,
+                         p.nwg, p.splits, p.stages, p.smem_bytes)
+            return out
+
+        got, again = entry(), entry()
+    _close(got, want, 1e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape,co", [((2, 12, 12, 12, 128), 256), ((4, 6, 6, 6, 256), 128),
+                                      ((2, 24, 24, 24, 64), 128)])
+def test_deep_channel_bodies_take_the_grad_function(cuda, shape, co):
+    """``conv3d_grad`` at deep shapes: its forward and its input gradient (the
+    conv CO -> C) launch the deep-channel conv body, its weight gradient the
+    deep-channel dw body where CO >= 128; out, dx and dw against autograd
+    through the plain version."""
+    g = torch.Generator().manual_seed(25)
+    c = shape[-1]
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    fused_conv.deep_counter.reset()
+    fused_conv.deep_dw_counter.reset()
+    got = _grads(fused_conv.conv3d_grad, x, w)
+    assert fused_conv.deep_counter.count == 2
+    assert fused_conv.deep_dw_counter.count == int(co >= 128)
+    want = _grads(fused_conv.conv3d_plain, x, w)
+    for a, b in zip(got, want):
+        _close(a, b, 2e-2)
+
+
+def test_deep_launchers_refuse_a_plan_with_another_shared_memory_sum(cuda):
+    x = torch.zeros((1, 6, 6, 6, 64), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 64, 64), dtype=torch.bfloat16, device=cuda)
+    p = fused_conv.deep_plan((1, 6, 6, 6), 64, 64)
+    pk = fused_conv.pack_weights_deep(w, p.nt)
+    s, t = fused_conv._epilogue_vectors(64, None, None, None, cuda)
+    out = torch.empty_like(x)
+    ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=cuda)
+    args = (x.data_ptr(), pk.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0, out.data_ptr(),
+            ws.data_ptr(), 1, 6, 6, 6, 64, 64, 1, p.td, p.th, p.tw, p.nt, p.spw, p.nwg, p.splits,
+            p.stages)
+    _cuda.launch("segk_fused_conv3_wgmma", *args, p.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_wgmma", *args, p.smem_bytes + 1024)
+    q = fused_conv.deep_dw_plan((1, 6, 6, 6), 64, 64)
+    dw = torch.empty((3, 3, 3, 64, 64), dtype=torch.float32, device=cuda)
+    args = (x.data_ptr(), x.data_ptr(), dw.data_ptr(), dw.data_ptr(), 1, 6, 6, 6, 64, 64, q.td,
+            q.th, q.tw, q.nt, q.tpw, q.nwg, 1, q.stages)
+    _cuda.launch("segk_fused_conv3_dw_wgmma", *args, q.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_wgmma", *args, q.smem_bytes + 1024)
 
 
 # (x shape, CO): the stride-1 3^3 convs of a 3D i2i generator's ResNet blocks
@@ -395,7 +516,7 @@ def test_i2i_generator_conv_shapes_f32(cuda, shape, co):
     x = _randn(g, *shape)
     w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5)
     dy = _randn(g, *shape[:4], co)
-    assert fused_conv.conv_body(x, c) == fused_conv.dw_body(x, c, co) == "cuda_cores"
+    assert fused_conv.conv_body(x, c, co) == fused_conv.dw_body(x, c, co) == "cuda_cores"
     fused_conv.counter.reset()
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d(x, w)
@@ -481,7 +602,8 @@ def test_few_channel_bodies(cuda, layout, shape, co):
                    else (fused_conv.conv3d, fused_conv.conv3d_plain))
     dwk, dwp = ((phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain) if layout == "phase"
                 else (fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain))
-    assert fused_conv.conv_body(x, c) == fused_conv.dw_body(x, c, co) == "few_channels"
+    assert fused_conv.conv_body(x, c, co, layout == "phase") == \
+        fused_conv.dw_body(x, c, co, layout == "phase") == "few_channels"
     for out_dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-2)):
         mod.counter.reset()
         got = conv(x, w, out_dtype=out_dtype, **kw)
@@ -606,7 +728,8 @@ def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
     w = _randn(g, 3, 3, 3, ci, co, scale=(27 * ci) ** -0.5).to(torch.bfloat16)
     gy = _randn(g, *shape[:4], 8 * co).to(torch.bfloat16)
     wt = fused_conv.flip_io(w)
-    assert fused_conv.conv_body(p, ci) == ("tensor_cores" if ci % 8 == 0 else "few_channels")
+    assert fused_conv.conv_body(p, ci, co, True) == (
+        "tensor_cores" if ci % 8 == 0 else "few_channels")
     phase_conv.counter.reset()
     phase_conv.dw_counter.reset()
     got, dx, dw = phase_conv.phase_conv(p, w), phase_conv.phase_conv(gy, wt), \
