@@ -29,8 +29,10 @@ the i2i CLI's width: ``train_pix2pix`` and ``train_cyclegan`` on slices of
 synthetic T1-like / T2-like volumes (losses falling, the warm iteration's
 time and peak), ``translate_volume`` with both checkpoints, one f32 pix2pix
 iteration on the card against the f64 CPU iteration in 2D and in 3D (the 3D
-generator's block convs on kernels 1 and 2), and both kernels at the 3D
-generator's f32 shapes. The rest of the single-device package runs at full
+generator's block convs on the register-tiled f32 bodies of kernels 1 and 2),
+and those bodies at the 3D generator's f32 shapes, the flagship's f32
+training shapes and f32 packed UNETR's input layer. The rest of the
+single-device package runs at full
 size beside them: the surface distances of the served labels through the
 native distance transform (``[distance]``, after ``[parity]``), the
 augmented step with the labels' composed-affine gather against the shear
@@ -118,6 +120,13 @@ KERNELS = {
                          "segmantic_tpu/ops/pallas_conv.py:173"),
     "fused_conv_dw_wgmma": ("segmantic_tpu_torch/csrc/conv3_dw_wgmma.cuh",
                             "segmantic_tpu/ops/pallas_conv.py:289"),
+    # the register-tiled f32 bodies of kernels 1-6 (f32 input and bf16 channel
+    # counts no tensor-core body takes), beside the kernels' totals, which
+    # include them
+    "conv3_f32": ("segmantic_tpu_torch/csrc/conv3_f32.cuh",
+                  "segmantic_tpu/ops/pallas_conv.py:173"),
+    "conv3_f32_dw": ("segmantic_tpu_torch/csrc/conv3_f32_dw.cuh",
+                     "segmantic_tpu/ops/pallas_conv.py:289"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
@@ -244,7 +253,12 @@ def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
         return body, (f"few-channel body: plane tile {p.th}x{p.tw} ({p.rows} positions a "
                       f"step), {p.nitems} items of {p.seg} planes over {p.grid_x} blocks x "
                       f"{p.n_tiles} N tiles of {p.nt}, tile fill {p.fill:.3f}"), p.fill
-    return body, "CUDA-core body", 1.0
+    p = fused_conv.f32_plan(dims, c, co, sms)
+    return body, (f"f32 body: 4x8 tiles, brick {p.td}x{p.th}x{p.tw} in "
+                  f"{p.threads} threads, N tile {p.nt}, {p.nbricks} bricks x {p.n_tiles} N "
+                  f"tiles x {p.splits} K splits of {p.units} units (ck {p.ck}) = {p.blocks} "
+                  f"blocks, ring of {p.stages}, tile fill {p.fill:.3f}, "
+                  f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
 
 
 def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
@@ -273,7 +287,12 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"step), {p.nitems} items of {p.seg} planes over {p.grid_x} splits x "
                       f"{p.n_tiles} N tiles of {p.nt}, K fill {p.fill:.3f}, "
                       f"{'one launch' if p.grid_x == 1 else 'kernel + reduce'}"), p.fill
-    return body, "CUDA-core body", 1.0
+    p = fused_conv.f32_dw_plan(dims, c, co, sms)
+    return body, (f"f32 body: brick {p.td}x{p.th}x{p.tw}, {p.taps} taps x {p.ci} ci x {p.nt} "
+                  f"co a block of {p.threads} threads ({p.npg} position groups), {p.splits} "
+                  f"splits, {p.grid[0] * p.grid[1]} blocks, ring of {p.stages}, chain "
+                  f"{p.chain}, K fill {p.fill:.3f}, workspace {p.workspace * 4 / 1e6:.2f} MB, "
+                  f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
 
 
 def tensor_core_conv_ms(torch, x, w) -> float:
@@ -463,7 +482,7 @@ def check_kernels(torch):
 
     # ragged shapes, untimed: extents that are a multiple of no brick, CO = 5
     # (scalar stores), C = 24 (a chunk padded to 32), C = 12 (no 16-byte
-    # channel vector above 8: the CUDA-core body), bf16 -> f32 output, and
+    # channel vector above 8: the f32 body), bf16 -> f32 output, and
     # bf16 with C = 1, 2, 3, 7 (no 16-byte channel vector: the few-channel body
     # by the wrapper's rule; W * C whole 16-byte pieces or not) and CO = 1 (a
     # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch
@@ -497,7 +516,7 @@ def check_kernels(torch):
         body = fused_conv.conv_body(x, c, co, name == "phase_conv")
         if body != ("few_channels" if c < 8 else
                     "deep_channels" if name == "fused_conv" and min(c, co) >= 64 else
-                    "tensor_cores" if c % 8 == 0 else "cuda_cores"):
+                    "tensor_cores" if c % 8 == 0 else "f32_tiles"):
             _fail(f"{name} ragged {shape}: the rule sends C = {c} to the {body} body")
         for out_dtype in (bf16, torch.float32):
             before = mod.counter.count
@@ -507,7 +526,7 @@ def check_kernels(torch):
                     lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
-            if body in ("few_channels", "deep_channels") and not torch.equal(
+            if body in ("few_channels", "deep_channels", "f32_tiles") and not torch.equal(
                     fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
                 _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
 
@@ -725,12 +744,34 @@ def report_conv_build(lib: Path) -> None:
               f"instantiations, registers {min(f[3] for f in found)}-{max(f[3] for f in found)}"
               f", spill bytes {sum(f[4] for f in found)}; "
               + ", ".join(f"{nt}x{k}x{g}:{regs}" for nt, k, g, regs, _ in sorted(found)))
+    f32 = ("conv3_f32_kernel", "conv3_f32_dw_kernel")
+    for name in f32:  # <Tin, Tout, Layout, PW> and <Tin, Layout, RV>
+        found = {(line.split("'")[1] if "'" in line else line, regs, spill)
+                 for line, regs, _, spill in _ptxas_reports(lib, name)}
+        print(f"  ptxas, {name}: {len(found)} instantiations, registers "
+              f"{min(f[1] for f in found)}-{max(f[1] for f in found)} (128 at most: two blocks of "
+              f"256 threads a multiprocessor), spill bytes {sum(f[2] for f in found)}"
+              + "".join(f"; {spill} in {inst[:90]}" for inst, _, spill in sorted(found) if spill))
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
         print("  cuobjdump not found: SASS not inspected")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300).stdout
+    f32_counts = {name: {"FFMA": 0, "LDGSTS": 0, "LDS.128": 0} for name in f32}
+    inside = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = next((name for name in f32 if name in line), None)
+        elif inside:
+            for key in f32_counts[inside]:
+                if f" {key}" in line:
+                    f32_counts[inside][key] += 1
+    for name, c in f32_counts.items():
+        print(f"  SASS of the {name} instantiations: {c['FFMA']} FFMA, {c['LDGSTS']} LDGSTS "
+              f"(cp.async), {c['LDS.128']} LDS.128")
+        if not c["FFMA"] or not c["LDGSTS"] or not c["LDS.128"]:
+            _fail(f"{name} holds no FFMA, no LDGSTS or no LDS.128 opcode")
     deep_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0, "UBLKCP": 0} for name in deep}
     inside = None
     for line in sass.splitlines():
@@ -768,6 +809,14 @@ def _deep_counters():
 
     return {"fused_conv_wgmma": fused_conv.deep_counter,
             "fused_conv_dw_wgmma": fused_conv.deep_dw_counter}
+
+
+def _f32_counters():
+    """The f32 bodies' own counters (their launches also count in kernels
+    1-6's): read by the paths that run f32 convs."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return {"conv3_f32": fused_conv.f32_counter, "conv3_f32_dw": fused_conv.f32_dw_counter}
 
 
 def _counters():
@@ -838,7 +887,8 @@ def check_train_kernels(torch):
     Every dw shape of one flagship step: the six distinct dense ones (eight
     launches: 24^3 x 32 and 12^3 x 64 run in the encoder and in the decoder)
     and both phase stages. bf16 goes through the tensor-core body
-    (``csrc/conv3_dw_mma.cuh``), f32 through the CUDA-core body.
+    (``csrc/conv3_dw_mma.cuh``), f32 through the register-tiled f32 body
+    (``csrc/conv3_f32_dw.cuh``).
 
     Limits: the dw kernels 1e-3 * max|ref| in f32 and with bf16 inputs (sums
     over up to 7 M positions in another order, TF32 off; with bf16 inputs
@@ -846,15 +896,14 @@ def check_train_kernels(torch):
     Functions 1e-3 in f32 and 2e-2 in bf16 (their output and dx round to
     bf16). Each bf16 shape prints its launch plan and repeats its launch bit
     for bit. Times are device times by CUDA-graph replay (``_graph_ms``; the
-    workspace comes from the graph's pool): the kernel, the CUDA-core body on
-    the same bf16 tensors (what ran before the tensor-core body), the plain
-    version (cuDNN's f32 wgrad on the upcast inputs, TF32 off) and the library
+    workspace comes from the graph's pool): the kernel, the plain version
+    (cuDNN's f32 wgrad on the upcast inputs, TF32 off) and the library
     call, cuDNN's bf16 wgrad on the bf16 tensors (at full resolution for the
     phase kernel, the rearrangement not timed). Returns
     {kernel: {"max_abs_err", "ms", "plain_ms", "bound_ms", ...}}, times summed
     over the distinct shapes and the largest bf16 error. Ragged and
     odd-channel shapes run once each, untimed."""
-    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
+    from segmantic_tpu_torch.ops import fused_conv, phase_conv
     from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
     dev = torch.device("cuda")
@@ -889,17 +938,6 @@ def check_train_kernels(torch):
         full = (x.shape[0],) + tuple(2 * v for v in x.shape[1:4])
         return full, x.shape[-1] // 8, dy.shape[-1] // 8
 
-    def cuda_core_ms(name, x, dy):
-        """The CUDA-core body on the same tensors, by its C entry point."""
-        (b, d, h, w), c, co = geometry(name, x, dy)
-        entry = "segk_fused_conv3_dw" if name == "fused_conv_dw" else "segk_phase_conv3_dw"
-        ws = torch.empty(_cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co),
-                         dtype=torch.float32, device=dev)
-        out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=dev)
-        return _graph_ms(torch, lambda: _cuda.launch(
-            entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(), b, d, h, w, c,
-            co, int(x.dtype == bf16)))
-
     results = {}
     B = TRAIN_BATCH
     # (kernel, stored shape of x, stored channels of dy, launches per step)
@@ -923,7 +961,7 @@ def check_train_kernels(torch):
         deep = name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            want_body = ("cuda_cores" if dtype != bf16 else
+            want_body = ("f32_tiles" if dtype != bf16 else
                          "deep_channels" if deep else "tensor_cores")
             if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
@@ -939,7 +977,6 @@ def check_train_kernels(torch):
         if fill < 0.75:
             _fail(f"{name} {label}: K fill {fill:.3f} < 0.75")
         ms = _graph_ms(torch, lambda: kernel(x, dy))
-        oms = cuda_core_ms(name, x, dy)
         # the plain f32 wgrad takes up to ~0.1 s at the top stages: fewer replays
         slow = x.numel() > 2 ** 25
         pms = _graph_ms(torch, lambda: plain(x, dy), n=3 if slow else 10,
@@ -953,8 +990,8 @@ def check_train_kernels(torch):
         cms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
             xc.permute(0, 4, 1, 2, 3), (co_true, c_true, 3, 3, 3),
             dyc.permute(0, 4, 1, 2, 3), padding=1))
-        print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, CUDA-core "
-              f"body {oms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
+        print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain (f32) "
+              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
         if deep:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
@@ -975,7 +1012,7 @@ def check_train_kernels(torch):
 
     # odd shapes, untimed, bf16: extents that are a multiple of no brick; CO = 24
     # (a padded or a third N tile); C = 12 and CO = 20 (no 16-byte channel vector:
-    # the CUDA-core body by the rule); one brick, so one split and no reduce
+    # the f32 body by the rule); one brick, so one split and no reduce
     # launch; a phase shape with ragged full-resolution bricks; C = 1, 2, 7 and a
     # 1 -> 1 weight gradient in both layouts (the few-channel body, any CO; CO
     # % 8 != 0 staged value by value)
@@ -997,7 +1034,7 @@ def check_train_kernels(torch):
         want_body = ("few_channels" if c_true < 8 else "deep_channels"
                      if name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
                      else "tensor_cores"
-                     if c_true % 8 == 0 and co_true % 8 == 0 else "cuda_cores")
+                     if c_true % 8 == 0 and co_true % 8 == 0 else "f32_tiles")
         if body != want_body:
             _fail(f"{name} {x_shape}->{co}: the rule between the bodies")
         before = mod.dw_counter.count
@@ -1947,8 +1984,9 @@ def parity(torch, ckpt: Path, session):
 
 
 def _reset_counters():
-    """Every counter to 0, the deep bodies' too; returns the eight kernels'."""
-    for c in _deep_counters().values():
+    """Every counter to 0, the deep and f32 bodies' too; returns the eight
+    kernels'."""
+    for c in (*_deep_counters().values(), *_f32_counters().values()):
         c.reset()
     counters = _counters()
     for c in counters.values():
@@ -2671,10 +2709,10 @@ def check_unetr_pack_kernels(torch):
         print(f"    a step's {'forward, dx and dw' if with_dx else 'forward and dw'}: phase "
               f"kernels {kms:.4f} ms, cuDNN on the depth_to_space views with the "
               f"rearrangements {cms:.4f} ms ({'kernels' if kms <= cms else 'cuDNN'} faster)")
-        if ci == 1:  # f32 (mixed_precision=False) takes the CUDA-core phase bodies
+        if ci == 1:  # f32 (mixed_precision=False) takes the f32 phase bodies
             p32, gy32, w32, wc32 = p.float(), gy.float(), w.float(), wc.float()
             kind = conv_body_text(p32, ci, co, full, True, sms)[0]
-            if kind != "cuda_cores" or fused_conv.dw_body(p32, ci, co) != "cuda_cores":
+            if kind != "f32_tiles" or fused_conv.dw_body(p32, ci, co, True) != "f32_tiles":
                 _fail(f"phase_conv {label}: the rule sends f32 to the {kind} body")
 
             def kernel_f32():
@@ -2694,7 +2732,7 @@ def check_unetr_pack_kernels(torch):
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
             routes[f"{layers} f32"] = (kms, cms, tms)
-            print(f"    f32, a step's forward and dw: phase kernels (CUDA-core bodies) "
+            print(f"    f32, a step's forward and dw: phase kernels (f32 bodies) "
                   f"{kms:.4f} ms, cuDNN on the depth_to_space views {cms:.4f} ms with "
                   f"TF32 off, {tms:.4f} ms with TF32 on")
     return results, routes
@@ -3542,8 +3580,8 @@ def i2i_parity(torch):
     then a 3D generator and discriminator (1 x 32^3, base 16, 2 blocks), whose
     ResNet blocks' stride-1 3^3 convs run kernels 1 and 2 on the card: 12
     launches of kernel 1 an iteration (4 convs: the D step's forward, the G
-    step's forward and input gradients) and 4 of kernel 2. Returns the 3D
-    case's launches."""
+    step's forward and input gradients) and 4 of kernel 2, all on the f32
+    bodies. Returns the 3D case's launches."""
     import numpy as np
 
     rng = np.random.default_rng(12)
@@ -3552,7 +3590,7 @@ def i2i_parity(torch):
         src = rng.uniform(-1, 1, shape).astype(np.float32)
         return src, np.tanh(1.5 - 2.0 * src).astype(np.float32)
 
-    counters = _counters()
+    counters = {**_counters(), **_f32_counters()}
     old = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -3563,7 +3601,8 @@ def i2i_parity(torch):
         src, dst = pair((1,) + (I2I_PARITY_3D,) * 3 + (1,))
         got = _i2i_step_parity(torch, f"3D {I2I_PARITY_3D}^3 base 16", src, dst, 16, 2,
                                counters)
-        _expect_only("the 3D i2i iteration", got, {"fused_conv": 12, "fused_conv_dw": 4})
+        _expect_only("the 3D i2i iteration", got, {"fused_conv": 12, "fused_conv_dw": 4,
+                                                   "conv3_f32": 12, "conv3_f32_dw": 4})
     finally:
         torch.backends.cudnn.deterministic = old
     return got
@@ -3574,58 +3613,108 @@ def i2i_parity(torch):
 # 32^3) and the CLI's width on 64^3 and 32^3 inputs
 I2I_CONV_SHAPES = [((1, 8, 8, 8, 64), 64), ((1, 16, 16, 16, 256), 256),
                    ((2, 8, 8, 8, 256), 256)]
+# the flagship's stride-1 3^3 convs in f32 training (mixed_precision=False,
+# batch 8), and packed UNETR's one-channel input layer in f32 (96^3 x 1 -> 16
+# as the phase-major p 48^3 x 8): the f32 bodies' other rows
+F32_TRAIN_SHAPES = [((8, 48, 48, 48, 16), 16, False), ((8, 24, 24, 24, 32), 32, False),
+                    ((8, 12, 12, 12, 64), 64, False), ((8, 6, 6, 6, 256), 256, False),
+                    ((8, 48, 48, 48, 8), 16, True)]
 
 
 def check_i2i_kernels(torch):
-    """Kernels 1 and 2 at the 3D i2i generator's f32 shapes (the CUDA-core
-    bodies: f32 keeps TF32 out) against their plain versions (forward 1e-4 *
-    max|ref|, weight gradient 1e-3 * max|ref|, as the card tests hold f32),
-    timed by CUDA-graph replay beside the plain versions and cuDNN's f32
-    ``F.conv3d`` / ``conv3d_weight``; bound at the f32 peak. Returns {kernel:
-    {...}} as :func:`check_kernels`."""
-    from segmantic_tpu_torch.ops import fused_conv
+    """Kernels 1-2 (and 3-6 at one phase row) on the register-tiled f32
+    bodies (f32 keeps TF32 out): the 3D i2i generator's f32 shapes, the
+    flagship's f32 training shapes and f32 packed UNETR's input layer, each
+    against its plain version (forward 1e-4 * max|ref|, weight gradient 1e-3 *
+    max|ref|, as the card tests hold f32), one launch of the f32 body each,
+    bit-equal on repeat, with its launch plan, timed by CUDA-graph replay
+    beside the plain versions and cuDNN's f32 ``F.conv3d`` / ``conv3d_weight``
+    (on the full-resolution view for the phase row, the rearrangement not
+    timed; the phase row's plain forward eagerly: it uploads its tap
+    selection, which a graph cannot capture); bound at the f32 peak. Returns {kernel: {...}} as
+    :func:`check_kernels`, the f32 bodies' lines beside kernels 1-6's."""
+    from segmantic_tpu_torch.ops import fused_conv, phase_conv
+    from segmantic_tpu_torch.ops.fast_conv import depth_to_space
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(21)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
-    reps = dict(n=5, launches=5)
 
     def check(label, got, want, limit):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
-        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e})")
+        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e} = {limit:g} * max|ref|)")
         if err > limit * ref:
             _fail(f"{label} disagrees with its plain version")
         return err
 
-    for shape, co in I2I_CONV_SHAPES:
-        c = shape[-1]
+    def once(label, counter, fn):
+        """fn's result, checked to launch the f32 body once and to repeat bit for bit."""
+        before = counter.count
+        got = fn()
+        if counter.count != before + 1:
+            _fail(f"{label}: not one launch of the f32 body")
+        if not torch.equal(got, fn()):
+            _fail(f"{label}: a repeated launch is not bit-equal")
+        return got
+
+    rows = [(shape, co, False) for shape, co in I2I_CONV_SHAPES] + F32_TRAIN_SHAPES
+    for shape, co, phase in rows:
+        c = shape[-1] // (8 if phase else 1)
+        dims = (shape[0],) + tuple((2 if phase else 1) * v for v in shape[1:4])
         x = torch.randn(shape, generator=g, device=dev)
         w = torch.randn((3, 3, 3, c, co), generator=g, device=dev) * (27 * c) ** -0.5
-        dy = torch.randn(shape[:4] + (co,), generator=g, device=dev)
-        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        dy = torch.randn(shape[:4] + ((8 if phase else 1) * co,), generator=g, device=dev)
+        if phase:
+            conv, plain = phase_conv.phase_conv, phase_conv.phase_conv_plain
+            dwk, dwp = phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain
+            xc = depth_to_space(x, c).permute(0, 4, 1, 2, 3)
+            dyc = depth_to_space(dy, co).permute(0, 4, 1, 2, 3)
+            label = f"p{shape}->{8 * co} ({dims[1]}^3 x {c} -> {co}) f32"
+        else:
+            conv, plain = fused_conv.conv3d, fused_conv.conv3d_plain
+            dwk, dwp = fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain
+            xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+            label = f"x{shape}->{co} f32"
         wc = w.permute(4, 3, 0, 1, 2).contiguous()
-        ops = 2 * 27 * c * co * (x.numel() // c)
-        label = f"x{shape}->{co} f32"
-        k = lambda: fused_conv.conv3d(x, w)  # noqa: E731
-        err = check(f"fused_conv {label}", k(), fused_conv.conv3d_plain(x, w), 1e-4)
+        ops = 2 * 27 * c * co * (xc.numel() // c)
+        # the plain f32 versions take up to ~0.1 s at the largest rows: fewer replays
+        slow = dict(n=3, launches=1) if x.numel() > 2 ** 24 else dict(n=5, launches=5)
+        reps = dict(n=5, launches=5)
+        names = ("phase_conv", "phase_conv_dw") if phase else ("fused_conv", "fused_conv_dw")
+
+        body, text, _ = conv_body_text(x, c, co, dims, phase, sms)
+        if body != "f32_tiles" or fused_conv.dw_body(x, c, co, phase) != "f32_tiles":
+            _fail(f"{label}: the rule sends f32 to the {body} body")
+        k = lambda: conv(x, w)  # noqa: E731
+        got = once(f"{names[0]} {label}", fused_conv.f32_counter, k)
+        err = check(f"{names[0]} {label}", got, plain(x, w), 1e-4)
         ms = _graph_ms(torch, k, **reps)
-        pms = _graph_ms(torch, lambda: fused_conv.conv3d_plain(x, w), **reps)
+        pms = (_median_ms(torch, lambda: plain(x, w)) if phase
+               else _graph_ms(torch, lambda: plain(x, w), **slow))
         lms = _graph_ms(torch, lambda: torch.nn.functional.conv3d(xc, wc, padding=1), **reps)
-        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN f32 conv3d {lms:.4f} ms")
-        _record(results, "fused_conv", err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, w, k()),
-                ops=ops, peak=PEAK_F32, library_ms=lms)
-        k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
-        got = k()
-        err = check(f"fused_conv_dw {label}", got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+        print(f"    {text}; bit-equal on repeat; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+              f"{' (eager)' if phase else ''}, cuDNN f32 conv3d {lms:.4f} ms")
+        for name in (names[0], "conv3_f32"):
+            _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, w, got),
+                    ops=ops, peak=PEAK_F32, library_ms=lms, echo=name == names[0])
+
+        text = dw_body_text(x, c, co, dims, phase, sms)[1]
+        k = lambda: dwk(x, dy)  # noqa: E731
+        got = once(f"{names[1]} {label}", fused_conv.f32_dw_counter, k)
+        err = check(f"{names[1]} {label}", got, dwp(x, dy), 1e-3)
         ms = _graph_ms(torch, k, **reps)
-        pms = _graph_ms(torch, lambda: fused_conv.conv3d_dw_plain(x, dy), **reps)
+        pms = _graph_ms(torch, lambda: dwp(x, dy), **slow)
         lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
-            xc, (co, c, 3, 3, 3), dyc, padding=1), **reps)
-        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN f32 wgrad {lms:.4f} ms")
-        _record(results, "fused_conv_dw", err=err, ms=ms, plain_ms=pms,
-                nbytes=_nbytes(x, dy, got), ops=ops, peak=PEAK_F32, library_ms=lms)
+            xc, (co, c, 3, 3, 3), dyc, padding=1), **slow)
+        print(f"    {text}; bit-equal on repeat; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN "
+              f"f32 wgrad {lms:.4f} ms")
+        for name in (names[1], "conv3_f32_dw"):
+            _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                    ops=ops, peak=PEAK_F32, library_ms=lms, echo=name == names[1])
+        torch.cuda.empty_cache()
     return results
 
 
@@ -5049,8 +5138,9 @@ def phase_i2i_translate(run: Run) -> None:
 def phase_i2i_parity(run: Run) -> None:
     print("[i2i-parity] one f32 pix2pix iteration on the card against the f64 CPU iteration: "
           f"2D at full width (2 x {I2I_SLICE}^2), and a 3D generator and discriminator "
-          f"(1 x {I2I_PARITY_3D}^3, base 16, 2 blocks) through kernels 1 and 2; the 3D "
-          "generator's f32 conv shapes on both kernels")
+          f"(1 x {I2I_PARITY_3D}^3, base 16, 2 blocks) through kernels 1 and 2 on the f32 "
+          "bodies; the f32 bodies at the 3D generator's conv shapes, the flagship's f32 "
+          "training shapes and f32 packed UNETR's input layer")
     run.path("i2i-parity 3D", i2i_parity(run.torch))
     run.measure(check_i2i_kernels(run.torch))
 

@@ -6,9 +6,15 @@ batch, Adam, the phase-major Dice, as ``train()`` runs it by default; with
 UNETR packed, with the phase-major Dice on its phase-space head); with
 ``--augment`` the step ``train(augment_spatial=True, augment_intensity=True)``
 runs, on one fixed 8 x 144^3 bf16 margin batch (rotation + zoom through the
-shear-group kernel, intensity ops, flips, Gibbs and spike).
+shear-group kernel, intensity ops, flips, Gibbs and spike); with ``--f32`` the
+step ``train(mixed_precision=False)`` runs, in f32 (its 3^3 convs on the
+register-tiled f32 bodies); with ``--i2i3d`` one 3D pix2pix iteration (D
+step, then G step, Adam) of the i2i CLI's generator and discriminator (base
+64, 6 blocks, f32) on a 1 x 64^3 pair, whose block convs (16^3 x 256) run on
+the f32 bodies of kernels 1 and 2, timed and profiled in place of the step.
 
-    python3 profile_train_step.py [--steps 3] [--arch unet|segresnet|unetr] [--augment]
+    python3 profile_train_step.py [--steps 3] [--arch unet|segresnet|unetr] [--augment] [--f32]
+    python3 profile_train_step.py --i2i3d
 
 Prints the card's name and power limit; for the UNet and UNETR the two phase-Dice
 kernels alone at the step's shape by CUDA-graph replay; forward + loss,
@@ -40,11 +46,12 @@ GROUPS = [
     ("Dice dx kernel", ("dice_dx_kernel",)),
     ("FFTs (Gibbs, spike)", ("fft",)),
     ("dw kernels (fused_conv_dw, phase_conv_dw)",
-     ("conv3_dw_kernel", "conv3_dw_mma_kernel", "conv3_dw_wgmma_kernel", "conv3_fewc_dw_kernel")),
+     ("conv3_f32_dw_kernel", "conv3_dw_mma_kernel", "conv3_dw_wgmma_kernel",
+      "conv3_fewc_dw_kernel")),
     ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
     ("conv kernels fwd+dx (fused_conv, phase_conv)",
-     ("conv3_kernel", "conv3_mma_kernel", "conv3_wgmma_kernel", "conv3_fewc_kernel",
-      "wgmma_reduce_kernel")),
+     ("conv3_f32_kernel", "conv3_mma_kernel", "conv3_wgmma_kernel", "conv3_fewc_kernel",
+      "wgmma_reduce_kernel", "conv3_f32_reduce_kernel")),
     ("cuDNN convs (strided, transposed, 1x1)",
      ("cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
     ("GEMMs (cuBLAS: attention, MLP)", ("gemm", "cutlass", "xmma", "nvjet")),
@@ -78,6 +85,10 @@ def main() -> None:
                         help="the architecture, at full width")
     parser.add_argument("--augment", action="store_true",
                         help="profile the augmented step on a 8 x 144^3 margin batch")
+    parser.add_argument("--f32", action="store_true",
+                        help="profile the f32 step (mixed_precision=False)")
+    parser.add_argument("--i2i3d", action="store_true",
+                        help="profile a 3D pix2pix iteration (base 64, 6 blocks, 1 x 64^3)")
     args = parser.parse_args()
 
     import torch
@@ -100,6 +111,10 @@ def main() -> None:
     print(smi.stdout.strip() or "nvidia-smi: n/a")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     _cuda.build()
+    if args.i2i3d:
+        step, step_ms = i2i_iteration(torch)
+        profile_steps(torch, profile, ProfilerActivity, step, step_ms, args.steps, "iteration")
+        return
 
     arch_kw = {"arch": args.arch}
     if args.arch == "unetr":
@@ -110,7 +125,7 @@ def main() -> None:
     opt = make_optimizer(module.parameters(), {"optimizer": "Adam", "lr": 1e-4})
     image32, label = fixed_batch(torch, BATCH, 20)
     image32, label = image32.cuda(), label.cuda()
-    image = image32.to(torch.bfloat16)
+    image = image32 if args.f32 else image32.to(torch.bfloat16)
     target = space_to_depth(label[..., None])
     phase = module.phase_top_ok()  # the UNet's top stage, packed UNETR's head
     if phase != (args.arch != "segresnet"):
@@ -149,23 +164,56 @@ def main() -> None:
         gen = torch.Generator().manual_seed(3)
         aug = median_ms(torch, lambda: augment_batch(image32, label, gen, cfg, PATCH))
         print(f"augmentation alone {aug:.2f} ms (8 x 144^3 -> 96^3, median of 10 draws)")
-    step = make_train_step(module, opt, cfg, PATCH, mixed_precision=True,
+    step = make_train_step(module, opt, cfg, PATCH, mixed_precision=not args.f32,
                            generator=torch.Generator().manual_seed(4))
     step_ms = median_ms(torch, lambda: step(image32, label))
-    print(f"whole {'augmented ' if args.augment else ''}step via make_train_step "
-          f"{step_ms:.2f} ms (median of 10), "
+    print(f"whole {'augmented ' if args.augment else ''}{'f32 ' if args.f32 else ''}step via "
+          f"make_train_step {step_ms:.2f} ms (median of 10), "
           f"{BATCH * 96 ** 3 / step_ms * 1e3:.4g} labelled voxels/s")
+    profile_steps(torch, profile, ProfilerActivity, lambda: step(image32, label), step_ms,
+                  args.steps, "step")
 
+
+def i2i_iteration(torch):
+    """(one 3D pix2pix iteration, its median ms): the i2i CLI's generator and
+    discriminator (base 64, 6 blocks) in f32 on one 64^3 pair, Adam."""
+    import numpy as np
+
+    from segmantic_tpu_torch.i2i import train as i2i_train
+
+    rng = np.random.default_rng(12)
+    src = rng.uniform(-1, 1, (1, 64, 64, 64, 1)).astype(np.float32)
+    dst = np.tanh(1.5 - 2.0 * src).astype(np.float32)
+    gen, disc = i2i_train._init_pix2pix(src, dst, 64, 6, 0, "cuda")
+    d_step, g_step = i2i_train.make_pix2pix_steps(
+        gen, disc, i2i_train._make_optim(gen.parameters(), 2e-4),
+        i2i_train._make_optim(disc.parameters(), 2e-4), 100.0)
+    s, d = (torch.from_numpy(v).cuda() for v in (src, dst))
+
+    def iteration():
+        d_step(s, d)
+        g_step(s, d)
+
+    ms = median_ms(torch, iteration)
+    print(f"3D pix2pix iteration (base 64, 6 blocks, 1 x 64^3, f32) {ms:.2f} ms (median of 10)")
+    return iteration, ms
+
+
+def profile_steps(torch, profile, ProfilerActivity, step, step_ms: float, steps: int,
+                  what: str) -> None:
+    """Device kernel time per ``what`` by group under ``torch.profiler`` over
+    ``steps`` calls of ``step``, the busy share, the largest kernels and the
+    peak device memory."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        for _ in range(args.steps):
-            step(image32, label)
+        for _ in range(steps):
+            step()
         end.record()
         torch.cuda.synchronize()
-    span = start.elapsed_time(end) / args.steps
+    span = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated() / 2**20
 
     # device-side events, less the annotations that mirror host ops on the
@@ -174,30 +222,30 @@ def main() -> None:
     host_ops = {e.key for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in host_ops]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if total <= 0:
         sys.exit("profile_train_step: the profiler recorded no device time")
     groups = {name: 0.0 for name, _ in GROUPS} | {"other": 0.0}
     for e in kernels:
         key = e.key.lower()
         name = next((g for g, subs in GROUPS if any(s in key for s in subs)), "other")
-        groups[name] += e.self_device_time_total / 1e3 / args.steps
-    print(f"profiled {args.steps} steps: device kernel time {total:.2f} ms/step over "
+        groups[name] += e.self_device_time_total / 1e3 / steps
+    print(f"profiled {steps} {what}s: device kernel time {total:.2f} ms/{what} over "
           f"{len(kernels)} kernel names; busy share {total / step_ms:.3f} of the "
-          f"unprofiled step ({step_ms:.2f} ms), {total / span:.3f} of the profiled span "
-          f"({span:.2f} ms/step on CUDA events: the profiler's host cost stretches a "
-          f"step whose launches the host paces)")
+          f"unprofiled {what} ({step_ms:.2f} ms), {total / span:.3f} of the profiled span "
+          f"({span:.2f} ms/{what} on CUDA events: the profiler's host cost stretches a "
+          f"{what} whose launches the host paces)")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:8.3f} ms/step  {name}")
+        print(f"  {ms:8.3f} ms/{what}  {name}")
     others = [e for e in kernels
               if not any(sub in e.key.lower() for _, subs in GROUPS for sub in subs)]
     for e in sorted(others, key=lambda e: -e.self_device_time_total)[:5]:
-        print(f"    other: {e.self_device_time_total / 1e3 / args.steps:8.3f} ms/step  "
+        print(f"    other: {e.self_device_time_total / 1e3 / steps:8.3f} ms/{what}  "
               f"{e.key[:90]}")
     print("largest kernels:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3 / args.steps:8.3f} ms/step  "
-              f"x{e.count // args.steps:4d}  {e.key[:100]}")
+        print(f"  {e.self_device_time_total / 1e3 / steps:8.3f} ms/{what}  "
+              f"x{e.count // steps:4d}  {e.key[:100]}")
     print(f"peak device memory {peak:.0f} MiB (profiled steps)")
 
 

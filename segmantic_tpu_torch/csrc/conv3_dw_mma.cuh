@@ -2,7 +2,7 @@
 // 3x3x3 convolution for bf16 input with C % 8 == 0 and CO % 8 == 0
 // (fused_conv_dw.cu: dense NDHWC; phase_conv_dw.cu: phase-major tensors
 // standing for a 2x-upsampled volume). f32 input, and bf16 with any other
-// channel count, keep the CUDA-core body of conv3_dw.cuh: the f32 train step
+// channel count, take the f32 body of conv3_f32_dw.cuh: the f32 train step
 // is judged against f64 and TF32 would break that.
 //
 // It replaces the same Pallas kernels as that body:
@@ -55,10 +55,22 @@
 //   second launch is skipped. A repeated launch is bit-equal.
 #pragma once
 
-#include "conv3_dw.cuh"
 #include "conv3_mma.cuh"
 
 namespace segk {
+
+namespace {
+// out[i] = sum over the partials k = 0 .. parts-1, in that order: the second
+// launch of every weight-gradient body that splits its positions.
+__global__ void dw_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                                 long long n, int parts) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < parts; ++k) s += ws[(long long)k * n + i];
+  out[i] = s;
+}
+}  // namespace
 
 struct DwMmaArgs {
   const __nv_bfloat16* x;

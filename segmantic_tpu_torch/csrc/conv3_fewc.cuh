@@ -4,7 +4,7 @@
 // volume). It computes what conv3_mma.cuh computes, y = act(conv(x) * scale +
 // shift) with f32 accumulation, for the channel counts that body cannot take:
 // a 16-byte cp.async carries no channel vector when C < 8. The f32 kernels
-// keep the CUDA-core body of conv3.cuh.
+// take the f32 body of conv3_f32.cuh.
 //
 // It replaces the same Pallas kernels as the other bodies:
 // segmantic_tpu/ops/pallas_conv.py::_kernel (conv3d_packed_p) in the dense

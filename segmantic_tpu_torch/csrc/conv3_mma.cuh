@@ -1,7 +1,7 @@
 // Tensor-core body of the two stride-1 SAME 3x3x3 convolution kernels for
 // bf16 input (fused_conv.cu: dense NDHWC; phase_conv.cu: phase-major tensors
-// standing for a 2x-upsampled volume). The f32 kernels keep the CUDA-core
-// body of conv3.cuh: TF32 would cost them their 1e-6 agreement with the CPU.
+// standing for a 2x-upsampled volume). The f32 kernels take the f32 body of
+// conv3_f32.cuh: TF32 would cost them their 1e-6 agreement with the CPU.
 //
 // The conv is an implicit GEMM: M = output positions, N = output channels,
 // K = 27 taps x C input channels, f32 accumulation. Instruction: bf16

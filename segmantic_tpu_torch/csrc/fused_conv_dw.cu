@@ -17,26 +17,23 @@
 // and any CO the few-channel body (conv3_fewc_dw.cuh: the 96^3 one-channel
 // input layer), bf16 input with C, CO >= 64 the deep-channel body
 // (conv3_dw_wgmma.cuh: wgmma on a TMA-staged halo of x and brick of dy);
-// everything else is CUDA-core f32 FMA work.
-// What the CUDA-core design does about it (conv3_dw.cuh): output channels and the
-// three input-plane offsets spread over grid.y and grid.z, and the position
-// tiles over as many splits as it takes to put ~4 blocks on every SM; the
-// per-split partials are summed by a second pass in a fixed order, so the
-// result is deterministic without atomics.
-#include "conv3_dw.cuh"
+// everything else, f32 first of all, the register-tiled f32 body
+// (conv3_f32_dw.cuh: 8 x 8 tiles of (tap, ci) x co on FFMA, the tap group's
+// halo and the dy brick staged by cp.async, position splits with one partial
+// a block, summed by a second pass in a fixed order, so the result is
+// deterministic without atomics).
 #include "conv3_dw_mma.cuh"
 #include "conv3_dw_wgmma.cuh"
+#include "conv3_f32_dw.cuh"
 #include "conv3_fewc_dw.cuh"
 
-extern "C" long long segk_conv3_dw_workspace(int B, int D, int H, int W, int C, int CO) {
-  return segk::dw_workspace(segk::dw_plan(B, D, H, W, C, CO), C, CO);
-}
-
-extern "C" int segk_fused_conv3_dw(const void* x, const void* dy, float* ws, float* out,
-                                   int B, int D, int H, int W, int C, int CO, int in_bf16,
-                                   void* stream) {
-  return segk::launch_conv3_dw<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO,
-                                                  in_bf16, stream);
+extern "C" int segk_fused_conv3_dw_f32(const void* x, const void* dy, float* ws, float* out,
+                                       int B, int D, int H, int W, int C, int CO, int in_bf16,
+                                       int td, int th, int tw, int taps, int ci, int nt, int npg,
+                                       int splits, int stages, int smem_bytes, void* stream) {
+  return segk::launch_conv3_f32_dw<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO,
+                                                      in_bf16, td, th, tw, taps, ci, nt, npg,
+                                                      splits, stages, smem_bytes, stream);
 }
 
 extern "C" int segk_fused_conv3_dw_mma(const void* x, const void* dy, float* ws, float* out,

@@ -31,16 +31,22 @@
 // (segk_phase_conv3_fewc): 16-byte pieces of a row of block voxels staged as
 // they lie, and each lane's rows share one output phase, so its tap offsets
 // through the index map are constants. f32 input, and bf16 input with C > 8
-// and no multiple of 8, keep the CUDA-core body of conv3.cuh
-// (segk_phase_conv3).
+// and no multiple of 8, run the register-tiled f32 body of conv3_f32.cuh
+// (segk_phase_conv3_f32), whose staging reads each halo position through the
+// same map.
+#include "conv3_f32.cuh"
 #include "conv3_fewc.cuh"
 
-extern "C" int segk_phase_conv3(const void* p, const void* w, const float* scale,
-                                const float* shift, const float* alpha, int relu_mode,
-                                void* out, int B, int D2, int H2, int W2, int C, int CO,
-                                int in_bf16, int out_bf16, void* stream) {
-  return segk::launch_conv3<segk::PhaseLayout>(p, w, scale, shift, alpha, relu_mode, out, B,
-                                               D2, H2, W2, C, CO, in_bf16, out_bf16, stream);
+extern "C" int segk_phase_conv3_f32(const void* p, const void* w, const float* scale,
+                                    const float* shift, const float* alpha, int relu_mode,
+                                    void* out, float* ws, int B, int D2, int H2, int W2, int C,
+                                    int CO, int in_bf16, int out_bf16, int td, int th, int tw,
+                                    int nt, int ck, int splits, int stages, int smem_bytes,
+                                    void* stream) {
+  return segk::launch_conv3_f32<segk::PhaseLayout>(p, w, scale, shift, alpha, relu_mode, out,
+                                                   ws, B, D2, H2, W2, C, CO, in_bf16, out_bf16,
+                                                   td, th, tw, nt, ck, splits, stages,
+                                                   smem_bytes, stream);
 }
 
 extern "C" int segk_phase_conv3_mma(const void* p, const void* wp, const float* scale,

@@ -20,24 +20,26 @@
 // What bounds it on the card: the top stage has 7.08 M full-resolution
 // positions at batch 8 and only 8 x 8 channels, so 1,728 outputs share one
 // very long contraction, and the phase-major addresses make every staged row
-// alternate between two phase groups. What the design does about it: the
-// position tiles split over ~176 blocks per input-plane offset with 16
-// position groups per block, each writing its own partial; the fixed-order
-// second pass sums them deterministically. That is the CUDA-core body
-// (conv3_dw.cuh: f32 input, odd channel counts); bf16 input with Ci % 8 == 0
+// alternate between two phase groups. What the design does about it: f32
+// input (and bf16 with odd channel counts) runs the register-tiled f32 body
+// (conv3_f32_dw.cuh): at Ci = 1 a block of 32 position groups takes all 27
+// taps x 16 outputs, the position bricks split over ~264 blocks, one partial
+// each, summed in a fixed order by a second pass; bf16 input with Ci % 8 == 0
 // and Co % 8 == 0 runs the tensor-core body (conv3_dw_mma.cuh), which stages
 // 16-byte channel vectors through the same index map and keeps one partial
 // per split; bf16 input with Ci = 1..7 and any Co runs the few-channel body
 // (conv3_fewc_dw.cuh), which stages the rows of block voxels as they lie.
-#include "conv3_dw.cuh"
 #include "conv3_dw_mma.cuh"
+#include "conv3_f32_dw.cuh"
 #include "conv3_fewc_dw.cuh"
 
-extern "C" int segk_phase_conv3_dw(const void* p, const void* g, float* ws, float* out,
-                                   int B, int D2, int H2, int W2, int C, int CO,
-                                   int in_bf16, void* stream) {
-  return segk::launch_conv3_dw<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO,
-                                                  in_bf16, stream);
+extern "C" int segk_phase_conv3_dw_f32(const void* p, const void* g, float* ws, float* out,
+                                       int B, int D2, int H2, int W2, int C, int CO, int in_bf16,
+                                       int td, int th, int tw, int taps, int ci, int nt, int npg,
+                                       int splits, int stages, int smem_bytes, void* stream) {
+  return segk::launch_conv3_f32_dw<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO,
+                                                      in_bf16, td, th, tw, taps, ci, nt, npg,
+                                                      splits, stages, smem_bytes, stream);
 }
 
 extern "C" int segk_phase_conv3_dw_mma(const void* p, const void* g, float* ws, float* out,

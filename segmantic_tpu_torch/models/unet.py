@@ -120,8 +120,8 @@ class Conv(nn.Module):
         ``F.conv`` otherwise; a 1^nd kernel in phase space is the
         block-diagonal product of ``phase_pointwise_conv``. A phase-space
         conv from one true channel (packed UNETR's input layer) in f32 runs
-        on the CUDA-core phase bodies: 7.16 ms a step's forward and weight
-        gradient at 8 x 96^3 x 1 -> 16, against cuDNN's 2.98 ms on the
+        on the register-tiled f32 phase bodies: 0.99 ms a step's forward and
+        weight gradient at 8 x 96^3 x 1 -> 16, against cuDNN's 2.98 ms on the
         full-resolution view with TF32 and 108.1 ms without (PERF.md);
         bf16 takes the few-channel bodies (0.25 ms)."""
         if phase and w.shape[0] == 1:

@@ -38,21 +38,20 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "segk_fused_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
-    "segk_phase_conv3": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 8 + [_P],
     "segk_fused_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_mma": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_fused_conv3_wgmma": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 16 + [_P],
+    "segk_fused_conv3_f32": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 16 + [_P],
+    "segk_phase_conv3_f32": [_P, _P, _P, _P, _P, _I, _P, _P] + [_I] * 16 + [_P],
     "segk_fused_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_blend": [_P] * 5 + [_I] * 17 + [_P],
     "segk_blend_blocks_per_sm": [_I] * 2,
-    "segk_fused_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "segk_phase_conv3_dw": [_P, _P, _P, _P] + [_I] * 7 + [_P],
-    "segk_conv3_dw_workspace": [_I] * 6,
     "segk_fused_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_fused_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 15 + [_P],
+    "segk_fused_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
+    "segk_phase_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_fused_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],
@@ -62,7 +61,6 @@ _SIGNATURES = {
     "segk_dice_phase_sums": [_P] * 4 + [_I] * 4 + [_L, _L, _I, _I, _P],
     "segk_dice_phase_dx": [_P] * 5 + [_I] * 5 + [_L, _I, _I, _P],
 }
-_RESTYPES = {"segk_conv3_dw_workspace": ctypes.c_longlong}  # others: c_int error codes
 
 
 class LaunchCounter:
@@ -150,7 +148,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = _RESTYPES.get(name, ctypes.c_int)
+                fn.restype = ctypes.c_int  # an error code, or the value a query asks for
             _lib = lib
         return _lib
 

@@ -16,7 +16,7 @@ the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has four bodies, named by :func:`conv_body` from the input's
+The conv kernel has five bodies, named by :func:`conv_body` from the input's
 type, layout and channel counts. bf16 input in the dense layout with C, CO >=
 64 runs the deep-channel body (``csrc/conv3_wgmma.cuh``: ``wgmma`` with the
 halo and the weight tiles brought by TMA, split-K at small volumes) with the
@@ -28,11 +28,13 @@ input with C = 1..7 (the one-channel input layer of SegResNet and UNETR) the
 few-channel body (``csrc/conv3_fewc.cuh``: ``mma.sync`` on input planes
 staged along W, a rolling window of three along D) with the geometry of
 :func:`fewc_plan`; both take the weights packed by :func:`pack_weights`. f32
-input keeps the CUDA-core body (``csrc/conv3.cuh``), whose f32 FMAs agree with
-the CPU to ~1e-6 where TF32 would not; bf16 input with any other channel count
-takes it too. Either way the wrapper launches its kernel or raises.
+input runs the register-tiled f32 body (``csrc/conv3_f32.cuh``: an implicit
+GEMM on FFMA, the K units staged by ``cp.async`` into a ring, split-K at
+small volumes) with the geometry of :func:`f32_plan`, whose f32 FMAs agree
+with the CPU to ~1e-6 where TF32 would not; bf16 input with any other channel
+count takes it too. Either way the wrapper launches its kernel or raises.
 
-The dw kernel has four bodies as well, named by :func:`dw_body`: bf16 input
+The dw kernel has five bodies as well, named by :func:`dw_body`: bf16 input
 in the dense layout with C >= 64 and CO >= 128 runs the deep-channel body
 (``csrc/conv3_dw_wgmma.cuh``: ``wgmma`` on a TMA-staged halo of x and brick
 of dy) with the geometry of :func:`deep_dw_plan`; other bf16 input with
@@ -41,8 +43,9 @@ C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
 staged halo brick of x and brick of dy per step) with the launch geometry of
 :func:`dw_plan`; bf16 input with C = 1..7 and any CO the few-channel body
 (``csrc/conv3_fewc_dw.cuh``) with the geometry of :func:`fewc_dw_plan`; f32
-input and every other channel count keep the CUDA-core body
-(``csrc/conv3_dw.cuh``), whose plan lives on the C side.
+input and every other channel count the register-tiled f32 body
+(``csrc/conv3_f32_dw.cuh``: 8 x 8 tiles of (tap, ci) x co on FFMA, position
+splits with one partial a block) with the geometry of :func:`f32_dw_plan`.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ __all__ = [
     "counter", "dw_counter", "RELU_MODES", "ConvPlan", "plan", "pack_weights",
     "unpack_weights", "conv_body", "DwPlan", "dw_plan", "dw_body", "FewcPlan",
     "fewc_plan", "fewc_dw_plan", "deep_counter", "deep_dw_counter", "DeepPlan", "deep_plan",
-    "DeepDwPlan", "deep_dw_plan", "pack_weights_deep", "unpack_weights_deep",
+    "DeepDwPlan", "deep_dw_plan", "pack_weights_deep", "unpack_weights_deep", "f32_counter",
+    "f32_dw_counter", "F32Plan", "f32_plan", "F32DwPlan", "f32_dw_plan",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -71,6 +75,10 @@ dw_counter = _cuda.LaunchCounter("fused_conv_dw")
 # the deep-channel bodies' own launches, also counted by the two above
 deep_counter = _cuda.LaunchCounter("fused_conv_wgmma")
 deep_dw_counter = _cuda.LaunchCounter("fused_conv_dw_wgmma")
+# the register-tiled f32 bodies' launches (kernels 1-6), also counted by the
+# kernels' own counters
+f32_counter = _cuda.LaunchCounter("conv3_f32")
+f32_dw_counter = _cuda.LaunchCounter("conv3_f32_dw")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -172,8 +180,8 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     the input gradient, the conv co -> c, takes the same rule),
     ``"tensor_cores"`` for any other bf16 input whose channel vector is a
     whole number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16
-    input with c = 1..7, ``"cuda_cores"`` for f32 input and every other bf16
-    channel count."""
+    input with c = 1..7, ``"f32_tiles"`` (``csrc/conv3_f32.cuh``: register-tiled
+    f32 FFMA) for f32 input and every other bf16 channel count."""
     if _deep(x, c, co, phase, DEEP_MIN_CO):
         return "deep_channels"
     if x.dtype == torch.bfloat16:
@@ -181,7 +189,7 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
             return "tensor_cores"
         if c < 8:
             return "few_channels"
-    return "cuda_cores"
+    return "f32_tiles"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -674,7 +682,8 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
                  out, full_dims, packed_cache: Optional[dict] = None) -> None:
     """Shared launch of the two conv3 kernels (dense and phase layouts,
     ``entry`` ``segk_fused_conv3`` or ``segk_phase_conv3``) on the body
-    :func:`conv_body` names: ``entry`` (CUDA cores), ``entry + "_mma"``
+    :func:`conv_body` names: ``entry + "_f32"`` (f32, :func:`f32_plan`; counted
+    by ``f32_counter`` too), ``entry + "_mma"``
     (tensor cores, :func:`plan`), ``entry + "_fewc"`` (few channels,
     :func:`fewc_plan`) or ``entry + "_wgmma"`` (deep channels, dense only,
     :func:`deep_plan`; counted by ``deep_counter`` too). ``packed_cache``
@@ -693,15 +702,20 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
             b, d, h, w, c, co)
     phase = entry == "segk_phase_conv3"
     body = conv_body(x, c, co, phase)
-    if body == "cuda_cores":
-        if b * d > 65535:  # one grid row per (b, d) plane: CUDA's grid.z limit
-            raise ValueError(f"batch * depth = {b * d} exceeds 65535 planes")
-        _cuda.launch(entry, head[0], weights.data_ptr(), *head[1:],
-                     int(x.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16))
-        return
     if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
+    if body == "f32_tiles":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = f32_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 \
+            else out
+        _cuda.launch(entry + "_f32", head[0], weights.data_ptr(), *head[1:6], ws.data_ptr(),
+                     *head[6:], int(x.dtype == torch.bfloat16),
+                     int(out.dtype == torch.bfloat16), p.td, p.th, p.tw, p.nt, p.ck, p.splits,
+                     p.stages, p.smem_bytes)
+        f32_counter.count += 1
+        return
     out_bf16 = int(out.dtype == torch.bfloat16)
     if body == "deep_channels":
         if not _aligned(x):
@@ -754,7 +768,8 @@ def conv3d(
     ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
     C, CO >= 64 runs the deep-channel body (one launch, or two with split-K),
     other bf16 with C % 8 == 0 the tensor-core body, bf16 with C = 1..7 the
-    few-channel body, anything else the CUDA-core body (:func:`conv_body`)."""
+    few-channel body, anything else the register-tiled f32 body
+    (:func:`conv_body`)."""
     out_dtype = out_dtype or x.dtype
     if x.ndim != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
@@ -799,7 +814,8 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     ``"tensor_cores"`` for any other bf16 input whose
     two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
     co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
-    ``"cuda_cores"`` for f32 input and every other bf16 channel count."""
+    ``"f32_tiles"`` (``csrc/conv3_f32_dw.cuh``: register-tiled f32 FFMA) for
+    f32 input and every other bf16 channel count."""
     if x.dtype == torch.bfloat16 and c > 0 and co > 0:
         if _deep(x, c, co, phase, DEEP_DW_MIN_CO):
             return "deep_channels"
@@ -807,7 +823,7 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
             return "tensor_cores"
         if c < 8:
             return "few_channels"
-    return "cuda_cores"
+    return "f32_tiles"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1050,14 +1066,325 @@ def deep_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _S
     return found[1]
 
 
+# -- the register-tiled f32 bodies (csrc/conv3_f32.cuh, csrc/conv3_f32_dw.cuh) --
+
+_F32_MAX_THREADS = 256  # F32_MAX_THREADS; __launch_bounds__(256, 2): 128 registers a thread
+_F32_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (1, 2, 3, 4, 6, 8, 16),
+                                            (4, 8, 12, 16, 24, 32))
+               if 16 <= b[0] * b[1] * b[2] <= 512]
+# The cost counts' constants, fitted to the times of 20 candidates at each of
+# eight rows on an H100 (PERF.md; forward / weight gradient): a
+# scheduler issues one warp instruction a cycle at an efficiency that grows
+# with the warps it can pick from (0.2 / 0.15 of full a warp; a forward
+# tap's 32 FMAs and 8 / 3 loads count 1 / 1.25 of that), a block's resident
+# neighbours share its multiprocessor, a unit or brick exposes 100 / 400
+# cycles a resident block (its barriers, the transposition, the loads the
+# ring does not hide), a block 3000 / 1000 more (its first loads and its
+# stores), and the L2 feeds a multiprocessor 5 bytes a cycle when all of them
+# stage.
+_F32_WARP_EFF, _F32_DW_WARP_EFF = 0.2, 0.15
+_F32_TAP_ISSUE = (32 + 8 / 3) / 1.25  # a forward thread's cycles a (channel, tap)
+_F32_UNIT_CYCLES, _F32_DW_BRICK_CYCLES = 100, 400
+_F32_L2_BYTES = 5
+_F32_BLOCK_CYCLES, _F32_DW_BLOCK_CYCLES = 3000, 1000
+_F32_SPLIT_CYCLES = 3000  # the second launch that sums the splits
+F32_DW_CHAIN = 2048  # products an accumulator of the weight gradient sums at most
+
+
+def f32_row_pitch(tw: int) -> int:
+    """``f32_row_pitch``: floats between rows of the channel-major halo, at
+    least tw + 2 and 4 mod 8."""
+    return tw + 2 + (4 - (tw + 2) % 8) % 8
+
+
+def f32_smem_bytes(td: int, th: int, tw: int, nt: int, ck: int, stages: int) -> int:
+    """``f32_smem_bytes`` of ``csrc/conv3_f32.cuh``: ``stages`` ring slots of
+    the staged halo ([td][th+2][tw+2][ck], ck rounded to 4) and the weight
+    slab ([ck][9][nt]), then one channel-major halo and the table of the halo
+    positions' (z, y, x), 4 bytes each."""
+    npos = td * (th + 2) * (tw + 2)
+    raw = npos * (-(-ck // 4) * 4)
+    return 4 * (stages * (raw + ck * 9 * nt) + ck * td * (th + 2) * f32_row_pitch(tw)
+                + -(-npos // 4) * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """Launch geometry of the register-tiled f32 conv body, as the C entry
+    point takes it. A block of ``threads`` threads (the brick's rows of 4 W
+    positions x nt / 8 channel groups: a 4 x 8 tile a thread) owns a
+    ``td x th x tw`` brick, an N tile of ``nt`` output channels and the K
+    units (channel chunk of ``ck``, plane offset) ``[split * units // splits,
+    (split + 1) * units // splits)``; grid (nbricks, n_tiles, splits)."""
+
+    td: int
+    th: int
+    tw: int
+    nt: int
+    ck: int  # input channels a staged unit
+    n_tiles: int
+    nbricks: int
+    units: int  # 3 plane offsets x channel chunks
+    splits: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    workspace: int  # f32 values of the partials: splits * positions * CO, 0 with one split
+    fill: float  # real output positions / positions multiplied
+    blocks: int
+
+
+def _f32_per_sm(threads: int, smem: int) -> int:
+    return min(_SM_SMEM // (smem + 1024), 2048 // threads, _SM_REGS // (threads * 128))
+
+
+def _issue_cycles(warp_instr: float, warps_per_smsp: float, eff: float) -> float:
+    """Cycles a scheduler takes for ``warps_per_smsp`` warps of
+    ``warp_instr`` instructions each, at ``eff`` of full issue a warp."""
+    return warp_instr * warps_per_smsp / min(1.0, eff * warps_per_smsp)
+
+
+def _split_counts(n: int):
+    return sorted({s for s in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96) if s <= n} | {n})
+
+
+def _f32_candidates(dims, c: int, co: int, sms: int):
+    """Every (cost key, F32Plan) :func:`f32_plan` chooses among."""
+    b, d, h, w = dims
+    positions = b * d * h * w
+    for nt in (16, 32, 64):
+        if nt > 16 and nt >= 2 * co:
+            continue  # a tile more than half padding columns
+        n_tiles = -(-co // nt)
+        if n_tiles > 65535:
+            continue
+        for td, th, tw in _F32_BRICKS:
+            if tw % 4:
+                continue
+            threads = td * th * (tw // 4) * (nt // 8)
+            if threads % 32 or not 128 <= threads <= _F32_MAX_THREADS:  # as timed
+                continue
+            nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+            if nbricks >= 2 ** 31:
+                continue
+            fill = positions / (nbricks * td * th * tw)
+            for ck in ((4, 8, 16) if c >= 4 else (c,)):  # 16-byte pieces: a power of two
+                if ck >= 2 * c and ck > 4:
+                    continue
+                nch = -(-c // ck)
+                units = 3 * nch
+                stages = next((st for st in (3, 2) if _f32_per_sm(
+                    threads, f32_smem_bytes(td, th, tw, nt, ck, st)) >= 1), None)
+                if stages is None:
+                    continue
+                smem = f32_smem_bytes(td, th, tw, nt, ck, stages)
+                per_sm = _f32_per_sm(threads, smem)
+                staged = (td * (th + 2) * (tw + 2) + 9 * nt) * ck * 4
+                for splits in _split_counts(units):
+                    blocks = nbricks * n_tiles * splits
+                    if splits > 65535:
+                        continue
+                    on_sm = -(-blocks // sms)
+                    resident = min(on_sm, per_sm)
+                    per_block = -(-units // splits)
+                    # a unit of a block: its FFMA and shared loads, issued beside the
+                    # other resident blocks, or its bytes from the L2
+                    unit = max(_issue_cycles(9 * ck * _F32_TAP_ISSUE, resident * threads / 128,
+                                             _F32_WARP_EFF),
+                               resident * staged / _F32_L2_BYTES) + _F32_UNIT_CYCLES * resident
+                    # blocks past a full round fill the next one
+                    cycles = max(1.0, on_sm / per_sm) * (per_block * unit + _F32_BLOCK_CYCLES)
+                    if splits > 1:
+                        cycles += (2 * splits * 4 + 4) * positions * co / (sms * 32) \
+                            + _F32_SPLIT_CYCLES
+                    yield (cycles, -fill, splits), F32Plan(
+                        td=td, th=th, tw=tw, nt=nt, ck=ck, n_tiles=n_tiles, nbricks=nbricks,
+                        units=units, splits=splits, stages=stages, threads=threads,
+                        smem_bytes=smem, workspace=splits * positions * co if splits > 1 else 0,
+                        fill=fill, blocks=blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -> F32Plan:
+    """The brick, N tile, channel chunk, ring and K splits of one launch of
+    the register-tiled f32 conv body for a (B, D, H, W) grid of output
+    positions (full resolution for the phase layout), C input and CO output
+    channels.
+
+    Among N tiles of 16, 32 or 64, the bricks of a fixed list that give a
+    block 128-256 threads, chunks of
+    4, 8 or 16 channels and a few split counts, it takes the cheapest by a
+    rough count of cycles on the busiest of ``sms`` multiprocessors (each
+    unit's FFMA issue beside the other resident blocks, or its bytes from the
+    L2, plus the unit's exposed barriers and loads; for more than one split
+    the partials and the second launch). The ring takes 3 slots where a block
+    still fits, else 2."""
+    if c < 1 or co < 1:
+        raise ValueError(f"the f32 conv body needs C, CO >= 1, got C = {c}, CO = {co}")
+    found = min(_f32_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no f32 launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
+def f32_dw_ci_pitch(ci: int) -> int:
+    """``f32_dw_ci_pitch``: floats between the staged halo's positions, ci
+    rounded to 4 and an odd number of quads."""
+    r = -(-ci // 4) * 4
+    return r + 4 if r % 8 == 0 else r
+
+
+def f32_dw_threads(taps: int, ci: int, nt: int, npg: int) -> int:
+    return npg * -(-taps * ci // 8) * (nt // 8)
+
+
+def f32_dw_smem_bytes(td: int, th: int, tw: int, taps: int, ci: int, nt: int, npg: int,
+                      stages: int) -> int:
+    """``f32_dw_smem_bytes`` of ``csrc/conv3_f32_dw.cuh``: the tables of the
+    halo and brick positions' (z, y, x), then ``stages`` slots of the tap
+    group's x halo and the dy brick ([p][nt + 4]), which the position groups'
+    sum (threads x 64 floats) reuses; 4 bytes each."""
+    p = td * th * tw
+    nh = (td + (2 if taps == 27 else 0)) * (th + 2) * (tw + 2)
+    ring = stages * (nh * f32_dw_ci_pitch(ci) + p * (nt + 4))
+    red = f32_dw_threads(taps, ci, nt, npg) * 64 if npg > 1 else 0
+    return 4 * (-(-nh // 4) * 4 + -(-p // 4) * 4 + max(ring, red))
+
+
+@dataclasses.dataclass(frozen=True)
+class F32DwPlan:
+    """Launch geometry of the register-tiled f32 dw body, as the C entry
+    point takes it. A block of ``threads`` threads (``npg`` position groups x
+    the row groups of ``taps * ci`` (tap, ci) rows x nt / 8 channel groups)
+    owns a tap group, a tile of ``ci`` input and one of ``nt`` output
+    channels, and walks the bricks ``split, split + splits, ...``; grid
+    (splits, n_tg * n_ci * n_co), the tap group fastest."""
+
+    td: int
+    th: int
+    tw: int
+    taps: int  # taps a block: 9 (one kz) or 27
+    ci: int
+    nt: int
+    npg: int  # position groups a block
+    n_tg: int
+    n_ci: int
+    n_co: int
+    splits: int
+    stages: int
+    threads: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    workspace: int  # f32 values: splits * 27 * C * CO, 0 with one split
+    nbricks: int
+    chain: int  # products an accumulator sums
+    fill: float  # real positions / positions walked
+
+
+_F32_DW_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (2, 3, 4, 6, 8, 16),
+                                               (4, 6, 8, 12, 16, 24, 32))
+                  if 32 <= b[0] * b[1] * b[2] <= 512]
+
+
+def _f32_dw_candidates(dims, c: int, co: int, sms: int):
+    """Every (cost key, F32DwPlan) :func:`f32_dw_plan` chooses among."""
+    b, d, h, w = dims
+    positions = b * d * h * w
+    n_out = 27 * c * co
+    for taps in (27, 9):
+        n_tg = 27 // taps
+        for ci in ((4, 8, 16, 32, 64) if c >= 4 else (c,)):  # a power of two
+            if ci >= 2 * c and ci > 4:
+                continue
+            rows = -(-taps * ci // 8)
+            n_ci = -(-c // ci)
+            for nt in (8, 16, 32, 64):
+                if nt > 8 and nt >= 2 * co:
+                    continue
+                n_co = -(-co // nt)
+                tiles = n_tg * n_ci * n_co
+                if tiles > 65535:
+                    continue
+                for npg in (1, 2, 4, 8, 16, 32):
+                    threads = f32_dw_threads(taps, ci, nt, npg)
+                    if not 128 <= threads <= _F32_MAX_THREADS:  # as timed
+                        continue
+                    for td, th, tw in _F32_DW_BRICKS:
+                        p = td * th * tw
+                        if npg > td * th:  # a position group takes whole (z, y) rows
+                            continue
+                        nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+                        fill = positions / (nbricks * p)
+                        stages = next((st for st in (3, 2) if _f32_per_sm(
+                            threads, f32_dw_smem_bytes(td, th, tw, taps, ci, nt, npg, st)) >= 1),
+                                      None)
+                        if stages is None:
+                            continue
+                        smem = f32_dw_smem_bytes(td, th, tw, taps, ci, nt, npg, stages)
+                        per_sm = _f32_per_sm(threads, smem)
+                        staged = ((td + (2 if taps == 27 else 0)) * (th + 2) * (tw + 2) * ci
+                                  + p * nt) * 4
+                        per_group = -(-td * th // npg) * tw
+                        # a brick of a block: 64 FFMA and 4-10 loads a position of
+                        # each thread, issued beside the other resident blocks, or its
+                        # bytes from the L2, plus its exposed barrier and loads
+                        instr = per_group * (64 + (6 if ci % 4 == 0 else 12))
+                        for splits in sorted({1, 2, 4, 8, 16, 32, 64, 128, 256, 512}
+                                             | {max(1, sms * per_sm // tiles)}):
+                            if splits > nbricks:
+                                continue
+                            chain = -(-nbricks // splits) * per_group
+                            if chain > F32_DW_CHAIN:
+                                continue
+                            blocks = tiles * splits
+                            on_sm = -(-blocks // sms)
+                            resident = min(on_sm, per_sm)
+                            brick = max(_issue_cycles(instr, resident * threads / 128,
+                                                      _F32_DW_WARP_EFF),
+                                        resident * staged / _F32_L2_BYTES) \
+                                + _F32_DW_BRICK_CYCLES * resident
+                            cycles = max(1.0, on_sm / per_sm) * (
+                                -(-nbricks // splits) * brick + _F32_DW_BLOCK_CYCLES)
+                            if splits > 1:
+                                cycles += 2 * splits * n_out * 4 / (sms * 32) + _F32_SPLIT_CYCLES
+                            yield (cycles, -fill, splits), F32DwPlan(
+                                td=td, th=th, tw=tw, taps=taps, ci=ci, nt=nt, npg=npg,
+                                n_tg=n_tg, n_ci=n_ci, n_co=n_co, splits=splits, stages=stages,
+                                threads=threads, grid=(splits, tiles), smem_bytes=smem,
+                                workspace=splits * n_out if splits > 1 else 0, nbricks=nbricks,
+                                chain=chain, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -> F32DwPlan:
+    """The brick, tap group, channel tiles, position groups, ring and
+    position splits of one launch of the register-tiled f32 dw body for a
+    (B, D, H, W) grid of positions (full resolution for the phase layout), C
+    input and CO output channels: among tap groups of 27 or 9 taps, tiles of
+    4-64 input and 8-64 output channels, 1-32 position groups (128-256
+    threads a block), the
+    bricks of a fixed list and a few split counts that keep an accumulator's
+    chain within ``F32_DW_CHAIN`` products, the cheapest by a rough count of
+    cycles on the busiest of ``sms`` multiprocessors (each brick's FFMA issue
+    beside the other resident blocks, or its bytes from the L2, plus its
+    exposed barrier; for more than one split the partials and the second
+    launch). The ring takes 3 slots where a block still fits, else 2."""
+    if c < 1 or co < 1:
+        raise ValueError(f"the f32 dw body needs C, CO >= 1, got C = {c}, CO = {co}")
+    found = min(_f32_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no f32 dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
 def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tensor:
     """Shared launch of the two dw kernels (dense and phase layouts, ``entry``
     ``segk_fused_conv3_dw`` or ``segk_phase_conv3_dw``) on the body
     :func:`dw_body` names: ``entry + "_wgmma"`` (deep channels, dense only,
     :func:`deep_dw_plan`; counted by ``deep_dw_counter`` too), ``entry +
     "_mma"`` (tensor cores, :func:`dw_plan`), ``entry + "_fewc"`` (few
-    channels, :func:`fewc_dw_plan`) or ``entry`` (CUDA
-    cores, whose plan and workspace size the C side computes). With more than
+    channels, :func:`fewc_dw_plan`) or ``entry + "_f32"`` (f32,
+    :func:`f32_dw_plan`; counted by ``f32_dw_counter`` too). With more than
     one split the partials go to a workspace and a second kernel sums them in
     a fixed order."""
     for t, name in ((x, "x"), (dy, "dy")):
@@ -1066,15 +1393,19 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
     phase = entry == "segk_phase_conv3_dw"
     body = dw_body(x, c, co, phase)
-    if body == "cuda_cores":
-        n = _cuda.query("segk_conv3_dw_workspace", b, d, h, w, c, co)
-        ws = torch.empty(n, dtype=torch.float32, device=x.device)
-        _cuda.launch(entry, x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                     b, d, h, w, c, co, int(x.dtype == torch.bfloat16))
-        return out
     if d * h * w * max(c, co) >= 2 ** 31:  # the kernel's offsets inside a sample are 32-bit
         raise ValueError(f"one sample of {d}x{h}x{w} positions x {max(c, co)} channels "
                          "exceeds 2^31 values")
+    if body == "f32_tiles":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = f32_dw_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 \
+            else out
+        _cuda.launch(entry + "_f32", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     b, d, h, w, c, co, int(x.dtype == torch.bfloat16), p.td, p.th, p.tw,
+                     p.taps, p.ci, p.nt, p.npg, p.splits, p.stages, p.smem_bytes)
+        f32_dw_counter.count += 1
+        return out
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if body == "deep_channels":
         if not (_aligned(x) and _aligned(dy)):
@@ -1113,7 +1444,7 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
     device bf16 input with C >= 64 and CO >= 128 runs the deep-channel body,
     other bf16 with C % 8 == 0 and CO % 8 == 0 the tensor-core body, bf16 with
-    C = 1..7 the few-channel body, anything else the CUDA-core body
+    C = 1..7 the few-channel body, anything else the register-tiled f32 body
     (:func:`dw_body`)."""
     if x.ndim != 5 or dy.ndim != 5:
         raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")

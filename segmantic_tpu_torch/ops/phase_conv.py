@@ -17,7 +17,8 @@ the body ``fused_conv.conv_body`` / ``dw_body`` names: the tensor-core body
 for bf16 input with Ci % 8 == 0 (the weight gradient: and Co % 8 == 0; launch
 plans ``fused_conv.plan`` / ``dw_plan``), the few-channel body for bf16 input
 with Ci = 1..7 (packed UNETR's one-channel input layer; ``fused_conv.fewc_plan``
-/ ``fewc_dw_plan`` with ``phase=True``), the CUDA-core body otherwise; CPU
+/ ``fewc_dw_plan`` with ``phase=True``), the register-tiled f32 body otherwise
+(``fused_conv.f32_plan`` / ``f32_dw_plan`` at full resolution); CPU
 tensors run :func:`phase_conv_plain` and :func:`phase_conv_dw_plain`.
 :func:`phase_conv_grad` is the ``torch.autograd.Function`` over both.
 """

@@ -99,8 +99,8 @@ def test_dw_plan_refuses_other_channel_counts(c, co):
 
 @pytest.mark.parametrize("dtype,c,co,expect", [
     (torch.bfloat16, 16, 16, "tensor_cores"), (torch.bfloat16, 8, 24, "tensor_cores"),
-    (torch.float32, 16, 16, "cuda_cores"),  # f32 keeps its f32 FMAs
-    (torch.bfloat16, 12, 16, "cuda_cores"), (torch.bfloat16, 16, 20, "cuda_cores"),
+    (torch.float32, 16, 16, "f32_tiles"),  # f32 keeps its f32 FMAs
+    (torch.bfloat16, 12, 16, "f32_tiles"), (torch.bfloat16, 16, 20, "f32_tiles"),
     (torch.bfloat16, 3, 5, "few_channels"),  # C = 1..7: the few-channel body, any CO
 ])
 def test_route_rule(dtype, c, co, expect):

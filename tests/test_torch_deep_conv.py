@@ -205,12 +205,12 @@ def test_four_way_route_rule(phase, dtype, c, co):
     deep = (dtype == torch.bfloat16 and not phase and c % 8 == 0 and co % 8 == 0
             and c >= 64 and co >= 64)
     if dtype == torch.float32:
-        conv = dw = "cuda_cores"
+        conv = dw = "f32_tiles"
     elif c < 8:
         conv = dw = "few_channels"
     else:
-        conv = "tensor_cores" if c % 8 == 0 else "cuda_cores"
-        dw = "tensor_cores" if c % 8 == 0 and co % 8 == 0 else "cuda_cores"
+        conv = "tensor_cores" if c % 8 == 0 else "f32_tiles"
+        dw = "tensor_cores" if c % 8 == 0 and co % 8 == 0 else "f32_tiles"
     if deep:  # the dw body from CO = 128
         conv = "deep_channels"
         dw = "deep_channels" if co >= 128 else dw

@@ -150,9 +150,9 @@ def test_fewc_plans_refuse_other_channel_counts(c, co):
 def test_three_way_route_rule(dtype, c, co):
     x = torch.zeros((1, 2, 2, 2, c), dtype=dtype)
     if dtype == torch.float32:
-        conv, dw = "cuda_cores", "cuda_cores"  # f32 keeps its f32 FMAs
+        conv, dw = "f32_tiles", "f32_tiles"  # f32 keeps its f32 FMAs
     elif c % 8 == 0:
-        conv, dw = "tensor_cores", ("tensor_cores" if co % 8 == 0 else "cuda_cores")
+        conv, dw = "tensor_cores", ("tensor_cores" if co % 8 == 0 else "f32_tiles")
     else:
         conv, dw = "few_channels", "few_channels"
     assert fused_conv.conv_body(x, c, co) == conv

@@ -167,11 +167,11 @@ def test_plan_is_sane_at_ragged_shapes(dims, c, co):
 def test_plan_refuses_channel_counts_without_16_byte_vectors():
     """The tensor-core plan refuses C % 8 != 0; the rule sends those channel
     counts elsewhere: bf16 C = 1..7 to the few-channel body, f32 and bf16
-    C = 12 to the CUDA-core body."""
+    C = 12 to the register-tiled f32 body."""
     with pytest.raises(ValueError, match="C % 8"):
         fused_conv.plan((1, 8, 8, 8), 12, 8)
     x = torch.zeros((1, 2, 2, 2, 16), dtype=torch.bfloat16)
     assert fused_conv.conv_body(x, 16, 16) == "tensor_cores"
-    assert fused_conv.conv_body(x.float(), 16, 16) == "cuda_cores"
-    assert fused_conv.conv_body(x[..., :12], 12, 16) == "cuda_cores"
+    assert fused_conv.conv_body(x.float(), 16, 16) == "f32_tiles"
+    assert fused_conv.conv_body(x[..., :12], 12, 16) == "f32_tiles"
     assert fused_conv.conv_body(torch.zeros((1, 2, 2, 2, 24)).bfloat16(), 3, 16) == "few_channels"

@@ -11,7 +11,8 @@ TF32 off for the plain version); bf16 2e-2 * max|ref| (the plain version
 rounds the conv output to bf16 before its epilogue); the blend is bit-equal.
 bf16 convs with C, CO >= 64 (dense) run the deep-channel body, other bf16
 convs with C % 8 == 0 the tensor-core body, bf16 with C = 1..7 the
-few-channel body, f32 and the other bf16 channel counts the CUDA-core body; a
+few-channel body, f32 and the other bf16 channel counts the register-tiled f32
+body (``csrc/conv3_f32.cuh``); a
 repeated conv launch is bit-equal.
 The weight gradients sum over every position (up to ~10^5 terms here): f32
 1e-3 * max|ref|, bf16 inputs 2e-2 * max|ref|; a repeated dw launch is
@@ -20,7 +21,8 @@ CO >= 128 (dense) run the deep-channel dw body, others with C % 8 == 0 and
 CO % 8 == 0 the tensor-core dw body, held to 1e-3 * max|ref| at every dw
 shape of a flagship step (both sides sum the same exactly upcast products in
 f32, in another order), bf16 with C = 1..7 and any CO the few-channel dw body,
-held to the same; f32 and the other channel counts the CUDA-core body.
+held to the same; f32 and the other channel counts the register-tiled f32 dw
+body (``csrc/conv3_f32_dw.cuh``).
 The shear group does two products and one sum per output: order 0 and the
 bf16-weight mode are bit-equal to the plain version, f32 within 1e-6 *
 max|ref| (the plain version's matrix product may fuse the multiply and add).
@@ -70,7 +72,7 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("shape,co,relu_mode", [
     ((2, 5, 7, 9, 3), 5, "prelu"),  # ragged tiles, C and CO below a tile
-    ((2, 5, 7, 9, 12), 5, "prelu"),  # bf16: C % 8 != 0 above 8, the CUDA-core body
+    ((2, 5, 7, 9, 12), 5, "prelu"),  # bf16: C % 8 != 0 above 8, the f32 body
     ((4, 12, 12, 12, 64), 64, "relu"),
     ((1, 6, 6, 6, 128), 256, "none"),  # several channel chunks and CO tiles
     ((4, 6, 6, 6, 128), 128, "prelu"),  # the bottom of the flagship UNet
@@ -94,7 +96,7 @@ def test_fused_conv(cuda, shape, co, relu_mode, dtype, tol):
     cache = {}  # the packed weights kept between calls, as the executor keeps them
     for _ in range(2):
         assert torch.equal(got, fused_conv.conv3d(x, w, packed_cache=cache, **kw))
-    assert len(cache) == int(fused_conv.conv_body(x, shape[-1], co) != "cuda_cores")
+    assert len(cache) == int(fused_conv.conv_body(x, shape[-1], co) != "f32_tiles")
 
 
 @pytest.mark.parametrize("shape,co", [
@@ -124,7 +126,7 @@ def test_conv_refuses_a_sample_beyond_32_bit_offsets(cuda):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("shape,ci,co", [
     ((1, 3, 4, 5, 24), 3, 3),
-    ((1, 3, 4, 5, 96), 12, 5),  # bf16: C % 8 != 0 above 8, the CUDA-core body
+    ((1, 3, 4, 5, 96), 12, 5),  # bf16: C % 8 != 0 above 8, the f32 body
     ((2, 6, 8, 16, 64), 8, 8),  # the top decoder stage's L = 64
     ((1, 4, 4, 4, 128), 16, 16),  # the second stage's L = 128
     ((2, 10, 11, 13, 64), 8, 8),  # full-resolution extents a multiple of no brick
@@ -504,8 +506,8 @@ def test_deep_launchers_refuse_a_plan_with_another_shared_memory_sum(cuda):
 
 # (x shape, CO): the stride-1 3^3 convs of a 3D i2i generator's ResNet blocks
 # (4 * base channels at a quarter of the input), f32 as i2i trains, so the
-# CUDA-core bodies: base 16 on a 32^3 input, and the CLI's base 64 on 64^3 and
-# 32^3 inputs
+# register-tiled f32 bodies: base 16 on a 32^3 input, and the CLI's base 64 on
+# 64^3 and 32^3 inputs
 I2I_SHAPES = [((1, 8, 8, 8, 64), 64), ((1, 16, 16, 16, 256), 256), ((2, 8, 8, 8, 256), 256)]
 
 
@@ -516,16 +518,80 @@ def test_i2i_generator_conv_shapes_f32(cuda, shape, co):
     x = _randn(g, *shape)
     w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5)
     dy = _randn(g, *shape[:4], co)
-    assert fused_conv.conv_body(x, c, co) == fused_conv.dw_body(x, c, co) == "cuda_cores"
-    fused_conv.counter.reset()
-    fused_conv.dw_counter.reset()
+    assert fused_conv.conv_body(x, c, co) == fused_conv.dw_body(x, c, co) == "f32_tiles"
+    for counter in (fused_conv.counter, fused_conv.dw_counter, fused_conv.f32_counter,
+                    fused_conv.f32_dw_counter):
+        counter.reset()
     got = fused_conv.conv3d(x, w)
     dw = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.counter.count == 1 and fused_conv.dw_counter.count == 1
+    assert fused_conv.f32_counter.count == 1 and fused_conv.f32_dw_counter.count == 1
     _close(got, fused_conv.conv3d_plain(x, w), 1e-4)
     _close(dw, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
     assert torch.equal(got, fused_conv.conv3d(x, w))
     assert torch.equal(dw, fused_conv.conv3d_dw(x, dy))
+
+
+# (layout, stored shape of x, true CO): the f32 bodies at ragged extents, C
+# from 1 (4-byte staging, a chunk of one channel) to past a 16-channel chunk,
+# CO past an N tile or not a multiple of 4 (scalar stores)
+F32_ODD = [("dense", (2, 5, 7, 9, 12), 20), ("dense", (1, 6, 6, 6, 3), 7),
+           ("dense", (3, 1, 1, 1, 24), 5), ("dense", (1, 3, 4, 70, 16), 16),
+           ("phase", (1, 3, 4, 5, 8), 16), ("phase", (1, 2, 3, 4, 8 * 20), 6)]
+
+
+@pytest.mark.parametrize("layout,shape,co", F32_ODD)
+def test_f32_bodies_at_ragged_shapes(cuda, layout, shape, co):
+    """The register-tiled f32 conv and dw bodies against their plain versions
+    (f32 1e-4 / 1e-3 * max|ref|), one launch of each body, the epilogue
+    (PReLU) after a K split's sum, bit-equal on repeat."""
+    g = torch.Generator().manual_seed(23)
+    phase = layout == "phase"
+    c = shape[-1] // (8 if phase else 1)
+    x = _randn(g, *shape)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5)
+    dy = _randn(g, *shape[:4], (8 if phase else 1) * co)
+    kw = dict(bias=_randn(g, co), scale=_randn(g, co).abs() + 0.5, shift=_randn(g, co),
+              alpha=torch.tensor([0.2], device=cuda), relu_mode="prelu")
+    conv, plain = ((phase_conv.phase_conv, phase_conv.phase_conv_plain) if phase
+                   else (fused_conv.conv3d, fused_conv.conv3d_plain))
+    dwk, dwp = ((phase_conv.phase_conv_dw, phase_conv.phase_conv_dw_plain) if phase
+                else (fused_conv.conv3d_dw, fused_conv.conv3d_dw_plain))
+    assert fused_conv.conv_body(x, c, co, phase) == fused_conv.dw_body(x, c, co, phase) == \
+        "f32_tiles"
+    fused_conv.f32_counter.reset()
+    fused_conv.f32_dw_counter.reset()
+    got, dw = conv(x, w, **kw), dwk(x, dy)
+    assert fused_conv.f32_counter.count == 1 and fused_conv.f32_dw_counter.count == 1
+    _close(got, plain(x, w, **kw), 1e-4)
+    _close(dw, dwp(x, dy), 1e-3)
+    assert torch.equal(got, conv(x, w, **kw)) and torch.equal(dw, dwk(x, dy))
+
+
+def test_f32_launchers_refuse_a_plan_they_did_not_size(cuda):
+    """The C launchers compute the shared memory of a plan themselves and
+    refuse one that disagrees with the wrapper's (the launch never runs)."""
+    g = torch.Generator().manual_seed(24)
+    dims, c, co = (1, 8, 8, 8), 16, 16
+    x, dy = _randn(g, *dims, c), _randn(g, *dims, co)
+    w = _randn(g, 3, 3, 3, c, co)
+    s, t = fused_conv._epilogue_vectors(co, None, None, None, x.device)
+    out = torch.empty_like(dy)
+    p = fused_conv.f32_plan(dims, c, co)
+    ws = torch.empty(max(p.workspace, 1), device=cuda)
+    args = (x.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0, out.data_ptr(),
+            ws.data_ptr(), *dims, c, co, 0, 0, p.td, p.th, p.tw, p.nt, p.ck, p.splits, p.stages)
+    _cuda.launch("segk_fused_conv3_f32", *args, p.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_f32", *args, p.smem_bytes + 16)
+    q = fused_conv.f32_dw_plan(dims, c, co)
+    dws = torch.empty(max(q.workspace, 1), device=cuda)
+    dout = torch.empty((3, 3, 3, c, co), device=cuda)
+    args = (x.data_ptr(), dy.data_ptr(), dws.data_ptr(), dout.data_ptr(), *dims, c, co, 0, q.td,
+            q.th, q.tw, q.taps, q.ci, q.nt, q.npg, q.splits, q.stages)
+    _cuda.launch("segk_fused_conv3_dw_f32", *args, q.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_f32", *args, q.smem_bytes + 16)
 
 
 def test_i2i_3d_generator_runs_its_block_convs_on_the_kernels(cuda):
@@ -563,7 +629,7 @@ def test_dw_other_channel_counts_keep_the_cuda_core_body(cuda, shape, co):
     g = torch.Generator().manual_seed(17)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
-    assert fused_conv.dw_body(x, shape[-1], co) == "cuda_cores"
+    assert fused_conv.dw_body(x, shape[-1], co) == "f32_tiles"
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.dw_counter.count == 1
