@@ -127,11 +127,22 @@ KERNELS = {
                   "segmantic_tpu/ops/pallas_conv.py:173"),
     "conv3_f32_dw": ("segmantic_tpu_torch/csrc/conv3_f32_dw.cuh",
                      "segmantic_tpu/ops/pallas_conv.py:289"),
+    # the mid-channel bodies of kernels 1-6 (bf16, C + CO >= 48; the dw: C and
+    # CO multiples of 64 below CO = 128 at 24^3-sized volumes), beside the
+    # kernels' totals, which include them
+    "conv3_mid": ("segmantic_tpu_torch/csrc/conv3_mid.cuh",
+                  "segmantic_tpu/ops/phase_gemm.py:266,327"),
+    "conv3_mid_dw": ("segmantic_tpu_torch/csrc/conv3_mid_dw.cuh",
+                     "segmantic_tpu/ops/pallas_conv.py:289"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
 # takes CO >= 128)
 FLAGSHIP_DEEP, FLAGSHIP_DEEP_DW = 5, 3
+# and on the mid-channel conv body: the two 24^3 x 32 convs a forward (a step
+# twice that, the input gradients); its weight gradients stay on the
+# tensor-core body (12^3 is below the mid dw body's volume)
+FLAGSHIP_MID = 2
 # published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
@@ -243,6 +254,13 @@ def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"tiles x {p.splits} K splits = {p.blocks} blocks, ring of {p.stages}, "
                       f"tile fill {p.fill:.3f}, "
                       f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
+    if body == "mid_channels":
+        p = fused_conv.mid_plan(dims, c, co, phase, sms)
+        return body, (f"mid-channel body (wgmma, A and B by descriptor): brick "
+                      f"{p.td}x{p.th}x{p.tw}{' block voxels x 8 phases' if phase else ''}, "
+                      f"{p.nwg} warpgroups of {p.spw} m64 slabs, N tile {p.nt}, {p.nchunks} "
+                      f"chunk(s) of {p.ck} channels, {p.nbricks} bricks over {p.grid_x} blocks "
+                      f"x {p.n_tiles} N tiles, ring of {p.stages}, tile fill {p.fill:.3f}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.plan(dims, c, co, 2, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile "
@@ -275,6 +293,13 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"blocks, ring of {p.stages}, K fill {p.fill:.3f}, workspace "
                       f"{p.workspace * 4 / 1e6:.2f} MB, "
                       f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
+    if body == "mid_channels":
+        p = fused_conv.mid_dw_plan(dims, c, co, sms)
+        return body, (f"mid-channel body (wgmma, both operands MN-major by descriptor): brick "
+                      f"{p.td}x{p.th}x{p.tw}, {p.nwg * p.tpw} taps a block of {p.nwg} "
+                      f"warpgroups, {p.splits} splits, {p.grid[0] * p.grid[1]} blocks, ring of "
+                      f"{p.stages}, K fill {p.fill:.3f}, workspace {p.workspace * 4 / 1e6:.2f} MB, "
+                      f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.dw_plan(dims, c, co, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, "
@@ -295,24 +320,60 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                   f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
 
 
-def tensor_core_conv_ms(torch, x, w) -> float:
-    """Device ms of the tensor-core conv body (``conv3_mma.cuh``, what kernel 1
-    ran at every bf16 C % 8 == 0 shape before the deep-channel body) on the
-    same tensors, called through its C entry point with its own plan; no
-    epilogue, bf16 out."""
+def tensor_core_conv_ms(torch, x, w, phase: bool = False) -> float:
+    """Device ms of the tensor-core conv body (``conv3_mma.cuh``) on the same
+    tensors (``phase``: x phase-major), called through its C entry point with
+    its own plan; no epilogue, bf16 out. The rule keeps that body for bf16 C
+    % 8 == 0 convs below both the deep band (C, CO >= 64, dense) and the mid
+    band (C + CO >= 48; phase C % 16 == 0): the 96^3 x 16 phase stage, 96^3 x
+    8, 48^3 x 16 and C = 8 in phase space; this times it beside the bodies
+    that took its other rows."""
     from segmantic_tpu_torch.ops import _cuda, fused_conv
 
     b, d, h, w_ = x.shape[:4]
+    f = 2 if phase else 1
     c, co = w.shape[-2:]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    p = fused_conv.plan((b, d, h, w_), c, co, 2, sms)
+    p = fused_conv.plan((b, f * d, f * h, f * w_), c, co, 2, sms)
     packed = fused_conv.pack_weights(w, p.nt)
     s, t = fused_conv._epilogue_vectors(co, None, None, None, x.device)
-    out = torch.empty((b, d, h, w_, co), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, d, h, w_, (8 if phase else 1) * co), dtype=torch.bfloat16,
+                      device=x.device)
+    entry = "segk_phase_conv3_mma" if phase else "segk_fused_conv3_mma"
     return _graph_ms(torch, lambda: _cuda.launch(
-        "segk_fused_conv3_mma", x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(),
-        None, 0, out.data_ptr(), b, d, h, w_, c, co, 1, p.td, p.th, p.tw, p.warps, p.nt, p.ck,
-        p.stages, int(p.resident), p.grid_x, p.smem_bytes))
+        entry, x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(),
+        None, 0, out.data_ptr(), b, f * d, f * h, f * w_, c, co, 1, p.td, p.th, p.tw, p.warps,
+        p.nt, p.ck, p.stages, int(p.resident), p.grid_x, p.smem_bytes))
+
+
+def mid_conv_entry_ms(torch, x, w, phase: bool = False):
+    """(max|d| over max|ref|, device ms) of the mid-channel conv body
+    (``conv3_mid.cuh``) on the same tensors, called through its C entry
+    point with its own plan, no epilogue, bf16 out: the row's time on the
+    new body where the rule (C + CO >= 48) keeps the tensor-core body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
+
+    b, d, h, w_ = x.shape[:4]
+    f = 2 if phase else 1
+    c, co = w.shape[-2:]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = fused_conv.mid_plan((b, f * d, f * h, f * w_), c, co, phase, sms)
+    packed = fused_conv.pack_weights_mid(w, p.nt, p.ck)
+    s, t = fused_conv._epilogue_vectors(co, None, None, None, x.device)
+    out = torch.empty((b, d, h, w_, (8 if phase else 1) * co), dtype=torch.bfloat16,
+                      device=x.device)
+    entry = "segk_phase_conv3_mid" if phase else "segk_fused_conv3_mid"
+
+    def run():
+        _cuda.launch(entry, x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0,
+                     out.data_ptr(), b, f * d, f * h, f * w_, c, co, 1, p.td, p.th, p.tw, p.ck,
+                     p.nt, p.spw, p.nwg, p.grid_x, p.stages, p.smem_bytes)
+
+    run()
+    want = (phase_conv.phase_conv_plain if phase else fused_conv.conv3d_plain)(x, w)
+    torch.cuda.synchronize()
+    rel = ((out.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    return rel, _graph_ms(torch, run)
 
 
 def tensor_core_dw_ms(torch, x, dy) -> float:
@@ -330,6 +391,33 @@ def tensor_core_dw_ms(torch, x, dy) -> float:
     return _graph_ms(torch, lambda: _cuda.launch(
         "segk_fused_conv3_dw_mma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
         b, d, h, w_, c, co, p.td, p.th, p.tw, p.ck, p.nt, p.splits, p.stages, p.smem_bytes))
+
+
+def mid_dw_entry_ms(torch, x, dy):
+    """(max|d| over max|ref|, device ms) of the mid-channel dw body
+    (``conv3_mid_dw.cuh``) on the same tensors, called through its C entry
+    point with its own plan: the row's time on the new body where the rule
+    (at least ``MID_DW_MIN_POSITIONS`` positions) keeps the tensor-core
+    body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_ = x.shape[:4]
+    c, co = x.shape[-1], dy.shape[-1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = fused_conv.mid_dw_plan((b, d, h, w_), c, co, sms)
+    ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+
+    def run():
+        _cuda.launch("segk_fused_conv3_dw_mid", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, c, co, p.td, p.th, p.tw, p.tpw, p.nwg,
+                     p.splits, p.stages, p.smem_bytes)
+
+    run()
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
 
 
 def deep_dw_entry_ms(torch, x, dy):
@@ -437,14 +525,21 @@ def check_kernels(torch):
                 print(f"    bf16, repeated launch bit-equal; {plan_text}")
                 print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
                       f"plain {pms:.4f} ms, cuDNN conv3d + bias {lms:.4f} ms")
-                if body == "deep_channels":
+                if body in ("deep_channels", "mid_channels"):
                     print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
                           f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
+                elif fused_conv.mid_eligible(shape[-1], co, False) and shape[-1] < 64:
+                    rel, mms = mid_conv_entry_ms(torch, x, w)
+                    print(f"    the mid-channel body (conv3_mid.cuh, left out by the rule at "
+                          f"C + CO < 48) on the same tensors: {mms:.4f} ms, max|d| / max|ref| "
+                          f"{rel:.2e}")
+                    if rel > 2e-2:
+                        _fail(f"fused_conv {label}: the mid-channel body disagrees")
                 if fill < 0.75:
                     _fail(f"fused_conv {label}: tile fill {fill:.3f} < 0.75")
                 positions = x.numel() // shape[-1]
-                for name in ("fused_conv",) + (("fused_conv_wgmma",)
-                                               if body == "deep_channels" else ()):
+                bodies = {"deep_channels": ("fused_conv_wgmma",), "mid_channels": ("conv3_mid",)}
+                for name in ("fused_conv",) + bodies.get(body, ()):
                     _record(results, name, err=err, ms=ms, plain_ms=pms,
                             nbytes=_nbytes(x, w, k(),
                                            *(v for v in kw.values() if torch.is_tensor(v))),
@@ -473,6 +568,13 @@ def check_kernels(torch):
                 print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
                       f"cuDNN conv3d at full resolution {lms:.4f} ms; plain {pms:.4f} ms "
                       f"(eager calls)")
+                if fused_conv.mid_eligible(c, c, True):
+                    rel, mms = mid_conv_entry_ms(torch, p_in, w, phase=True)
+                    print(f"    the mid-channel body (conv3_mid.cuh, left out by the rule at "
+                          f"C + CO < 48) on the same tensors: {mms:.4f} ms, max|d| / max|ref| "
+                          f"{rel:.2e}")
+                    if rel > 2e-2:
+                        _fail(f"phase_conv {label}: the mid-channel body disagrees")
                 if fill < 0.75:
                     _fail(f"phase_conv {label}: tile fill {fill:.3f} < 0.75")
                 _record(results, "phase_conv", err=err, ms=ms, plain_ms=pms,
@@ -485,7 +587,10 @@ def check_kernels(torch):
     # channel vector above 8: the f32 body), bf16 -> f32 output, and
     # bf16 with C = 1, 2, 3, 7 (no 16-byte channel vector: the few-channel body
     # by the wrapper's rule; W * C whole 16-byte pieces or not) and CO = 1 (a
-    # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch
+    # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch; on
+    # the mid-channel body C = 40 (three chunks of 16, the last half zero), CO
+    # = 5 (scalar stores), CO = 72 (two N tiles), C = 8 (paired taps) and
+    # phase CO = 24 and 40
     for name, shape, c, co in [("fused_conv", (2, 5, 7, 9, 64), 64, 192),
                                ("fused_conv", (2, 5, 7, 9, 96), 96, 72),
                                ("fused_conv", (1, 6, 6, 6, 72), 72, 64),
@@ -497,6 +602,10 @@ def check_kernels(torch):
                                ("fused_conv", (2, 6, 10, 32, 2), 2, 16),
                                ("fused_conv", (1, 4, 6, 17, 7), 7, 24),
                                ("fused_conv", (2, 5, 7, 16, 1), 1, 1),
+                               ("fused_conv", (2, 5, 7, 9, 40), 40, 24),
+                               ("fused_conv", (1, 3, 9, 13, 48), 48, 5),
+                               ("fused_conv", (1, 4, 5, 70, 32), 32, 72),
+                               ("fused_conv", (2, 5, 7, 9, 8), 8, 40),
                                ("phase_conv", (2, 10, 11, 13, 8 * 24), 24, 5),
                                ("phase_conv", (1, 5, 7, 9, 8 * 8), 8, 16),
                                ("phase_conv", (1, 3, 4, 5, 8 * 3), 3, 3),
@@ -504,7 +613,9 @@ def check_kernels(torch):
                                ("phase_conv", (2, 3, 4, 5, 8), 1, 16),
                                ("phase_conv", (1, 3, 4, 8, 8 * 2), 2, 8),
                                ("phase_conv", (1, 2, 3, 4, 8 * 7), 7, 5),
-                               ("phase_conv", (1, 3, 4, 5, 8), 1, 1)]:
+                               ("phase_conv", (1, 3, 4, 5, 8), 1, 1),
+                               ("phase_conv", (1, 3, 5, 7, 8 * 32), 32, 24),
+                               ("phase_conv", (2, 2, 3, 5, 8 * 16), 16, 40)]:
         x = randn(*shape).to(bf16)
         w = randn(3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(bf16)
         kw = dict(bias=randn(co, scale=0.1), scale=randn(co).abs() + 0.5,
@@ -516,8 +627,18 @@ def check_kernels(torch):
         body = fused_conv.conv_body(x, c, co, name == "phase_conv")
         if body != ("few_channels" if c < 8 else
                     "deep_channels" if name == "fused_conv" and min(c, co) >= 64 else
+                    "mid_channels" if c + co >= 48 and shape[2] % 8 == 0 and shape[3] % 8 == 0
+                    and fused_conv.mid_eligible(c, co, name == "phase_conv") else
                     "tensor_cores" if c % 8 == 0 else "f32_tiles"):
             _fail(f"{name} ragged {shape}: the rule sends C = {c} to the {body} body")
+        if body != "mid_channels" and c + co >= 48 and min(c, co) < 64 \
+                and fused_conv.mid_eligible(c, co, name == "phase_conv"):
+            # a ragged grid the rule keeps off the mid-channel body: that body alone
+            rel = mid_conv_entry_ms(torch, x, w, phase=name == "phase_conv")[0]
+            print(f"  {name} ragged {tuple(shape)} C={c}->{co} on the mid-channel body's entry "
+                  f"point: max|d| / max|ref| {rel:.2e} (limit 2e-2) {'ok' if rel <= 2e-2 else 'FAIL'}")
+            if rel > 2e-2:
+                _fail(f"{name} ragged {shape}: the mid-channel body disagrees")
         for out_dtype in (bf16, torch.float32):
             before = mod.counter.count
             compare(name, f"ragged {tuple(shape)} C={c}->{co} out {str(out_dtype)[6:]} "
@@ -526,7 +647,8 @@ def check_kernels(torch):
                     lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
-            if body in ("few_channels", "deep_channels", "f32_tiles") and not torch.equal(
+            if body in ("few_channels", "deep_channels", "mid_channels", "f32_tiles") and \
+                    not torch.equal(
                     fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
                 _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
 
@@ -716,7 +838,8 @@ def report_conv_build(lib: Path) -> None:
     spills per instantiation, from the build log beside the library) and,
     where the toolkit has ``cuobjdump``, how many tensor-core (HMMA),
     ``ldmatrix`` (LDSM) and asynchronous copy (LDGSTS) opcodes their SASS
-    holds. Spills fail nothing; a kernel without HMMA does."""
+    holds; the same for the deep-, mid-channel and f32 bodies (wgmma: HGMMA).
+    Spills fail nothing; a kernel without HMMA or HGMMA does."""
     import re
     import shutil
 
@@ -744,6 +867,17 @@ def report_conv_build(lib: Path) -> None:
               f"instantiations, registers {min(f[3] for f in found)}-{max(f[3] for f in found)}"
               f", spill bytes {sum(f[4] for f in found)}; "
               + ", ".join(f"{nt}x{k}x{g}:{regs}" for nt, k, g, regs, _ in sorted(found)))
+    mid = ("conv3_mid_kernel", "conv3_mid_dw_kernel")
+    for name in mid:  # <PHASE, CK, NT, SPW, NWG> and <TPW, NWG, KS>
+        found = set()
+        for line, regs, _, spill in _ptxas_reports(lib, name):
+            m = re.search(name + r"I((?:Li\d+E)+)", line)
+            if m:
+                found.add(("x".join(re.findall(r"Li(\d+)E", m.group(1))), regs, spill))
+        print(f"  ptxas, {name}<{'TPW, NWG, KS' if 'dw' in name else 'PHASE, CK, NT, SPW, NWG'}>: "
+              f"{len(found)} instantiations, registers {min(f[1] for f in found)}-"
+              f"{max(f[1] for f in found)}, spill bytes {sum(f[2] for f in found)}; "
+              + ", ".join(f"{a}:{r}" for a, r, _ in sorted(found)))
     f32 = ("conv3_f32_kernel", "conv3_f32_dw_kernel")
     for name in f32:  # <Tin, Tout, Layout, PW> and <Tin, Layout, RV>
         found = {(line.split("'")[1] if "'" in line else line, regs, spill)
@@ -772,6 +906,21 @@ def report_conv_build(lib: Path) -> None:
               f"(cp.async), {c['LDS.128']} LDS.128")
         if not c["FFMA"] or not c["LDGSTS"] or not c["LDS.128"]:
             _fail(f"{name} holds no FFMA, no LDGSTS or no LDS.128 opcode")
+    mid_counts = {name: {"HGMMA": 0, "STS.128": 0, "UTMALDG": 0, "UBLKCP": 0} for name in mid}
+    inside = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = next((name for name in mid if name in line), None)
+        elif inside:
+            for key in mid_counts[inside]:
+                if f" {key}." in line or f" {key} " in line:
+                    mid_counts[inside][key] += 1
+    for name, c in mid_counts.items():
+        print(f"  SASS of the {name} instantiations: {c['HGMMA']} HGMMA (wgmma), {c['STS.128']} "
+              f"STS.128 (the staged planes), {c['UTMALDG']} UTMALDG (TMA), {c['UBLKCP']} UBLKCP "
+              f"(bulk copy)")
+        if not c["HGMMA"]:
+            _fail(f"{name} holds no HGMMA opcode")
     deep_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0, "UBLKCP": 0} for name in deep}
     inside = None
     for line in sass.splitlines():
@@ -817,6 +966,14 @@ def _f32_counters():
     from segmantic_tpu_torch.ops import fused_conv
 
     return {"conv3_f32": fused_conv.f32_counter, "conv3_f32_dw": fused_conv.f32_dw_counter}
+
+
+def _mid_counters():
+    """The mid-channel bodies' own counters (their launches also count in
+    kernels 1-6's)."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return {"conv3_mid": fused_conv.mid_counter, "conv3_mid_dw": fused_conv.mid_dw_counter}
 
 
 def _counters():
@@ -959,10 +1116,12 @@ def check_train_kernels(torch):
         label = (f"x{x_shape}->{co}" if name == "fused_conv_dw"
                  else f"p{x_shape} C={c_true}") + f" ({per_step} per step)"
         deep = name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
+        mid = (name == "fused_conv_dw" and not deep and c_true % 64 == 0 and co_true % 64 == 0
+               and x32.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS)
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            want_body = ("f32_tiles" if dtype != bf16 else
-                         "deep_channels" if deep else "tensor_cores")
+            want_body = ("f32_tiles" if dtype != bf16 else "deep_channels" if deep else
+                         "mid_channels" if mid else "tensor_cores")
             if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
@@ -992,7 +1151,7 @@ def check_train_kernels(torch):
             dyc.permute(0, 4, 1, 2, 3), padding=1))
         print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain (f32) "
               f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
-        if deep:
+        if deep or mid:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
         elif name == "fused_conv_dw" and min(c_true, co_true) >= 64:
@@ -1001,7 +1160,14 @@ def check_train_kernels(torch):
                   f"128) on the same tensors: {dms:.4f} ms, max|d| / max|ref| {rel:.2e}")
             if rel > 1e-3:
                 _fail(f"{name} {label}: the deep-channel body disagrees")
-        for rec in (name,) + (("fused_conv_dw_wgmma",) if deep else ()):
+            rel, mms = mid_dw_entry_ms(torch, x, dy)
+            print(f"    the mid-channel body (conv3_mid_dw.cuh, left out by the rule below "
+                  f"{fused_conv.MID_DW_MIN_POSITIONS} positions) on the same tensors: "
+                  f"{mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+            if rel > 1e-3:
+                _fail(f"{name} {label}: the mid-channel body disagrees")
+        bodies = (("fused_conv_dw_wgmma",) if deep else ("conv3_mid_dw",) if mid else ())
+        for rec in (name,) + bodies:
             _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
                     ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
                     library_ms=cms, echo=rec == name)
@@ -1015,7 +1181,8 @@ def check_train_kernels(torch):
     # the f32 body by the rule); one brick, so one split and no reduce
     # launch; a phase shape with ragged full-resolution bricks; C = 1, 2, 7 and a
     # 1 -> 1 weight gradient in both layouts (the few-channel body, any CO; CO
-    # % 8 != 0 staged value by value)
+    # % 8 != 0 staged value by value); C = 64 and 128 -> 64 above the mid
+    # body's least volume, ragged (the mid-channel body, two chunks of 64)
     odd = [("fused_conv_dw", (2, 5, 7, 9, 64), 192), ("fused_conv_dw", (2, 5, 7, 9, 96), 72),
            ("fused_conv_dw", (1, 6, 6, 6, 72), 64),
            ("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
@@ -1025,14 +1192,18 @@ def check_train_kernels(torch):
            ("fused_conv_dw", (2, 5, 7, 9, 1), 8), ("fused_conv_dw", (2, 6, 10, 32, 2), 16),
            ("fused_conv_dw", (1, 4, 6, 17, 7), 24), ("fused_conv_dw", (2, 5, 7, 16, 1), 1),
            ("phase_conv_dw", (2, 3, 4, 5, 8), 8 * 16), ("phase_conv_dw", (1, 3, 4, 8, 8 * 2), 8 * 8),
-           ("phase_conv_dw", (1, 2, 3, 4, 8 * 7), 8 * 5), ("phase_conv_dw", (1, 3, 4, 5, 8), 8)]
+           ("phase_conv_dw", (1, 2, 3, 4, 8 * 7), 8 * 5), ("phase_conv_dw", (1, 3, 4, 5, 8), 8),
+           ("fused_conv_dw", (2, 24, 26, 30, 64), 64), ("fused_conv_dw", (1, 20, 30, 70, 128), 64)]
     for name, x_shape, co in odd:
         mod, kernel, plain = modules(name)
         x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
         dims, c_true, co_true = geometry(name, x, dy)
         body, text, _ = dw_body_text(x, c_true, co_true, dims, name == "phase_conv_dw", sms)
+        dense64 = name == "fused_conv_dw" and c_true % 64 == 0 and co_true % 64 == 0
         want_body = ("few_channels" if c_true < 8 else "deep_channels"
                      if name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
+                     else "mid_channels" if dense64
+                     and x.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS
                      else "tensor_cores"
                      if c_true % 8 == 0 and co_true % 8 == 0 else "f32_tiles")
         if body != want_body:
@@ -1527,6 +1698,8 @@ def run_train(torch, work: Path):
     seconds = time.perf_counter() - t0
     launches = {name: c.count for name, c in counters.items()}
     launches.update(_launches(_deep_counters()))  # the deep convs on the deep-channel bodies
+    # and the 24^3 ones on the mid-channel conv body (no dw of the flagship takes its dw body)
+    launches["conv3_mid"] = _mid_counters()["conv3_mid"].count
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -1554,13 +1727,14 @@ def run_train(torch, work: Path):
                            mixed_precision=True)
     image, label = fixed_batch(torch, TRAIN_BATCH, 20)
     _reset_counters()
-    deep = _deep_counters()
+    deep = {**_deep_counters(), **_mid_counters()}
     step(image.cuda(), label.cuda())
     torch.cuda.synchronize()
-    want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW}
-    print(f"  deep-channel bodies, one step: {_launches(deep)} (expected {want})")
+    want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW,
+            "conv3_mid": 2 * FLAGSHIP_MID, "conv3_mid_dw": 0}
+    print(f"  deep- and mid-channel bodies, one step: {_launches(deep)} (expected {want})")
     if _launches(deep) != want:
-        _fail(f"the flagship's deep convs (fwd, dx, dw) did not all run on the deep-channel "
+        _fail(f"the flagship's deep and mid convs (fwd, dx, dw) did not all run on their "
               f"bodies: {_launches(deep)}, expected {want}")
     ms, times, loss_hist, peak = warm_steps(torch, step, image.cuda(), label.cuda())
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
@@ -1984,9 +2158,10 @@ def parity(torch, ckpt: Path, session):
 
 
 def _reset_counters():
-    """Every counter to 0, the deep and f32 bodies' too; returns the eight
-    kernels'."""
-    for c in (*_deep_counters().values(), *_f32_counters().values()):
+    """Every counter to 0, the deep, mid and f32 bodies' too; returns the
+    eight kernels'."""
+    for c in (*_deep_counters().values(), *_mid_counters().values(),
+              *_f32_counters().values()):
         c.reset()
     counters = _counters()
     for c in counters.values():
@@ -2230,11 +2405,12 @@ def run_cross_validate(torch, work: Path):
 ARCHS = {
     "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
                   "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False,
-                  "deep": (8, 0)},
+                  "deep": (8, 0), "mid": (6, 0)},
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
-              "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4)},
+              "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4),
+              "mid": (7, 4)},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
@@ -2313,7 +2489,10 @@ def check_arch_kernels(torch):
 
         kind, body, _ = conv_body_text(x, c, co, dims, False, sms)
         deep = min(c, co) >= 64
-        if kind != ("few_channels" if c < 8 else "deep_channels" if deep else "tensor_cores"):
+        mid = (not deep and c + co >= fused_conv.MID_MIN_CHANNELS and shape[2] % 8 == 0
+               and shape[3] % 8 == 0 and fused_conv.mid_eligible(c, co, False))
+        if kind != ("few_channels" if c < 8 else "deep_channels" if deep else
+                    "mid_channels" if mid else "tensor_cores"):
             _fail(f"fused_conv {label}: the rule sends C = {c} to the {kind} body")
         cache = {}  # the packed weights, packed once: the kernel's time alone
         k = lambda: fused_conv.conv3d(x, w, packed_cache=cache)  # noqa: E731
@@ -2327,10 +2506,18 @@ def check_arch_kernels(torch):
         ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **reps)
         lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
-        if deep:
+        if deep or mid:
             print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
                   f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
-        for name in ("fused_conv",) + (("fused_conv_wgmma",) if deep else ()):
+        elif c % 8 == 0 and c > 1:
+            rel, mms = mid_conv_entry_ms(torch, x, w)
+            print(f"    the mid-channel body (conv3_mid.cuh, left out by the rule: C + CO < 48 or "
+                  f"H, W no multiples of 8) on the same tensors: {mms:.4f} ms, max|d| / "
+                  f"max|ref| {rel:.2e}")
+            if rel > 2e-2:
+                _fail(f"fused_conv {label}: the mid-channel body disagrees")
+        bodies = ("fused_conv_wgmma",) if deep else ("conv3_mid",) if mid else ()
+        for name in ("fused_conv",) + bodies:
             _record(launched, name, err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
                     peak=PEAK_BF16, library_ms=lms, echo=name == "fused_conv")
@@ -2348,16 +2535,25 @@ def check_arch_kernels(torch):
         print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
               f"{lms:.4f} ms")
         deep_dw = c >= 64 and co >= 128
-        if deep_dw:
+        mid_dw = fused_conv.dw_body(x, c, co) == "mid_channels"
+        if deep_dw or mid_dw:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
-        elif deep:
+        if deep and not deep_dw:
             rel, dms = deep_dw_entry_ms(torch, x, dy)
             print(f"    the deep-channel body (conv3_dw_wgmma.cuh, left out by the rule at CO < "
                   f"128) on the same tensors: {dms:.4f} ms, max|d| / max|ref| {rel:.2e}")
             if rel > 1e-3:
                 _fail(f"fused_conv_dw {label}: the deep-channel body disagrees")
-        for name in ("fused_conv_dw",) + (("fused_conv_dw_wgmma",) if deep_dw else ()):
+        if not mid_dw and fused_conv.mid_dw_eligible(c, co, False) and not deep_dw:
+            rel, mms = mid_dw_entry_ms(torch, x, dy)
+            print(f"    the mid-channel body (conv3_mid_dw.cuh, left out by the rule below "
+                  f"{fused_conv.MID_DW_MIN_POSITIONS} positions) on the same tensors: "
+                  f"{mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+            if rel > 1e-3:
+                _fail(f"fused_conv_dw {label}: the mid-channel body disagrees")
+        bodies = ("fused_conv_dw_wgmma",) if deep_dw else ("conv3_mid_dw",) if mid_dw else ()
+        for name in ("fused_conv_dw",) + bodies:
             _record(launched, name, err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
                     peak=PEAK_BF16, library_ms=lms, echo=name == "fused_conv_dw")
@@ -2377,15 +2573,19 @@ def _add_launches(total, got):
 
 def arch_launches(spec):
     """({kernel: launches} of a forward, of a train step) for an ``ARCHS``
-    entry."""
+    entry: ``deep`` and ``mid`` are each body's (convs a forward, weight
+    gradients a step); a conv on either body takes its input gradient there
+    too."""
     deep, deep_dw = spec["deep"]
+    mid, mid_dw = spec.get("mid", (0, 0))
     per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"],
-               "fused_conv_wgmma": deep}
+               "fused_conv_wgmma": deep, "conv3_mid": mid}
     per_step = {"fused_conv": 2 * spec["convs"], "phase_conv": 2 * spec["phase_convs"],
                 "fused_conv_dw": spec["convs"], "phase_conv_dw": spec["phase_convs"],
                 "dice_phase_sums": int(spec["phase_dice"]),
                 "dice_phase_dx": int(spec["phase_dice"]),
-                "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw}
+                "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw,
+                "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -2422,7 +2622,8 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     ``convs`` / ``phase_convs`` a step, the Dice kernels once a step with
     ``phase_dice``, kernel 7 once a chunk, no other kernel; of kernel 1's
     and 2's, ``deep`` a forward (twice a step) and ``deep`` weight gradients a
-    step on the deep-channel bodies."""
+    step on the deep-channel bodies, and of kernels 1-6's ``mid`` likewise on
+    the mid-channel bodies."""
     import numpy as np
 
     from segmantic_tpu_torch.infer.predict import predict
@@ -2436,8 +2637,9 @@ def run_arch(torch, arch: str, data: Path, work: Path):
     per_fwd, per_step = arch_launches(spec)
     total = {}
 
-    def launched(counters):  # the eight kernels' and the deep bodies'
-        return {**_launches(counters), **_launches(_deep_counters())}
+    def launched(counters):  # the eight kernels' and the deep and mid bodies'
+        return {**_launches(counters), **_launches(_deep_counters()),
+                **_launches(_mid_counters())}
 
     def expect(where, got, steps=0, chunks=0):
         want = {name: steps * per_step.get(name, 0) + chunks * per_fwd.get(name, 0)
@@ -2624,9 +2826,11 @@ def check_unetr_pack_kernels(torch):
     def conv_body(t, c_in, c_out):  # the forward's body and launch plan on phase tensor t
         full = (t.shape[0],) + tuple(2 * v for v in t.shape[1:4])
         kind, text, _ = conv_body_text(t, c_in, c_out, full, True, sms)
-        if kind != ("few_channels" if c_in < 8 else "tensor_cores"):
+        mid = (c_in + c_out >= fused_conv.MID_MIN_CHANNELS and t.shape[2] % 8 == 0
+               and t.shape[3] % 8 == 0 and fused_conv.mid_eligible(c_in, c_out, True))
+        if kind != ("few_channels" if c_in < 8 else "mid_channels" if mid else "tensor_cores"):
             _fail(f"phase_conv p{tuple(t.shape)}: the rule sends CI = {c_in} to the {kind} body")
-        return text
+        return kind, text
 
     def check_conv(label, t, wk, library):
         """The forward kernel on phase tensor t and kernel wk against its plain
@@ -2641,9 +2845,20 @@ def check_unetr_pack_kernels(torch):
             _fail(f"{label}: a repeated launch is not bit-equal")
         ms, pms = _graph_ms(torch, k, **reps), _median_ms(torch, pl, n=3, warmup=1)
         lms = _graph_ms(torch, library, **reps)
-        print(f"    {conv_body(t, c_in, c_out)}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
+        kind, text = conv_body(t, c_in, c_out)
+        print(f"    {text}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(eager), cuDNN at full resolution {lms:.4f} ms")
-        return err, ms, pms, lms, _nbytes(t, wk, got), 2 * 27 * c_in * c_out * (t.numel() // c_in)
+        if kind == "mid_channels":
+            print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
+                  f"{tensor_core_conv_ms(torch, t, wk, phase=True):.4f} ms")
+        elif fused_conv.mid_eligible(c_in, c_out, True):
+            rel, mms = mid_conv_entry_ms(torch, t, wk, phase=True)
+            print(f"    the mid-channel body (conv3_mid.cuh, left out by the rule at C + CO < 48) "
+                  f"on the same tensors: {mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+            if rel > 2e-2:
+                _fail(f"{label}: the mid-channel body disagrees")
+        return (err, ms, pms, lms, _nbytes(t, wk, got), 2 * 27 * c_in * c_out * (t.numel() // c_in),
+                kind == "mid_channels")
 
     for shape, ci, co, per_fwd, layers in UNETR_PACK_SHAPES:
         launched = results if per_fwd else {}  # an unlaunched shape stays out of the line
@@ -2654,20 +2869,22 @@ def check_unetr_pack_kernels(torch):
         label = f"p{shape} CI {ci} -> CO {co} ({layers}; {per_fwd} a forward)"
         x_full, g_full = depth_to_space(p, ci), depth_to_space(gy, co)
         wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        err, ms, pms, lms, nbytes, ops = check_conv(
+        err, ms, pms, lms, nbytes, ops, mid = check_conv(
             f"phase_conv {label}", p, w, lambda: F.conv3d(ncdhw(x_full), wc, padding=1))
-        _record(launched, "phase_conv", err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
-                peak=PEAK_BF16, library_ms=lms)
+        for name in ("phase_conv",) + (("conv3_mid",) if mid else ()):
+            _record(launched, name, err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
+                    peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv")
 
         with_dx = ci > 1  # the layer that takes the one-channel image has no dx
         wt = fused_conv.flip_io(w)
         if with_dx and ci != co:
-            err, ms, pms, lms, nbytes, ops = check_conv(
+            err, ms, pms, lms, nbytes, ops, mid = check_conv(
                 f"phase_conv dx (L {8 * co} -> {8 * ci}) {label}", gy, wt,
                 lambda: torch.nn.grad.conv3d_input(ncdhw(x_full).shape, wc, ncdhw(g_full),
                                                    padding=1))
-            _record(launched, "phase_conv", err=err, ms=ms, plain_ms=pms, nbytes=nbytes,
-                    ops=ops, peak=PEAK_BF16, library_ms=lms)
+            for name in ("phase_conv",) + (("conv3_mid",) if mid else ()):
+                _record(launched, name, err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
+                        peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv")
 
         body = dw_body_text(p, ci, co, full, True, sms)[1]
         k = lambda: phase_conv.phase_conv_dw(p, gy)  # noqa: E731
@@ -2773,7 +2990,15 @@ def unetr_pack_ab(torch):
         counters = _reset_counters()
         losses[name] = steps[name](image, label).item()
         launches[name] = _launches(counters)
-        print(f"  {name}: first-step loss {losses[name]:.6f}, launches {launches[name]}")
+        mids = _launches(_mid_counters())
+        print(f"  {name}: first-step loss {losses[name]:.6f}, launches {launches[name]}, "
+              f"mid-channel bodies {mids}")
+        if name == "packed":
+            want = {"conv3_mid": 2 * ARCHS["unetr"]["mid"][0],
+                    "conv3_mid_dw": ARCHS["unetr"]["mid"][1]}
+            if mids != want:
+                _fail(f"the packed UNETR step's mid-channel launches {mids}, expected {want}")
+            mid_launches = mids
     for name, spec in (("packed", ARCHS["unetr"]), ("unpacked", ARCHS["unetr-unpacked"])):
         per_step = arch_launches(spec)[1]
         want = {k: per_step.get(k, 0) for k in launches[name]}
@@ -2808,7 +3033,7 @@ def unetr_pack_ab(torch):
     ratio = numbers["packed"]["step_ms"] / numbers["unpacked"]["step_ms"]
     print(f"  packed / unpacked step: {ratio:.3f}; kernel ms "
           f"{numbers['packed']['kernel_ms'] / numbers['unpacked']['kernel_ms']:.3f}")
-    return launches["packed"], numbers
+    return {**launches["packed"], **mid_launches}, numbers
 
 
 def run_train_extras(torch, data: Path, out: Path):

@@ -30,9 +30,13 @@
 // bf16 input with C, CO >= 64 runs the deep-channel body of conv3_wgmma.cuh
 // (segk_fused_conv3_wgmma): wgmma with the halo and the weight tiles brought
 // by TMA and bulk copies, an N tile covering CO, split-K where the bricks are
-// too few to fill the card.
+// too few to fill the card. bf16 input below that band with C + CO >= 48 on
+// grids of whole 8 x 8 slabs (the 24^3 x 32 convs) runs the mid-channel body
+// of conv3_mid.cuh (segk_fused_conv3_mid): wgmma with A and B by no-swizzle
+// descriptors on 8-channel planes of the halo, the whole CO tile a block.
 #include "conv3_f32.cuh"
 #include "conv3_fewc.cuh"
+#include "conv3_mid.cuh"
 #include "conv3_wgmma.cuh"
 
 extern "C" int segk_fused_conv3_f32(const void* x, const void* w, const float* scale,
@@ -77,4 +81,15 @@ extern "C" int segk_fused_conv3_wgmma(const void* x, const void* wp, const float
   return segk::launch_conv3_wgmma(x, wp, scale, shift, alpha, relu_mode, out, ws, B, D, H, W, C,
                                   CO, out_bf16, td, th, tw, nt, spw, nwg, splits, stages,
                                   smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_mid(const void* x, const void* wp, const float* scale,
+                                    const float* shift, const float* alpha, int relu_mode,
+                                    void* out, int B, int D, int H, int W, int C, int CO,
+                                    int out_bf16, int td, int th, int tw, int ck, int nt, int spw,
+                                    int nwg, int grid_x, int stages, int smem_bytes,
+                                    void* stream) {
+  return segk::launch_conv3_mid<0>(x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C, CO,
+                                   out_bf16, td, th, tw, ck, nt, spw, nwg, grid_x, stages,
+                                   smem_bytes, stream);
 }

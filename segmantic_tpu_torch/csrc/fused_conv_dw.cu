@@ -16,7 +16,10 @@
 // bounds it and what its design does about that), bf16 input with C = 1..7
 // and any CO the few-channel body (conv3_fewc_dw.cuh: the 96^3 one-channel
 // input layer), bf16 input with C, CO >= 64 the deep-channel body
-// (conv3_dw_wgmma.cuh: wgmma on a TMA-staged halo of x and brick of dy);
+// (conv3_dw_wgmma.cuh: wgmma on a TMA-staged halo of x and brick of dy), and
+// below its CO >= 128, C and CO multiples of 64 at 24^3-sized volumes, the
+// mid-channel body (conv3_mid_dw.cuh: wgmma with both operands MN-major by
+// descriptor on a TMA-staged halo of x and brick of dy, no ldmatrix);
 // everything else, f32 first of all, the register-tiled f32 body
 // (conv3_f32_dw.cuh: 8 x 8 tiles of (tap, ci) x co on FFMA, the tap group's
 // halo and the dy brick staged by cp.async, position splits with one partial
@@ -26,6 +29,7 @@
 #include "conv3_dw_wgmma.cuh"
 #include "conv3_f32_dw.cuh"
 #include "conv3_fewc_dw.cuh"
+#include "conv3_mid_dw.cuh"
 
 extern "C" int segk_fused_conv3_dw_f32(const void* x, const void* dy, float* ws, float* out,
                                        int B, int D, int H, int W, int C, int CO, int in_bf16,
@@ -60,4 +64,12 @@ extern "C" int segk_fused_conv3_dw_wgmma(const void* x, const void* dy, float* w
                                          int stages, int smem_bytes, void* stream) {
   return segk::launch_conv3_dw_wgmma(x, dy, ws, out, B, D, H, W, C, CO, td, th, tw, nt, tpw, nwg,
                                      splits, stages, smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_dw_mid(const void* x, const void* dy, float* ws, float* out,
+                                       int B, int D, int H, int W, int C, int CO, int td, int th,
+                                       int tw, int tpw, int nwg, int splits, int stages,
+                                       int smem_bytes, void* stream) {
+  return segk::launch_conv3_mid_dw(x, dy, ws, out, B, D, H, W, C, CO, td, th, tw, tpw, nwg,
+                                   splits, stages, smem_bytes, stream);
 }

@@ -33,9 +33,14 @@
 // through the index map are constants. f32 input, and bf16 input with C > 8
 // and no multiple of 8, run the register-tiled f32 body of conv3_f32.cuh
 // (segk_phase_conv3_f32), whose staging reads each halo position through the
-// same map.
+// same map. bf16 input with C % 16 == 0 and C + CO >= 48 (packed UNETR's
+// stages with a 32-channel side) runs the mid-channel body of conv3_mid.cuh
+// (segk_phase_conv3_mid): each input phase's share of the halo staged as
+// 8-channel planes, the M rows ordered by output phase so that every tap of
+// a slab is one wgmma descriptor into one plane.
 #include "conv3_f32.cuh"
 #include "conv3_fewc.cuh"
+#include "conv3_mid.cuh"
 
 extern "C" int segk_phase_conv3_f32(const void* p, const void* w, const float* scale,
                                     const float* shift, const float* alpha, int relu_mode,
@@ -68,4 +73,15 @@ extern "C" int segk_phase_conv3_fewc(const void* p, const void* wp, const float*
   return segk::launch_conv3_fewc<segk::PhaseLayout>(p, wp, scale, shift, alpha, relu_mode, out,
                                                     B, D2, H2, W2, C, CO, out_bf16, th, tw, seg,
                                                     nt, grid_x, smem_bytes, vec, stream);
+}
+
+extern "C" int segk_phase_conv3_mid(const void* p, const void* wp, const float* scale,
+                                    const float* shift, const float* alpha, int relu_mode,
+                                    void* out, int B, int D2, int H2, int W2, int C, int CO,
+                                    int out_bf16, int td, int th, int tw, int ck, int nt, int spw,
+                                    int nwg, int grid_x, int stages, int smem_bytes,
+                                    void* stream) {
+  return segk::launch_conv3_mid<1>(p, wp, scale, shift, alpha, relu_mode, out, B, D2, H2, W2, C,
+                                   CO, out_bf16, td, th, tw, ck, nt, spw, nwg, grid_x, stages,
+                                   smem_bytes, stream);
 }

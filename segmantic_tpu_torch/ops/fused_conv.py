@@ -9,43 +9,52 @@ packing.
 
 ``conv3d`` launches the CUDA kernel ``csrc/fused_conv.cu`` and
 ``conv3d_dw`` the kernel ``csrc/fused_conv_dw.cu`` for tensors on a CUDA
-device (each kernel has four bodies, see below); for tensors on the CPU they
-run :func:`conv3d_plain` and :func:`conv3d_dw_plain`, the plain PyTorch
-versions. :func:`conv3d_grad` is
+device; for tensors on the CPU they run :func:`conv3d_plain` and
+:func:`conv3d_dw_plain`, the plain PyTorch versions. :func:`conv3d_grad` is
 the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has five bodies, named by :func:`conv_body` from the input's
-type, layout and channel counts. bf16 input in the dense layout with C, CO >=
-64 runs the deep-channel body (``csrc/conv3_wgmma.cuh``: ``wgmma`` with the
-halo and the weight tiles brought by TMA, split-K at small volumes) with the
-geometry of :func:`deep_plan` and the weights of :func:`pack_weights_deep`;
-other bf16 input whose channel count is a multiple of 8 runs the tensor-core
-body (``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo brick staged by
-``cp.async``) with the launch geometry of :func:`plan`; bf16
-input with C = 1..7 (the one-channel input layer of SegResNet and UNETR) the
-few-channel body (``csrc/conv3_fewc.cuh``: ``mma.sync`` on input planes
-staged along W, a rolling window of three along D) with the geometry of
-:func:`fewc_plan`; both take the weights packed by :func:`pack_weights`. f32
-input runs the register-tiled f32 body (``csrc/conv3_f32.cuh``: an implicit
-GEMM on FFMA, the K units staged by ``cp.async`` into a ring, split-K at
-small volumes) with the geometry of :func:`f32_plan`, whose f32 FMAs agree
-with the CPU to ~1e-6 where TF32 would not; bf16 input with any other channel
-count takes it too. Either way the wrapper launches its kernel or raises.
+Each kernel has five bodies. The conv kernel's, named by :func:`conv_body`
+from the input's type, layout and channel counts: bf16 input in the dense
+layout with C, CO >= 64 runs the deep-channel body (``csrc/conv3_wgmma.cuh``:
+``wgmma`` with the halo and the weight tiles brought by TMA, split-K at small
+volumes) with the geometry of :func:`deep_plan` and the weights of
+:func:`pack_weights_deep`; other bf16 input with C % 8 == 0 (phase layout: C %
+16 == 0), C + CO >= ``MID_MIN_CHANNELS`` and H, W multiples of 8 the
+mid-channel body
+(``csrc/conv3_mid.cuh``: ``wgmma`` with A and B by no-swizzle descriptors on
+8-channel planes of the halo, the whole CO tile a block) with the geometry of
+:func:`mid_plan` and the weights of :func:`pack_weights_mid`; other bf16 input
+whose channel count is a multiple of 8 the tensor-core body
+(``csrc/conv3_mma.cuh``: ``mma.sync`` on a halo brick staged by ``cp.async``)
+with the launch geometry of :func:`plan`; bf16 input with C = 1..7 (the
+one-channel input layer of SegResNet and UNETR) the few-channel body
+(``csrc/conv3_fewc.cuh``: ``mma.sync`` on input planes staged along W, a
+rolling window of three along D) with the geometry of :func:`fewc_plan`; both
+take the weights packed by :func:`pack_weights`. f32 input runs the
+register-tiled f32 body (``csrc/conv3_f32.cuh``: an implicit GEMM on FFMA, the
+K units staged by ``cp.async`` into a ring, split-K at small volumes) with the
+geometry of :func:`f32_plan`, whose f32 FMAs agree with the CPU to ~1e-6 where
+TF32 would not; bf16 input with any other channel count takes it too. Either
+way the wrapper launches its kernel or raises.
 
-The dw kernel has five bodies as well, named by :func:`dw_body`: bf16 input
-in the dense layout with C >= 64 and CO >= 128 runs the deep-channel body
-(``csrc/conv3_dw_wgmma.cuh``: ``wgmma`` on a TMA-staged halo of x and brick
-of dy) with the geometry of :func:`deep_dw_plan`; other bf16 input with
-C % 8 == 0 and CO % 8 == 0 runs the tensor-core body
-(``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on ``ldmatrix.trans`` operands, one
-staged halo brick of x and brick of dy per step) with the launch geometry of
-:func:`dw_plan`; bf16 input with C = 1..7 and any CO the few-channel body
-(``csrc/conv3_fewc_dw.cuh``) with the geometry of :func:`fewc_dw_plan`; f32
-input and every other channel count the register-tiled f32 body
-(``csrc/conv3_f32_dw.cuh``: 8 x 8 tiles of (tap, ci) x co on FFMA, position
-splits with one partial a block) with the geometry of :func:`f32_dw_plan`.
+The dw kernel's, named by :func:`dw_body`: bf16 input in the dense layout with
+C >= 64 and CO >= 128 runs the deep-channel body (``csrc/conv3_dw_wgmma.cuh``:
+``wgmma`` on a TMA-staged halo of x and brick of dy) with the geometry of
+:func:`deep_dw_plan`; bf16 input in the dense layout with C and CO multiples of
+64 below that (CO = 64) and at least ``MID_DW_MIN_POSITIONS`` positions the
+mid-channel body (``csrc/conv3_mid_dw.cuh``: ``wgmma`` with both operands
+MN-major by descriptor on a TMA-staged halo of x and brick of dy) with the
+geometry of :func:`mid_dw_plan`; other bf16 input with C % 8 == 0 and CO % 8
+== 0 the tensor-core body (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on
+``ldmatrix.trans`` operands, one staged halo brick of x and brick of dy per
+step) with the launch geometry of :func:`dw_plan`; bf16 input with C = 1..7 and
+any CO the few-channel body (``csrc/conv3_fewc_dw.cuh``) with the geometry of
+:func:`fewc_dw_plan`; f32 input and every other channel count the
+register-tiled f32 body (``csrc/conv3_f32_dw.cuh``: 8 x 8 tiles of (tap, ci) x
+co on FFMA, position splits with one partial a block) with the geometry of
+:func:`f32_dw_plan`.
 """
 
 from __future__ import annotations
@@ -66,7 +75,10 @@ __all__ = [
     "unpack_weights", "conv_body", "DwPlan", "dw_plan", "dw_body", "FewcPlan",
     "fewc_plan", "fewc_dw_plan", "deep_counter", "deep_dw_counter", "DeepPlan", "deep_plan",
     "DeepDwPlan", "deep_dw_plan", "pack_weights_deep", "unpack_weights_deep", "f32_counter",
-    "f32_dw_counter", "F32Plan", "f32_plan", "F32DwPlan", "f32_dw_plan",
+    "f32_dw_counter", "F32Plan", "f32_plan", "F32DwPlan", "f32_dw_plan", "mid_counter",
+    "mid_dw_counter", "MidPlan", "mid_plan", "MidDwPlan", "mid_dw_plan", "pack_weights_mid",
+    "mid_eligible", "mid_dw_eligible",
+    "unpack_weights_mid",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -79,6 +91,10 @@ deep_dw_counter = _cuda.LaunchCounter("fused_conv_dw_wgmma")
 # kernels' own counters
 f32_counter = _cuda.LaunchCounter("conv3_f32")
 f32_dw_counter = _cuda.LaunchCounter("conv3_f32_dw")
+# the mid-channel bodies' launches (kernels 1-6), also counted by the kernels'
+# own counters
+mid_counter = _cuda.LaunchCounter("conv3_mid")
+mid_dw_counter = _cuda.LaunchCounter("conv3_mid_dw")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -165,6 +181,19 @@ _SMS = 132  # streaming multiprocessors of an H100
 DEEP_MIN_C = 64
 DEEP_MIN_CO = 64
 DEEP_DW_MIN_CO = 128
+# The mid-channel conv body's least C + CO, set from the same rows: it was
+# faster than the tensor-core body at every phase-space row of packed UNETR
+# with a 32-channel side and at 24^3 x 32, slower at the 96^3 x 16 phase row,
+# 96^3 x 8 and 48^3 x 16, where C + CO <= 32 makes the wgmma's N 8 or 16 and
+# its shared-memory operand traffic, not the tensor cores, the bound. It
+# takes a grid whose H and W are multiples of 8 (a slab's 8 x 8 rows all
+# real): at 12^3 x 32, 56% of its rows real, it tied or lost.
+MID_MIN_CHANNELS = 48
+# The mid-channel dw body's least positions (B * D * H * W): at 8 x 24^3 it
+# was 1.6x faster than the tensor-core body and ahead of cuDNN, at 8 x 12^3
+# 16-23% slower (a block's pipeline fill and the split partials outweigh its
+# products there).
+MID_DW_MIN_POSITIONS = 32768
 
 
 def _deep(x: torch.Tensor, c: int, co: int, phase: bool, min_co: int) -> bool:
@@ -178,6 +207,9 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     carries 8 * c lanes): ``"deep_channels"`` for bf16 input in the dense
     layout with c, co >= 64 and both multiples of 8 (``csrc/conv3_wgmma.cuh``;
     the input gradient, the conv co -> c, takes the same rule),
+    ``"mid_channels"`` (``csrc/conv3_mid.cuh``) for other bf16 input with c %
+    8 == 0 (phase: c % 16 == 0), c + co >= ``MID_MIN_CHANNELS`` and x's H and
+    W (block voxels in phase space) multiples of 8,
     ``"tensor_cores"`` for any other bf16 input whose channel vector is a
     whole number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16
     input with c = 1..7, ``"f32_tiles"`` (``csrc/conv3_f32.cuh``: register-tiled
@@ -186,7 +218,10 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
         return "deep_channels"
     if x.dtype == torch.bfloat16:
         if c % 8 == 0:
-            return "tensor_cores"
+            # the grid's rows (H, W: block voxels in phase space) whole slabs of 8 x 8
+            whole = x.ndim == 5 and x.shape[2] % 8 == 0 and x.shape[3] % 8 == 0
+            mid = whole and mid_eligible(c, co, phase) and c + co >= MID_MIN_CHANNELS
+            return "mid_channels" if mid else "tensor_cores"
         if c < 8:
             return "few_channels"
     return "f32_tiles"
@@ -683,7 +718,8 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     """Shared launch of the two conv3 kernels (dense and phase layouts,
     ``entry`` ``segk_fused_conv3`` or ``segk_phase_conv3``) on the body
     :func:`conv_body` names: ``entry + "_f32"`` (f32, :func:`f32_plan`; counted
-    by ``f32_counter`` too), ``entry + "_mma"``
+    by ``f32_counter`` too), ``entry + "_mid"`` (mid channels,
+    :func:`mid_plan`; counted by ``mid_counter`` too), ``entry + "_mma"``
     (tensor cores, :func:`plan`), ``entry + "_fewc"`` (few channels,
     :func:`fewc_plan`) or ``entry + "_wgmma"`` (deep channels, dense only,
     :func:`deep_plan`; counted by ``deep_counter`` too). ``packed_cache``
@@ -735,6 +771,21 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
                      p.stages, p.smem_bytes)
         deep_counter.count += 1
         return
+    if body == "mid_channels":
+        if not _aligned(x):
+            raise ValueError("the mid-channel body reads x by TMA: x must be 16-byte aligned")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = mid_plan((b, d, h, w), c, co, phase, sms)
+        key = ("mid", p.nt, p.ck)
+        packed = None if packed_cache is None else packed_cache.get(key)
+        if packed is None:
+            packed = pack_weights_mid(weights, p.nt, p.ck)
+            if packed_cache is not None:
+                packed_cache[key] = packed
+        _cuda.launch(entry + "_mid", head[0], packed.data_ptr(), *head[1:], out_bf16, p.td,
+                     p.th, p.tw, p.ck, p.nt, p.spw, p.nwg, p.grid_x, p.stages, p.smem_bytes)
+        mid_counter.count += 1
+        return
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     p = (fewc_plan((b, d, h, w), c, co, phase, sms)
          if body == "few_channels" else plan((b, d, h, w), c, co, out.element_size(), sms))
@@ -767,9 +818,9 @@ def conv3d(
     then the activation. f32 accumulation; bf16 or f32 in, out in
     ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
     C, CO >= 64 runs the deep-channel body (one launch, or two with split-K),
-    other bf16 with C % 8 == 0 the tensor-core body, bf16 with C = 1..7 the
-    few-channel body, anything else the register-tiled f32 body
-    (:func:`conv_body`)."""
+    other bf16 with C % 8 == 0 the mid-channel body where C + CO >= 48, else
+    the tensor-core body, bf16 with C = 1..7 the few-channel body, anything
+    else the register-tiled f32 body (:func:`conv_body`)."""
     out_dtype = out_dtype or x.dtype
     if x.ndim != 5:
         raise ValueError(f"x must be (B, D, H, W, C), got {tuple(x.shape)}")
@@ -811,6 +862,9 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     """The body of the dw kernel that takes input x of a conv from c to co
     true channels: ``"deep_channels"`` for bf16 input in the dense layout with
     c >= 64, co >= 128 and both multiples of 8 (``csrc/conv3_dw_wgmma.cuh``),
+    ``"mid_channels"`` (``csrc/conv3_mid_dw.cuh``) for bf16 input in the
+    dense layout with c and co multiples of 64 below that and at least
+    ``MID_DW_MIN_POSITIONS`` positions (x's numel over its channels),
     ``"tensor_cores"`` for any other bf16 input whose
     two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
     co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
@@ -820,7 +874,9 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
         if _deep(x, c, co, phase, DEEP_DW_MIN_CO):
             return "deep_channels"
         if c % 8 == 0 and co % 8 == 0:
-            return "tensor_cores"
+            positions = x.numel() // max(x.shape[-1], 1)  # (the phase layout: block voxels)
+            mid = mid_dw_eligible(c, co, phase) and positions >= MID_DW_MIN_POSITIONS
+            return "mid_channels" if mid else "tensor_cores"
         if c < 8:
             return "few_channels"
     return "f32_tiles"
@@ -1063,6 +1119,313 @@ def deep_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _S
     found = min(_deep_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
     if found is None:
         raise ValueError(f"no deep-channel dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
+# -- the mid-channel bodies (csrc/conv3_mid.cuh, csrc/conv3_mid_dw.cuh) --
+
+_MID_NT = (8, 16, 32, 64)  # the instances' N tiles
+# the forward's (slabs a warpgroup, consumer warpgroups) instances: at most
+# 64 accumulators a thread
+_MID_SLABS = ((2, 2), (4, 2), (2, 4))  # dense: 4 or 8 slabs; phase: (4, 2), NT = 64 (2, 4)
+# a multiprocessor's shared-memory bytes a cycle, which feed the wgmma (A 2 KB
+# and B NT * 32 bytes a k16 step), and the L2's bytes a cycle to one
+# multiprocessor when all of them stage (as _L2_BYTES)
+_SMEM_BYTES = 128
+_MID_STEP_CYCLES = 300  # a ring slot's wait, commit and release, exposed
+
+
+def _mid_nt(co: int) -> int:
+    return next((nt for nt in _MID_NT if co <= nt), _MID_NT[-1])
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def mid_halo_points(phase: bool, td: int, th: int, tw: int) -> int:
+    """``mid_halo_points``: points of one staged plane, the dense halo or one
+    input phase's share ((td + 1)(th + 1)(tw + 1) block voxels)."""
+    return (td + 1) * (th + 1) * (tw + 1) if phase else (td + 2) * (th + 2) * (tw + 2)
+
+
+def mid_pitch(n: int) -> int:
+    """``mid_pitch``: bytes of a staged plane of n points, 16 past a multiple
+    of 128 (the pieces of one point, staged by neighbouring threads, fall on
+    different banks)."""
+    return _round128(n * 16) + 16
+
+
+def mid_plane_bytes(phase: bool, td: int, th: int, tw: int) -> int:
+    return mid_pitch(mid_halo_points(phase, td, th, tw))
+
+
+def mid_ksteps(ck: int) -> int:
+    """k16 steps of a chunk: C = 8 pairs the taps (14), else 27 of ck = 16."""
+    return 14 if ck == 8 else 27
+
+
+def mid_smem_bytes(phase: bool, ck: int, nchunks: int, nt: int, td: int, th: int, tw: int,
+                   stages: int) -> int:
+    """``mid_smem_bytes`` of ``csrc/conv3_mid.cuh``: 128 bytes to align, 1024
+    of barriers and the tap table, the resident weights of one N tile,
+    ``stages`` slots of 8-channel planes (8 input phases of them in the
+    phase layout)."""
+    stage = (8 if phase else 1) * (ck // 8) * mid_plane_bytes(phase, td, th, tw)
+    return 1152 + nchunks * mid_ksteps(ck) * nt * 32 + stages * stage
+
+
+@dataclasses.dataclass(frozen=True)
+class MidPlan:
+    """Launch geometry of the mid-channel conv body, as the C entry point
+    takes it. ``grid_x`` persistent blocks (one a multiprocessor: the launch
+    bound leaves ptxas every register) of ``nwg`` consumer warpgroups
+    walk bricks of ``td x th x tw`` grid points (dense positions; phase block
+    voxels, eight output phases each), th and tw multiples of 8; a brick's M
+    rows are ``nwg * spw`` slabs of 8 x 8 (y, x) rows, each slab a warpgroup's
+    m64. Per (brick, chunk of ``ck`` input channels) the halo is staged into a
+    ring of ``stages``; the ``nt``-wide N tile's weights stay resident."""
+
+    td: int
+    th: int
+    tw: int
+    ck: int
+    nchunks: int
+    nt: int
+    n_tiles: int
+    spw: int
+    nwg: int
+    stages: int
+    grid_x: int
+    nbricks: int
+    smem_bytes: int
+    fill: float  # real output positions / M rows multiplied
+
+
+def _mid_bricks(phase: bool):
+    """(td, th, tw) bricks and their slab counts: dense 4 or 8 slabs; phase
+    one plane of 8 x 8 block voxels (8 slabs: the output phases)."""
+    if phase:
+        return [(1, 8, 8)]
+    return [b for b in itertools.product((1, 2, 4, 8), (8, 16, 32), (8, 16, 32))
+            if b[0] * (b[1] // 8) * (b[2] // 8) in (4, 8)]
+
+
+def mid_eligible(c: int, co: int, phase: bool) -> bool:
+    """Channel counts the mid-channel conv body can take: C a multiple of 8
+    (phase: of 16, the channel chunks may not run into the next phase's
+    lanes), and an N tile whose resident weights leave room for two slots
+    of the smallest brick."""
+    if c < 8 or c % (16 if phase else 8) or co < 1:
+        return False
+    ck = 8 if c == 8 else 16
+    td, th, tw = min(_mid_bricks(phase), key=lambda b: mid_halo_points(phase, *b))
+    return mid_smem_bytes(phase, ck, -(-c // ck), _mid_nt(co), td, th, tw, 2) <= SMEM_LIMIT
+
+
+def _mid_candidates(dims, c: int, co: int, phase: bool, sms: int):
+    b, d, h, w = dims
+    g = (d // 2, h // 2, w // 2) if phase else (d, h, w)
+    nph = 8 if phase else 1
+    nt = _mid_nt(co)
+    n_tiles = -(-co // nt)
+    for ck in ((8,) if c == 8 else (16,)):
+        nchunks = -(-c // ck)
+        for td, th, tw in _mid_bricks(phase):
+            slabs = nph * td * (th // 8) * (tw // 8)
+            nbricks = b * -(-g[0] // td) * -(-g[1] // th) * -(-g[2] // tw)
+            if nbricks >= 2 ** 31:
+                continue
+            fill = b * g[0] * g[1] * g[2] / (nbricks * td * th * tw)
+            for spw, nwg in _MID_SLABS:
+                if spw * nwg != slabs or spw * nt > 128 or (nwg == 4) != (nt == 64 and slabs == 8):
+                    continue
+                stages = next((st for st in (4, 3, 2) if mid_smem_bytes(
+                    phase, ck, nchunks, nt, td, th, tw, st) <= SMEM_LIMIT), None)
+                if stages is None:
+                    continue
+                smem = mid_smem_bytes(phase, ck, nchunks, nt, td, th, tw, stages)
+                grid_x = min(nbricks, sms)
+                # a (brick, chunk) step of a block, in cycles of its multiprocessor:
+                # its k16 steps' operand bytes from shared memory, or its halo's
+                # bytes from the L2, plus the exposed wait of its slot
+                mma = slabs * mid_ksteps(ck) * (2048 + nt * 32) / _SMEM_BYTES
+                l2 = nph * (ck // 8) * mid_halo_points(phase, td, th, tw) * 16 / _L2_BYTES
+                step = max(mma, l2) + _MID_STEP_CYCLES
+                cycles = -(-nbricks * n_tiles // sms) * nchunks * step
+                yield (fill < 0.75, cycles, -fill), MidPlan(
+                    td=td, th=th, tw=tw, ck=ck, nchunks=nchunks, nt=nt, n_tiles=n_tiles,
+                    spw=spw, nwg=nwg, stages=stages, grid_x=grid_x, nbricks=nbricks,
+                    smem_bytes=smem, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def mid_plan(dims: Tuple[int, int, int, int], c: int, co: int, phase: bool = False,
+             sms: int = _SMS) -> MidPlan:
+    """The brick, channel chunk, N tile, slabs and ring of one launch of the
+    mid-channel conv body for a (B, D, H, W) grid of output positions (full
+    resolution for the phase layout), C input and CO output channels: the N
+    tile the least of 8, 16, 32, 64 that holds CO (64-wide tiles beyond),
+    chunks of 16 channels (C = 8: one of 8, its taps paired), and among the
+    bricks of 4 or 8 slabs (phase: one plane of 8 x 8 block voxels; two
+    warpgroups of 2 or 4 slabs, four of 2 at N = 64 with 8), the cheapest by a rough
+    count of cycles on the busiest of ``sms`` multiprocessors (each step's
+    operand bytes from shared memory or its halo from the L2), among those
+    whose rows are at least 75% real output positions where any is. The ring
+    takes as many slots (2-4) as fit."""
+    if not mid_eligible(c, co, phase):
+        raise ValueError(f"the mid-channel conv body needs C % {16 if phase else 8} == 0, got "
+                         f"C = {c}")
+    if phase and any(v % 2 for v in dims[1:]):
+        raise ValueError(f"a phase-major tensor stands for even extents, got {dims}")
+    found = min(_mid_candidates(dims, c, co, phase, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no mid-channel launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _mid_pack_index(c: int, co: int, nt: int, ck: int, device: torch.device) -> torch.Tensor:
+    """Where each value of :func:`pack_weights_mid`'s result comes from in
+    the flattened DHWIO weights, 27 * c * co (the element past their end)
+    for padding. Made on ``device``, once a shape."""
+    n_tiles, ng, zero = -(-co // nt), nt // 8, 27 * c * co
+    src = torch.arange(zero, device=device).reshape(27, c, co)
+    if ck == 8:  # k16 steps of tap pairs (0, none), (1, 2), ..., (25, 26)
+        src = F.pad(src, (0, n_tiles * nt - co, 0, 0, 0, 1), value=zero)
+        order = torch.tensor([0, 27] + list(range(1, 27)), device=device)
+        # (step, kg, k, tile, ng, n) -> (tile, step, kg, ng, n, k)
+        src = src[order].reshape(14, 2, 8, n_tiles, ng, 8).permute(3, 0, 1, 4, 5, 2)
+        return src.reshape(n_tiles, -1).contiguous()
+    nchunks = -(-c // ck)
+    src = F.pad(src, (0, n_tiles * nt - co, 0, nchunks * ck - c), value=zero)
+    # (tap, chunk, kg, k, tile, ng, n) -> (tile, chunk, tap, kg, ng, n, k)
+    src = src.reshape(27, nchunks, 2, 8, n_tiles, ng, 8).permute(4, 1, 0, 2, 5, 6, 3)
+    return src.reshape(n_tiles, -1).contiguous()
+
+
+def pack_weights_mid(weights: torch.Tensor, nt: int, ck: int) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, C, CO) in the order the mid-channel conv body
+    reads: (N tiles, values) with, per chunk of ck = 16 input channels and
+    k16 step (tap; C = 8, ck = 8: the tap pairs (0, none), (1, 2), ...,
+    (25, 26)), two k halves x nt / 8 core matrices of 8 output
+    channels x 8 k, K-major, as a no-swizzle wgmma descriptor reads them; C
+    and CO padded with zeros. One gather by a cached index."""
+    c, co = weights.shape[-2:]
+    index = _mid_pack_index(c, co, nt, ck, weights.device)
+    return F.pad(weights.reshape(-1), (0, 1))[index]
+
+
+def unpack_weights_mid(packed: torch.Tensor, c: int, co: int, ck: int) -> torch.Tensor:
+    """Inverse of :func:`pack_weights_mid`: the DHWIO weights (3, 3, 3, c, co)."""
+    nt = packed.shape[1] // (-(-c // ck) * mid_ksteps(ck) * 16)
+    index = _mid_pack_index(c, co, nt, ck, packed.device).reshape(-1)
+    out = torch.zeros(27 * c * co + 1, dtype=packed.dtype, device=packed.device)
+    out[index] = packed.reshape(-1)
+    return out[:-1].reshape(3, 3, 3, c, co)
+
+
+def mid_dw_smem_bytes(td: int, th: int, tw: int, stages: int) -> int:
+    """``mid_dw_smem_bytes`` of ``csrc/conv3_mid_dw.cuh``: 1024 bytes to
+    align the base, 1024 of barriers, ``stages`` slots of the x halo and the
+    dy brick, 64 channels (128 bytes) a position, each rounded to 1024."""
+    return 2048 + stages * (deep_halo_bytes(td, th, tw) + _round1024(td * th * tw * 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class MidDwPlan:
+    """Launch geometry of the mid-channel dw body, as the C entry point
+    takes it. A block of ``nwg`` consumer warpgroups owns ``nwg * tpw`` taps
+    (tap group ``tg``: taps ``tg * nwg * tpw ...``, none past 26), a chunk of 64
+    input channels and a tile of 64 output channels, and walks the bricks
+    ``split, split + splits, ...`` of ``td x th x tw`` positions (a k16 step
+    is 16 positions of one row, tw = 16, or of two, tw = 8); grid (splits,
+    n_tg * n_ci * n_co), the tap group fastest."""
+
+    td: int
+    th: int
+    tw: int
+    tpw: int  # taps a consumer warpgroup accumulates
+    nwg: int  # consumer warpgroups a block (2 or 3), besides the producer's
+    n_tg: int
+    n_ci: int
+    n_co: int
+    splits: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    workspace: int  # f32 values: splits * 27 * C * CO, 0 with one split
+    nbricks: int
+    fill: float  # real positions / positions walked
+
+
+def mid_dw_eligible(c: int, co: int, phase: bool) -> bool:
+    """Channel counts the mid-channel dw body takes: dense, C and CO whole
+    128-byte rows (multiples of 64)."""
+    return not phase and c >= 64 and c % 64 == 0 and co >= 64 and co % 64 == 0
+
+
+_MID_DW_SHAPES = ((2, 2), (3, 2), (2, 3), (3, 3))  # (taps a warpgroup, consumer warpgroups)
+# the instances' bricks: 8, 12 or 16 k16 steps of 16 positions, one row of
+# 16 or two rows of 8
+_MID_DW_BRICKS = [b for b in itertools.product((1, 2, 3, 4, 6, 8), (1, 2, 3, 4, 6, 8), (8, 16))
+                  if b[0] * b[1] * b[2] // 16 in (8, 12, 16) and (b[2] == 16 or b[1] % 2 == 0)]
+
+
+def _mid_dw_candidates(dims, c: int, co: int, sms: int):
+    b, d, h, w = dims
+    positions = b * d * h * w
+    n_ci, n_co = c // 64, co // 64
+    n_out = 27 * c * co
+    for tpw, nwg in _MID_DW_SHAPES:
+        n_tg = -(-27 // (nwg * tpw))
+        tiles = n_tg * n_ci * n_co
+        for td, th, tw in _MID_DW_BRICKS:
+            p = td * th * tw
+            nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+            if nbricks >= 2 ** 31:
+                continue
+            fill = positions / (nbricks * p)
+            stages = next((st for st in (4, 3, 2)
+                           if mid_dw_smem_bytes(td, th, tw, st) <= SMEM_LIMIT), None)
+            if stages is None:
+                continue
+            smem = mid_dw_smem_bytes(td, th, tw, stages)
+            # a brick of a block, in cycles: its wgmma (A and B 2 KB each from
+            # shared memory a k16 step and tap) or its halo and dy rows from the L2
+            mma = nwg * tpw * p / 16 * 4096 / _SMEM_BYTES
+            l2 = ((td + 2) * (th + 2) * (tw + 2) + p) * 128 / _L2_BYTES
+            per_brick = max(mma, l2) + _MID_STEP_CYCLES
+            for splits in sorted({s for s in _split_counts(min(nbricks, 256))}
+                                 | {max(1, min(nbricks, k * sms // tiles)) for k in (1, 2)}):
+                blocks = tiles * splits
+                cycles = -(-blocks // sms) * (-(-nbricks // splits) * per_brick + 2500)
+                if splits > 1:  # the partials out and back, and the second launch
+                    cycles += 2 * splits * n_out * 4 / (sms * 32) + 4000
+                yield (fill < 0.7, cycles, -fill, splits), MidDwPlan(
+                    td=td, th=th, tw=tw, tpw=tpw, nwg=nwg, n_tg=n_tg, n_ci=n_ci, n_co=n_co,
+                    splits=splits, stages=stages, grid=(splits, tiles), smem_bytes=smem,
+                    workspace=splits * n_out if splits > 1 else 0, nbricks=nbricks, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def mid_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SMS) -> MidDwPlan:
+    """The brick, taps a warpgroup, warpgroups, ring and position splits of
+    one launch of the mid-channel dw body for a (B, D, H, W) grid of
+    positions, C and CO multiples of 64: among two or three taps for each of
+    two or three consumer warpgroups, bricks of 128, 192 or 256 positions in
+    rows 8 or 16 long, and a few split counts, the cheapest by a rough count of
+    cycles on the busiest of ``sms`` multiprocessors (each brick's wgmma
+    operands from shared memory or its rows from the L2; for more than one
+    split the partials and the second launch), among those whose positions
+    are at least 70% real where any is. The ring takes as many slots (2-4)
+    as fit."""
+    if not mid_dw_eligible(c, co, False):
+        raise ValueError("the mid-channel dw body needs C and CO multiples of 64, got "
+                         f"C = {c}, CO = {co}")
+    found = min(_mid_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no mid-channel dw launch plan for dims {dims}, C = {c}, CO = {co}")
     return found[1]
 
 
@@ -1382,6 +1745,8 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     ``segk_fused_conv3_dw`` or ``segk_phase_conv3_dw``) on the body
     :func:`dw_body` names: ``entry + "_wgmma"`` (deep channels, dense only,
     :func:`deep_dw_plan`; counted by ``deep_dw_counter`` too), ``entry +
+    "_mid"`` (mid channels, dense only, :func:`mid_dw_plan`; counted by
+    ``mid_dw_counter`` too), ``entry +
     "_mma"`` (tensor cores, :func:`dw_plan`), ``entry + "_fewc"`` (few
     channels, :func:`fewc_dw_plan`) or ``entry + "_f32"`` (f32,
     :func:`f32_dw_plan`; counted by ``f32_dw_counter`` too). With more than
@@ -1419,6 +1784,18 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
                      p.splits, p.stages, p.smem_bytes)
         deep_dw_counter.count += 1
         return out
+    if body == "mid_channels":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the mid-channel dw body reads x and dy by TMA: both must be "
+                             "16-byte aligned")
+        p = mid_dw_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.splits > 1 \
+            else out
+        _cuda.launch(entry + "_mid", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     b, d, h, w, c, co, p.td, p.th, p.tw, p.tpw, p.nwg, p.splits, p.stages,
+                     p.smem_bytes)
+        mid_dw_counter.count += 1
+        return out
     if body == "few_channels":
         p = fewc_dw_plan((b, d, h, w), c, co, phase, sms)
         ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device) if p.grid_x > 1 \
@@ -1443,9 +1820,10 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
     device bf16 input with C >= 64 and CO >= 128 runs the deep-channel body,
-    other bf16 with C % 8 == 0 and CO % 8 == 0 the tensor-core body, bf16 with
-    C = 1..7 the few-channel body, anything else the register-tiled f32 body
-    (:func:`dw_body`)."""
+    C and CO multiples of 64 below that at a large enough volume the
+    mid-channel body, other bf16 with C % 8 == 0 and CO % 8 == 0 the
+    tensor-core body, bf16 with C = 1..7 the few-channel body, anything else
+    the register-tiled f32 body (:func:`dw_body`)."""
     if x.ndim != 5 or dy.ndim != 5:
         raise ValueError(f"x and dy must be 5-D, got {tuple(x.shape)}, {tuple(dy.shape)}")
     check_dw_args(x, dy)

@@ -13,8 +13,12 @@ activation).
 
 ``phase_conv`` launches ``csrc/phase_conv.cu`` and ``phase_conv_dw``
 ``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors on
-the body ``fused_conv.conv_body`` / ``dw_body`` names: the tensor-core body
-for bf16 input with Ci % 8 == 0 (the weight gradient: and Co % 8 == 0; launch
+the body ``fused_conv.conv_body`` / ``dw_body`` names: the forward's
+mid-channel body (``csrc/conv3_mid.cuh``, plan ``fused_conv.mid_plan`` with
+``phase=True``) for bf16 input with Ci % 16 == 0 and Ci + Co >= 48, whose
+block grid's H and W are multiples of 8 (packed UNETR's stages with a
+32-channel side), the tensor-core body
+for other bf16 input with Ci % 8 == 0 (the weight gradient: and Co % 8 == 0; launch
 plans ``fused_conv.plan`` / ``dw_plan``), the few-channel body for bf16 input
 with Ci = 1..7 (packed UNETR's one-channel input layer; ``fused_conv.fewc_plan``
 / ``fewc_dw_plan`` with ``phase=True``), the register-tiled f32 body otherwise

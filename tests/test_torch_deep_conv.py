@@ -214,6 +214,9 @@ def test_four_way_route_rule(phase, dtype, c, co):
     if deep:  # the dw body from CO = 128
         conv = "deep_channels"
         dw = "deep_channels" if co >= 128 else dw
+    elif (conv == "tensor_cores" and c + co >= 48 and fused_conv.mid_eligible(c, co, phase)
+          and x.shape[2] % 8 == 0 and x.shape[3] % 8 == 0):
+        conv = "mid_channels"  # the mid-channel body (x has too few positions for its dw)
     assert fused_conv.conv_body(x, c, co, phase) == conv
     assert fused_conv.dw_body(x, c, co, phase) == dw
 

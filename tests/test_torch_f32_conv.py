@@ -216,7 +216,8 @@ def test_f32_plans_refuse_empty_channel_counts(c, co):
 def test_every_former_cuda_core_input_takes_the_f32_bodies(phase, dtype, c, co):
     """The parent's rule, written out: f32 and the bf16 channel counts no
     tensor-core body takes went to "cuda_cores"; those now name "f32_tiles",
-    the other bodies keep what they had."""
+    the other bodies keep what they had but for the convs the mid-channel
+    body took later."""
     x = torch.zeros((1, 2, 2, 2, 8 * c if phase else c), dtype=dtype)
     deep = dtype == torch.bfloat16 and not phase and c % 8 == 0 and co % 8 == 0 and c >= 64
     if dtype == torch.float32:
@@ -228,6 +229,10 @@ def test_every_former_cuda_core_input_takes_the_f32_bodies(phase, dtype, c, co):
         dw = "tensor_cores" if c % 8 == 0 and co % 8 == 0 else "cuda_cores"
     if deep and co >= 64:
         conv = "deep_channels"
+    elif (conv == "tensor_cores" and c + co >= 48 and fused_conv.mid_eligible(c, co, phase)
+          and x.shape[2] % 8 == 0 and x.shape[3] % 8 == 0):
+        conv = "mid_channels"  # the mid-channel body at C + CO >= 48 (x has too few positions
+        # for its dw body)
     if deep and co >= 128:
         dw = "deep_channels"
     assert fused_conv.conv_body(x, c, co, phase) == conv.replace("cuda_cores", "f32_tiles")

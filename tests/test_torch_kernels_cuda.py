@@ -366,7 +366,9 @@ def test_arch_conv_shapes(cuda, shape, co):
     w = _randn(g, 3, 3, 3, shape[-1], co, scale=(27 * shape[-1]) ** -0.5).to(torch.bfloat16)
     assert fused_conv.conv_body(x, shape[-1], co) == (
         "few_channels" if shape[-1] < 8 else
-        "deep_channels" if min(shape[-1], co) >= 64 else "tensor_cores")
+        "deep_channels" if min(shape[-1], co) >= 64 else
+        "mid_channels" if shape[-1] + co >= 48 and fused_conv.mid_eligible(shape[-1], co, False)
+        and shape[2] % 8 == 0 and shape[3] % 8 == 0 else "tensor_cores")
     fused_conv.counter.reset()
     got = fused_conv.conv3d(x, w)
     assert fused_conv.counter.count == 1 and got.shape == shape[:4] + (co,)
@@ -379,9 +381,11 @@ def test_arch_dw_shapes(cuda, shape, co):
     g = torch.Generator().manual_seed(18)
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    mid = shape[-1] % 64 == 0 and co == 64 and x.numel() // shape[-1] >= 32768
     assert fused_conv.dw_body(x, shape[-1], co) == (
         "few_channels" if shape[-1] < 8 else
-        "deep_channels" if shape[-1] >= 64 and co >= 128 else "tensor_cores")
+        "deep_channels" if shape[-1] >= 64 and co >= 128 else
+        "mid_channels" if mid else "tensor_cores")
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
     assert fused_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, shape[-1], co)
@@ -443,8 +447,8 @@ def test_deep_channel_dw_body(cuda, shape, co):
         got = fused_conv.conv3d_dw(x, dy)
         assert fused_conv.deep_dw_counter.count == 1
         again = fused_conv.conv3d_dw(x, dy)
-    else:
-        assert fused_conv.dw_body(x, c, co) == "tensor_cores"
+    else:  # the tensor-core or, at 24^3 x 64, the mid-channel dw body by the rule
+        assert fused_conv.dw_body(x, c, co) in ("tensor_cores", "mid_channels")
         p = fused_conv.deep_dw_plan(tuple(shape[:4]), c, co)
         ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=cuda)
 
@@ -795,7 +799,7 @@ def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
     gy = _randn(g, *shape[:4], 8 * co).to(torch.bfloat16)
     wt = fused_conv.flip_io(w)
     assert fused_conv.conv_body(p, ci, co, True) == (
-        "tensor_cores" if ci % 8 == 0 else "few_channels")
+        "few_channels" if ci % 8 else "mid_channels" if ci + co >= 48 else "tensor_cores")
     phase_conv.counter.reset()
     phase_conv.dw_counter.reset()
     got, dx, dw = phase_conv.phase_conv(p, w), phase_conv.phase_conv(gy, wt), \
@@ -1148,3 +1152,126 @@ def test_dice_loss_phase_function(cuda, dtype, tol, include_background):
     ref.backward()
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=1e-6)
     _close(xp.grad, ref_x.grad, tol)
+
+
+# the mid-channel bodies (csrc/conv3_mid.cuh, conv3_mid_dw.cuh): the forward
+# at packed UNETR's phase-space rows with a 32-channel side (batch 2), the
+# 24^3 / 12^3 x 32 convs, and ragged shapes (extents a multiple of no brick,
+# C = 40 in chunks of 16, CO = 5 and 72, C = 8's paired taps, phase CO = 24);
+# the dw at 24^3 x 64 and 128 -> 64 (the rule's rows, batch 8) and ragged
+# shapes through its entry point
+MID_ROWS = [("phase", (2, 48, 48, 48, 256), 16), ("phase", (2, 48, 48, 48, 128), 32),
+            ("phase", (2, 24, 24, 24, 256), 32), ("phase", (2, 24, 24, 24, 512), 32),
+            ("phase", (2, 24, 24, 24, 256), 64), ("dense", (8, 24, 24, 24, 32), 32),
+            ("dense", (8, 12, 12, 12, 32), 32)]
+MID_RAGGED = [("dense", (2, 5, 7, 9, 40), 24), ("dense", (1, 3, 9, 13, 48), 5),
+              ("dense", (1, 4, 5, 70, 32), 72), ("dense", (2, 5, 7, 9, 8), 40),
+              ("phase", (1, 3, 5, 7, 256), 24), ("phase", (2, 2, 3, 5, 128), 40)]
+
+
+@pytest.mark.parametrize("layout,shape,co", MID_ROWS + MID_RAGGED)
+def test_mid_channel_conv_body(cuda, layout, shape, co):
+    """The forward on the mid-channel body: through the wrapper where the rule
+    takes it (C + CO >= 48, H and W multiples of 8: bf16 and f32 output
+    against the plain version, one counted launch of the body each), else
+    through its entry point with its own plan (no epilogue); bit-equal on
+    repeat either way."""
+    g = torch.Generator().manual_seed(31)
+    phase = layout == "phase"
+    c = shape[-1] // (8 if phase else 1)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, co), scale=_randn(g, co).abs() + 0.5, shift=_randn(g, co),
+              alpha=torch.tensor([0.2], device=cuda), relu_mode="prelu")
+    mod = phase_conv if phase else fused_conv
+    conv, plain = ((phase_conv.phase_conv, phase_conv.phase_conv_plain) if phase
+                   else (fused_conv.conv3d, fused_conv.conv3d_plain))
+    if fused_conv.conv_body(x, c, co, phase) == "mid_channels":
+        for out_dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-2)):
+            mod.counter.reset()
+            fused_conv.mid_counter.reset()
+            got = conv(x, w, out_dtype=out_dtype, **kw)
+            assert mod.counter.count == fused_conv.mid_counter.count == 1
+            assert got.dtype == out_dtype
+            assert got.shape == shape[:4] + ((8 if phase else 1) * co,)
+            _close(got, plain(x, w, out_dtype=out_dtype, **kw), tol)
+            assert torch.equal(got, conv(x, w, out_dtype=out_dtype, **kw))
+        return
+    f = 2 if phase else 1
+    dims = (shape[0], f * shape[1], f * shape[2], f * shape[3])
+    p = fused_conv.mid_plan(dims, c, co, phase)
+    packed = fused_conv.pack_weights_mid(w, p.nt, p.ck)
+    s, t = fused_conv._epilogue_vectors(co, None, None, None, x.device)
+    entry = "segk_phase_conv3_mid" if phase else "segk_fused_conv3_mid"
+
+    def run():
+        out = torch.empty(shape[:4] + ((8 if phase else 1) * co,), dtype=torch.bfloat16,
+                          device=cuda)
+        _cuda.launch(entry, x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0,
+                     out.data_ptr(), *dims, c, co, 1, p.td, p.th, p.tw, p.ck, p.nt, p.spw,
+                     p.nwg, p.grid_x, p.stages, p.smem_bytes)
+        return out
+
+    got = run()
+    _close(got, plain(x, w), 2e-2)
+    assert torch.equal(got, run())
+
+
+MID_DW_ROWS = [((8, 24, 24, 24, 64), 64), ((8, 24, 24, 24, 128), 64)]
+MID_DW_RAGGED = [((2, 24, 26, 30, 64), 64), ((1, 20, 30, 70, 128), 64), ((2, 5, 7, 9, 64), 64),
+                 ((1, 3, 4, 70, 192), 64), ((3, 1, 1, 1, 64), 128)]
+
+
+@pytest.mark.parametrize("shape,co", MID_DW_ROWS + MID_DW_RAGGED)
+def test_mid_channel_dw_body(cuda, shape, co):
+    """The weight gradient on the mid-channel body, 1e-3 * max|ref|, bit-equal
+    on repeat: through the wrapper where the rule takes it (C, CO multiples
+    of 64 below CO = 128, at least MID_DW_MIN_POSITIONS positions), else
+    through its entry point with its own plan."""
+    g = torch.Generator().manual_seed(32)
+    c = shape[-1]
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    if fused_conv.dw_body(x, c, co) == "mid_channels":
+        fused_conv.mid_dw_counter.reset()
+        got, again = fused_conv.conv3d_dw(x, dy), fused_conv.conv3d_dw(x, dy)
+        assert fused_conv.mid_dw_counter.count == 2
+    else:
+        p = fused_conv.mid_dw_plan(tuple(shape[:4]), c, co)
+        ws = torch.empty(max(p.workspace, 1), dtype=torch.float32, device=cuda)
+
+        def entry():
+            out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=cuda)
+            _cuda.launch("segk_fused_conv3_dw_mid", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), *shape[:4], c, co, p.td, p.th, p.tw, p.tpw, p.nwg,
+                         p.splits, p.stages, p.smem_bytes)
+            return out
+
+        got, again = entry(), entry()
+    _close(got, want, 1e-3)
+    assert torch.equal(got, again)
+
+
+def test_mid_channel_launchers_refuse_plans_they_did_not_size(cuda):
+    x = torch.zeros((1, 8, 8, 16, 32), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 32, 32), dtype=torch.bfloat16, device=cuda)
+    p = fused_conv.mid_plan((1, 8, 8, 16), 32, 32)
+    packed = fused_conv.pack_weights_mid(w, p.nt, p.ck)
+    s, t = fused_conv._epilogue_vectors(32, None, None, None, x.device)
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0, out.data_ptr(),
+            1, 8, 8, 16, 32, 32, 1, p.td, p.th, p.tw, p.ck, p.nt, p.spw, p.nwg, p.grid_x,
+            p.stages)
+    _cuda.launch("segk_fused_conv3_mid", *args, p.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_mid", *args, p.smem_bytes + 16)
+    x64 = torch.zeros((2, 8, 8, 16, 64), dtype=torch.bfloat16, device=cuda)
+    q = fused_conv.mid_dw_plan((2, 8, 8, 16), 64, 64)
+    dw = torch.empty((3, 3, 3, 64, 64), dtype=torch.float32, device=cuda)
+    ws = torch.empty(max(q.workspace, 1), dtype=torch.float32, device=cuda)
+    dargs = (x64.data_ptr(), x64.data_ptr(), ws.data_ptr(), dw.data_ptr(), 2, 8, 8, 16, 64, 64,
+             q.td, q.th, q.tw, q.tpw, q.nwg, q.splits, q.stages)
+    _cuda.launch("segk_fused_conv3_dw_mid", *dargs, q.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_mid", *dargs, q.smem_bytes + 1024)
