@@ -134,6 +134,10 @@ KERNELS = {
                   "segmantic_tpu/ops/phase_gemm.py:266,327"),
     "conv3_mid_dw": ("segmantic_tpu_torch/csrc/conv3_mid_dw.cuh",
                      "segmantic_tpu/ops/pallas_conv.py:289"),
+    # the phase dw's Hopper body of kernels 5-6 (bf16, Ci in 16, 32, 64), beside
+    # kernel 5-6's total, which includes it
+    "conv3_phase_dw": ("segmantic_tpu_torch/csrc/conv3_phase_dw.cuh",
+                       "segmantic_tpu/ops/phase_gemm.py:430,518"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
@@ -143,6 +147,9 @@ FLAGSHIP_DEEP, FLAGSHIP_DEEP_DW = 5, 3
 # twice that, the input gradients); its weight gradients stay on the
 # tensor-core body (12^3 is below the mid dw body's volume)
 FLAGSHIP_MID = 2
+# and the phase dw's Hopper body: the L = 128 stage's weight gradient (Ci = 16;
+# L = 64, Ci = 8, stays on the tensor-core body)
+FLAGSHIP_PHASE_DW = 1
 # published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
@@ -300,6 +307,15 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"warpgroups, {p.splits} splits, {p.grid[0] * p.grid[1]} blocks, ring of "
                       f"{p.stages}, K fill {p.fill:.3f}, workspace {p.workspace * 4 / 1e6:.2f} MB, "
                       f"{'one launch' if p.splits == 1 else 'kernel + reduce'}"), p.fill
+    if body == "phase_blocks":
+        p = fused_conv.phase_dw_plan(dims, c, co, sms)
+        return body, (f"phase Hopper body (TMA block-space bricks, wgmma, g by ldmatrix): brick "
+                      f"{p.td}x{p.th}x{p.tw} block voxels, {p.nwg} warpgroups of {p.tpw} "
+                      f"tile(s){', per-tz reuse' if (p.tpw, p.nwg) == (3, 3) else ''}, "
+                      f"{p.groups} group(s) of "
+                      f"{p.n_tiles} tiles x {p.splits} splits = {p.grid[0] * p.grid[1]} blocks, "
+                      f"ring of {p.stages}, fill {p.fill:.3f}, workspace "
+                      f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
     if body == "tensor_cores":
         p = fused_conv.dw_plan(dims, c, co, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw}, CK x NT {p.ck}x{p.nt}, "
@@ -444,6 +460,79 @@ def deep_dw_entry_ms(torch, x, dy):
     torch.cuda.synchronize()
     rel = ((out - want).abs().max() / want.abs().max()).item()
     return rel, _graph_ms(torch, run)
+
+
+def phase_tensor_core_dw_ms(torch, p, g) -> float:
+    """Device ms of the tensor-core dw body (``conv3_dw_mma.cuh``) on the
+    phase tensors p and g, called through its C entry point with its own plan
+    (and its reduce launch): the row's earlier time where the rule sends it
+    to the phase dw's Hopper body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_ = p.shape[0], 2 * p.shape[1], 2 * p.shape[2], 2 * p.shape[3]
+    c, co = p.shape[-1] // 8, g.shape[-1] // 8
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    q = fused_conv.dw_plan((b, d, h, w_), c, co, sms)
+    ws = torch.empty(max(q.workspace, 1), dtype=torch.float32, device=p.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=p.device)
+    return _graph_ms(torch, lambda: _cuda.launch(
+        "segk_phase_conv3_dw_mma", p.data_ptr(), g.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        b, d, h, w_, c, co, q.td, q.th, q.tw, q.ck, q.nt, q.splits, q.stages, q.smem_bytes))
+
+
+def phase_dw_entry_ms(torch, p, g):
+    """(max|d| over max|ref|, device ms) of the phase dw's Hopper body
+    (``conv3_phase_dw.cuh``) on the same tensors, called through its C entry
+    point with its own plan: the row's time on the new body where the rule
+    (Ci >= ``PHASE_DW_MIN_C``) keeps the tensor-core body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
+
+    b, d, h, w_ = p.shape[0], 2 * p.shape[1], 2 * p.shape[2], 2 * p.shape[3]
+    c, co = p.shape[-1] // 8, g.shape[-1] // 8
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    q = fused_conv.phase_dw_plan((b, d, h, w_), c, co, sms)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=p.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=p.device)
+
+    def run():
+        _cuda.launch("segk_phase_conv3_dw_wgmma", p.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, c, co, q.td, q.th, q.tw, q.tpw, q.nwg,
+                     q.splits, q.stages, q.smem_bytes)
+
+    run()
+    want = phase_conv.phase_conv_dw_plain(p, g)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def phase_dw_rule(x, c: int, co: int) -> bool:
+    """Whether the rule sends the bf16 phase dw on x to the phase dw's Hopper
+    body, written out from its constants."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return (fused_conv.phase_dw_eligible(c, co) and c >= fused_conv.PHASE_DW_MIN_C
+            and x.numel() // x.shape[-1] >= fused_conv.PHASE_DW_MIN_POSITIONS)
+
+
+def phase_dw_beside(torch, label, p, g, taken: bool) -> None:
+    """Print the row's other body beside the one the rule took: the
+    tensor-core body where the phase Hopper body runs it, else the phase
+    Hopper body (checked against the plain version)."""
+    if taken:
+        print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+              f"{phase_tensor_core_dw_ms(torch, p, g):.4f} ms")
+        return
+    from segmantic_tpu_torch.ops import fused_conv
+
+    if not fused_conv.phase_dw_eligible(p.shape[-1] // 8, g.shape[-1] // 8):
+        return
+    rel, ms = phase_dw_entry_ms(torch, p, g)
+    print(f"    the phase Hopper body (conv3_phase_dw.cuh, left out by the rule below Ci = "
+          f"{fused_conv.PHASE_DW_MIN_C}) on the same tensors: {ms:.4f} ms, max|d| / max|ref| "
+          f"{rel:.2e}")
+    if rel > 1e-3:
+        _fail(f"{label}: the phase Hopper body disagrees")
 
 
 def check_kernels(torch):
@@ -878,6 +967,14 @@ def report_conv_build(lib: Path) -> None:
               f"{len(found)} instantiations, registers {min(f[1] for f in found)}-"
               f"{max(f[1] for f in found)}, spill bytes {sum(f[2] for f in found)}; "
               + ", ".join(f"{a}:{r}" for a, r, _ in sorted(found)))
+    found = set()  # the phase dw's Hopper body: <N, TPW, NWG>
+    for line, regs, _, spill in _ptxas_reports(lib, "conv3_phase_dw_kernel"):
+        m = re.search(r"conv3_phase_dw_kernelI((?:L[ib]\d+E)+)", line)
+        if m:
+            found.add(("x".join(re.findall(r"L[ib](\d+)E", m.group(1))), regs, spill))
+    print(f"  ptxas, conv3_phase_dw_kernel<N, TPW, NWG>: {len(found)} instantiations, "
+          f"registers {min(f[1] for f in found)}-{max(f[1] for f in found)}, spill bytes "
+          f"{sum(f[2] for f in found)}; " + ", ".join(f"{a}:{r}/{sp}" for a, r, sp in sorted(found)))
     f32 = ("conv3_f32_kernel", "conv3_f32_dw_kernel")
     for name in f32:  # <Tin, Tout, Layout, PW> and <Tin, Layout, RV>
         found = {(line.split("'")[1] if "'" in line else line, regs, spill)
@@ -921,6 +1018,7 @@ def report_conv_build(lib: Path) -> None:
               f"(bulk copy)")
         if not c["HGMMA"]:
             _fail(f"{name} holds no HGMMA opcode")
+    deep = deep + ("conv3_phase_dw_kernel",)
     deep_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0, "UBLKCP": 0} for name in deep}
     inside = None
     for line in sass.splitlines():
@@ -969,11 +1067,12 @@ def _f32_counters():
 
 
 def _mid_counters():
-    """The mid-channel bodies' own counters (their launches also count in
-    kernels 1-6's)."""
+    """The mid-channel bodies' and the phase dw's Hopper body's own counters
+    (their launches also count in kernels 1-6's)."""
     from segmantic_tpu_torch.ops import fused_conv
 
-    return {"conv3_mid": fused_conv.mid_counter, "conv3_mid_dw": fused_conv.mid_dw_counter}
+    return {"conv3_mid": fused_conv.mid_counter, "conv3_mid_dw": fused_conv.mid_dw_counter,
+            "conv3_phase_dw": fused_conv.phase_dw_counter}
 
 
 def _counters():
@@ -1118,10 +1217,11 @@ def check_train_kernels(torch):
         deep = name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
         mid = (name == "fused_conv_dw" and not deep and c_true % 64 == 0 and co_true % 64 == 0
                and x32.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS)
+        hop = name == "phase_conv_dw" and phase_dw_rule(x32, c_true, co_true)
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
             want_body = ("f32_tiles" if dtype != bf16 else "deep_channels" if deep else
-                         "mid_channels" if mid else "tensor_cores")
+                         "mid_channels" if mid else "phase_blocks" if hop else "tensor_cores")
             if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
@@ -1151,7 +1251,9 @@ def check_train_kernels(torch):
             dyc.permute(0, 4, 1, 2, 3), padding=1))
         print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain (f32) "
               f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
-        if deep or mid:
+        if name == "phase_conv_dw":
+            phase_dw_beside(torch, f"{name} {label}", x, dy, hop)
+        elif deep or mid:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
         elif name == "fused_conv_dw" and min(c_true, co_true) >= 64:
@@ -1166,7 +1268,8 @@ def check_train_kernels(torch):
                   f"{mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
             if rel > 1e-3:
                 _fail(f"{name} {label}: the mid-channel body disagrees")
-        bodies = (("fused_conv_dw_wgmma",) if deep else ("conv3_mid_dw",) if mid else ())
+        bodies = (("fused_conv_dw_wgmma",) if deep else ("conv3_mid_dw",) if mid
+                  else ("conv3_phase_dw",) if hop else ())
         for rec in (name,) + bodies:
             _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
                     ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
@@ -1193,7 +1296,11 @@ def check_train_kernels(torch):
            ("fused_conv_dw", (1, 4, 6, 17, 7), 24), ("fused_conv_dw", (2, 5, 7, 16, 1), 1),
            ("phase_conv_dw", (2, 3, 4, 5, 8), 8 * 16), ("phase_conv_dw", (1, 3, 4, 8, 8 * 2), 8 * 8),
            ("phase_conv_dw", (1, 2, 3, 4, 8 * 7), 8 * 5), ("phase_conv_dw", (1, 3, 4, 5, 8), 8),
-           ("fused_conv_dw", (2, 24, 26, 30, 64), 64), ("fused_conv_dw", (1, 20, 30, 70, 128), 64)]
+           ("fused_conv_dw", (2, 24, 26, 30, 64), 64), ("fused_conv_dw", (1, 20, 30, 70, 128), 64),
+           ("phase_conv_dw", (2, 30, 34, 38, 8 * 16), 8 * 16),
+           ("phase_conv_dw", (1, 36, 33, 30, 8 * 32), 8 * 16),
+           ("phase_conv_dw", (2, 18, 26, 38, 8 * 16), 8 * 48),
+           ("phase_conv_dw", (1, 34, 36, 30, 8 * 64), 8 * 32)]
     for name, x_shape, co in odd:
         mod, kernel, plain = modules(name)
         x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
@@ -1204,6 +1311,8 @@ def check_train_kernels(torch):
                      if name == "fused_conv_dw" and c_true >= 64 and co_true >= 128
                      else "mid_channels" if dense64
                      and x.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS
+                     else "phase_blocks" if name == "phase_conv_dw"
+                     and phase_dw_rule(x, c_true, co_true)
                      else "tensor_cores"
                      if c_true % 8 == 0 and co_true % 8 == 0 else "f32_tiles")
         if body != want_body:
@@ -1700,6 +1809,8 @@ def run_train(torch, work: Path):
     launches.update(_launches(_deep_counters()))  # the deep convs on the deep-channel bodies
     # and the 24^3 ones on the mid-channel conv body (no dw of the flagship takes its dw body)
     launches["conv3_mid"] = _mid_counters()["conv3_mid"].count
+    # and the L = 128 weight gradient on the phase dw's Hopper body
+    launches["conv3_phase_dw"] = _mid_counters()["conv3_phase_dw"].count
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -1731,8 +1842,10 @@ def run_train(torch, work: Path):
     step(image.cuda(), label.cuda())
     torch.cuda.synchronize()
     want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW,
-            "conv3_mid": 2 * FLAGSHIP_MID, "conv3_mid_dw": 0}
-    print(f"  deep- and mid-channel bodies, one step: {_launches(deep)} (expected {want})")
+            "conv3_mid": 2 * FLAGSHIP_MID, "conv3_mid_dw": 0,
+            "conv3_phase_dw": FLAGSHIP_PHASE_DW}
+    print(f"  deep- and mid-channel bodies and the phase dw's Hopper body, one step: "
+          f"{_launches(deep)} (expected {want})")
     if _launches(deep) != want:
         _fail(f"the flagship's deep and mid convs (fwd, dx, dw) did not all run on their "
               f"bodies: {_launches(deep)}, expected {want}")
@@ -2410,7 +2523,7 @@ ARCHS = {
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
               "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4),
-              "mid": (7, 4)},
+              "mid": (7, 4), "phase_dw": 7},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
@@ -2575,7 +2688,8 @@ def arch_launches(spec):
     """({kernel: launches} of a forward, of a train step) for an ``ARCHS``
     entry: ``deep`` and ``mid`` are each body's (convs a forward, weight
     gradients a step); a conv on either body takes its input gradient there
-    too."""
+    too; ``phase_dw`` the weight gradients a step on the phase dw's Hopper
+    body."""
     deep, deep_dw = spec["deep"]
     mid, mid_dw = spec.get("mid", (0, 0))
     per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"],
@@ -2585,7 +2699,8 @@ def arch_launches(spec):
                 "dice_phase_sums": int(spec["phase_dice"]),
                 "dice_phase_dx": int(spec["phase_dice"]),
                 "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw,
-                "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw}
+                "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw,
+                "conv3_phase_dw": spec.get("phase_dw", 0)}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -2886,7 +3001,10 @@ def check_unetr_pack_kernels(torch):
                 _record(launched, name, err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
                         peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv")
 
-        body = dw_body_text(p, ci, co, full, True, sms)[1]
+        kind, body, _ = dw_body_text(p, ci, co, full, True, sms)
+        hop = ci > 1 and phase_dw_rule(p, ci, co)
+        if kind != ("few_channels" if ci < 8 else "phase_blocks" if hop else "tensor_cores"):
+            _fail(f"phase_conv_dw {label}: the rule sends CI = {ci} to the {kind} body")
         k = lambda: phase_conv.phase_conv_dw(p, gy)  # noqa: E731
         pl = lambda: phase_conv.phase_conv_dw_plain(p, gy)  # noqa: E731
         got = k()
@@ -2900,9 +3018,12 @@ def check_unetr_pack_kernels(torch):
             ncdhw(x_full), wshape, ncdhw(g_full), padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain (f32) {pms:.4f} ms, cuDNN bf16 wgrad "
               f"{lms:.4f} ms")
-        _record(launched, "phase_conv_dw", err=err, ms=ms, plain_ms=pms,
-                nbytes=_nbytes(p, gy, got), ops=2 * 27 * ci * co * (p.numel() // ci),
-                peak=PEAK_BF16, library_ms=lms)
+        if ci > 1:
+            phase_dw_beside(torch, f"phase_conv_dw {label}", p, gy, hop)
+        for name in ("phase_conv_dw",) + (("conv3_phase_dw",) if hop else ()):
+            _record(launched, name, err=err, ms=ms, plain_ms=pms,
+                    nbytes=_nbytes(p, gy, got), ops=2 * 27 * ci * co * (p.numel() // ci),
+                    peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv_dw")
 
         if ci == co:
             continue
@@ -2995,9 +3116,11 @@ def unetr_pack_ab(torch):
               f"mid-channel bodies {mids}")
         if name == "packed":
             want = {"conv3_mid": 2 * ARCHS["unetr"]["mid"][0],
-                    "conv3_mid_dw": ARCHS["unetr"]["mid"][1]}
+                    "conv3_mid_dw": ARCHS["unetr"]["mid"][1],
+                    "conv3_phase_dw": ARCHS["unetr"]["phase_dw"]}
             if mids != want:
-                _fail(f"the packed UNETR step's mid-channel launches {mids}, expected {want}")
+                _fail(f"the packed UNETR step's mid-channel and phase dw launches {mids}, "
+                      f"expected {want}")
             mid_launches = mids
     for name, spec in (("packed", ARCHS["unetr"]), ("unpacked", ARCHS["unetr-unpacked"])):
         per_step = arch_launches(spec)[1]
@@ -4979,10 +5102,14 @@ def check_local_kernels(torch):
         cms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
             xc.permute(0, 4, 1, 2, 3), (cot, c, 3, 3, 3), dyc.permute(0, 4, 1, 2, 3),
             padding=1))
+        hop = not dense and phase_dw_rule(x, c, cot)
         print(f"  {name} x{x_shape}->{co}: max|d| {err:.3e}; kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms (CUDA graph replay)")
-        _record(results, name, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
-                ops=2 * 27 * c * cot * (xc.numel() // c), peak=PEAK_BF16, library_ms=cms)
+              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms (CUDA graph replay)"
+              + ("; the phase Hopper body" if hop else ""))
+        for rec in (name,) + (("conv3_phase_dw",) if hop else ()):
+            _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                    ops=2 * 27 * c * cot * (xc.numel() // c), peak=PEAK_BF16, library_ms=cms,
+                    echo=rec == name)
 
     cfg = AugmentConfig(spatial=True)
     p_any = 1.0 - (1.0 - cfg.rotate_prob) ** 3 * (1.0 - cfg.zoom_prob)

@@ -1,9 +1,12 @@
 // Tensor-core body of the two weight-gradient kernels of the stride-1 SAME
 // 3x3x3 convolution for bf16 input with C % 8 == 0 and CO % 8 == 0
 // (fused_conv_dw.cu: dense NDHWC; phase_conv_dw.cu: phase-major tensors
-// standing for a 2x-upsampled volume). f32 input, and bf16 with any other
-// channel count, take the f32 body of conv3_f32_dw.cuh: the f32 train step
-// is judged against f64 and TF32 would break that.
+// standing for a 2x-upsampled volume) that no Hopper body takes: the dense
+// rows below the deep and mid bands and, in the phase layout, Ci = 8 (the
+// flagship's L = 64) and small volumes; packed UNETR's phase rows and L =
+// 128 moved to conv3_phase_dw.cuh, 1.1-1.8x faster there. f32 input, and
+// bf16 with any other channel count, take the f32 body of conv3_f32_dw.cuh:
+// the f32 train step is judged against f64 and TF32 would break that.
 //
 // It replaces the same Pallas kernels as that body:
 // segmantic_tpu/ops/pallas_conv.py::_dw_kernel (conv3d_packed_dw) for the

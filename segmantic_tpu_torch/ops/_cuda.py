@@ -55,6 +55,7 @@ _SIGNATURES = {
     "segk_fused_conv3_dw_mid": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_fused_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
+    "segk_phase_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_fused_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],

@@ -15,9 +15,10 @@ the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-Each kernel has five bodies. The conv kernel's, named by :func:`conv_body`
-from the input's type, layout and channel counts: bf16 input in the dense
-layout with C, CO >= 64 runs the deep-channel body (``csrc/conv3_wgmma.cuh``:
+The conv kernel has five bodies, the dw kernel six. The conv kernel's, named
+by :func:`conv_body` from the input's type, layout and channel counts: bf16
+input in the dense layout with C, CO >= 64 runs the deep-channel body
+(``csrc/conv3_wgmma.cuh``:
 ``wgmma`` with the halo and the weight tiles brought by TMA, split-K at small
 volumes) with the geometry of :func:`deep_plan` and the weights of
 :func:`pack_weights_deep`; other bf16 input with C % 8 == 0 (phase layout: C %
@@ -46,8 +47,13 @@ C >= 64 and CO >= 128 runs the deep-channel body (``csrc/conv3_dw_wgmma.cuh``:
 64 below that (CO = 64) and at least ``MID_DW_MIN_POSITIONS`` positions the
 mid-channel body (``csrc/conv3_mid_dw.cuh``: ``wgmma`` with both operands
 MN-major by descriptor on a TMA-staged halo of x and brick of dy) with the
-geometry of :func:`mid_dw_plan`; other bf16 input with C % 8 == 0 and CO % 8
-== 0 the tensor-core body (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on
+geometry of :func:`mid_dw_plan`; bf16 input in the phase layout with C in
+(16, 32, 64), CO = 8 or a multiple of 16 and at least
+``PHASE_DW_MIN_POSITIONS`` block voxels the phase dw's Hopper body
+(``csrc/conv3_phase_dw.cuh``: TMA bricks of p and of g with its halo, K =
+(block voxel, a'z, a'y), ``wgmma`` with g's fragments by ``ldmatrix`` and p's
+(a'x, ci) runs by descriptor) with the geometry of :func:`phase_dw_plan`;
+other bf16 input with C % 8 == 0 and CO % 8 == 0 the tensor-core body (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on
 ``ldmatrix.trans`` operands, one staged halo brick of x and brick of dy per
 step) with the launch geometry of :func:`dw_plan`; bf16 input with C = 1..7 and
 any CO the few-channel body (``csrc/conv3_fewc_dw.cuh``) with the geometry of
@@ -78,7 +84,7 @@ __all__ = [
     "f32_dw_counter", "F32Plan", "f32_plan", "F32DwPlan", "f32_dw_plan", "mid_counter",
     "mid_dw_counter", "MidPlan", "mid_plan", "MidDwPlan", "mid_dw_plan", "pack_weights_mid",
     "mid_eligible", "mid_dw_eligible",
-    "unpack_weights_mid",
+    "unpack_weights_mid", "phase_dw_counter", "PhaseDwPlan", "phase_dw_plan", "phase_dw_eligible",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -95,6 +101,9 @@ f32_dw_counter = _cuda.LaunchCounter("conv3_f32_dw")
 # own counters
 mid_counter = _cuda.LaunchCounter("conv3_mid")
 mid_dw_counter = _cuda.LaunchCounter("conv3_mid_dw")
+# the phase dw's Hopper body's launches (kernels 5-6), also counted by
+# phase_conv.dw_counter
+phase_dw_counter = _cuda.LaunchCounter("conv3_phase_dw")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -194,6 +203,14 @@ MID_MIN_CHANNELS = 48
 # 16-23% slower (a block's pipeline fill and the split partials outweigh its
 # products there).
 MID_DW_MIN_POSITIONS = 32768
+# The phase dw's Hopper body's least Ci and block voxels (B * D * H * W of
+# p), set from the rows timed on an H100 beside the tensor-core body
+# (PERF.md): it was faster at packed UNETR's four phase rows (Ci = 16,
+# 32, 64: 1.1-1.8x) and the flagship's L = 128 (Ci = 16, 1.3x), slower at L
+# = 64 (Ci = Co = 8, where the m64 tile is half padding rows); below the
+# volume a launch of a handful of bricks is its pipeline fill and second pass.
+PHASE_DW_MIN_C = 16
+PHASE_DW_MIN_POSITIONS = 32768
 
 
 def _deep(x: torch.Tensor, c: int, co: int, phase: bool, min_co: int) -> bool:
@@ -865,6 +882,9 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     ``"mid_channels"`` (``csrc/conv3_mid_dw.cuh``) for bf16 input in the
     dense layout with c and co multiples of 64 below that and at least
     ``MID_DW_MIN_POSITIONS`` positions (x's numel over its channels),
+    ``"phase_blocks"`` (``csrc/conv3_phase_dw.cuh``) for bf16 phase-major
+    input whose channel counts :func:`phase_dw_eligible` takes, with c >=
+    ``PHASE_DW_MIN_C`` and at least ``PHASE_DW_MIN_POSITIONS`` block voxels,
     ``"tensor_cores"`` for any other bf16 input whose
     two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
     co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
@@ -875,6 +895,9 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
             return "deep_channels"
         if c % 8 == 0 and co % 8 == 0:
             positions = x.numel() // max(x.shape[-1], 1)  # (the phase layout: block voxels)
+            if (phase and phase_dw_eligible(c, co) and c >= PHASE_DW_MIN_C
+                    and positions >= PHASE_DW_MIN_POSITIONS):
+                return "phase_blocks"
             mid = mid_dw_eligible(c, co, phase) and positions >= MID_DW_MIN_POSITIONS
             return "mid_channels" if mid else "tensor_cores"
         if c < 8:
@@ -1429,6 +1452,129 @@ def mid_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int, sms: int = _SM
     return found[1]
 
 
+# -- the phase dw's Hopper body (csrc/conv3_phase_dw.cuh) --
+
+PHASE_DW_MAX_ROWS = 192  # PHASE_DW_MAX_ROWS: brick positions, their halo rows in a table
+# (N = 2 Ci) -> the (tiles a warpgroup, warpgroups) instances: three of
+# three, the per-tz path (a group is a co chunk's 9 tiles), wherever its
+# accumulators (3 x N / 2 floats a thread) and two sets of fragments fit the
+# 168 registers ptxas gives at 384 threads; at N = 128 one tile a warpgroup
+# (two of three, or three of two, spilled and ran 1.1-1.4x slower on an
+# H100)
+_PHASE_DW_SHAPES = {16: ((3, 3),), 32: ((3, 3),), 64: ((3, 3),), 128: ((1, 3),)}
+_PHASE_DW_BRICKS = [b for b in itertools.product((1, 2, 3, 4), (1, 2, 3, 4, 6, 8), (4, 8, 16))
+                    if b[0] * b[1] * b[2] % 16 == 0 and b[0] * b[1] * b[2] <= PHASE_DW_MAX_ROWS]
+_PHASE_DW_STEP_CYCLES = 40  # a pass's fragment loads and wait, exposed once a warpgroup
+
+
+def phase_dw_eligible(c: int, co: int) -> bool:
+    """Channel counts the phase dw's Hopper body takes: Ci in {8, 16, 32, 64}
+    (a run of the 2 Ci lanes (a'x, ci) is one wgmma N of 16, 32, 64 or 128
+    inside one or two 128-byte rows) and Co = 8 or a multiple of 16 (its co
+    chunks of 16)."""
+    return c in (8, 16, 32, 64) and (co == 8 or (co >= 16 and co % 16 == 0))
+
+
+def phase_dw_smem_bytes(c: int, co: int, td: int, th: int, tw: int, stages: int) -> int:
+    """``phase_dw_smem_bytes`` of ``csrc/conv3_phase_dw.cuh``: 1024 bytes to
+    align the base, 1024 of barriers and the halo-row table, ``stages``
+    slots of the p brick (c / 8 planes of 128-byte rows) and the g halo (co
+    / 8 planes, each rounded to 1024)."""
+    p_bytes = c // 8 * td * th * tw * 128
+    g_bytes = co // 8 * _round1024((td + 2) * (th + 2) * (tw + 2) * 128)
+    return 2048 + stages * (p_bytes + g_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseDwPlan:
+    """Launch geometry of the phase dw's Hopper body, as the C entry point
+    takes it. A block of ``nwg`` warpgroups owns ``nwg * tpw`` of the
+    ``n_tiles`` tiles (co chunk of 16, tz, ty; grid.y = ``groups``) and walks
+    the bricks ``split, split + splits, ...`` of ``td x th x tw`` block
+    voxels; each split writes two partials (a'x = 0, 1) that a second kernel
+    sums in a fixed order."""
+
+    td: int
+    th: int
+    tw: int
+    tpw: int  # tiles a warpgroup accumulates
+    nwg: int  # warpgroups a block (thread 0 issues the copies too)
+    n_tiles: int  # 9 x co chunks of 16
+    groups: int
+    splits: int
+    stages: int
+    grid: Tuple[int, int]  # (splits, groups)
+    smem_bytes: int
+    workspace: int  # f32 values: 2 * splits * 27 * C * CO
+    nbricks: int
+    fill: float  # real block voxels / block voxels walked
+
+
+def _phase_dw_candidates(dims, c: int, co: int, sms: int):
+    b, d, h, w = dims
+    d, h, w = d // 2, h // 2, w // 2
+    positions = b * d * h * w
+    n = 2 * c
+    n_tiles = 9 * -(-co // 16)
+    n_out = 27 * c * co
+    for tpw, nwg in _PHASE_DW_SHAPES[n]:
+        reuse = (tpw, nwg) == (3, 3)  # the per-tz path
+        groups = -(-n_tiles // (tpw * nwg))
+        for td, th, tw in _PHASE_DW_BRICKS:
+            p = td * th * tw
+            nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+            if nbricks >= 2 ** 31:
+                continue
+            fill = positions / (nbricks * p)
+            stages = next((st for st in (4, 3, 2)
+                           if phase_dw_smem_bytes(c, co, td, th, tw, st) <= SMEM_LIMIT), None)
+            if stages is None:
+                continue
+            smem = phase_dw_smem_bytes(c, co, td, th, tw, stages)
+            # a brick of a block, in cycles: its wgmma (N / 2 cycles of the
+            # tensor cores each, or B's 32 N bytes and A's 2 KB by ldmatrix
+            # from shared memory) or its staging from the L2
+            wgmmas = 4 * (p // 16) * nwg * tpw
+            # A's fragments: four of six loads and one commit group of two on the
+            # per-tz path
+            a_bytes = 2048 * (2 / 3 if reuse else 1)
+            mma = wgmmas * max(n / 2, (a_bytes + 32 * n) / _SMEM_BYTES) \
+                + (2 if reuse else 4) * (p // 16) * _PHASE_DW_STEP_CYCLES
+            l2 = (c // 8 * p + co // 8 * (td + 2) * (th + 2) * (tw + 2)) * 128 / _L2_BYTES
+            per_brick = max(mma, l2) + _MID_STEP_CYCLES
+            for splits in sorted({s for s in _split_counts(min(nbricks, 256))}
+                                 | {max(1, min(nbricks, k * sms // groups)) for k in (1, 2, 3)}):
+                blocks = groups * splits
+                cycles = -(-blocks // sms) * (-(-nbricks // splits) * per_brick + 2500)
+                # the partials out and back, and the second launch
+                cycles += 2 * 2 * splits * n_out * 4 / (sms * 32) + 4000
+                yield (fill < 0.7, cycles, -fill, splits), PhaseDwPlan(
+                    td=td, th=th, tw=tw, tpw=tpw, nwg=nwg, n_tiles=n_tiles, groups=groups,
+                    splits=splits, stages=stages, grid=(splits, groups), smem_bytes=smem,
+                    workspace=2 * splits * n_out, nbricks=nbricks, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                  sms: int = _SMS) -> PhaseDwPlan:
+    """The brick, tiles a warpgroup, warpgroups, ring and position splits of
+    one launch of the phase dw's Hopper body for a (B, D, H, W) grid of
+    full-resolution positions (p and g hold (B, D/2, H/2, W/2) block voxels),
+    C input and CO output channels: among bricks of 16 to 192 block voxels
+    and a few split counts, the cheapest by a rough count of cycles on the
+    busiest of ``sms`` multiprocessors (each brick's wgmma or operand bytes
+    from shared memory, or its staging from the L2; the partials and the
+    second launch), among those whose voxels are at least 70% real where any
+    is. The ring takes as many slots (2-4) as fit."""
+    if not phase_dw_eligible(c, co):
+        raise ValueError("the phase dw's Hopper body needs C in (8, 16, 32, 64) and CO = 8 or "
+                         f"a multiple of 16, got C = {c}, CO = {co}")
+    found = min(_phase_dw_candidates(dims, c, co, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no phase dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    return found[1]
+
+
 # -- the register-tiled f32 bodies (csrc/conv3_f32.cuh, csrc/conv3_f32_dw.cuh) --
 
 _F32_MAX_THREADS = 256  # F32_MAX_THREADS; __launch_bounds__(256, 2): 128 registers a thread
@@ -1746,7 +1892,8 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     :func:`dw_body` names: ``entry + "_wgmma"`` (deep channels, dense only,
     :func:`deep_dw_plan`; counted by ``deep_dw_counter`` too), ``entry +
     "_mid"`` (mid channels, dense only, :func:`mid_dw_plan`; counted by
-    ``mid_dw_counter`` too), ``entry +
+    ``mid_dw_counter`` too), ``entry + "_wgmma"`` (the phase layout's Hopper
+    body, :func:`phase_dw_plan`; counted by ``phase_dw_counter`` too), ``entry +
     "_mma"`` (tensor cores, :func:`dw_plan`), ``entry + "_fewc"`` (few
     channels, :func:`fewc_dw_plan`) or ``entry + "_f32"`` (f32,
     :func:`f32_dw_plan`; counted by ``f32_dw_counter`` too). With more than
@@ -1795,6 +1942,17 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
                      b, d, h, w, c, co, p.td, p.th, p.tw, p.tpw, p.nwg, p.splits, p.stages,
                      p.smem_bytes)
         mid_dw_counter.count += 1
+        return out
+    if body == "phase_blocks":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the phase dw's Hopper body reads p and g by TMA: both must be "
+                             "16-byte aligned")
+        p = phase_dw_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        _cuda.launch(entry + "_wgmma", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     b, d, h, w, c, co, p.td, p.th, p.tw, p.tpw, p.nwg, p.splits, p.stages,
+                     p.smem_bytes)
+        phase_dw_counter.count += 1
         return out
     if body == "few_channels":
         p = fewc_dw_plan((b, d, h, w), c, co, phase, sms)

@@ -17,7 +17,12 @@ the body ``fused_conv.conv_body`` / ``dw_body`` names: the forward's
 mid-channel body (``csrc/conv3_mid.cuh``, plan ``fused_conv.mid_plan`` with
 ``phase=True``) for bf16 input with Ci % 16 == 0 and Ci + Co >= 48, whose
 block grid's H and W are multiples of 8 (packed UNETR's stages with a
-32-channel side), the tensor-core body
+32-channel side); the weight gradient's Hopper body (``csrc/conv3_phase_dw.cuh``,
+plan ``fused_conv.phase_dw_plan``: TMA bricks of p and g in block space,
+``wgmma`` with each tap's z and y phase pairs summed in one accumulator) for
+bf16 input with Ci in (16, 32, 64), Co = 8 or a multiple of 16 and at least
+``fused_conv.PHASE_DW_MIN_POSITIONS`` block voxels (packed UNETR's phase rows,
+the flagship's L = 128); the tensor-core body
 for other bf16 input with Ci % 8 == 0 (the weight gradient: and Co % 8 == 0; launch
 plans ``fused_conv.plan`` / ``dw_plan``), the few-channel body for bf16 input
 with Ci = 1..7 (packed UNETR's one-channel input layer; ``fused_conv.fewc_plan``
@@ -102,7 +107,10 @@ def phase_conv_dw(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """True-kernel weight gradient (3, 3, 3, Ci, Co) f32 of the phase conv:
     p (B, D, H, W, 8*Ci) its input, g (B, D, H, W, 8*Co) its output
     cotangent, both phase-major. Replaces kernels 5 and 6 and ``_unfold_dw``
-    of the JAX package with one entry point for every L."""
+    of the JAX package with one entry point for every L: on the card the
+    body ``fused_conv.dw_body`` names (bf16 Ci >= 16 at the models' volumes:
+    the Hopper body, counted by ``fused_conv.phase_dw_counter`` too); on the
+    CPU :func:`phase_conv_dw_plain`."""
     for t, name in ((p, "p"), (g, "g")):
         if t.ndim != 5 or t.shape[-1] % 8:
             raise ValueError(f"{name} must be (B, D, H, W, 8*C), got {tuple(t.shape)}")

@@ -288,16 +288,52 @@ def test_fused_conv_dw(cuda, shape, co, dtype, tol):
     ((1, 3, 4, 5, 24), 3, 5),
     ((2, 6, 8, 16, 64), 8, 8),  # the top decoder stage's L = 64
     ((2, 4, 4, 4, 128), 16, 16),  # the second stage's L = 128
+    # bf16 on the phase dw's Hopper body (at least PHASE_DW_MIN_POSITIONS block
+    # voxels), extents a multiple of no brick: the per-tz path (Co <= 16), the
+    # general path at Ci = 16 (three co chunks), 32 and 64 (N = 64, 128)
+    ((2, 30, 34, 38, 128), 16, 16),
+    ((2, 18, 26, 38, 128), 16, 48),
+    ((1, 36, 33, 30, 256), 32, 16),
+    ((1, 34, 36, 30, 512), 64, 32),
 ])
 def test_phase_conv_dw(cuda, shape, ci, co, dtype, tol):
     g = torch.Generator().manual_seed(5)
     p = _randn(g, *shape).to(dtype)
     gy = _randn(g, *shape[:4], 8 * co).to(dtype)
+    hop = (dtype == torch.bfloat16 and ci >= fused_conv.PHASE_DW_MIN_C
+           and p.numel() // p.shape[-1] >= fused_conv.PHASE_DW_MIN_POSITIONS)
+    assert (fused_conv.dw_body(p, ci, co, True) == "phase_blocks") == hop
     phase_conv.dw_counter.reset()
+    fused_conv.phase_dw_counter.reset()
     got = phase_conv.phase_conv_dw(p, gy)
     assert phase_conv.dw_counter.count == 1 and got.shape == (3, 3, 3, ci, co)
-    _close(got, phase_conv.phase_conv_dw_plain(p, gy), tol)
+    assert fused_conv.phase_dw_counter.count == int(hop)
+    # the phase body (f32 sums of the same exactly upcast products) within 1e-3
+    _close(got, phase_conv.phase_conv_dw_plain(p, gy), 1e-3 if hop else tol)
     assert torch.equal(got, phase_conv.phase_conv_dw(p, gy))
+
+
+def test_phase_dw_launcher_refuses_plans_it_did_not_size(cuda):
+    """The phase dw's Hopper body's launcher refuses a shared-memory sum
+    other than its own and an instance it does not have (two warpgroups of
+    three tiles at N = 64)."""
+    p = torch.zeros((1, 4, 6, 8, 128), dtype=torch.bfloat16, device=cuda)
+    dims = (1, 8, 12, 16)
+    q = fused_conv.phase_dw_plan(dims, 16, 16)
+    out = torch.empty((3, 3, 3, 16, 16), dtype=torch.float32, device=cuda)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=cuda)
+    args = (p.data_ptr(), p.data_ptr(), ws.data_ptr(), out.data_ptr(), *dims, 16, 16, q.td, q.th,
+            q.tw, q.tpw, q.nwg, q.splits, q.stages)
+    _cuda.launch("segk_phase_conv3_dw_wgmma", *args, q.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_phase_conv3_dw_wgmma", *args, q.smem_bytes + 1024)
+    p32 = torch.zeros((1, 4, 6, 8, 256), dtype=torch.bfloat16, device=cuda)
+    q32 = fused_conv.phase_dw_plan(dims, 32, 16)
+    ws32 = torch.empty(q32.workspace, dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # no (N 64, TPW 3, NWG 2) instance
+        _cuda.launch("segk_phase_conv3_dw_wgmma", p32.data_ptr(), p.data_ptr(), ws32.data_ptr(),
+                     out.data_ptr(), *dims, 32, 16, q32.td, q32.th, q32.tw, 3, 2,
+                     q32.splits, q32.stages, q32.smem_bytes)
 
 
 # (layout, stored shape of x, stored channels of dy): every dw shape of one
@@ -337,8 +373,11 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     x = _randn(g, *shape).to(torch.bfloat16)
     dy = _randn(g, *shape[:4], co).to(torch.bfloat16)
     deep = layout == "dense" and c_true >= 64 and co_true >= 128  # the deep-channel dw rule
+    # the phase dw's Hopper body from Ci = 16 at these volumes (the L = 128 stage)
+    hop = (layout == "phase" and c_true >= fused_conv.PHASE_DW_MIN_C
+           and x.numel() // x.shape[-1] >= fused_conv.PHASE_DW_MIN_POSITIONS)
     assert fused_conv.dw_body(x, c_true, co_true, layout == "phase") == (
-        "deep_channels" if deep else "tensor_cores")
+        "deep_channels" if deep else "phase_blocks" if hop else "tensor_cores")
     mod.dw_counter.reset()
     got = kernel(x, dy)
     assert mod.dw_counter.count == 1 and got.dtype == torch.float32
