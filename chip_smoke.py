@@ -138,6 +138,10 @@ KERNELS = {
     # kernel 5-6's total, which includes it
     "conv3_phase_dw": ("segmantic_tpu_torch/csrc/conv3_phase_dw.cuh",
                        "segmantic_tpu/ops/phase_gemm.py:430,518"),
+    # the phase forward's Hopper body of kernels 3-4 (bf16, Ci = Co = 8 or 16),
+    # beside kernel 3-4's total, which includes it
+    "conv3_phase": ("segmantic_tpu_torch/csrc/conv3_phase.cuh",
+                    "segmantic_tpu/ops/phase_gemm.py:266,327"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
@@ -150,6 +154,10 @@ FLAGSHIP_MID = 2
 # and the phase dw's Hopper body: the L = 128 stage's weight gradient (Ci = 16;
 # L = 64, Ci = 8, stays on the tensor-core body)
 FLAGSHIP_PHASE_DW = 1
+# and the phase forward's Hopper body: both phase stages' forward and input
+# gradient (L = 64 and L = 128) a step; a served chunk of windows runs both
+# stages once
+FLAGSHIP_PHASE_FWD = 4
 # published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
@@ -268,6 +276,13 @@ def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"{p.nwg} warpgroups of {p.spw} m64 slabs, N tile {p.nt}, {p.nchunks} "
                       f"chunk(s) of {p.ck} channels, {p.nbricks} bricks over {p.grid_x} blocks "
                       f"x {p.n_tiles} N tiles, ring of {p.stages}, tile fill {p.fill:.3f}"), p.fill
+    if body == "phase_lanes":
+        p = fused_conv.phase_fwd_plan(dims, c, co, sms)
+        return body, (f"phase Hopper body (TMA block-space bricks, wgmma with A and B by "
+                      f"descriptor, N = output phases x Co = 64): bricks of 1x8x8 block voxels, "
+                      f"{p.nbricks} bricks over {p.grid_x} blocks x {p.groups} group(s) of "
+                      f"output phases, 2 warpgroups, ring of {p.stages}, {p.ksteps} k16 steps "
+                      f"a brick, fill {p.fill:.3f}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.plan(dims, c, co, 2, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile "
@@ -535,6 +550,64 @@ def phase_dw_beside(torch, label, p, g, taken: bool) -> None:
         _fail(f"{label}: the phase Hopper body disagrees")
 
 
+def phase_fwd_rule(x, c: int, co: int) -> bool:
+    """Whether the rule sends the bf16 phase forward on x to the phase
+    forward's Hopper body, written out from its constants."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return (fused_conv.phase_fwd_eligible(c, co)
+            and x.numel() // x.shape[-1] >= fused_conv.PHASE_FWD_MIN_POSITIONS)
+
+
+def phase_fwd_entry_ms(torch, p, w):
+    """(max|d| over max|ref|, device ms) of the phase forward's Hopper body
+    (``conv3_phase.cuh``) on bf16 phase tensor p and weights w, called
+    through its C entry point with its own plan (no epilogue, bf16 out):
+    the row's time on the new body where the rule keeps the tensor-core
+    body."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
+
+    b, d, h, w_ = p.shape[0], 2 * p.shape[1], 2 * p.shape[2], 2 * p.shape[3]
+    c, co = w.shape[-2:]
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    q = fused_conv.phase_fwd_plan((b, d, h, w_), c, co, sms)
+    packed = fused_conv.pack_weights_phase(w)
+    s, t = fused_conv._epilogue_vectors(co, None, None, None, p.device)
+    out = torch.empty(p.shape[:4] + (8 * co,), dtype=torch.bfloat16, device=p.device)
+
+    def run():
+        _cuda.launch("segk_phase_conv3_lanes", p.data_ptr(), packed.data_ptr(), s.data_ptr(),
+                     t.data_ptr(), None, 0, out.data_ptr(), b, d, h, w_, c, co, 1, q.grid_x,
+                     q.stages, q.smem_bytes)
+
+    run()
+    want = phase_conv.phase_conv_plain(p, w).float()
+    torch.cuda.synchronize()
+    rel = ((out.float() - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def phase_fwd_beside(torch, label, p, w, taken: bool) -> None:
+    """Print the row's other body beside the one the rule took: the
+    tensor-core body where the phase forward's Hopper body runs it, else
+    the Hopper body where its channels are eligible (checked against the
+    plain version)."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    if taken:
+        print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
+              f"{tensor_core_conv_ms(torch, p, w, phase=True):.4f} ms")
+        return
+    if not fused_conv.phase_fwd_eligible(*w.shape[-2:]):
+        return
+    rel, ms = phase_fwd_entry_ms(torch, p, w)
+    print(f"    the phase forward's Hopper body (conv3_phase.cuh, left out by the rule below "
+          f"{fused_conv.PHASE_FWD_MIN_POSITIONS} block voxels) on the same tensors: {ms:.4f} ms, "
+          f"max|d| / max|ref| {rel:.2e}")
+    if rel > 2e-2:
+        _fail(f"{label}: the phase forward's Hopper body disagrees")
+
+
 def check_kernels(torch):
     """Each kernel against its plain version at the serving path's shapes.
 
@@ -580,11 +653,6 @@ def check_kernels(torch):
         if not ok:
             _fail(f"{name} {label} {dtype} disagrees with its plain version")
         return err
-
-    def fill_of(dims, c, co):
-        p = fused_conv.plan(dims, c, co, 2, sms)
-        return (f"brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile {p.nt}, "
-                f"{p.nbricks} bricks x {p.n_tiles} N tiles, tile fill {p.fill:.3f}"), p.fill
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf16 = torch.bfloat16
@@ -648,7 +716,10 @@ def check_kernels(torch):
                 if not torch.equal(k(), k()):
                     _fail(f"phase_conv {label}: a repeated bf16 launch is not bit-equal")
                 full = (shape[0],) + tuple(2 * v for v in shape[1:4])
-                plan_text, fill = fill_of(full, c, c)
+                body, plan_text, fill = conv_body_text(p_in, c, c, full, True, sms)
+                hop = phase_fwd_rule(p_in, c, c)
+                if body != ("phase_lanes" if hop else "tensor_cores"):
+                    _fail(f"phase_conv {label}: the rule sends C = {c} to the {body} body")
                 # the plain version uploads its selection tensor: not capturable,
                 # and long enough (> 1 ms) that the host does not pace it
                 ms, pms = _graph_ms(torch, k), _median_ms(torch, p)
@@ -657,6 +728,7 @@ def check_kernels(torch):
                 print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
                       f"cuDNN conv3d at full resolution {lms:.4f} ms; plain {pms:.4f} ms "
                       f"(eager calls)")
+                phase_fwd_beside(torch, f"phase_conv {label}", p_in, w, hop)
                 if fused_conv.mid_eligible(c, c, True):
                     rel, mms = mid_conv_entry_ms(torch, p_in, w, phase=True)
                     print(f"    the mid-channel body (conv3_mid.cuh, left out by the rule at "
@@ -666,10 +738,11 @@ def check_kernels(torch):
                         _fail(f"phase_conv {label}: the mid-channel body disagrees")
                 if fill < 0.75:
                     _fail(f"phase_conv {label}: tile fill {fill:.3f} < 0.75")
-                _record(results, "phase_conv", err=err, ms=ms, plain_ms=pms,
-                        nbytes=_nbytes(p_in, w, p_in),  # the output has the input's shape
-                        ops=2 * 27 * c * c * (p_in.numel() // c), peak=PEAK_BF16,
-                        library_ms=lms)
+                for name in ("phase_conv",) + (("conv3_phase",) if hop else ()):
+                    _record(results, name, err=err, ms=ms, plain_ms=pms,
+                            nbytes=_nbytes(p_in, w, p_in),  # the output has the input's shape
+                            ops=2 * 27 * c * c * (p_in.numel() // c), peak=PEAK_BF16,
+                            library_ms=lms, echo=name == "phase_conv")
 
     # ragged shapes, untimed: extents that are a multiple of no brick, CO = 5
     # (scalar stores), C = 24 (a chunk padded to 32), C = 12 (no 16-byte
@@ -679,7 +752,9 @@ def check_kernels(torch):
     # one-class UNet's 1 -> 1 top stage) in both layouts, each one launch; on
     # the mid-channel body C = 40 (three chunks of 16, the last half zero), CO
     # = 5 (scalar stores), CO = 72 (two N tiles), C = 8 (paired taps) and
-    # phase CO = 24 and 40
+    # phase CO = 24 and 40; on the phase forward's Hopper body C = CO = 8 and
+    # 16 on grids whose H and W are no multiple of 8, and one below its least
+    # volume (the tensor-core body, the Hopper body alone beside)
     for name, shape, c, co in [("fused_conv", (2, 5, 7, 9, 64), 64, 192),
                                ("fused_conv", (2, 5, 7, 9, 96), 96, 72),
                                ("fused_conv", (1, 6, 6, 6, 72), 72, 64),
@@ -704,7 +779,10 @@ def check_kernels(torch):
                                ("phase_conv", (1, 2, 3, 4, 8 * 7), 7, 5),
                                ("phase_conv", (1, 3, 4, 5, 8), 1, 1),
                                ("phase_conv", (1, 3, 5, 7, 8 * 32), 32, 24),
-                               ("phase_conv", (2, 2, 3, 5, 8 * 16), 16, 40)]:
+                               ("phase_conv", (2, 2, 3, 5, 8 * 16), 16, 40),
+                               ("phase_conv", (2, 18, 22, 26, 8 * 8), 8, 8),
+                               ("phase_conv", (1, 20, 30, 14, 8 * 16), 16, 16),
+                               ("phase_conv", (1, 4, 6, 10, 8 * 16), 16, 16)]:
         x = randn(*shape).to(bf16)
         w = randn(3, 3, 3, c, co, scale=(27 * c) ** -0.5).to(bf16)
         kw = dict(bias=randn(co, scale=0.1), scale=randn(co).abs() + 0.5,
@@ -715,6 +793,7 @@ def check_kernels(torch):
                           else (phase_conv, phase_conv.phase_conv, phase_conv.phase_conv_plain))
         body = fused_conv.conv_body(x, c, co, name == "phase_conv")
         if body != ("few_channels" if c < 8 else
+                    "phase_lanes" if name == "phase_conv" and phase_fwd_rule(x, c, co) else
                     "deep_channels" if name == "fused_conv" and min(c, co) >= 64 else
                     "mid_channels" if c + co >= 48 and shape[2] % 8 == 0 and shape[3] % 8 == 0
                     and fused_conv.mid_eligible(c, co, name == "phase_conv") else
@@ -728,6 +807,8 @@ def check_kernels(torch):
                   f"point: max|d| / max|ref| {rel:.2e} (limit 2e-2) {'ok' if rel <= 2e-2 else 'FAIL'}")
             if rel > 2e-2:
                 _fail(f"{name} ragged {shape}: the mid-channel body disagrees")
+        if name == "phase_conv" and body != "phase_lanes" and fused_conv.phase_fwd_eligible(c, co):
+            phase_fwd_beside(torch, f"{name} ragged {shape}", x, w, False)
         for out_dtype in (bf16, torch.float32):
             before = mod.counter.count
             compare(name, f"ragged {tuple(shape)} C={c}->{co} out {str(out_dtype)[6:]} "
@@ -736,7 +817,8 @@ def check_kernels(torch):
                     lambda: plain(x, w, out_dtype=out_dtype, **kw), bf16)
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
-            if body in ("few_channels", "deep_channels", "mid_channels", "f32_tiles") and \
+            if body in ("few_channels", "deep_channels", "mid_channels", "f32_tiles",
+                        "phase_lanes") and \
                     not torch.equal(
                     fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
                 _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
@@ -927,7 +1009,8 @@ def report_conv_build(lib: Path) -> None:
     spills per instantiation, from the build log beside the library) and,
     where the toolkit has ``cuobjdump``, how many tensor-core (HMMA),
     ``ldmatrix`` (LDSM) and asynchronous copy (LDGSTS) opcodes their SASS
-    holds; the same for the deep-, mid-channel and f32 bodies (wgmma: HGMMA).
+    holds; the same for the deep-, mid-channel, phase Hopper and f32 bodies
+    (wgmma: HGMMA).
     Spills fail nothing; a kernel without HMMA or HGMMA does."""
     import re
     import shutil
@@ -975,6 +1058,14 @@ def report_conv_build(lib: Path) -> None:
     print(f"  ptxas, conv3_phase_dw_kernel<N, TPW, NWG>: {len(found)} instantiations, "
           f"registers {min(f[1] for f in found)}-{max(f[1] for f in found)}, spill bytes "
           f"{sum(f[2] for f in found)}; " + ", ".join(f"{a}:{r}/{sp}" for a, r, sp in sorted(found)))
+    found = set()  # the phase forward's Hopper body: <CI>
+    for line, regs, _, spill in _ptxas_reports(lib, "conv3_phase_fwd_kernel"):
+        m = re.search(r"conv3_phase_fwd_kernelILi(\d+)E", line)
+        if m:
+            found.add((int(m.group(1)), regs, spill))
+    print(f"  ptxas, conv3_phase_fwd_kernel<CI>: {len(found)} instantiations, registers "
+          f"{min(f[1] for f in found)}-{max(f[1] for f in found)}, spill bytes "
+          f"{sum(f[2] for f in found)}; " + ", ".join(f"{a}:{r}/{sp}" for a, r, sp in sorted(found)))
     f32 = ("conv3_f32_kernel", "conv3_f32_dw_kernel")
     for name in f32:  # <Tin, Tout, Layout, PW> and <Tin, Layout, RV>
         found = {(line.split("'")[1] if "'" in line else line, regs, spill)
@@ -1003,6 +1094,7 @@ def report_conv_build(lib: Path) -> None:
               f"(cp.async), {c['LDS.128']} LDS.128")
         if not c["FFMA"] or not c["LDGSTS"] or not c["LDS.128"]:
             _fail(f"{name} holds no FFMA, no LDGSTS or no LDS.128 opcode")
+    mid = mid + ("conv3_phase_fwd_kernel",)
     mid_counts = {name: {"HGMMA": 0, "STS.128": 0, "UTMALDG": 0, "UBLKCP": 0} for name in mid}
     inside = None
     for line in sass.splitlines():
@@ -1016,8 +1108,8 @@ def report_conv_build(lib: Path) -> None:
         print(f"  SASS of the {name} instantiations: {c['HGMMA']} HGMMA (wgmma), {c['STS.128']} "
               f"STS.128 (the staged planes), {c['UTMALDG']} UTMALDG (TMA), {c['UBLKCP']} UBLKCP "
               f"(bulk copy)")
-        if not c["HGMMA"]:
-            _fail(f"{name} holds no HGMMA opcode")
+        if not c["HGMMA"] or (name == "conv3_phase_fwd_kernel" and not c["UTMALDG"]):
+            _fail(f"{name} holds no HGMMA opcode (the phase forward: or no UTMALDG)")
     deep = deep + ("conv3_phase_dw_kernel",)
     deep_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0, "UBLKCP": 0} for name in deep}
     inside = None
@@ -1067,12 +1159,13 @@ def _f32_counters():
 
 
 def _mid_counters():
-    """The mid-channel bodies' and the phase dw's Hopper body's own counters
+    """The mid-channel bodies' and the phase Hopper bodies' own counters
     (their launches also count in kernels 1-6's)."""
     from segmantic_tpu_torch.ops import fused_conv
 
     return {"conv3_mid": fused_conv.mid_counter, "conv3_mid_dw": fused_conv.mid_dw_counter,
-            "conv3_phase_dw": fused_conv.phase_dw_counter}
+            "conv3_phase_dw": fused_conv.phase_dw_counter,
+            "conv3_phase": fused_conv.phase_fwd_counter}
 
 
 def _counters():
@@ -1137,8 +1230,9 @@ def check_deep_dx(torch, results, arch: str, x_shape, co: int, g, per_step: int)
 
 
 def check_train_kernels(torch):
-    """The two weight-gradient kernels and both autograd Functions against
-    their plain versions at the train step's shapes (batch 8), f32 and bf16.
+    """The two weight-gradient kernels, the phase stages' forward and input
+    gradient and both autograd Functions against their plain versions at the
+    train step's shapes (batch 8), f32 and bf16.
 
     Every dw shape of one flagship step: the six distinct dense ones (eight
     launches: 24^3 x 32 and 12^3 x 64 run in the encoder and in the decoder)
@@ -1278,6 +1372,46 @@ def check_train_kernels(torch):
     # the input gradient of the flagship's one CI != CO deep conv (128 -> 256 at
     # 6^3): the conv 256 -> 128 with flipped weights, on the deep-channel body
     check_deep_dx(torch, results, "flagship", (B, 6, 6, 6, 128), 256, g, 1)
+
+    # both phase stages' forward and input gradient (the forward with flipped,
+    # swapped weights) at the training batch, on the phase forward's Hopper
+    # body beside the tensor-core body; the library call cuDNN's bf16 conv3d
+    # on the full-resolution view (the rearrangement not timed), the plain
+    # version timed eagerly (it uploads its selection tensor)
+    import torch.nn.functional as F
+
+    for shape, c in [((B, 48, 48, 48, 64), 8), ((B, 24, 24, 24, 128), 16)]:
+        p_in = randn(*shape).to(bf16)
+        w0 = randn(3, 3, 3, c, c, scale=(27 * c) ** -0.5)
+        full = (B,) + tuple(2 * v for v in shape[1:4])
+        for what, w in (("fwd", w0.to(bf16)), ("dx", fused_conv.flip_io(w0).to(bf16))):
+            label = f"phase_conv {what} p{shape} C={c} (1 per step)"
+            hop = phase_fwd_rule(p_in, c, c)
+            body, text, fill = conv_body_text(p_in, c, c, full, True, sms)
+            if body != ("phase_lanes" if hop else "tensor_cores"):
+                _fail(f"{label}: the rule sends C = {c} to the {body} body")
+            before = phase_conv.counter.count
+            got = phase_conv.phase_conv(p_in, w)
+            if phase_conv.counter.count != before + 1:
+                _fail(f"{label}: expected one counted launch")
+            err = compare(label, got, phase_conv.phase_conv_plain(p_in, w), bf16, 2e-2)
+            if not torch.equal(got, phase_conv.phase_conv(p_in, w)):
+                _fail(f"{label}: a repeated bf16 launch is not bit-equal")
+            if fill < 0.75:
+                _fail(f"{label}: fill {fill:.3f} < 0.75")
+            ms = _graph_ms(torch, lambda: phase_conv.phase_conv(p_in, w))
+            pms = _median_ms(torch, lambda: phase_conv.phase_conv_plain(p_in, w))
+            xf = depth_to_space(p_in, c).permute(0, 4, 1, 2, 3)
+            wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+            lms = _graph_ms(torch, lambda: F.conv3d(xf, wc, padding=1))
+            print(f"    bf16, repeated launch bit-equal; {text}")
+            print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, cuDNN conv3d "
+                  f"at full resolution {lms:.4f} ms; plain {pms:.4f} ms (eager calls)")
+            phase_fwd_beside(torch, label, p_in, w, hop)
+            for rec in ("phase_conv",) + (("conv3_phase",) if hop else ()):
+                _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(p_in, w, got),
+                        ops=2 * 27 * c * c * (p_in.numel() // c), peak=PEAK_BF16,
+                        library_ms=lms, echo=rec == "phase_conv")
 
     # odd shapes, untimed, bf16: extents that are a multiple of no brick; CO = 24
     # (a padded or a third N tile); C = 12 and CO = 20 (no 16-byte channel vector:
@@ -1809,8 +1943,10 @@ def run_train(torch, work: Path):
     launches.update(_launches(_deep_counters()))  # the deep convs on the deep-channel bodies
     # and the 24^3 ones on the mid-channel conv body (no dw of the flagship takes its dw body)
     launches["conv3_mid"] = _mid_counters()["conv3_mid"].count
-    # and the L = 128 weight gradient on the phase dw's Hopper body
+    # and the L = 128 weight gradient on the phase dw's Hopper body, both phase
+    # stages' forward and input gradient on the phase forward's
     launches["conv3_phase_dw"] = _mid_counters()["conv3_phase_dw"].count
+    launches["conv3_phase"] = _mid_counters()["conv3_phase"].count
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -1843,12 +1979,12 @@ def run_train(torch, work: Path):
     torch.cuda.synchronize()
     want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW,
             "conv3_mid": 2 * FLAGSHIP_MID, "conv3_mid_dw": 0,
-            "conv3_phase_dw": FLAGSHIP_PHASE_DW}
-    print(f"  deep- and mid-channel bodies and the phase dw's Hopper body, one step: "
+            "conv3_phase_dw": FLAGSHIP_PHASE_DW, "conv3_phase": FLAGSHIP_PHASE_FWD}
+    print(f"  deep- and mid-channel bodies and the phase Hopper bodies, one step: "
           f"{_launches(deep)} (expected {want})")
     if _launches(deep) != want:
-        _fail(f"the flagship's deep and mid convs (fwd, dx, dw) did not all run on their "
-              f"bodies: {_launches(deep)}, expected {want}")
+        _fail(f"the flagship's deep, mid and phase convs (fwd, dx, dw) did not all run on "
+              f"their bodies: {_launches(deep)}, expected {want}")
     ms, times, loss_hist, peak = warm_steps(torch, step, image.cuda(), label.cuda())
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
     print(f"  fixed batch {TRAIN_BATCH}x96^3 bf16, Adam lr 1e-3: warm step median {ms:.2f} ms "
@@ -2145,9 +2281,10 @@ def phantom(shape, seed: int):
 
 
 def serve_requests(torch, ckpt: Path, work: Path,
-                   required=("fused_conv", "phase_conv", "blend")):
+                   required=("fused_conv", "phase_conv", "blend", "conv3_phase")):
     """Three requests through ``make_server(InferenceSession(ckpt))``; fails
-    unless each kernel of ``required`` launched."""
+    unless each kernel of ``required`` launched (the flagship's: its phase
+    stages on the phase forward's Hopper body too)."""
     import numpy as np
 
     from segmantic_tpu_torch.serve import InferenceSession, make_server
@@ -2173,7 +2310,8 @@ def serve_requests(torch, ckpt: Path, work: Path,
         print(f"  GET /v1/health -> {health}")
         if health != {"status": "ok"}:
             _fail("health check")
-        for c in _counters().values():
+        phase_fwd = _mid_counters()["conv3_phase"]  # the phase stages' Hopper body
+        for c in (*_counters().values(), phase_fwd):
             c.reset()
         for name, img, affine in cases:
             path = work / f"{name}.nii.gz"
@@ -2204,6 +2342,7 @@ def serve_requests(torch, ckpt: Path, work: Path,
     if thread.is_alive():
         _fail("server thread did not stop")
     launches = {name: c.count for name, c in _counters().items()}
+    launches["conv3_phase"] = phase_fwd.count
     print(f"  launches during the requests: {launches}")
     if min(launches[k] for k in required) <= 0:
         _fail(f"a kernel of the path was never launched: {launches}")
@@ -2523,7 +2662,7 @@ ARCHS = {
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
               "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4),
-              "mid": (7, 4), "phase_dw": 7},
+              "mid": (7, 4), "phase_dw": 7, "phase_fwd": 2},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
@@ -2689,18 +2828,21 @@ def arch_launches(spec):
     entry: ``deep`` and ``mid`` are each body's (convs a forward, weight
     gradients a step); a conv on either body takes its input gradient there
     too; ``phase_dw`` the weight gradients a step on the phase dw's Hopper
-    body."""
+    body; ``phase_fwd`` the convs a forward on the phase forward's Hopper
+    body (their input gradients too)."""
     deep, deep_dw = spec["deep"]
     mid, mid_dw = spec.get("mid", (0, 0))
     per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"],
-               "fused_conv_wgmma": deep, "conv3_mid": mid}
+               "fused_conv_wgmma": deep, "conv3_mid": mid,
+               "conv3_phase": spec.get("phase_fwd", 0)}
     per_step = {"fused_conv": 2 * spec["convs"], "phase_conv": 2 * spec["phase_convs"],
                 "fused_conv_dw": spec["convs"], "phase_conv_dw": spec["phase_convs"],
                 "dice_phase_sums": int(spec["phase_dice"]),
                 "dice_phase_dx": int(spec["phase_dice"]),
                 "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw,
                 "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw,
-                "conv3_phase_dw": spec.get("phase_dw", 0)}
+                "conv3_phase_dw": spec.get("phase_dw", 0),
+                "conv3_phase": 2 * spec.get("phase_fwd", 0)}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -2943,7 +3085,8 @@ def check_unetr_pack_kernels(torch):
         kind, text, _ = conv_body_text(t, c_in, c_out, full, True, sms)
         mid = (c_in + c_out >= fused_conv.MID_MIN_CHANNELS and t.shape[2] % 8 == 0
                and t.shape[3] % 8 == 0 and fused_conv.mid_eligible(c_in, c_out, True))
-        if kind != ("few_channels" if c_in < 8 else "mid_channels" if mid else "tensor_cores"):
+        if kind != ("few_channels" if c_in < 8 else "mid_channels" if mid else "phase_lanes"
+                    if phase_fwd_rule(t, c_in, c_out) else "tensor_cores"):
             _fail(f"phase_conv p{tuple(t.shape)}: the rule sends CI = {c_in} to the {kind} body")
         return kind, text
 
@@ -2963,7 +3106,7 @@ def check_unetr_pack_kernels(torch):
         kind, text = conv_body(t, c_in, c_out)
         print(f"    {text}; kernel {ms:.4f} ms, plain {pms:.4f} ms "
               f"(eager), cuDNN at full resolution {lms:.4f} ms")
-        if kind == "mid_channels":
+        if kind in ("mid_channels", "phase_lanes"):
             print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
                   f"{tensor_core_conv_ms(torch, t, wk, phase=True):.4f} ms")
         elif fused_conv.mid_eligible(c_in, c_out, True):
@@ -2972,8 +3115,9 @@ def check_unetr_pack_kernels(torch):
                   f"on the same tensors: {mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
             if rel > 2e-2:
                 _fail(f"{label}: the mid-channel body disagrees")
+        body = {"mid_channels": ("conv3_mid",), "phase_lanes": ("conv3_phase",)}.get(kind, ())
         return (err, ms, pms, lms, _nbytes(t, wk, got), 2 * 27 * c_in * c_out * (t.numel() // c_in),
-                kind == "mid_channels")
+                body)
 
     for shape, ci, co, per_fwd, layers in UNETR_PACK_SHAPES:
         launched = results if per_fwd else {}  # an unlaunched shape stays out of the line
@@ -2984,20 +3128,20 @@ def check_unetr_pack_kernels(torch):
         label = f"p{shape} CI {ci} -> CO {co} ({layers}; {per_fwd} a forward)"
         x_full, g_full = depth_to_space(p, ci), depth_to_space(gy, co)
         wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-        err, ms, pms, lms, nbytes, ops, mid = check_conv(
+        err, ms, pms, lms, nbytes, ops, body = check_conv(
             f"phase_conv {label}", p, w, lambda: F.conv3d(ncdhw(x_full), wc, padding=1))
-        for name in ("phase_conv",) + (("conv3_mid",) if mid else ()):
+        for name in ("phase_conv",) + body:
             _record(launched, name, err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
                     peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv")
 
         with_dx = ci > 1  # the layer that takes the one-channel image has no dx
         wt = fused_conv.flip_io(w)
         if with_dx and ci != co:
-            err, ms, pms, lms, nbytes, ops, mid = check_conv(
+            err, ms, pms, lms, nbytes, ops, body = check_conv(
                 f"phase_conv dx (L {8 * co} -> {8 * ci}) {label}", gy, wt,
                 lambda: torch.nn.grad.conv3d_input(ncdhw(x_full).shape, wc, ncdhw(g_full),
                                                    padding=1))
-            for name in ("phase_conv",) + (("conv3_mid",) if mid else ()):
+            for name in ("phase_conv",) + body:
                 _record(launched, name, err=err, ms=ms, plain_ms=pms, nbytes=nbytes, ops=ops,
                         peak=PEAK_BF16, library_ms=lms, echo=name == "phase_conv")
 
@@ -3117,9 +3261,10 @@ def unetr_pack_ab(torch):
         if name == "packed":
             want = {"conv3_mid": 2 * ARCHS["unetr"]["mid"][0],
                     "conv3_mid_dw": ARCHS["unetr"]["mid"][1],
-                    "conv3_phase_dw": ARCHS["unetr"]["phase_dw"]}
+                    "conv3_phase_dw": ARCHS["unetr"]["phase_dw"],
+                    "conv3_phase": 2 * ARCHS["unetr"]["phase_fwd"]}
             if mids != want:
-                _fail(f"the packed UNETR step's mid-channel and phase dw launches {mids}, "
+                _fail(f"the packed UNETR step's mid-channel and phase Hopper launches {mids}, "
                       f"expected {want}")
             mid_launches = mids
     for name, spec in (("packed", ARCHS["unetr"]), ("unpacked", ARCHS["unetr-unpacked"])):

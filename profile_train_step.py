@@ -51,7 +51,8 @@ GROUPS = [
     ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
     ("conv kernels fwd+dx (fused_conv, phase_conv)",
      ("conv3_f32_kernel", "conv3_mma_kernel", "conv3_wgmma_kernel", "conv3_fewc_kernel",
-      "conv3_mid_kernel", "wgmma_reduce_kernel", "conv3_f32_reduce_kernel")),
+      "conv3_mid_kernel", "conv3_phase_fwd_kernel", "wgmma_reduce_kernel",
+      "conv3_f32_reduce_kernel")),
     ("cuDNN convs (strided, transposed, 1x1)",
      ("cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "convolve")),
     ("GEMMs (cuBLAS: attention, MLP)", ("gemm", "cutlass", "xmma", "nvjet")),

@@ -20,8 +20,8 @@
 // second 48^3 x 16 -> 16: bytes, both. A voxel's channel vector is 16 or 32
 // contiguous bytes in the phase-major tensor too, and the 8 phases of one
 // block voxel share a 128- or 256-byte line.
-// What the design does about it: bf16 input runs the tensor-core body of
-// conv3_mma.cuh (segk_phase_conv3_mma), the same code as fused_conv with the
+// What the design does about it: bf16 input that no body below takes runs
+// the tensor-core body of conv3_mma.cuh (segk_phase_conv3_mma), the same code as fused_conv with the
 // PhaseLayout address map: each 16-byte piece of the halo brick is one
 // cp.async at the mapped address (neighbouring lanes take neighbouring phases
 // of one line), C = 8 pairs two taps into one k16 step, and the epilogue
@@ -37,10 +37,16 @@
 // stages with a 32-channel side) runs the mid-channel body of conv3_mid.cuh
 // (segk_phase_conv3_mid): each input phase's share of the halo staged as
 // 8-channel planes, the M rows ordered by output phase so that every tap of
-// a slab is one wgmma descriptor into one plane.
+// a slab is one wgmma descriptor into one plane. bf16 input with Ci = Co = 8
+// or 16 (the flagship's two top decoder stages, packed UNETR's 96^3 x 16
+// stage) runs the Hopper body of conv3_phase.cuh (segk_phase_conv3_lanes):
+// the halo brick in block space by TMA, M = block voxels, K = (shift, input
+// phase, ci) pairs, N = (output phases, co) = 64, both operands of its wgmma
+// by descriptor (A a start moved by the pair's shift and input phase).
 #include "conv3_f32.cuh"
 #include "conv3_fewc.cuh"
 #include "conv3_mid.cuh"
+#include "conv3_phase.cuh"
 
 extern "C" int segk_phase_conv3_f32(const void* p, const void* w, const float* scale,
                                     const float* shift, const float* alpha, int relu_mode,
@@ -84,4 +90,13 @@ extern "C" int segk_phase_conv3_mid(const void* p, const void* wp, const float* 
   return segk::launch_conv3_mid<1>(p, wp, scale, shift, alpha, relu_mode, out, B, D2, H2, W2, C,
                                    CO, out_bf16, td, th, tw, ck, nt, spw, nwg, grid_x, stages,
                                    smem_bytes, stream);
+}
+
+extern "C" int segk_phase_conv3_lanes(const void* p, const void* wp, const float* scale,
+                                      const float* shift, const float* alpha, int relu_mode,
+                                      void* out, int B, int D2, int H2, int W2, int C, int CO,
+                                      int out_bf16, int grid_x, int stages, int smem_bytes,
+                                      void* stream) {
+  return segk::launch_conv3_phase_fwd(p, wp, scale, shift, alpha, relu_mode, out, B, D2, H2, W2,
+                                      C, CO, out_bf16, grid_x, stages, smem_bytes, stream);
 }

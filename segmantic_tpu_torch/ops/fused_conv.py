@@ -15,8 +15,13 @@ the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has five bodies, the dw kernel six. The conv kernel's, named
+The conv kernel has six bodies, the dw kernel six. The conv kernel's, named
 by :func:`conv_body` from the input's type, layout and channel counts: bf16
+input in the phase layout with C = CO = 8 or 16 and at least
+``PHASE_FWD_MIN_POSITIONS`` block voxels runs the phase forward's Hopper body
+(``csrc/conv3_phase.cuh``: TMA bricks of block voxels, ``wgmma`` with N =
+output phases x CO and both operands by descriptor) with the geometry of
+:func:`phase_fwd_plan` and the weights of :func:`pack_weights_phase`; bf16
 input in the dense layout with C, CO >= 64 runs the deep-channel body
 (``csrc/conv3_wgmma.cuh``:
 ``wgmma`` with the halo and the weight tiles brought by TMA, split-K at small
@@ -85,6 +90,8 @@ __all__ = [
     "mid_dw_counter", "MidPlan", "mid_plan", "MidDwPlan", "mid_dw_plan", "pack_weights_mid",
     "mid_eligible", "mid_dw_eligible",
     "unpack_weights_mid", "phase_dw_counter", "PhaseDwPlan", "phase_dw_plan", "phase_dw_eligible",
+    "phase_fwd_counter", "PhaseFwdPlan", "phase_fwd_plan", "phase_fwd_eligible",
+    "pack_weights_phase",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -104,6 +111,9 @@ mid_dw_counter = _cuda.LaunchCounter("conv3_mid_dw")
 # the phase dw's Hopper body's launches (kernels 5-6), also counted by
 # phase_conv.dw_counter
 phase_dw_counter = _cuda.LaunchCounter("conv3_phase_dw")
+# the phase forward's Hopper body's launches (kernels 3-4), also counted by
+# phase_conv.counter
+phase_fwd_counter = _cuda.LaunchCounter("conv3_phase")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -211,6 +221,13 @@ MID_DW_MIN_POSITIONS = 32768
 # volume a launch of a handful of bricks is its pipeline fill and second pass.
 PHASE_DW_MIN_C = 16
 PHASE_DW_MIN_POSITIONS = 32768
+# The phase forward's Hopper body's least block voxels (B * D * H * W of p),
+# for Ci = Co = 8 or 16 (phase_fwd_eligible), set from the rows timed on an
+# H100 beside the tensor-core body (PERF.md): it was faster at every
+# row timed, the flagship's and packed UNETR's 1.5-1.7x, and down to the
+# smallest, L = 64 on a 16^3 block grid x 1 (4096 block voxels: 64 bricks),
+# 1.06-1.10x; smaller volumes were not timed.
+PHASE_FWD_MIN_POSITIONS = 4096
 
 
 def _deep(x: torch.Tensor, c: int, co: int, phase: bool, min_co: int) -> bool:
@@ -226,14 +243,19 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     the input gradient, the conv co -> c, takes the same rule),
     ``"mid_channels"`` (``csrc/conv3_mid.cuh``) for other bf16 input with c %
     8 == 0 (phase: c % 16 == 0), c + co >= ``MID_MIN_CHANNELS`` and x's H and
-    W (block voxels in phase space) multiples of 8,
-    ``"tensor_cores"`` for any other bf16 input whose channel vector is a
+    W (block voxels in phase space) multiples of 8, ``"phase_lanes"``
+    (``csrc/conv3_phase.cuh``) for bf16 phase-major input with c = co = 8 or
+    16 (:func:`phase_fwd_eligible`) and at least ``PHASE_FWD_MIN_POSITIONS``
+    block voxels, ``"tensor_cores"`` for any other bf16 input whose channel vector is a
     whole number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16
     input with c = 1..7, ``"f32_tiles"`` (``csrc/conv3_f32.cuh``: register-tiled
     f32 FFMA) for f32 input and every other bf16 channel count."""
     if _deep(x, c, co, phase, DEEP_MIN_CO):
         return "deep_channels"
     if x.dtype == torch.bfloat16:
+        if (phase and phase_fwd_eligible(c, co)
+                and x.numel() // max(x.shape[-1], 1) >= PHASE_FWD_MIN_POSITIONS):
+            return "phase_lanes"
         if c % 8 == 0:
             # the grid's rows (H, W: block voxels in phase space) whole slabs of 8 x 8
             whole = x.ndim == 5 and x.shape[2] % 8 == 0 and x.shape[3] % 8 == 0
@@ -738,8 +760,10 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     by ``f32_counter`` too), ``entry + "_mid"`` (mid channels,
     :func:`mid_plan`; counted by ``mid_counter`` too), ``entry + "_mma"``
     (tensor cores, :func:`plan`), ``entry + "_fewc"`` (few channels,
-    :func:`fewc_plan`) or ``entry + "_wgmma"`` (deep channels, dense only,
-    :func:`deep_plan`; counted by ``deep_counter`` too). ``packed_cache``
+    :func:`fewc_plan`), ``entry + "_wgmma"`` (deep channels, dense only,
+    :func:`deep_plan`; counted by ``deep_counter`` too) or ``entry +
+    "_lanes"`` (the phase forward's Hopper body, phase only,
+    :func:`phase_fwd_plan`; counted by ``phase_fwd_counter`` too). ``packed_cache``
     keeps the packed weights between calls with constant weights (serving),
     keyed by the N tile (and the body)."""
     for t, name in ((x, "x"), (weights, "weights"), (out, "out")):
@@ -787,6 +811,21 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
                      *head[6:], out_bf16, p.td, p.th, p.tw, p.nt, p.spw, p.nwg, p.splits,
                      p.stages, p.smem_bytes)
         deep_counter.count += 1
+        return
+    if body == "phase_lanes":
+        if not _aligned(x):
+            raise ValueError("the phase forward's Hopper body reads p by TMA: p must be "
+                             "16-byte aligned")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = phase_fwd_plan((b, d, h, w), c, co, sms)
+        packed = None if packed_cache is None else packed_cache.get("phase_lanes")
+        if packed is None:
+            packed = pack_weights_phase(weights)
+            if packed_cache is not None:
+                packed_cache["phase_lanes"] = packed
+        _cuda.launch(entry + "_lanes", head[0], packed.data_ptr(), *head[1:], out_bf16,
+                     p.grid_x, p.stages, p.smem_bytes)
+        phase_fwd_counter.count += 1
         return
     if body == "mid_channels":
         if not _aligned(x):
@@ -1573,6 +1612,155 @@ def phase_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int,
     if found is None:
         raise ValueError(f"no phase dw launch plan for dims {dims}, C = {c}, CO = {co}")
     return found[1]
+
+
+# -- the phase forward's Hopper body (csrc/conv3_phase.cuh) --
+
+PHASE_FWD_N = 64  # PHASE_FWD_N: a wgmma's N, 8 output phases x 8 co or 4 x 16
+PHASE_FWD_KSTEPS = 48  # k16 steps a brick (L = 64: 32 of them whole, 16 half zeros)
+PHASE_FWD_W_BYTES = PHASE_FWD_KSTEPS // 4 * PHASE_FWD_N * 128  # one group's resident weights
+PHASE_FWD_NWG = 2  # consumer warpgroups, taking turns to issue their bricks
+PHASE_FWD_HALO = 10 * 10  # rows of a z plane of a brick's halo (8 x 8 block voxels)
+
+
+def phase_fwd_eligible(c: int, co: int) -> bool:
+    """Channel counts the phase forward's Hopper body takes: Ci = Co = 8 (L =
+    64: all 8 output phases in a wgmma's N of 64) or 16 (L = 128: the 4 (y, x)
+    phases of one output z phase)."""
+    return c == co and c in (8, 16)
+
+
+def phase_fwd_groups(c: int) -> int:
+    """Blocks along N (``phase_fwd_groups``): one at L = 64, the two output z
+    phases at L = 128 (the weights of all 8 phases, 256 KB, fit no block)."""
+    return 1 if c == 8 else 2
+
+
+def phase_fwd_depth(c: int, plane: int, az: int) -> int:
+    """z planes of a 64-lane plane's staged box (``phase_fwd_depth``): L = 64
+    three; L = 128 a halo plane only on the side the block's output z phase
+    az reads from that plane (a'z = plane)."""
+    return 3 if c == 8 else (2 if plane != az else 1)
+
+
+def phase_fwd_slot_bytes(c: int) -> int:
+    """One ring slot: the planes of the halo brick (128-byte rows), each
+    rounded to 1024."""
+    return sum(_round1024(phase_fwd_depth(c, k, 0) * PHASE_FWD_HALO * 128)
+               for k in range(c // 8))
+
+
+def phase_fwd_smem_bytes(c: int, stages: int) -> int:
+    """``phase_fwd_smem_bytes`` of ``csrc/conv3_phase.cuh``: 1024 bytes to
+    align the base, 1024 of barriers, the resident weights, ``stages``
+    slots."""
+    return 2048 + PHASE_FWD_W_BYTES + stages * phase_fwd_slot_bytes(c)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseFwdPlan:
+    """Launch geometry of the phase forward's Hopper body, as the C entry
+    point takes it. A block of two consumer warpgroups and a producer warp
+    holds one group's weights (``groups`` blocks along N: the output z phases
+    at L = 128) and walks the bricks ``blockIdx.x + k * grid_x`` of 1 x 8 x 8
+    block voxels (a wgmma's M) through a ring of ``stages`` slots; warpgroup
+    wg takes the bricks k = wg, wg + 2, ..., issued in turn (brick k after
+    brick k - 1)."""
+
+    groups: int
+    stages: int
+    grid_x: int
+    grid: Tuple[int, int]  # (grid_x, groups)
+    smem_bytes: int
+    nbricks: int
+    fill: float  # real block voxels / block voxels multiplied
+    td: int = 1
+    th: int = 8
+    tw: int = 8
+    nwg: int = PHASE_FWD_NWG
+    ksteps: int = PHASE_FWD_KSTEPS
+
+
+@functools.lru_cache(maxsize=None)
+def phase_fwd_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                   sms: int = _SMS) -> PhaseFwdPlan:
+    """The ring and grid of one launch of the phase forward's Hopper body for
+    a (B, D, H, W) grid of full-resolution positions (p holds (B, D/2, H/2,
+    W/2) block voxels), C input and CO output channels: bricks of one z plane
+    of 8 x 8 block voxels, one persistent block a multiprocessor (``sms``
+    blocks in all), the ring as many slots as fit (three: 96 KB of weights
+    and 38 KB a slot). One geometry: on an H100 (PERF.md) bricks of
+    two z planes (two 51-63 KB slots) ran 3-10% slower at every row, A from
+    registers 1.1-1.7x slower, and the tensor cores' pace is shared memory's
+    (A and B, 4 KB a m64n64k16), not the brick's halo."""
+    if not phase_fwd_eligible(c, co):
+        raise ValueError("the phase forward's Hopper body needs C = CO in (8, 16), got "
+                         f"C = {c}, CO = {co}")
+    b, d, h, w = dims
+    d, h, w = d // 2, h // 2, w // 2
+    nbricks = b * d * -(-h // 8) * -(-w // 8)
+    stages = next((st for st in range(8, PHASE_FWD_NWG - 1, -1)
+                   if phase_fwd_smem_bytes(c, st) <= SMEM_LIMIT), None)
+    if nbricks < 1 or nbricks >= 2 ** 31 or stages is None:
+        raise ValueError(f"no phase forward launch plan for dims {dims}, C = {c}, CO = {co}")
+    groups = phase_fwd_groups(c)
+    grid_x = min(nbricks, max(1, sms // groups))
+    return PhaseFwdPlan(groups=groups, stages=stages, grid_x=grid_x, grid=(grid_x, groups),
+                        smem_bytes=phase_fwd_smem_bytes(c, stages), nbricks=nbricks,
+                        fill=b * d * h * w / (nbricks * 64))
+
+
+def _phase_pair(p) -> Tuple:
+    """Per axis the (shift e, input phase a') of pair p: P0 = (-1, 1), P1 =
+    (0, 0), P2 = (0, 1), P3 = (+1, 0)."""
+    return (p + 1) // 2 - 1, 1 - p % 2
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_pack_index(c: int, device: torch.device) -> torch.Tensor:
+    """Where each value of :func:`pack_weights_phase`'s result comes from in
+    the flattened DHWIO weights, 27 * c * c (the element past their end) for
+    a structural zero: the packing as one gather. Made on ``device``, once."""
+    groups = phase_fwd_groups(c)
+    ar = functools.partial(torch.arange, device=device)
+    g = ar(groups).view(-1, 1, 1, 1)
+    kr = ar(PHASE_FWD_KSTEPS // 4).view(1, -1, 1, 1) * 64 + ar(64).view(1, 1, 1, -1)  # K row
+    n = ar(PHASE_FWD_N).view(1, 1, -1, 1)
+    st, kk = kr // 16, kr % 16
+    if c == 8:  # step (pz, py, ex): k = (a'x, ci); the x pair of (ex, a'x), -1 if none
+        pz, py, ex, apx, ci = st // 12, st // 3 % 4, st % 3 - 1, kk // 8, kk % 8
+        px = torch.where(ex == 0, 1 + apx, torch.where(ex < 0, 1 - apx, 3 - 4 * apx))
+        px = torch.where((ex != 0) & (apx == (ex > 0).long()), -1, px)
+    else:  # step (pz - az, py, px): k = ci
+        pz, py, px, ci = st // 16 + g, st // 4 % 4, st % 4, kk
+    ph, co = n // c, n % c  # L = 64: phase (az, ay, ax); L = 128: (ay, ax), az = the group
+    az = ph >> 2 if groups == 1 else g
+
+    def tap(p, a):
+        e, ap = _phase_pair(p)
+        return 2 * e + ap - a + 1
+
+    tz, ty, tx = tap(pz, az), tap(py, ph >> 1 & 1), tap(px, ph & 1)
+    valid = (px >= 0) & (tz >= 0) & (tz <= 2) & (ty >= 0) & (ty <= 2) & (tx >= 0) & (tx <= 2)
+    src = torch.where(valid, ((tz * 3 + ty) * 3 + tx) * c * c + ci * c + co, 27 * c * c)
+    src = src.expand(groups, PHASE_FWD_KSTEPS // 4, PHASE_FWD_N, 64)
+    return _swizzle128(src.contiguous()).contiguous()
+
+
+def pack_weights_phase(weights: torch.Tensor) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, C, C), C = 8 or 16, in the order the phase
+    forward's Hopper body reads them: (groups, 12 K tiles, 64 N rows, 64 k),
+    per group (the output z phase at C = 16) and tile of 4 k16 steps the N
+    rows (output phase, co) of 64 K rows, K-major and 128-byte swizzled as a
+    wgmma descriptor reads it. A k16 step is, at C = 8, st = (pz * 4 + py) *
+    3 + ex + 1 with k = (a'x, ci): the x pair of shift ex and input phase
+    a'x, none (zeros) for a'x = 0 at ex = -1 and a'x = 1 at ex = +1; at C =
+    16, st = ((pz - az) * 4 + py) * 4 + px with k = ci. Each value is the tap
+    of its pairs for the column's output phase, zero where a pair serves no
+    tap of it. One gather by a cached index."""
+    c = weights.shape[-2]
+    index = _phase_pack_index(c, weights.device)
+    return F.pad(weights.reshape(-1), (0, 1))[index]
 
 
 # -- the register-tiled f32 bodies (csrc/conv3_f32.cuh, csrc/conv3_f32_dw.cuh) --

@@ -13,11 +13,18 @@ activation).
 
 ``phase_conv`` launches ``csrc/phase_conv.cu`` and ``phase_conv_dw``
 ``csrc/phase_conv_dw.cu`` (one kernel each for every L) for CUDA tensors on
-the body ``fused_conv.conv_body`` / ``dw_body`` names: the forward's
-mid-channel body (``csrc/conv3_mid.cuh``, plan ``fused_conv.mid_plan`` with
-``phase=True``) for bf16 input with Ci % 16 == 0 and Ci + Co >= 48, whose
-block grid's H and W are multiples of 8 (packed UNETR's stages with a
-32-channel side); the weight gradient's Hopper body (``csrc/conv3_phase_dw.cuh``,
+the body ``fused_conv.conv_body`` / ``dw_body`` names: the forward's Hopper
+body (``csrc/conv3_phase.cuh``, plan ``fused_conv.phase_fwd_plan``: TMA
+bricks of p in block space, ``wgmma`` with M = block voxels, K = (shift,
+input phase, ci) pairs and N = (output phases, co) = 64, both operands by
+descriptor; counted by ``fused_conv.phase_fwd_counter`` too) for bf16 input
+with Ci = Co = 8 or 16 and at least ``fused_conv.PHASE_FWD_MIN_POSITIONS``
+block voxels (the flagship's two top decoder stages, packed UNETR's 96^3 x 16
+stage, and their input gradients); the forward's mid-channel body
+(``csrc/conv3_mid.cuh``, plan ``fused_conv.mid_plan`` with ``phase=True``)
+for bf16 input with Ci % 16 == 0 and Ci + Co >= 48, whose block grid's H and
+W are multiples of 8 (packed UNETR's stages with a 32-channel side); the
+weight gradient's Hopper body (``csrc/conv3_phase_dw.cuh``,
 plan ``fused_conv.phase_dw_plan``: TMA bricks of p and g in block space,
 ``wgmma`` with each tap's z and y phase pairs summed in one accumulator) for
 bf16 input with Ci in (16, 32, 64), Co = 8 or a multiple of 16 and at least

@@ -838,7 +838,8 @@ def test_unetr_pack_phase_shapes(cuda, shape, ci, co):
     gy = _randn(g, *shape[:4], 8 * co).to(torch.bfloat16)
     wt = fused_conv.flip_io(w)
     assert fused_conv.conv_body(p, ci, co, True) == (
-        "few_channels" if ci % 8 else "mid_channels" if ci + co >= 48 else "tensor_cores")
+        "few_channels" if ci % 8 else "mid_channels" if ci + co >= 48 else "phase_lanes"
+        if fused_conv.phase_fwd_eligible(ci, co) else "tensor_cores")
     phase_conv.counter.reset()
     phase_conv.dw_counter.reset()
     got, dx, dw = phase_conv.phase_conv(p, w), phase_conv.phase_conv(gy, wt), \
@@ -1314,3 +1315,75 @@ def test_mid_channel_launchers_refuse_plans_they_did_not_size(cuda):
     _cuda.launch("segk_fused_conv3_dw_mid", *dargs, q.smem_bytes)
     with pytest.raises(RuntimeError, match="CUDA error"):
         _cuda.launch("segk_fused_conv3_dw_mid", *dargs, q.smem_bytes + 1024)
+
+
+# The phase forward's Hopper body (csrc/conv3_phase.cuh): bf16 with Ci = Co = 8
+# or 16 and at least PHASE_FWD_MIN_POSITIONS block voxels, held against the
+# plain version on the f32 upcasts of the same bf16 values (f32 out: 1e-4 *
+# max|ref|, the same exact products summed in another order; bf16 out: 1e-2,
+# one rounding); grids whose H and W are no multiple of 8, every relu mode
+@pytest.mark.parametrize("relu_mode", ["none", "relu", "prelu"])
+@pytest.mark.parametrize("shape,c", [
+    ((2, 24, 24, 24, 64), 8),  # the top decoder stage at 48^3, batch 2
+    ((1, 24, 24, 24, 128), 16),  # the second stage's L = 128
+    ((2, 18, 22, 26, 64), 8),  # H and W no multiple of 8
+    ((1, 20, 30, 14, 128), 16),
+])
+def test_phase_forward_hopper_body(cuda, shape, c, relu_mode):
+    g = torch.Generator().manual_seed(7)
+    p = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, c, scale=0.1), scale=_randn(g, c).abs() + 0.5,
+              shift=_randn(g, c, scale=0.1), alpha=torch.tensor([0.3], device=cuda),
+              relu_mode=relu_mode)
+    assert fused_conv.conv_body(p, c, c, True) == "phase_lanes"
+    phase_conv.counter.reset()
+    fused_conv.phase_fwd_counter.reset()
+    got = phase_conv.phase_conv(p, w, **kw)
+    assert phase_conv.counter.count == 1 and fused_conv.phase_fwd_counter.count == 1
+    _close(got, phase_conv.phase_conv_plain(p.float(), w.float(), **kw), 1e-2)
+    assert torch.equal(got, phase_conv.phase_conv(p, w, **kw))  # bit-equal on repeat
+    wide = phase_conv.phase_conv(p, w, out_dtype=torch.float32, **kw)
+    _close(wide, phase_conv.phase_conv_plain(p.float(), w.float(), **kw), 1e-4)
+    assert fused_conv.phase_fwd_counter.count == 3
+
+
+def test_phase_forward_hopper_body_takes_the_grad_function(cuda):
+    """The differentiable phase conv runs its forward and its input gradient
+    (the forward on flipped, swapped weights) on the Hopper body."""
+    g = torch.Generator().manual_seed(8)
+    p0 = _randn(g, 2, 24, 24, 24, 64).to(torch.bfloat16)
+    w0 = _randn(g, 3, 3, 3, 8, 8, scale=(27 * 8) ** -0.5).to(torch.bfloat16)
+    gy = _randn(g, 2, 24, 24, 24, 64).to(torch.bfloat16)
+    p, w = p0.clone().requires_grad_(), w0.clone().requires_grad_()
+    fused_conv.phase_fwd_counter.reset()
+    phase_conv.phase_conv_grad(p, w).backward(gy)
+    assert fused_conv.phase_fwd_counter.count == 2
+    pf, wf = p0.float().requires_grad_(), w0.float().requires_grad_()
+    phase_conv.phase_conv_plain(pf, wf).backward(gy.float())
+    _close(p.grad, pf.grad, 2e-2)
+    _close(w.grad, wf.grad, 2e-2)
+
+
+def test_phase_forward_launcher_refuses_plans_it_did_not_size(cuda):
+    """The launcher refuses a shared-memory sum other than its own, a ring
+    with fewer slots than warpgroups and channel counts it has no instance
+    of."""
+    p = torch.zeros((1, 8, 8, 8, 64), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 8, 8), dtype=torch.bfloat16, device=cuda)
+    q = fused_conv.phase_fwd_plan((1, 16, 16, 16), 8, 8)
+    packed = fused_conv.pack_weights_phase(w)
+    s, t = fused_conv._epilogue_vectors(8, None, None, None, p.device)
+    out = torch.empty_like(p)
+    head = (p.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0,
+            out.data_ptr(), 1, 16, 16, 16)
+    _cuda.launch("segk_phase_conv3_lanes", *head, 8, 8, 1, q.grid_x, q.stages, q.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_phase_conv3_lanes", *head, 8, 8, 1, q.grid_x, q.stages,
+                     q.smem_bytes + 1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # one slot for two warpgroups
+        _cuda.launch("segk_phase_conv3_lanes", *head, 8, 8, 1, q.grid_x, 1,
+                     fused_conv.phase_fwd_smem_bytes(8, 1))
+    with pytest.raises(RuntimeError, match="CUDA error"):  # Ci != Co
+        _cuda.launch("segk_phase_conv3_lanes", *head, 8, 16, 1, q.grid_x, q.stages,
+                     q.smem_bytes)
