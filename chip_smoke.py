@@ -142,6 +142,12 @@ KERNELS = {
     # beside kernel 3-4's total, which includes it
     "conv3_phase": ("segmantic_tpu_torch/csrc/conv3_phase.cuh",
                     "segmantic_tpu/ops/phase_gemm.py:266,327"),
+    # the dense Hopper bodies of kernels 1 and 2 (bf16, C = CO = 8 or 16, W C a
+    # multiple of 64), beside the kernels' totals, which include them
+    "conv3_dense": ("segmantic_tpu_torch/csrc/conv3_dense.cuh",
+                    "segmantic_tpu/ops/pallas_conv.py:173"),
+    "conv3_dense_dw": ("segmantic_tpu_torch/csrc/conv3_dense_dw.cuh",
+                       "segmantic_tpu/ops/pallas_conv.py:289"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
@@ -158,6 +164,10 @@ FLAGSHIP_PHASE_DW = 1
 # gradient (L = 64 and L = 128) a step; a served chunk of windows runs both
 # stages once
 FLAGSHIP_PHASE_FWD = 4
+# and the dense Hopper bodies: the 48^3 x 16 conv a forward (a step its input
+# gradient too; a served chunk of windows once), its weight gradient a step
+# where the dw rule takes C = 16
+FLAGSHIP_DENSE = 1
 # published peaks of one H100 SXM (dense): memory bytes/s, FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16 = 989e12
@@ -283,6 +293,12 @@ def conv_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"{p.nbricks} bricks over {p.grid_x} blocks x {p.groups} group(s) of "
                       f"output phases, 2 warpgroups, ring of {p.stages}, {p.ksteps} k16 steps "
                       f"a brick, fill {p.fill:.3f}"), p.fill
+    if body == "dense_rows":
+        p = fused_conv.dense_fwd_plan(dims, c, co, sms)
+        return body, (f"dense Hopper body (TMA rows of 64 / C voxels, wgmma with A and B by "
+                      f"descriptor, N = the row's 64 output lanes): bricks of 8x8 positions x "
+                      f"one row, {p.nbricks} bricks over {p.grid_x} blocks, 2 warpgroups, ring "
+                      f"of {p.stages}, {p.ksteps} k16 steps a brick, fill {p.fill:.3f}"), p.fill
     if body == "tensor_cores":
         p = fused_conv.plan(dims, c, co, 2, sms)
         return body, (f"tensor-core body: brick {p.td}x{p.th}x{p.tw} in {p.warps} warps, N tile "
@@ -330,6 +346,13 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"{p.groups} group(s) of "
                       f"{p.n_tiles} tiles x {p.splits} splits = {p.grid[0] * p.grid[1]} blocks, "
                       f"ring of {p.stages}, fill {p.fill:.3f}, workspace "
+                      f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
+    if body == "dense_rows":
+        p = fused_conv.dense_dw_plan(dims, c, co, sms)
+        return body, (f"dense Hopper body (TMA rows, wgmma m64n32 with both operands MN-major "
+                      f"by descriptor: windows of x against dy's half rows): bricks of 8x8 "
+                      f"positions x one row, {p.nbricks} bricks over {p.grid_x} blocks of 3 "
+                      f"warpgroups (tz), ring of {p.stages}, fill {p.fill:.3f}, workspace "
                       f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
     if body == "tensor_cores":
         p = fused_conv.dw_plan(dims, c, co, sms)
@@ -608,6 +631,204 @@ def phase_fwd_beside(torch, label, p, w, taken: bool) -> None:
         _fail(f"{label}: the phase forward's Hopper body disagrees")
 
 
+def dense_rule(x, c: int, co: int, dw: bool = False) -> bool:
+    """Whether the rule sends the bf16 dense conv (``dw``: its weight
+    gradient) on x to the dense Hopper body, written out from its
+    constants."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    least = fused_conv.DENSE_DW_MIN_POSITIONS if dw else fused_conv.DENSE_MIN_POSITIONS
+    return (fused_conv.dense_eligible(c, co, x.shape[3])
+            and x.numel() // x.shape[-1] >= least[c])
+
+
+def dense_entry_ms(torch, x, w):
+    """(max|d| over max|ref|, device ms) of the dense Hopper conv body
+    (``conv3_dense.cuh``) on bf16 x and weights w through its C entry point
+    with its own plan (no epilogue, bf16 out)."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_, c = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    q = fused_conv.dense_fwd_plan((b, d, h, w_), c, c, sms)
+    packed = fused_conv.pack_weights_dense(w)
+    s, t = fused_conv._epilogue_vectors(c, None, None, None, x.device)
+    out = torch.empty_like(x)
+
+    def run():
+        _cuda.launch("segk_fused_conv3_rows", x.data_ptr(), packed.data_ptr(), s.data_ptr(),
+                     t.data_ptr(), None, 0, out.data_ptr(), b, d, h, w_, c, c, 1, q.grid_x,
+                     q.stages, q.smem_bytes)
+
+    run()
+    want = fused_conv.conv3d_plain(x, w).float()
+    torch.cuda.synchronize()
+    rel = ((out.float() - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def dense_dw_entry_ms(torch, x, dy):
+    """(max|d| over max|ref|, device ms) of the dense Hopper dw body
+    (``conv3_dense_dw.cuh``, with its reduce launch) on bf16 x and dy through
+    its C entry point with its own plan."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_, c = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    q = fused_conv.dense_dw_plan((b, d, h, w_), c, c, sms)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, c), dtype=torch.float32, device=x.device)
+
+    def run():
+        _cuda.launch("segk_fused_conv3_dw_rows", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, c, c, q.grid_x, q.stages, q.smem_bytes)
+
+    run()
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def dense_beside(torch, label, x, w, taken: bool) -> None:
+    """Print the row's other body beside the one the rule took: the
+    tensor-core body where the dense Hopper body runs it, else the dense
+    Hopper body where it can run the row (checked against the plain
+    version)."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    if taken:
+        print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
+              f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
+        return
+    if not fused_conv.dense_eligible(*w.shape[-2:], x.shape[3]):
+        return
+    rel, ms = dense_entry_ms(torch, x, w)
+    print(f"    the dense Hopper body (conv3_dense.cuh, left out by the rule below "
+          f"{fused_conv.DENSE_MIN_POSITIONS[x.shape[-1]]} positions) on the same tensors: "
+          f"{ms:.4f} ms, "
+          f"max|d| / max|ref| {rel:.2e}")
+    if rel > 2e-2:
+        _fail(f"{label}: the dense Hopper body disagrees")
+
+
+def dense_dw_beside(torch, label, x, dy, taken: bool) -> None:
+    """The same for the weight gradient: the tensor-core dw body beside the
+    dense Hopper dw body, or the dense body where the rule keeps the row off
+    it."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    if taken:
+        print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+              f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
+        return
+    if not fused_conv.dense_eligible(x.shape[-1], dy.shape[-1], x.shape[3]):
+        return
+    rel, ms = dense_dw_entry_ms(torch, x, dy)
+    print(f"    the dense Hopper dw body (conv3_dense_dw.cuh, left out by the rule below "
+          f"{fused_conv.DENSE_DW_MIN_POSITIONS[x.shape[-1]]} positions) on the same tensors: "
+          f"{ms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+    if rel > 1e-3:
+        _fail(f"{label}: the dense Hopper dw body disagrees")
+
+
+def check_dense_rows(torch, results, rows, g) -> None:
+    """The dense Hopper bodies at the rows they were made for (``rows``:
+    (label, x shape, parts of ``fwd``, ``dx``, ``dw``)): each part through
+    ``fused_conv.conv3d`` / ``conv3d_dw`` once against its plain version
+    (forward and dx 2e-2 * max|ref|, the dw 1e-3), bit-equal on a repeated
+    launch, counted once on the kernel's and the body's counters, then timed
+    by CUDA-graph replay (the weights packed once) beside the tensor-core body
+    on the same tensors, cuDNN (``F.conv3d``, ``conv3d_weight`` on the bf16
+    tensors) and the plain version; recorded on kernels 1 and 2 and the
+    bodies' own lines."""
+    import torch.nn.functional as F
+
+    from segmantic_tpu_torch.ops import fused_conv
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to("cuda", bf16)
+
+    def judge(label, got, want, limit):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        ok = err <= limit * ref
+        print(f"  {label}: max|d| {err:.3e} (limit {limit * ref:.3e} = {limit:g} * max|ref| "
+              f"{ref:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"{label} disagrees with its plain version")
+        return err
+
+    for label, shape, parts in rows:
+        c = shape[-1]
+        x, dy = randn(*shape), randn(*shape)
+        w0 = torch.randn((3, 3, 3, c, c), generator=g) * (27 * c) ** -0.5
+        dims = tuple(shape[:4])
+        # the plain f32 wgrad takes 0.1-0.4 s at 96^3: one timed replay of one call
+        slow = dict(n=1, launches=1, warmup=1) if x.numel() > 2 ** 25 else {}
+        for part in parts:
+            name = f"{label} {part}"
+            if part in ("fwd", "dx"):
+                w = (w0 if part == "fwd" else fused_conv.flip_io(w0)).to("cuda", bf16)
+                taken = dense_rule(x, c, c)
+                body, text, _ = conv_body_text(x, c, c, dims, False, sms)
+                if body != ("dense_rows" if taken else "tensor_cores"):
+                    _fail(f"{name}: the rule sends C = {c} to the {body} body")
+                cache = {}
+                k = lambda: fused_conv.conv3d(x, w, packed_cache=cache)  # noqa: E731
+                pl = lambda: fused_conv.conv3d_plain(x, w)  # noqa: E731
+                before = (fused_conv.counter.count, fused_conv.dense_counter.count)
+                got = k()
+                if (fused_conv.counter.count, fused_conv.dense_counter.count) != \
+                        (before[0] + 1, before[1] + int(taken)):
+                    _fail(f"{name}: expected one counted launch")
+                err = judge(f"fused_conv {name}", got, pl(), 2e-2)
+                if not torch.equal(got, k()):
+                    _fail(f"{name}: a repeated bf16 launch is not bit-equal")
+                xc = x.permute(0, 4, 1, 2, 3)
+                wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+                ms, pms = _graph_ms(torch, k), _graph_ms(torch, pl)
+                lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1))
+                print(f"    bf16, repeated launch bit-equal; {text}")
+                print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain "
+                      f"{pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
+                dense_beside(torch, name, x, w, taken)
+                for rec in ("fused_conv",) + (("conv3_dense",) if taken else ()):
+                    _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, w, got),
+                            ops=2 * 27 * c * c * (x.numel() // c), peak=PEAK_BF16,
+                            library_ms=lms, echo=rec == "fused_conv")
+                continue
+            taken = dense_rule(x, c, c, dw=True)
+            body, text, _ = dw_body_text(x, c, c, dims, False, sms)
+            if body != ("dense_rows" if taken else "tensor_cores"):
+                _fail(f"{name}: the rule sends C = {c} to the {body} body")
+            k = lambda: fused_conv.conv3d_dw(x, dy)  # noqa: E731
+            pl = lambda: fused_conv.conv3d_dw_plain(x, dy)  # noqa: E731
+            before = (fused_conv.dw_counter.count, fused_conv.dense_dw_counter.count)
+            got = k()
+            if (fused_conv.dw_counter.count, fused_conv.dense_dw_counter.count) != \
+                    (before[0] + 1, before[1] + int(taken)):
+                _fail(f"{name}: expected one counted launch")
+            err = judge(f"fused_conv_dw {name}", got, pl(), 1e-3)
+            if not torch.equal(got, k()):
+                _fail(f"{name}: a repeated bf16 launch is not bit-equal")
+            ms, pms = _graph_ms(torch, k), _graph_ms(torch, pl, **slow)
+            lms = _graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+                x.permute(0, 4, 1, 2, 3), (c, c, 3, 3, 3), dy.permute(0, 4, 1, 2, 3), padding=1))
+            print(f"    bf16, repeated launch bit-equal; {text}")
+            print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain (f32) "
+                  f"{pms:.4f} ms, cuDNN bf16 wgrad {lms:.4f} ms")
+            dense_dw_beside(torch, name, x, dy, taken)
+            for rec in ("fused_conv_dw",) + (("conv3_dense_dw",) if taken else ()):
+                _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
+                        ops=2 * 27 * c * c * (x.numel() // c), peak=PEAK_BF16, library_ms=lms,
+                        echo=rec == "fused_conv_dw")
+
+
 def check_kernels(torch):
     """Each kernel against its plain version at the serving path's shapes.
 
@@ -682,7 +903,12 @@ def check_kernels(torch):
                 print(f"    bf16, repeated launch bit-equal; {plan_text}")
                 print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, "
                       f"plain {pms:.4f} ms, cuDNN conv3d + bias {lms:.4f} ms")
-                if body in ("deep_channels", "mid_channels"):
+                if body != ("dense_rows" if dense_rule(x, shape[-1], co) else
+                            "deep_channels" if min(shape[-1], co) >= 64 else
+                            "mid_channels" if shape[-1] + co >= fused_conv.MID_MIN_CHANNELS
+                            else "tensor_cores"):
+                    _fail(f"fused_conv {label}: the rule sends C = {shape[-1]} to the {body} body")
+                if body in ("deep_channels", "mid_channels", "dense_rows"):
                     print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
                           f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
                 elif fused_conv.mid_eligible(shape[-1], co, False) and shape[-1] < 64:
@@ -695,13 +921,19 @@ def check_kernels(torch):
                 if fill < 0.75:
                     _fail(f"fused_conv {label}: tile fill {fill:.3f} < 0.75")
                 positions = x.numel() // shape[-1]
-                bodies = {"deep_channels": ("fused_conv_wgmma",), "mid_channels": ("conv3_mid",)}
+                bodies = {"deep_channels": ("fused_conv_wgmma",), "mid_channels": ("conv3_mid",),
+                          "dense_rows": ("conv3_dense",)}
                 for name in ("fused_conv",) + bodies.get(body, ()):
                     _record(results, name, err=err, ms=ms, plain_ms=pms,
                             nbytes=_nbytes(x, w, k(),
                                            *(v for v in kw.values() if torch.is_tensor(v))),
                             ops=2 * 27 * shape[-1] * co * positions, peak=PEAK_BF16,
                             library_ms=lms, echo=name == "fused_conv")
+
+    # the serving batch's 48^3 x 16 conv's input gradient and weight gradient
+    # (a rank's step at two ranks) on the dense Hopper bodies
+    check_dense_rows(torch, results, [("x(4, 48, 48, 48, 16)", (4, 48, 48, 48, 16),
+                                       ("dx", "dw"))], g)
 
     for shape, c in [((4, 48, 48, 48, 64), 8), ((4, 24, 24, 24, 128), 16)]:
         label = f"p{tuple(shape)} C={c}"
@@ -754,8 +986,13 @@ def check_kernels(torch):
     # = 5 (scalar stores), CO = 72 (two N tiles), C = 8 (paired taps) and
     # phase CO = 24 and 40; on the phase forward's Hopper body C = CO = 8 and
     # 16 on grids whose H and W are no multiple of 8, and one below its least
-    # volume (the tensor-core body, the Hopper body alone beside)
-    for name, shape, c, co in [("fused_conv", (2, 5, 7, 9, 64), 64, 192),
+    # volume (the tensor-core body, the Hopper body alone beside); on the dense
+    # Hopper body C = CO = 16 with D and H no multiple of 8, and C = 8 and 16
+    # below their least volumes (the tensor-core body, the dense body alone
+    # beside)
+    for name, shape, c, co in [("fused_conv", (2, 9, 12, 24, 8), 8, 8),
+                               ("fused_conv", (2, 30, 37, 36, 16), 16, 16),
+                               ("fused_conv", (1, 6, 10, 16, 16), 16, 16),("fused_conv", (2, 5, 7, 9, 64), 64, 192),
                                ("fused_conv", (2, 5, 7, 9, 96), 96, 72),
                                ("fused_conv", (1, 6, 6, 6, 72), 72, 64),
                                ("fused_conv", (2, 20, 22, 26, 24), 24, 5),
@@ -794,6 +1031,7 @@ def check_kernels(torch):
         body = fused_conv.conv_body(x, c, co, name == "phase_conv")
         if body != ("few_channels" if c < 8 else
                     "phase_lanes" if name == "phase_conv" and phase_fwd_rule(x, c, co) else
+                    "dense_rows" if name == "fused_conv" and dense_rule(x, c, co) else
                     "deep_channels" if name == "fused_conv" and min(c, co) >= 64 else
                     "mid_channels" if c + co >= 48 and shape[2] % 8 == 0 and shape[3] % 8 == 0
                     and fused_conv.mid_eligible(c, co, name == "phase_conv") else
@@ -809,6 +1047,9 @@ def check_kernels(torch):
                 _fail(f"{name} ragged {shape}: the mid-channel body disagrees")
         if name == "phase_conv" and body != "phase_lanes" and fused_conv.phase_fwd_eligible(c, co):
             phase_fwd_beside(torch, f"{name} ragged {shape}", x, w, False)
+        if name == "fused_conv" and body != "dense_rows" and \
+                fused_conv.dense_eligible(c, co, shape[3]):
+            dense_beside(torch, f"{name} ragged {shape}", x, w, False)
         for out_dtype in (bf16, torch.float32):
             before = mod.counter.count
             compare(name, f"ragged {tuple(shape)} C={c}->{co} out {str(out_dtype)[6:]} "
@@ -818,7 +1059,7 @@ def check_kernels(torch):
             if mod.counter.count != before + 1:
                 _fail(f"{name} ragged {shape}: expected one launch")
             if body in ("few_channels", "deep_channels", "mid_channels", "f32_tiles",
-                        "phase_lanes") and \
+                        "phase_lanes", "dense_rows") and \
                     not torch.equal(
                     fn(x, w, out_dtype=out_dtype, **kw), fn(x, w, out_dtype=out_dtype, **kw)):
                 _fail(f"{name} ragged {shape}: a repeated launch is not bit-equal")
@@ -1159,13 +1400,15 @@ def _f32_counters():
 
 
 def _mid_counters():
-    """The mid-channel bodies' and the phase Hopper bodies' own counters
-    (their launches also count in kernels 1-6's)."""
+    """The mid-channel bodies', the phase Hopper bodies' and the dense Hopper
+    bodies' own counters (their launches also count in kernels 1-6's)."""
     from segmantic_tpu_torch.ops import fused_conv
 
     return {"conv3_mid": fused_conv.mid_counter, "conv3_mid_dw": fused_conv.mid_dw_counter,
             "conv3_phase_dw": fused_conv.phase_dw_counter,
-            "conv3_phase": fused_conv.phase_fwd_counter}
+            "conv3_phase": fused_conv.phase_fwd_counter,
+            "conv3_dense": fused_conv.dense_counter,
+            "conv3_dense_dw": fused_conv.dense_dw_counter}
 
 
 def _counters():
@@ -1236,9 +1479,11 @@ def check_train_kernels(torch):
 
     Every dw shape of one flagship step: the six distinct dense ones (eight
     launches: 24^3 x 32 and 12^3 x 64 run in the encoder and in the decoder)
-    and both phase stages. bf16 goes through the tensor-core body
-    (``csrc/conv3_dw_mma.cuh``), f32 through the register-tiled f32 body
-    (``csrc/conv3_f32_dw.cuh``).
+    and both phase stages. bf16 goes through the body the rule names (the
+    48^3 x 16 one through the dense Hopper body, ``csrc/conv3_dense_dw.cuh``),
+    f32 through the register-tiled f32 body (``csrc/conv3_f32_dw.cuh``). Then
+    the dense Hopper bodies at the training batch's rows (``check_dense_rows``)
+    beside the tensor-core bodies on the same tensors.
 
     Limits: the dw kernels 1e-3 * max|ref| in f32 and with bf16 inputs (sums
     over up to 7 M positions in another order, TF32 off; with bf16 inputs
@@ -1312,10 +1557,12 @@ def check_train_kernels(torch):
         mid = (name == "fused_conv_dw" and not deep and c_true % 64 == 0 and co_true % 64 == 0
                and x32.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS)
         hop = name == "phase_conv_dw" and phase_dw_rule(x32, c_true, co_true)
+        dense = name == "fused_conv_dw" and dense_rule(x32, c_true, co_true, dw=True)
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
             want_body = ("f32_tiles" if dtype != bf16 else "deep_channels" if deep else
-                         "mid_channels" if mid else "phase_blocks" if hop else "tensor_cores")
+                         "mid_channels" if mid else "phase_blocks" if hop else
+                         "dense_rows" if dense else "tensor_cores")
             if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
@@ -1347,6 +1594,8 @@ def check_train_kernels(torch):
               f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
         if name == "phase_conv_dw":
             phase_dw_beside(torch, f"{name} {label}", x, dy, hop)
+        elif fused_conv.dense_eligible(c_true, co_true, x.shape[3]):
+            dense_dw_beside(torch, f"{name} {label}", x, dy, dense)
         elif deep or mid:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
@@ -1363,7 +1612,7 @@ def check_train_kernels(torch):
             if rel > 1e-3:
                 _fail(f"{name} {label}: the mid-channel body disagrees")
         bodies = (("fused_conv_dw_wgmma",) if deep else ("conv3_mid_dw",) if mid
-                  else ("conv3_phase_dw",) if hop else ())
+                  else ("conv3_phase_dw",) if hop else ("conv3_dense_dw",) if dense else ())
         for rec in (name,) + bodies:
             _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
                     ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
@@ -1372,6 +1621,18 @@ def check_train_kernels(torch):
     # the input gradient of the flagship's one CI != CO deep conv (128 -> 256 at
     # 6^3): the conv 256 -> 128 with flipped weights, on the deep-channel body
     check_deep_dx(torch, results, "flagship", (B, 6, 6, 6, 128), 256, g, 1)
+
+    # the dense Hopper bodies at the training batch: the flagship's 48^3 x 16
+    # forward and input gradient (its weight gradient above), SegResNet's
+    # 96^3 x 8 input gradient ([arch-kernels] times its forward and weight
+    # gradient), UNETR(pack=False)'s 96^3 x 16 forward, input gradient and
+    # weight gradient (the unpacked A/B's shape: on this line, not a default
+    # path's)
+    check_dense_rows(torch, results, [
+        (f"x({B}, 48, 48, 48, 16) (1 per step)", (B, 48, 48, 48, 16), ("fwd", "dx")),
+        (f"segresnet x({B}, 96, 96, 96, 8) (4 per step)", (B, 96, 96, 96, 8), ("dx",)),
+        (f"unetr-unpacked x({B}, 96, 96, 96, 16) (2 per step)", (B, 96, 96, 96, 16),
+         ("fwd", "dx", "dw"))], g)
 
     # both phase stages' forward and input gradient (the forward with flipped,
     # swapped weights) at the training batch, on the phase forward's Hopper
@@ -1425,6 +1686,7 @@ def check_train_kernels(torch):
            ("fused_conv_dw", (2, 20, 22, 26, 16), 16), ("fused_conv_dw", (2, 10, 11, 13, 16), 24),
            ("fused_conv_dw", (2, 10, 11, 13, 12), 16), ("fused_conv_dw", (2, 5, 7, 9, 16), 20),
            ("fused_conv_dw", (1, 6, 6, 6, 8), 8), ("phase_conv_dw", (1, 5, 7, 9, 8 * 8), 8 * 16),
+           ("fused_conv_dw", (2, 9, 12, 24, 8), 8), ("fused_conv_dw", (2, 50, 43, 36, 16), 16),
            ("phase_conv_dw", (2, 10, 11, 13, 8 * 24), 8 * 8),
            ("fused_conv_dw", (2, 5, 7, 9, 1), 8), ("fused_conv_dw", (2, 6, 10, 32, 2), 16),
            ("fused_conv_dw", (1, 4, 6, 17, 7), 24), ("fused_conv_dw", (2, 5, 7, 16, 1), 1),
@@ -1447,6 +1709,8 @@ def check_train_kernels(torch):
                      and x.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS
                      else "phase_blocks" if name == "phase_conv_dw"
                      and phase_dw_rule(x, c_true, co_true)
+                     else "dense_rows" if name == "fused_conv_dw"
+                     and dense_rule(x, c_true, co_true, dw=True)
                      else "tensor_cores"
                      if c_true % 8 == 0 and co_true % 8 == 0 else "f32_tiles")
         if body != want_body:
@@ -1920,6 +2184,7 @@ def run_train(torch, work: Path):
     memory and learning on one fixed 8 x 96^3 bf16 batch."""
     import numpy as np
 
+    from segmantic_tpu_torch.ops import fused_conv
     from segmantic_tpu_torch.train.augment import AugmentConfig
     from segmantic_tpu_torch.train.optim import make_optimizer
     from segmantic_tpu_torch.train.trainer import (
@@ -1947,6 +2212,9 @@ def run_train(torch, work: Path):
     # stages' forward and input gradient on the phase forward's
     launches["conv3_phase_dw"] = _mid_counters()["conv3_phase_dw"].count
     launches["conv3_phase"] = _mid_counters()["conv3_phase"].count
+    # and the 48^3 x 16 convs (fwd, dx, dw) on the dense Hopper bodies
+    launches["conv3_dense"] = _mid_counters()["conv3_dense"].count
+    launches["conv3_dense_dw"] = _mid_counters()["conv3_dense_dw"].count
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -1979,11 +2247,14 @@ def run_train(torch, work: Path):
     torch.cuda.synchronize()
     want = {"fused_conv_wgmma": 2 * FLAGSHIP_DEEP, "fused_conv_dw_wgmma": FLAGSHIP_DEEP_DW,
             "conv3_mid": 2 * FLAGSHIP_MID, "conv3_mid_dw": 0,
-            "conv3_phase_dw": FLAGSHIP_PHASE_DW, "conv3_phase": FLAGSHIP_PHASE_FWD}
-    print(f"  deep- and mid-channel bodies and the phase Hopper bodies, one step: "
+            "conv3_phase_dw": FLAGSHIP_PHASE_DW, "conv3_phase": FLAGSHIP_PHASE_FWD,
+            "conv3_dense": 2 * FLAGSHIP_DENSE,
+            "conv3_dense_dw": FLAGSHIP_DENSE * (TRAIN_BATCH * 48 ** 3
+                                                >= fused_conv.DENSE_DW_MIN_POSITIONS[16])}
+    print(f"  deep- and mid-channel bodies and the phase and dense Hopper bodies, one step: "
           f"{_launches(deep)} (expected {want})")
     if _launches(deep) != want:
-        _fail(f"the flagship's deep, mid and phase convs (fwd, dx, dw) did not all run on "
+        _fail(f"the flagship's deep, mid, phase and dense convs (fwd, dx, dw) did not all run on "
               f"their bodies: {_launches(deep)}, expected {want}")
     ms, times, loss_hist, peak = warm_steps(torch, step, image.cuda(), label.cuda())
     voxels = TRAIN_BATCH * int(np.prod(TRAIN_PATCH))
@@ -2281,10 +2552,12 @@ def phantom(shape, seed: int):
 
 
 def serve_requests(torch, ckpt: Path, work: Path,
-                   required=("fused_conv", "phase_conv", "blend", "conv3_phase")):
+                   required=("fused_conv", "phase_conv", "blend", "conv3_phase",
+                             "conv3_dense")):
     """Three requests through ``make_server(InferenceSession(ckpt))``; fails
     unless each kernel of ``required`` launched (the flagship's: its phase
-    stages on the phase forward's Hopper body too)."""
+    stages on the phase forward's Hopper body too, its 48^3 x 16 convs on the
+    dense Hopper body)."""
     import numpy as np
 
     from segmantic_tpu_torch.serve import InferenceSession, make_server
@@ -2311,7 +2584,8 @@ def serve_requests(torch, ckpt: Path, work: Path,
         if health != {"status": "ok"}:
             _fail("health check")
         phase_fwd = _mid_counters()["conv3_phase"]  # the phase stages' Hopper body
-        for c in (*_counters().values(), phase_fwd):
+        dense = _mid_counters()["conv3_dense"]  # the 48^3 x 16 convs' dense Hopper body
+        for c in (*_counters().values(), phase_fwd, dense):
             c.reset()
         for name, img, affine in cases:
             path = work / f"{name}.nii.gz"
@@ -2343,6 +2617,7 @@ def serve_requests(torch, ckpt: Path, work: Path,
         _fail("server thread did not stop")
     launches = {name: c.count for name, c in _counters().items()}
     launches["conv3_phase"] = phase_fwd.count
+    launches["conv3_dense"] = dense.count
     print(f"  launches during the requests: {launches}")
     if min(launches[k] for k in required) <= 0:
         _fail(f"a kernel of the path was never launched: {launches}")
@@ -2653,11 +2928,14 @@ def run_cross_validate(torch, work: Path):
 # launches 2 * n (less the input layer's) of each conv kernel, n of its dw
 # kernel, and the Dice kernels once each where the top runs in phase space
 # (packed UNETR: the phase Dice); ``deep``: of kernel 1's convs, those on the
-# deep-channel body a forward (twice that a step), and of kernel 2's a step
+# deep-channel body a forward (twice that a step), and of kernel 2's a step;
+# ``dense``, like ``deep`` and ``mid``, the convs a forward and the weight
+# gradients a step on the dense Hopper bodies (SegResNet: four at 96^3 x 8,
+# six at 48^3 x 16; UNETR(pack=False): two at 96^3 x 16)
 ARCHS = {
     "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
                   "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False,
-                  "deep": (8, 0), "mid": (6, 0)},
+                  "deep": (8, 0), "mid": (6, 0), "dense": (10, 10)},
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
@@ -2666,7 +2944,7 @@ ARCHS = {
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
-                       "phase_dice": False, "deep": (10, 4)},
+                       "phase_dice": False, "deep": (10, 4), "dense": (2, 2)},
 }
 # (architecture, stored x shape at the training batch, CO, launches of the
 # shape a forward): every stride-1 3^3 conv shape of the two on kernel 1 that
@@ -2743,8 +3021,9 @@ def check_arch_kernels(torch):
         deep = min(c, co) >= 64
         mid = (not deep and c + co >= fused_conv.MID_MIN_CHANNELS and shape[2] % 8 == 0
                and shape[3] % 8 == 0 and fused_conv.mid_eligible(c, co, False))
+        dense = dense_rule(x, c, co)
         if kind != ("few_channels" if c < 8 else "deep_channels" if deep else
-                    "mid_channels" if mid else "tensor_cores"):
+                    "mid_channels" if mid else "dense_rows" if dense else "tensor_cores"):
             _fail(f"fused_conv {label}: the rule sends C = {c} to the {kind} body")
         cache = {}  # the packed weights, packed once: the kernel's time alone
         k = lambda: fused_conv.conv3d(x, w, packed_cache=cache)  # noqa: E731
@@ -2758,7 +3037,7 @@ def check_arch_kernels(torch):
         ms, pms = _graph_ms(torch, k, **reps), _graph_ms(torch, pl, **reps)
         lms = _graph_ms(torch, lambda: F.conv3d(xc, wc, padding=1), **reps)
         print(f"    {body}; kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN conv3d {lms:.4f} ms")
-        if deep or mid:
+        if deep or mid or dense:
             print(f"    the tensor-core body (conv3_mma.cuh) on the same tensors: "
                   f"{tensor_core_conv_ms(torch, x, w):.4f} ms")
         elif c % 8 == 0 and c > 1:
@@ -2768,7 +3047,8 @@ def check_arch_kernels(torch):
                   f"max|ref| {rel:.2e}")
             if rel > 2e-2:
                 _fail(f"fused_conv {label}: the mid-channel body disagrees")
-        bodies = ("fused_conv_wgmma",) if deep else ("conv3_mid",) if mid else ()
+        bodies = (("fused_conv_wgmma",) if deep else ("conv3_mid",) if mid else
+                  ("conv3_dense",) if dense else ())
         for name in ("fused_conv",) + bodies:
             _record(launched, name, err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(x, w, k()), ops=2 * 27 * c * co * (x.numel() // c),
@@ -2788,7 +3068,12 @@ def check_arch_kernels(torch):
               f"{lms:.4f} ms")
         deep_dw = c >= 64 and co >= 128
         mid_dw = fused_conv.dw_body(x, c, co) == "mid_channels"
-        if deep_dw or mid_dw:
+        dense_dw = dense_rule(x, c, co, dw=True)
+        if (fused_conv.dw_body(x, c, co) == "dense_rows") != dense_dw:
+            _fail(f"fused_conv_dw {label}: the rule between the dense and other bodies")
+        if fused_conv.dense_eligible(c, co, shape[3]):
+            dense_dw_beside(torch, f"fused_conv_dw {label}", x, dy, dense_dw)
+        elif deep_dw or mid_dw:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
         if deep and not deep_dw:
@@ -2804,7 +3089,8 @@ def check_arch_kernels(torch):
                   f"{mms:.4f} ms, max|d| / max|ref| {rel:.2e}")
             if rel > 1e-3:
                 _fail(f"fused_conv_dw {label}: the mid-channel body disagrees")
-        bodies = ("fused_conv_dw_wgmma",) if deep_dw else ("conv3_mid_dw",) if mid_dw else ()
+        bodies = (("fused_conv_dw_wgmma",) if deep_dw else ("conv3_mid_dw",) if mid_dw else
+                  ("conv3_dense_dw",) if dense_dw else ())
         for name in ("fused_conv_dw",) + bodies:
             _record(launched, name, err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
@@ -2829,12 +3115,14 @@ def arch_launches(spec):
     gradients a step); a conv on either body takes its input gradient there
     too; ``phase_dw`` the weight gradients a step on the phase dw's Hopper
     body; ``phase_fwd`` the convs a forward on the phase forward's Hopper
-    body (their input gradients too)."""
+    body (their input gradients too); ``dense`` each dense Hopper body's
+    (convs a forward, their input gradients too; weight gradients a step)."""
     deep, deep_dw = spec["deep"]
     mid, mid_dw = spec.get("mid", (0, 0))
+    dense, dense_dw = spec.get("dense", (0, 0))
     per_fwd = {"fused_conv": spec["convs"], "phase_conv": spec["phase_convs"],
                "fused_conv_wgmma": deep, "conv3_mid": mid,
-               "conv3_phase": spec.get("phase_fwd", 0)}
+               "conv3_phase": spec.get("phase_fwd", 0), "conv3_dense": dense}
     per_step = {"fused_conv": 2 * spec["convs"], "phase_conv": 2 * spec["phase_convs"],
                 "fused_conv_dw": spec["convs"], "phase_conv_dw": spec["phase_convs"],
                 "dice_phase_sums": int(spec["phase_dice"]),
@@ -2842,7 +3130,8 @@ def arch_launches(spec):
                 "fused_conv_wgmma": 2 * deep, "fused_conv_dw_wgmma": deep_dw,
                 "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw,
                 "conv3_phase_dw": spec.get("phase_dw", 0),
-                "conv3_phase": 2 * spec.get("phase_fwd", 0)}
+                "conv3_phase": 2 * spec.get("phase_fwd", 0), "conv3_dense": 2 * dense,
+                "conv3_dense_dw": dense_dw}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -3028,7 +3317,7 @@ UNETR_PACK_SHAPES = [
      "encoder2_conv_2.conv_0, encoder2_conv_2.conv_1, decoder3_conv.conv_1"),
     ((TRAIN_BATCH, 24, 24, 24, 512), 64, 32, 1, "decoder3_conv.conv_0"),
 ]
-AB_ROUNDS, AB_STEPS = 4, 5  # the interleaved A/B: rounds of timed steps of each graph
+AB_ROUNDS, AB_STEPS = 2, 5  # the interleaved A/B: rounds of timed steps of each graph
 
 
 def check_unetr_pack_kernels(torch):
@@ -3262,7 +3551,8 @@ def unetr_pack_ab(torch):
             want = {"conv3_mid": 2 * ARCHS["unetr"]["mid"][0],
                     "conv3_mid_dw": ARCHS["unetr"]["mid"][1],
                     "conv3_phase_dw": ARCHS["unetr"]["phase_dw"],
-                    "conv3_phase": 2 * ARCHS["unetr"]["phase_fwd"]}
+                    "conv3_phase": 2 * ARCHS["unetr"]["phase_fwd"],
+                    "conv3_dense": 0, "conv3_dense_dw": 0}
             if mids != want:
                 _fail(f"the packed UNETR step's mid-channel and phase Hopper launches {mids}, "
                       f"expected {want}")

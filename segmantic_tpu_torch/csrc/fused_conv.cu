@@ -34,6 +34,12 @@
 // grids of whole 8 x 8 slabs (the 24^3 x 32 convs) runs the mid-channel body
 // of conv3_mid.cuh (segk_fused_conv3_mid): wgmma with A and B by no-swizzle
 // descriptors on 8-channel planes of the halo, the whole CO tile a block.
+// bf16 input with C = CO = 8 or 16 and W * C a multiple of 64 (the flagship's
+// 48^3 x 16, SegResNet's 96^3 x 8, UNETR(pack=False)'s 96^3 x 16) runs the
+// dense Hopper body of conv3_dense.cuh (segk_fused_conv3_rows): 128-byte rows
+// of 64 / C voxels by TMA, M = rows, N = the row's 64 output lanes, both
+// operands of its wgmma by descriptor.
+#include "conv3_dense.cuh"
 #include "conv3_f32.cuh"
 #include "conv3_fewc.cuh"
 #include "conv3_mid.cuh"
@@ -92,4 +98,13 @@ extern "C" int segk_fused_conv3_mid(const void* x, const void* wp, const float* 
   return segk::launch_conv3_mid<0>(x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C, CO,
                                    out_bf16, td, th, tw, ck, nt, spw, nwg, grid_x, stages,
                                    smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_rows(const void* x, const void* wp, const float* scale,
+                                     const float* shift, const float* alpha, int relu_mode,
+                                     void* out, int B, int D, int H, int W, int C, int CO,
+                                     int out_bf16, int grid_x, int stages, int smem_bytes,
+                                     void* stream) {
+  return segk::launch_conv3_dense_fwd(x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C,
+                                      CO, out_bf16, grid_x, stages, smem_bytes, stream);
 }

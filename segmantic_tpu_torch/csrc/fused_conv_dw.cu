@@ -24,7 +24,12 @@
 // (conv3_f32_dw.cuh: 8 x 8 tiles of (tap, ci) x co on FFMA, the tap group's
 // halo and the dy brick staged by cp.async, position splits with one partial
 // a block, summed by a second pass in a fixed order, so the result is
-// deterministic without atomics).
+// deterministic without atomics). bf16 input with C = CO = 8 or 16 and W * C a
+// multiple of 64 where the rule takes it runs the dense Hopper body
+// (conv3_dense_dw.cuh: 128-byte rows of x and dy by TMA, M = 64 lanes of a
+// window of x, N = dy's 64 lanes, K = positions, both operands MN-major by
+// descriptor; a partial a block summed by a second pass in a fixed order).
+#include "conv3_dense_dw.cuh"
 #include "conv3_dw_mma.cuh"
 #include "conv3_dw_wgmma.cuh"
 #include "conv3_f32_dw.cuh"
@@ -72,4 +77,11 @@ extern "C" int segk_fused_conv3_dw_mid(const void* x, const void* dy, float* ws,
                                        int smem_bytes, void* stream) {
   return segk::launch_conv3_mid_dw(x, dy, ws, out, B, D, H, W, C, CO, td, th, tw, tpw, nwg,
                                    splits, stages, smem_bytes, stream);
+}
+
+extern "C" int segk_fused_conv3_dw_rows(const void* x, const void* dy, float* ws, float* out,
+                                        int B, int D, int H, int W, int C, int CO, int grid_x,
+                                        int stages, int smem_bytes, void* stream) {
+  return segk::launch_conv3_dense_dw(x, dy, ws, out, B, D, H, W, C, CO, grid_x, stages,
+                                     smem_bytes, stream);
 }

@@ -48,12 +48,14 @@ _SIGNATURES = {
     "segk_phase_conv3_mid": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_fewc": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_lanes": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 10 + [_P],
+    "segk_fused_conv3_rows": [_P, _P, _P, _P, _P, _I, _P] + [_I] * 10 + [_P],
     "segk_blend": [_P] * 5 + [_I] * 17 + [_P],
     "segk_blend_blocks_per_sm": [_I] * 2,
     "segk_fused_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_mma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_fused_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "segk_fused_conv3_dw_mid": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    "segk_fused_conv3_dw_rows": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "segk_fused_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 14 + [_P],

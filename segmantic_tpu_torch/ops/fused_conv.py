@@ -15,8 +15,13 @@ the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has six bodies, the dw kernel six. The conv kernel's, named
-by :func:`conv_body` from the input's type, layout and channel counts: bf16
+The conv kernel has seven bodies, the dw kernel seven. The conv kernel's,
+named by :func:`conv_body` from the input's type, layout and channel counts:
+bf16 input in the dense layout with C = CO = 8 or 16, W * C a multiple of 64
+and at least ``DENSE_MIN_POSITIONS[C]`` positions runs the dense Hopper body
+(``csrc/conv3_dense.cuh``: TMA rows of 64 / C voxels, ``wgmma`` with N = the
+row's 64 output lanes and both operands by descriptor) with the geometry of
+:func:`dense_fwd_plan` and the weights of :func:`pack_weights_dense`; bf16
 input in the phase layout with C = CO = 8 or 16 and at least
 ``PHASE_FWD_MIN_POSITIONS`` block voxels runs the phase forward's Hopper body
 (``csrc/conv3_phase.cuh``: TMA bricks of block voxels, ``wgmma`` with N =
@@ -46,7 +51,12 @@ TF32 would not; bf16 input with any other channel count takes it too. Either
 way the wrapper launches its kernel or raises.
 
 The dw kernel's, named by :func:`dw_body`: bf16 input in the dense layout with
-C >= 64 and CO >= 128 runs the deep-channel body (``csrc/conv3_dw_wgmma.cuh``:
+C = CO = 8 or 16, W * C a multiple of 64 and at least
+``DENSE_DW_MIN_POSITIONS[C]`` positions runs the dense Hopper dw body
+(``csrc/conv3_dense_dw.cuh``: windows of x against the halves of dy's rows,
+``wgmma`` with both operands MN-major by descriptor) with the geometry of
+:func:`dense_dw_plan`; bf16 input in the dense layout with C >= 64 and CO >=
+128 runs the deep-channel body (``csrc/conv3_dw_wgmma.cuh``:
 ``wgmma`` on a TMA-staged halo of x and brick of dy) with the geometry of
 :func:`deep_dw_plan`; bf16 input in the dense layout with C and CO multiples of
 64 below that (CO = 64) and at least ``MID_DW_MIN_POSITIONS`` positions the
@@ -91,7 +101,8 @@ __all__ = [
     "mid_eligible", "mid_dw_eligible",
     "unpack_weights_mid", "phase_dw_counter", "PhaseDwPlan", "phase_dw_plan", "phase_dw_eligible",
     "phase_fwd_counter", "PhaseFwdPlan", "phase_fwd_plan", "phase_fwd_eligible",
-    "pack_weights_phase",
+    "pack_weights_phase", "dense_counter", "dense_dw_counter", "DenseFwdPlan",
+    "dense_fwd_plan", "DenseDwPlan", "dense_dw_plan", "dense_eligible", "pack_weights_dense",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -114,6 +125,10 @@ phase_dw_counter = _cuda.LaunchCounter("conv3_phase_dw")
 # the phase forward's Hopper body's launches (kernels 3-4), also counted by
 # phase_conv.counter
 phase_fwd_counter = _cuda.LaunchCounter("conv3_phase")
+# the dense Hopper bodies' launches (kernels 1 and 2), also counted by
+# counter and dw_counter
+dense_counter = _cuda.LaunchCounter("conv3_dense")
+dense_dw_counter = _cuda.LaunchCounter("conv3_dense_dw")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -228,6 +243,24 @@ PHASE_DW_MIN_POSITIONS = 32768
 # smallest, L = 64 on a 16^3 block grid x 1 (4096 block voxels: 64 bricks),
 # 1.06-1.10x; smaller volumes were not timed.
 PHASE_FWD_MIN_POSITIONS = 4096
+# The dense Hopper bodies' least positions (B * D * H * W) by channel count,
+# set from the rows timed on an H100 beside the tensor-core bodies (PERF.md).
+# The conv body was faster at every row from 24^3 x 16 at batch 2 (27648
+# positions; 1.5x) and 48^3 x 8 at batch 1 (110592; 1.2x) up to the models'
+# rows (1.3-1.7x); at 16^3 x 16 its input gradient tied, at 24^3 x 8 it was
+# 13-18% slower (a few bricks a block: its weights' bulk copy and ring fill).
+# The dw body was faster from 48^3 x 16 at batch 1 (1.2x; the models' rows
+# 1.5-1.7x) and from 48^3 x 8 at batch 4 (442368; 1.2x; SegResNet's 96^3 x 8
+# at batch 8 1.3x), slower at 24^3 x 16 at batch 2 and 48^3 x 8 at batch 1
+# (9-13%: its per-block sums and the reduce over 132 partials).
+DENSE_MIN_POSITIONS = {8: 110592, 16: 27648}
+DENSE_DW_MIN_POSITIONS = {8: 442368, 16: 110592}
+
+
+def _dense(x: torch.Tensor, c: int, co: int, phase: bool, least: dict) -> bool:
+    return (x.dtype == torch.bfloat16 and not phase and x.ndim == 5
+            and dense_eligible(c, co, x.shape[3])
+            and x.numel() // max(x.shape[-1], 1) >= least[c])
 
 
 def _deep(x: torch.Tensor, c: int, co: int, phase: bool, min_co: int) -> bool:
@@ -246,12 +279,17 @@ def conv_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     W (block voxels in phase space) multiples of 8, ``"phase_lanes"``
     (``csrc/conv3_phase.cuh``) for bf16 phase-major input with c = co = 8 or
     16 (:func:`phase_fwd_eligible`) and at least ``PHASE_FWD_MIN_POSITIONS``
-    block voxels, ``"tensor_cores"`` for any other bf16 input whose channel vector is a
+    block voxels, ``"dense_rows"`` (``csrc/conv3_dense.cuh``) for bf16 input
+    in the dense layout with c = co = 8 or 16, W * c a multiple of 64
+    (:func:`dense_eligible`) and at least ``DENSE_MIN_POSITIONS[c]`` positions,
+    ``"tensor_cores"`` for any other bf16 input whose channel vector is a
     whole number of 16-byte pieces (c % 8 == 0), ``"few_channels"`` for bf16
     input with c = 1..7, ``"f32_tiles"`` (``csrc/conv3_f32.cuh``: register-tiled
     f32 FFMA) for f32 input and every other bf16 channel count."""
     if _deep(x, c, co, phase, DEEP_MIN_CO):
         return "deep_channels"
+    if _dense(x, c, co, phase, DENSE_MIN_POSITIONS):
+        return "dense_rows"
     if x.dtype == torch.bfloat16:
         if (phase and phase_fwd_eligible(c, co)
                 and x.numel() // max(x.shape[-1], 1) >= PHASE_FWD_MIN_POSITIONS):
@@ -761,9 +799,11 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
     :func:`mid_plan`; counted by ``mid_counter`` too), ``entry + "_mma"``
     (tensor cores, :func:`plan`), ``entry + "_fewc"`` (few channels,
     :func:`fewc_plan`), ``entry + "_wgmma"`` (deep channels, dense only,
-    :func:`deep_plan`; counted by ``deep_counter`` too) or ``entry +
+    :func:`deep_plan`; counted by ``deep_counter`` too), ``entry +
     "_lanes"`` (the phase forward's Hopper body, phase only,
-    :func:`phase_fwd_plan`; counted by ``phase_fwd_counter`` too). ``packed_cache``
+    :func:`phase_fwd_plan`; counted by ``phase_fwd_counter`` too) or ``entry +
+    "_rows"`` (the dense Hopper body, dense only, :func:`dense_fwd_plan`;
+    counted by ``dense_counter`` too). ``packed_cache``
     keeps the packed weights between calls with constant weights (serving),
     keyed by the N tile (and the body)."""
     for t, name in ((x, "x"), (weights, "weights"), (out, "out")):
@@ -811,6 +851,20 @@ def launch_conv3(entry: str, x, weights, bias, scale, shift, alpha, relu_mode,
                      *head[6:], out_bf16, p.td, p.th, p.tw, p.nt, p.spw, p.nwg, p.splits,
                      p.stages, p.smem_bytes)
         deep_counter.count += 1
+        return
+    if body == "dense_rows":
+        if not _aligned(x):
+            raise ValueError("the dense Hopper body reads x by TMA: x must be 16-byte aligned")
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        p = dense_fwd_plan((b, d, h, w), c, co, sms)
+        packed = None if packed_cache is None else packed_cache.get("dense_rows")
+        if packed is None:
+            packed = pack_weights_dense(weights)
+            if packed_cache is not None:
+                packed_cache["dense_rows"] = packed
+        _cuda.launch(entry + "_rows", head[0], packed.data_ptr(), *head[1:], out_bf16,
+                     p.grid_x, p.stages, p.smem_bytes)
+        dense_counter.count += 1
         return
     if body == "phase_lanes":
         if not _aligned(x):
@@ -874,6 +928,7 @@ def conv3d(
     then the activation. f32 accumulation; bf16 or f32 in, out in
     ``out_dtype`` (x's dtype or f32). On a CUDA device bf16 input with
     C, CO >= 64 runs the deep-channel body (one launch, or two with split-K),
+    bf16 with C = CO = 8 or 16 the dense Hopper body at the rule's volumes,
     other bf16 with C % 8 == 0 the mid-channel body where C + CO >= 48, else
     the tensor-core body, bf16 with C = 1..7 the few-channel body, anything
     else the register-tiled f32 body (:func:`conv_body`)."""
@@ -924,6 +979,9 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     ``"phase_blocks"`` (``csrc/conv3_phase_dw.cuh``) for bf16 phase-major
     input whose channel counts :func:`phase_dw_eligible` takes, with c >=
     ``PHASE_DW_MIN_C`` and at least ``PHASE_DW_MIN_POSITIONS`` block voxels,
+    ``"dense_rows"`` (``csrc/conv3_dense_dw.cuh``) for bf16 input in the
+    dense layout with c = co = 8 or 16, W * c a multiple of 64 and at least
+    ``DENSE_DW_MIN_POSITIONS[c]`` positions,
     ``"tensor_cores"`` for any other bf16 input whose
     two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
     co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
@@ -932,6 +990,8 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     if x.dtype == torch.bfloat16 and c > 0 and co > 0:
         if _deep(x, c, co, phase, DEEP_DW_MIN_CO):
             return "deep_channels"
+        if _dense(x, c, co, phase, DENSE_DW_MIN_POSITIONS):
+            return "dense_rows"
         if c % 8 == 0 and co % 8 == 0:
             positions = x.numel() // max(x.shape[-1], 1)  # (the phase layout: block voxels)
             if (phase and phase_dw_eligible(c, co) and c >= PHASE_DW_MIN_C
@@ -1763,6 +1823,179 @@ def pack_weights_phase(weights: torch.Tensor) -> torch.Tensor:
     return F.pad(weights.reshape(-1), (0, 1))[index]
 
 
+# -- the dense Hopper bodies (csrc/conv3_dense.cuh, csrc/conv3_dense_dw.cuh) --
+
+DENSE_NWG = 2  # DENSE_NWG: consumer warpgroups, taking turns to issue their bricks
+DENSE_HALO = 10  # DENSE_HALO: a brick's box is 10 y x 10 z rows (8 x 8 and one each side)
+DENSE_BOX_BYTES = _round1024(DENSE_HALO * DENSE_HALO * 128)  # the window's box
+DENSE_W_MAIN = 9 * 64 * 128  # a tile of 64 N rows x 64 k for each (tz, ty)
+DENSE_DW_SLOT_BYTES = 2 * 8 * 8 * 64 + 2 * DENSE_BOX_BYTES  # dy's two halves, two windows
+DENSE_DW_G_BYTES = 3 * 3 * 2 * 64 * 33 * 4  # the epilogue's sums, over the ring
+
+
+def dense_eligible(c: int, co: int, w: int) -> bool:
+    """Channel counts and widths the dense Hopper bodies take: C = CO = 8 or
+    16 and W * C a multiple of 64 (whole 128-byte rows of 64 / C voxels a
+    line)."""
+    return c == co and c in (8, 16) and (w * c) % 64 == 0
+
+
+def dense_slot_bytes(c: int) -> int:
+    """``dense_slot_bytes``: the window's box and the tail's (10 x 10 rows of
+    2 c lanes), each rounded to 1024."""
+    return DENSE_BOX_BYTES + _round1024(DENSE_HALO * DENSE_HALO * 4 * c)
+
+
+def dense_w_bytes(c: int) -> int:
+    """``dense_w_bytes``: the window's 9 tiles and the tail's 9 c / 8 k16
+    steps, 4 to a tile of 2 c N rows x 128 bytes."""
+    return DENSE_W_MAIN + -(-(9 * c // 8) // 4) * 2 * c * 128
+
+
+def dense_fwd_smem_bytes(c: int, stages: int) -> int:
+    """``dense_fwd_smem_bytes`` of ``csrc/conv3_dense.cuh``: 1024 bytes to
+    align the base, 1024 of barriers, the resident weights, ``stages``
+    slots."""
+    return 2048 + dense_w_bytes(c) + stages * dense_slot_bytes(c)
+
+
+def dense_dw_smem_bytes(stages: int) -> int:
+    """``dense_dw_smem_bytes`` of ``csrc/conv3_dense_dw.cuh``: 1024 bytes to
+    align the base, 1024 of barriers, ``stages`` slots."""
+    return 2048 + stages * DENSE_DW_SLOT_BYTES
+
+
+def _dense_bricks(dims, c: int) -> int:
+    b, d, h, w = dims
+    return b * -(-d // 8) * -(-h // 8) * (w * c // 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseFwdPlan:
+    """Launch geometry of the dense Hopper conv body, as the C entry point
+    takes it. A block of two consumer warpgroups and a producer warp walks the
+    bricks ``blockIdx.x + k * grid_x`` (8 z x 8 y of one 128-byte row j of
+    the lines: a wgmma's M) through a ring of ``stages`` slots; warpgroup wg
+    takes the bricks k = wg, wg + 2, ..., issued in turn."""
+
+    stages: int
+    grid_x: int
+    smem_bytes: int
+    nbricks: int
+    nrows: int  # 128-byte rows a line: W * C / 64
+    fill: float  # real rows / rows multiplied
+    ksteps: int  # k16 steps a brick: 36 m64n64k16 and 9 C / 8 of the tail's N = 2 C
+    nwg: int = DENSE_NWG
+
+
+@functools.lru_cache(maxsize=None)
+def dense_fwd_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                   sms: int = _SMS) -> DenseFwdPlan:
+    """The ring and grid of one launch of the dense Hopper conv body on a (B,
+    D, H, W) grid: one persistent block a multiprocessor (``sms`` blocks, or
+    one a brick), the ring as many slots as fit, at most eight (C = 8: eight
+    of 17 KB beside 78 KB of weights; C = 16: six of 20 KB beside 92 KB)."""
+    b, d, h, w = dims
+    if not dense_eligible(c, co, w):
+        raise ValueError("the dense Hopper body needs C = CO in (8, 16) and W * C a multiple "
+                         f"of 64, got C = {c}, CO = {co}, W = {w}")
+    nbricks = _dense_bricks(dims, c)
+    stages = next((st for st in range(8, DENSE_NWG - 1, -1)
+                   if dense_fwd_smem_bytes(c, st) <= SMEM_LIMIT), None)
+    if nbricks < 1 or nbricks >= 2 ** 31 or stages is None:
+        raise ValueError(f"no dense Hopper launch plan for dims {dims}, C = {c}, CO = {co}")
+    nrows = w * c // 64
+    return DenseFwdPlan(stages=stages, grid_x=min(nbricks, sms),
+                        smem_bytes=dense_fwd_smem_bytes(c, stages), nbricks=nbricks, nrows=nrows,
+                        fill=b * d * h * nrows / (nbricks * 64), ksteps=36 + 9 * c // 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseDwPlan:
+    """Launch geometry of the dense Hopper dw body: ``grid_x`` blocks (three
+    warpgroups: the tz), each walking the bricks ``blockIdx.x + k * grid_x``
+    through a ring of ``stages`` slots, then a second launch that sums the
+    ``grid_x`` partials of ``workspace`` floats in a fixed order."""
+
+    stages: int
+    grid_x: int
+    smem_bytes: int
+    nbricks: int
+    nrows: int
+    workspace: int  # floats: grid_x partials of 27 * C * C
+    fill: float
+
+
+@functools.lru_cache(maxsize=None)
+def dense_dw_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                  sms: int = _SMS) -> DenseDwPlan:
+    """The ring and grid of one launch of the dense Hopper dw body: one block
+    a multiprocessor (or one a brick), the ring as deep as fits (six slots of
+    34 KB; the epilogue's sums, 149 KB, take it over)."""
+    b, d, h, w = dims
+    if not dense_eligible(c, co, w):
+        raise ValueError("the dense Hopper dw body needs C = CO in (8, 16) and W * C a "
+                         f"multiple of 64, got C = {c}, CO = {co}, W = {w}")
+    nbricks = _dense_bricks(dims, c)
+    stages = next((st for st in range(8, 1, -1) if dense_dw_smem_bytes(st) <= SMEM_LIMIT
+                   and st * DENSE_DW_SLOT_BYTES >= DENSE_DW_G_BYTES), None)
+    if nbricks < 1 or nbricks >= 2 ** 31 or stages is None:
+        raise ValueError(f"no dense Hopper dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    grid_x = min(nbricks, sms)
+    nrows = w * c // 64
+    return DenseDwPlan(stages=stages, grid_x=grid_x, smem_bytes=dense_dw_smem_bytes(stages),
+                       nbricks=nbricks, nrows=nrows, workspace=grid_x * 27 * c * c,
+                       fill=b * d * h * nrows / (nbricks * 64))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_pack_index(c: int, device: torch.device) -> torch.Tensor:
+    """Where each value of :func:`pack_weights_dense`'s result comes from in
+    the flattened DHWIO weights, 27 * c * c (the element past their end) for
+    a structural zero: the packing as one gather. Made on ``device``, once."""
+    nt = 2 * c  # the tail's N: the row's last two output voxels
+    ar = functools.partial(torch.arange, device=device)
+
+    def src(t, n, d, ci):
+        """(tz, ty) = divmod(t, 3), output column n, input voxel d from row j's
+        first voxel, input channel ci -> flat index or 27 c c."""
+        x, co = n // c, n % c
+        tx = d - x + 1
+        valid = (tx >= 0) & (tx <= 2) & (t < 9)
+        return torch.where(valid, ((t * 3 + tx) * c + ci) * c + co, 27 * c * c)
+
+    # the window's tiles (9, 64 n, 64 k): k the lanes from voxel u j - 1
+    k = ar(64).view(1, 1, 64)
+    main = src(ar(9).view(-1, 1, 1), ar(64).view(1, 64, 1), k // c - 1, k % c)
+    # the tail's tiles (tiles, 2c n, 64 k): step e = 4 tile + k // 16 = t c / 8 + q,
+    # its K the lanes 16 q .. of the two voxels u j + u - 1, u j + u; its N
+    # rows the columns 64 - 2c ..
+    steps = 9 * c // 8
+    tiles = -(-steps // 4)
+    e = ar(tiles).view(-1, 1, 1) * 4 + ar(64).view(1, 1, 64) // 16
+    lane = (e % (c // 8)) * 16 + ar(64).view(1, 1, 64) % 16
+    tail = src(torch.where(e < steps, e // (c // 8), 9), ar(nt).view(1, -1, 1) + 64 - nt,
+               64 // c - 1 + lane // c, lane % c)
+    return torch.cat([_swizzle128(main.contiguous()).reshape(-1),
+                      _swizzle128(tail.contiguous()).reshape(-1)])
+
+
+def pack_weights_dense(weights: torch.Tensor) -> torch.Tensor:
+    """DHWIO weights (3, 3, 3, C, C), C = 8 or 16, in the order the dense
+    Hopper conv body reads them (``dense_w_bytes`` in bf16): nine tiles (tz,
+    ty) of 64 N rows (output lanes of a row: voxel n // C, channel n % C) x 64
+    k (the window's lanes: voxel k // C - 1 from the row's first, channel k %
+    C), the tap tx = x' - x + 1 of input voxel x' and output voxel x where it
+    exists and zero elsewhere; then the tail's 9 C / 8 k16 steps t C / 8 + q,
+    4 to a tile of 2 C N rows (the row's last two output voxels) x 64 k (lanes
+    16 q .. of the voxels u and u + 1 from the row's first). K-major and
+    128-byte swizzled as a wgmma descriptor reads them. One gather by a cached
+    index."""
+    c = weights.shape[-2]
+    index = _dense_pack_index(c, weights.device)
+    return F.pad(weights.reshape(-1), (0, 1))[index]
+
+
 # -- the register-tiled f32 bodies (csrc/conv3_f32.cuh, csrc/conv3_f32_dw.cuh) --
 
 _F32_MAX_THREADS = 256  # F32_MAX_THREADS; __launch_bounds__(256, 2): 128 registers a thread
@@ -2082,7 +2315,9 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     "_mid"`` (mid channels, dense only, :func:`mid_dw_plan`; counted by
     ``mid_dw_counter`` too), ``entry + "_wgmma"`` (the phase layout's Hopper
     body, :func:`phase_dw_plan`; counted by ``phase_dw_counter`` too), ``entry +
-    "_mma"`` (tensor cores, :func:`dw_plan`), ``entry + "_fewc"`` (few
+    "_rows"`` (the dense Hopper body, dense only, :func:`dense_dw_plan`;
+    counted by ``dense_dw_counter`` too), ``entry + "_mma"`` (tensor cores,
+    :func:`dw_plan`), ``entry + "_fewc"`` (few
     channels, :func:`fewc_dw_plan`) or ``entry + "_f32"`` (f32,
     :func:`f32_dw_plan`; counted by ``f32_dw_counter`` too). With more than
     one split the partials go to a workspace and a second kernel sums them in
@@ -2131,6 +2366,16 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
                      p.smem_bytes)
         mid_dw_counter.count += 1
         return out
+    if body == "dense_rows":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the dense Hopper dw body reads x and dy by TMA: both must be "
+                             "16-byte aligned")
+        p = dense_dw_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        _cuda.launch(entry + "_rows", x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     b, d, h, w, c, co, p.grid_x, p.stages, p.smem_bytes)
+        dense_dw_counter.count += 1
+        return out
     if body == "phase_blocks":
         if not (_aligned(x) and _aligned(dy)):
             raise ValueError("the phase dw's Hopper body reads p and g by TMA: both must be "
@@ -2166,6 +2411,7 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     accumulation and result (3, 3, 3, C, CO); x (B, D, H, W, C) and
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
     device bf16 input with C >= 64 and CO >= 128 runs the deep-channel body,
+    C = CO = 8 or 16 at the rule's volumes the dense Hopper body,
     C and CO multiples of 64 below that at a large enough volume the
     mid-channel body, other bf16 with C % 8 == 0 and CO % 8 == 0 the
     tensor-core body, bf16 with C = 1..7 the few-channel body, anything else

@@ -356,6 +356,13 @@ DW_ODD = [
 ]
 
 
+def _dense_rows(x, c, co, least) -> bool:
+    """Whether the rule sends bf16 dense x to a dense Hopper body (``least``:
+    ``fused_conv.DENSE_MIN_POSITIONS`` or ``DENSE_DW_MIN_POSITIONS``)."""
+    return (fused_conv.dense_eligible(c, co, x.shape[3])
+            and x.numel() // x.shape[-1] >= least[c])
+
+
 def _dw_case(layout, shape, co):
     """(module, kernel, plain, full-resolution dims, true C, true CO)."""
     if layout == "dense":
@@ -376,8 +383,12 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     # the phase dw's Hopper body from Ci = 16 at these volumes (the L = 128 stage)
     hop = (layout == "phase" and c_true >= fused_conv.PHASE_DW_MIN_C
            and x.numel() // x.shape[-1] >= fused_conv.PHASE_DW_MIN_POSITIONS)
+    # the dense Hopper dw body at C = CO = 8 or 16 (the 48^3 x 16 stage)
+    dense = layout == "dense" and _dense_rows(x, c_true, co_true,
+                                              fused_conv.DENSE_DW_MIN_POSITIONS)
     assert fused_conv.dw_body(x, c_true, co_true, layout == "phase") == (
-        "deep_channels" if deep else "phase_blocks" if hop else "tensor_cores")
+        "deep_channels" if deep else "phase_blocks" if hop else "dense_rows" if dense
+        else "tensor_cores")
     mod.dw_counter.reset()
     got = kernel(x, dy)
     assert mod.dw_counter.count == 1 and got.dtype == torch.float32
@@ -406,6 +417,7 @@ def test_arch_conv_shapes(cuda, shape, co):
     assert fused_conv.conv_body(x, shape[-1], co) == (
         "few_channels" if shape[-1] < 8 else
         "deep_channels" if min(shape[-1], co) >= 64 else
+        "dense_rows" if _dense_rows(x, shape[-1], co, fused_conv.DENSE_MIN_POSITIONS) else
         "mid_channels" if shape[-1] + co >= 48 and fused_conv.mid_eligible(shape[-1], co, False)
         and shape[2] % 8 == 0 and shape[3] % 8 == 0 else "tensor_cores")
     fused_conv.counter.reset()
@@ -424,6 +436,7 @@ def test_arch_dw_shapes(cuda, shape, co):
     assert fused_conv.dw_body(x, shape[-1], co) == (
         "few_channels" if shape[-1] < 8 else
         "deep_channels" if shape[-1] >= 64 and co >= 128 else
+        "dense_rows" if _dense_rows(x, shape[-1], co, fused_conv.DENSE_DW_MIN_POSITIONS) else
         "mid_channels" if mid else "tensor_cores")
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)
@@ -1387,3 +1400,96 @@ def test_phase_forward_launcher_refuses_plans_it_did_not_size(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):  # Ci != Co
         _cuda.launch("segk_phase_conv3_lanes", *head, 8, 16, 1, q.grid_x, q.stages,
                      q.smem_bytes)
+
+
+# The dense Hopper bodies (csrc/conv3_dense.cuh, conv3_dense_dw.cuh): bf16 with
+# C = CO = 8 or 16, W * C a multiple of 64, at least DENSE_MIN_POSITIONS[C]
+# (the dw DENSE_DW_MIN_POSITIONS[C]) positions, held against the plain versions
+# on the f32 upcasts of the same bf16 values (f32 out 1e-4 * max|ref|, bf16 out
+# 1e-2; the dw 1e-3, exact products summed in another order); D and H no
+# multiple of 8, lines of one row and of many, every relu mode
+@pytest.mark.parametrize("relu_mode", ["none", "relu", "prelu"])
+@pytest.mark.parametrize("shape", [
+    (2, 48, 48, 48, 16),  # the flagship's 48^3 x 16 at a rank's batch of 2
+    (1, 30, 37, 36, 16),  # D and H no multiple of 8
+    (1, 48, 48, 48, 8),  # SegResNet's width at 48^3
+    (2, 42, 45, 40, 8),
+    (8, 33, 35, 4, 16),  # one row a line
+])
+def test_dense_hopper_bodies(cuda, shape, relu_mode):
+    g = torch.Generator().manual_seed(9)
+    c = shape[-1]
+    x = _randn(g, *shape).to(torch.bfloat16)
+    w = _randn(g, 3, 3, 3, c, c, scale=(27 * c) ** -0.5).to(torch.bfloat16)
+    kw = dict(bias=_randn(g, c, scale=0.1), scale=_randn(g, c).abs() + 0.5,
+              shift=_randn(g, c, scale=0.1), alpha=torch.tensor([0.3], device=cuda),
+              relu_mode=relu_mode)
+    assert fused_conv.conv_body(x, c, c) == "dense_rows"
+    fused_conv.counter.reset()
+    fused_conv.dense_counter.reset()
+    got = fused_conv.conv3d(x, w, **kw)
+    assert fused_conv.counter.count == 1 and fused_conv.dense_counter.count == 1
+    _close(got, fused_conv.conv3d_plain(x.float(), w.float(), **kw), 1e-2)
+    assert torch.equal(got, fused_conv.conv3d(x, w, **kw))  # bit-equal on repeat
+    wide = fused_conv.conv3d(x, w, out_dtype=torch.float32, **kw)
+    _close(wide, fused_conv.conv3d_plain(x.float(), w.float(), **kw), 1e-4)
+    assert fused_conv.dense_counter.count == 3
+    if relu_mode != "none":
+        return
+    dy = _randn(g, *shape).to(torch.bfloat16)
+    taken = x.numel() // c >= fused_conv.DENSE_DW_MIN_POSITIONS[c]
+    assert fused_conv.dw_body(x, c, c) == ("dense_rows" if taken else "tensor_cores")
+    fused_conv.dense_dw_counter.reset()
+    dw = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.dense_dw_counter.count == int(taken)
+    _close(dw, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    assert torch.equal(dw, fused_conv.conv3d_dw(x, dy))
+
+
+def test_dense_hopper_bodies_take_the_grad_function(cuda):
+    """The differentiable conv runs its forward, its input gradient (the
+    forward on flipped, swapped weights) and its weight gradient on the
+    dense Hopper bodies."""
+    g = torch.Generator().manual_seed(10)
+    x0 = _randn(g, 2, 48, 48, 48, 16).to(torch.bfloat16)
+    w0 = _randn(g, 3, 3, 3, 16, 16, scale=(27 * 16) ** -0.5).to(torch.bfloat16)
+    gy = _randn(g, 2, 48, 48, 48, 16).to(torch.bfloat16)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    fused_conv.dense_counter.reset()
+    fused_conv.dense_dw_counter.reset()
+    fused_conv.conv3d_grad(x, w).backward(gy)
+    assert fused_conv.dense_counter.count == 2 and fused_conv.dense_dw_counter.count == 1
+    xf, wf = x0.float().requires_grad_(), w0.float().requires_grad_()
+    fused_conv.conv3d_plain(xf, wf).backward(gy.float())
+    _close(x.grad, xf.grad, 2e-2)
+    _close(w.grad, wf.grad, 2e-2)
+
+
+def test_dense_launchers_refuse_plans_they_did_not_size(cuda):
+    """The launchers refuse a shared-memory sum other than their own, a ring
+    shorter than they need, C != CO and W * C no multiple of 64."""
+    x = torch.zeros((1, 16, 16, 16, 16), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 3, 16, 16), dtype=torch.bfloat16, device=cuda)
+    q = fused_conv.dense_fwd_plan((1, 16, 16, 16), 16, 16)
+    packed = fused_conv.pack_weights_dense(w)
+    s, t = fused_conv._epilogue_vectors(16, None, None, None, x.device)
+    out = torch.empty_like(x)
+    head = (x.data_ptr(), packed.data_ptr(), s.data_ptr(), t.data_ptr(), None, 0,
+            out.data_ptr(), 1, 16, 16)
+    _cuda.launch("segk_fused_conv3_rows", *head, 16, 16, 16, 1, q.grid_x, q.stages, q.smem_bytes)
+    for bad in ((16, 16, 16, 1, q.grid_x, q.stages, q.smem_bytes + 1024),
+                (16, 16, 16, 1, q.grid_x, 1, fused_conv.dense_fwd_smem_bytes(16, 1)),
+                (16, 16, 8, 1, q.grid_x, q.stages, q.smem_bytes),
+                (14, 16, 16, 1, q.grid_x, q.stages, q.smem_bytes)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _cuda.launch("segk_fused_conv3_rows", *head, *bad)
+    r = fused_conv.dense_dw_plan((1, 16, 16, 16), 16, 16)
+    ws = torch.empty(r.workspace, dtype=torch.float32, device=cuda)
+    dw = torch.empty((3, 3, 3, 16, 16), dtype=torch.float32, device=cuda)
+    head = (x.data_ptr(), x.data_ptr(), ws.data_ptr(), dw.data_ptr(), 1, 16, 16, 16, 16, 16)
+    _cuda.launch("segk_fused_conv3_dw_rows", *head, r.grid_x, r.stages, r.smem_bytes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _cuda.launch("segk_fused_conv3_dw_rows", *head, r.grid_x, r.stages, r.smem_bytes + 1024)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the sums outgrow a short ring
+        _cuda.launch("segk_fused_conv3_dw_rows", *head, r.grid_x, 2,
+                     fused_conv.dense_dw_smem_bytes(2))

@@ -143,9 +143,10 @@ def _probe(dims, c, dtype=torch.bfloat16, phase=True):
 @pytest.mark.parametrize("dims,c", ROWS + RANK_ROWS)
 def test_the_rows_take_the_phase_body(dims, c):
     assert fused_conv.conv_body(_probe(dims, c), c, c, True) == "phase_lanes"
-    # f32 keeps the register-tiled body; the dense layout never takes it
+    # f32 keeps the register-tiled body; the dense layout never takes it (its
+    # own Hopper body takes these channel counts there)
     assert fused_conv.conv_body(_probe(dims, c, torch.float32), c, c, True) == "f32_tiles"
-    assert fused_conv.conv_body(_probe(dims, c, phase=False), c, c, False) == "tensor_cores"
+    assert fused_conv.conv_body(_probe(dims, c, phase=False), c, c, False) == "dense_rows"
 
 
 @pytest.mark.parametrize("dims,c,co,body", [
