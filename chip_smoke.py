@@ -82,6 +82,7 @@ from __future__ import annotations
 import functools
 import gzip
 import json
+import re
 import statistics
 import struct
 import subprocess
@@ -148,6 +149,13 @@ KERNELS = {
                     "segmantic_tpu/ops/pallas_conv.py:173"),
     "conv3_dense_dw": ("segmantic_tpu_torch/csrc/conv3_dense_dw.cuh",
                        "segmantic_tpu/ops/pallas_conv.py:289"),
+    # the dense pairs dw body of kernel 2 (bf16, C = CO = 32) and the phase
+    # pieces dw body of kernel 5 (bf16, Ci = Co = 8), beside the kernels'
+    # totals, which include them
+    "conv3_dense_pairs_dw": ("segmantic_tpu_torch/csrc/conv3_dense_pairs_dw.cuh",
+                             "segmantic_tpu/ops/pallas_conv.py:289"),
+    "conv3_phase_pieces_dw": ("segmantic_tpu_torch/csrc/conv3_phase_pieces_dw.cuh",
+                              "segmantic_tpu/ops/phase_gemm.py:430"),
 }
 # the flagship's convs on the deep-channel bodies: 5 a forward (a step twice
 # that, the input gradients) and 3 weight gradients a step (the dw body's rule
@@ -157,9 +165,12 @@ FLAGSHIP_DEEP, FLAGSHIP_DEEP_DW = 5, 3
 # twice that, the input gradients); its weight gradients stay on the
 # tensor-core body (12^3 is below the mid dw body's volume)
 FLAGSHIP_MID = 2
-# and the phase dw's Hopper body: the L = 128 stage's weight gradient (Ci = 16;
-# L = 64, Ci = 8, stays on the tensor-core body)
+# and the phase dw's Hopper body: the L = 128 stage's weight gradient (Ci = 16);
+# the L = 64 stage's (Ci = 8) on the phase pieces body
 FLAGSHIP_PHASE_DW = 1
+FLAGSHIP_PIECES_DW = 1
+# and the dense pairs dw body: the two 24^3 x 32 weight gradients a step
+FLAGSHIP_PAIRS_DW = 2
 # and the phase forward's Hopper body: both phase stages' forward and input
 # gradient (L = 64 and L = 128) a step; a served chunk of windows runs both
 # stages once
@@ -353,6 +364,20 @@ def dw_body_text(x, c: int, co: int, dims, phase: bool, sms: int):
                       f"by descriptor: windows of x against dy's half rows): bricks of 8x8 "
                       f"positions x one row, {p.nbricks} bricks over {p.grid_x} blocks of 3 "
                       f"warpgroups (tz), ring of {p.stages}, fill {p.fill:.3f}, workspace "
+                      f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
+    if body == "dense_pairs":
+        p = fused_conv.dense_pairs_plan(dims, c, co, sms)
+        return body, (f"dense pairs body (TMA rows, wgmma m64n64 with both operands MN-major by "
+                      f"descriptor, K = (position, voxel of the row)): bricks of 8x8 positions "
+                      f"x one row, {p.nbricks} bricks over {p.grid_x} blocks of 3 warpgroups "
+                      f"(tz), ring of {p.stages}, fill {p.fill:.3f}, workspace "
+                      f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
+    if body == "phase_pieces":
+        p = fused_conv.phase_pieces_plan(dims, c, co, sms)
+        return body, (f"phase pieces body (TMA block-space bricks, wgmma m64n32, the y and x "
+                      f"pieces of g by ldmatrix in a tile's rows): brick {p.td}x{p.th}x{p.tw} "
+                      f"block voxels, {p.nbricks} bricks over {p.splits} blocks of 3 warpgroups "
+                      f"(tz), ring of {p.stages}, fill {p.fill:.3f}, workspace "
                       f"{p.workspace * 4 / 1e6:.2f} MB, kernel + reduce"), p.fill
     if body == "tensor_cores":
         p = fused_conv.dw_plan(dims, c, co, sms)
@@ -553,10 +578,65 @@ def phase_dw_rule(x, c: int, co: int) -> bool:
             and x.numel() // x.shape[-1] >= fused_conv.PHASE_DW_MIN_POSITIONS)
 
 
-def phase_dw_beside(torch, label, p, g, taken: bool) -> None:
-    """Print the row's other body beside the one the rule took: the
-    tensor-core body where the phase Hopper body runs it, else the phase
-    Hopper body (checked against the plain version)."""
+def pieces_rule(x, c: int, co: int) -> bool:
+    """Whether the rule sends the bf16 phase dw on x to the phase pieces
+    body, written out from its constants."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return (fused_conv.phase_pieces_eligible(c, co)
+            and x.numel() // x.shape[-1] >= fused_conv.PHASE_PIECES_MIN_POSITIONS)
+
+
+def pieces_dw_entry_ms(torch, p, g):
+    """(max|d| over max|ref|, device ms) of the phase pieces dw body
+    (``conv3_phase_pieces_dw.cuh``, with its reduce launch) on the same
+    tensors, called through its C entry point with its own plan."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv, phase_conv
+
+    b, d, h, w_ = p.shape[0], 2 * p.shape[1], 2 * p.shape[2], 2 * p.shape[3]
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    q = fused_conv.phase_pieces_plan((b, d, h, w_), 8, 8, sms)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=p.device)
+    out = torch.empty((3, 3, 3, 8, 8), dtype=torch.float32, device=p.device)
+
+    def run():
+        _cuda.launch("segk_phase_conv3_dw_pieces", p.data_ptr(), g.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, 8, 8, q.td, q.th, q.tw, q.splits, q.stages,
+                     q.smem_bytes)
+
+    run()
+    want = phase_conv.phase_conv_dw_plain(p, g)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def phase_dw_beside(torch, label, p, g, taken: bool, pieces: bool = False) -> None:
+    """Print the row's other bodies beside the one the rule took: the
+    tensor-core body where a phase Hopper body runs it (and, under the phase
+    pieces body, the phase Hopper body of ``conv3_phase_dw.cuh``), else the
+    phase pieces body or the phase Hopper body where they can run the row
+    (checked against the plain version)."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    c, co = p.shape[-1] // 8, g.shape[-1] // 8
+    if pieces:
+        print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+              f"{phase_tensor_core_dw_ms(torch, p, g):.4f} ms")
+        rel, ms = phase_dw_entry_ms(torch, p, g)
+        print(f"    the phase Hopper body (conv3_phase_dw.cuh, left out by the rule below Ci = "
+              f"{fused_conv.PHASE_DW_MIN_C}) on the same tensors: {ms:.4f} ms, max|d| / "
+              f"max|ref| {rel:.2e}")
+        if rel > 1e-3:
+            _fail(f"{label}: the phase Hopper body disagrees")
+        return
+    if not taken and fused_conv.phase_pieces_eligible(c, co):
+        rel, ms = pieces_dw_entry_ms(torch, p, g)
+        print(f"    the phase pieces body (conv3_phase_pieces_dw.cuh, left out by the rule below "
+              f"{fused_conv.PHASE_PIECES_MIN_POSITIONS} block voxels) on the same tensors: "
+              f"{ms:.4f} ms, max|d| / max|ref| {rel:.2e}")
+        if rel > 1e-3:
+            _fail(f"{label}: the phase pieces body disagrees")
     if taken:
         print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
               f"{phase_tensor_core_dw_ms(torch, p, g):.4f} ms")
@@ -710,6 +790,58 @@ def dense_beside(torch, label, x, w, taken: bool) -> None:
           f"max|d| / max|ref| {rel:.2e}")
     if rel > 2e-2:
         _fail(f"{label}: the dense Hopper body disagrees")
+
+
+def pairs_rule(x, c: int, co: int) -> bool:
+    """Whether the rule sends the bf16 dense dw on x to the dense pairs body,
+    written out from its constants."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    return (fused_conv.dense_pairs_eligible(c, co, x.shape[3])
+            and x.numel() // x.shape[-1] >= fused_conv.DENSE_PAIRS_MIN_POSITIONS)
+
+
+def pairs_dw_entry_ms(torch, x, dy):
+    """(max|d| over max|ref|, device ms) of the dense pairs dw body
+    (``conv3_dense_pairs_dw.cuh``, with its reduce launch) on bf16 x and dy
+    through its C entry point with its own plan."""
+    from segmantic_tpu_torch.ops import _cuda, fused_conv
+
+    b, d, h, w_, c = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    q = fused_conv.dense_pairs_plan((b, d, h, w_), c, c, sms)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, 3, c, c), dtype=torch.float32, device=x.device)
+
+    def run():
+        _cuda.launch("segk_fused_conv3_dw_pairs", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w_, c, c, q.grid_x, q.stages, q.smem_bytes)
+
+    run()
+    want = fused_conv.conv3d_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    rel = ((out - want).abs().max() / want.abs().max()).item()
+    return rel, _graph_ms(torch, run)
+
+
+def pairs_dw_beside(torch, label, x, dy, taken: bool) -> None:
+    """The C = CO = 32 weight gradient's other body: the tensor-core dw body
+    beside the dense pairs body, or the pairs body where the rule keeps the
+    row off it (checked against the plain version)."""
+    from segmantic_tpu_torch.ops import fused_conv
+
+    if taken:
+        print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
+              f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
+        return
+    if not fused_conv.dense_pairs_eligible(x.shape[-1], dy.shape[-1], x.shape[3]):
+        return
+    rel, ms = pairs_dw_entry_ms(torch, x, dy)
+    print(f"    the dense pairs body (conv3_dense_pairs_dw.cuh, left out by the rule below "
+          f"{fused_conv.DENSE_PAIRS_MIN_POSITIONS} positions) on the same tensors: {ms:.4f} ms, "
+          f"max|d| / max|ref| {rel:.2e}")
+    if rel > 1e-3:
+        _fail(f"{label}: the dense pairs body disagrees")
 
 
 def dense_dw_beside(torch, label, x, dy, taken: bool) -> None:
@@ -1299,6 +1431,9 @@ def report_conv_build(lib: Path) -> None:
     print(f"  ptxas, conv3_phase_dw_kernel<N, TPW, NWG>: {len(found)} instantiations, "
           f"registers {min(f[1] for f in found)}-{max(f[1] for f in found)}, spill bytes "
           f"{sum(f[2] for f in found)}; " + ", ".join(f"{a}:{r}/{sp}" for a, r, sp in sorted(found)))
+    for name in ("conv3_dense_pairs_kernel", "conv3_phase_pieces_kernel"):
+        for _, regs, stack, spill in _ptxas_reports(lib, name):
+            print(f"  ptxas, {name}: {regs} registers, stack {stack}, spill bytes {spill}")
     found = set()  # the phase forward's Hopper body: <CI>
     for line, regs, _, spill in _ptxas_reports(lib, "conv3_phase_fwd_kernel"):
         m = re.search(r"conv3_phase_fwd_kernelILi(\d+)E", line)
@@ -1380,6 +1515,22 @@ def report_conv_build(lib: Path) -> None:
               f"{c['LDSM']} LDSM (ldmatrix), {c['LDGSTS']} LDGSTS (cp.async)")
         if not c["HMMA"] or not c["LDSM"] or not c["LDGSTS"]:
             _fail(f"{name} holds no HMMA, no LDSM or no LDGSTS opcode")
+    # the dense pairs and phase pieces dw bodies (one instantiation each)
+    new = ("conv3_dense_pairs_kernel", "conv3_phase_pieces_kernel")
+    new_counts = {name: {"HGMMA": 0, "LDSM": 0, "UTMALDG": 0} for name in new}
+    inside = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = next((name for name in new if name in line), None)
+        elif inside:
+            for key in new_counts[inside]:
+                if f" {key}." in line or f" {key} " in line:
+                    new_counts[inside][key] += 1
+    for name, c in new_counts.items():
+        print(f"  SASS of {name}: {c['HGMMA']} HGMMA (wgmma), {c['LDSM']} LDSM (ldmatrix), "
+              f"{c['UTMALDG']} UTMALDG (TMA)")
+        if not c["HGMMA"] or not c["UTMALDG"] or (name == new[1] and not c["LDSM"]):
+            _fail(f"{name} holds no HGMMA or no UTMALDG opcode (the pieces body: or no LDSM)")
 
 
 def _deep_counters():
@@ -1408,7 +1559,9 @@ def _mid_counters():
             "conv3_phase_dw": fused_conv.phase_dw_counter,
             "conv3_phase": fused_conv.phase_fwd_counter,
             "conv3_dense": fused_conv.dense_counter,
-            "conv3_dense_dw": fused_conv.dense_dw_counter}
+            "conv3_dense_dw": fused_conv.dense_dw_counter,
+            "conv3_dense_pairs_dw": fused_conv.dense_pairs_counter,
+            "conv3_phase_pieces_dw": fused_conv.phase_pieces_counter}
 
 
 def _counters():
@@ -1480,8 +1633,13 @@ def check_train_kernels(torch):
     Every dw shape of one flagship step: the six distinct dense ones (eight
     launches: 24^3 x 32 and 12^3 x 64 run in the encoder and in the decoder)
     and both phase stages. bf16 goes through the body the rule names (the
-    48^3 x 16 one through the dense Hopper body, ``csrc/conv3_dense_dw.cuh``),
-    f32 through the register-tiled f32 body (``csrc/conv3_f32_dw.cuh``). Then
+    48^3 x 16 one through the dense Hopper body, ``csrc/conv3_dense_dw.cuh``,
+    the 24^3 x 32 ones through the dense pairs body,
+    ``csrc/conv3_dense_pairs_dw.cuh``, L = 64 through the phase pieces body,
+    ``csrc/conv3_phase_pieces_dw.cuh``, each timed beside the tensor-core
+    body it replaced and, for L = 64, the phase Hopper body of
+    ``conv3_phase_dw.cuh``), f32
+    through the register-tiled f32 body (``csrc/conv3_f32_dw.cuh``). Then
     the dense Hopper bodies at the training batch's rows (``check_dense_rows``)
     beside the tensor-core bodies on the same tensors.
 
@@ -1558,11 +1716,14 @@ def check_train_kernels(torch):
                and x32.numel() // c_true >= fused_conv.MID_DW_MIN_POSITIONS)
         hop = name == "phase_conv_dw" and phase_dw_rule(x32, c_true, co_true)
         dense = name == "fused_conv_dw" and dense_rule(x32, c_true, co_true, dw=True)
+        pairs = name == "fused_conv_dw" and pairs_rule(x32, c_true, co_true)
+        pieces = name == "phase_conv_dw" and pieces_rule(x32, c_true, co_true)
         for dtype in (torch.float32, bf16):
             x, dy = x32.to(dtype), dy32.to(dtype)
             want_body = ("f32_tiles" if dtype != bf16 else "deep_channels" if deep else
                          "mid_channels" if mid else "phase_blocks" if hop else
-                         "dense_rows" if dense else "tensor_cores")
+                         "dense_rows" if dense else "dense_pairs" if pairs else
+                         "phase_pieces" if pieces else "tensor_cores")
             if fused_conv.dw_body(x, c_true, co_true, name == "phase_conv_dw") != want_body:
                 _fail(f"{name} {label}: the rule sends {dtype} to the wrong body")
             before = mod.dw_counter.count
@@ -1593,9 +1754,11 @@ def check_train_kernels(torch):
         print(f"    bf16 time (CUDA graph replay, L2 warm): kernel {ms:.4f} ms, plain (f32) "
               f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms")
         if name == "phase_conv_dw":
-            phase_dw_beside(torch, f"{name} {label}", x, dy, hop)
+            phase_dw_beside(torch, f"{name} {label}", x, dy, hop, pieces)
         elif fused_conv.dense_eligible(c_true, co_true, x.shape[3]):
             dense_dw_beside(torch, f"{name} {label}", x, dy, dense)
+        elif fused_conv.dense_pairs_eligible(c_true, co_true, x.shape[3]):
+            pairs_dw_beside(torch, f"{name} {label}", x, dy, pairs)
         elif deep or mid:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
@@ -1612,7 +1775,9 @@ def check_train_kernels(torch):
             if rel > 1e-3:
                 _fail(f"{name} {label}: the mid-channel body disagrees")
         bodies = (("fused_conv_dw_wgmma",) if deep else ("conv3_mid_dw",) if mid
-                  else ("conv3_phase_dw",) if hop else ("conv3_dense_dw",) if dense else ())
+                  else ("conv3_phase_dw",) if hop else ("conv3_dense_dw",) if dense
+                  else ("conv3_dense_pairs_dw",) if pairs
+                  else ("conv3_phase_pieces_dw",) if pieces else ())
         for rec in (name,) + bodies:
             _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
                     ops=2 * 27 * c_true * co_true * (xc.numel() // c_true), peak=PEAK_BF16,
@@ -1696,7 +1861,8 @@ def check_train_kernels(torch):
            ("phase_conv_dw", (2, 30, 34, 38, 8 * 16), 8 * 16),
            ("phase_conv_dw", (1, 36, 33, 30, 8 * 32), 8 * 16),
            ("phase_conv_dw", (2, 18, 26, 38, 8 * 16), 8 * 48),
-           ("phase_conv_dw", (1, 34, 36, 30, 8 * 64), 8 * 32)]
+           ("phase_conv_dw", (1, 34, 36, 30, 8 * 64), 8 * 32),
+           ("fused_conv_dw", (2, 30, 21, 50, 32), 32), ("phase_conv_dw", (2, 18, 26, 38, 64), 64)]
     for name, x_shape, co in odd:
         mod, kernel, plain = modules(name)
         x, dy = randn(*x_shape).to(bf16), randn(*x_shape[:4], co).to(bf16)
@@ -1711,6 +1877,10 @@ def check_train_kernels(torch):
                      and phase_dw_rule(x, c_true, co_true)
                      else "dense_rows" if name == "fused_conv_dw"
                      and dense_rule(x, c_true, co_true, dw=True)
+                     else "dense_pairs" if name == "fused_conv_dw"
+                     and pairs_rule(x, c_true, co_true)
+                     else "phase_pieces" if name == "phase_conv_dw"
+                     and pieces_rule(x, c_true, co_true)
                      else "tensor_cores"
                      if c_true % 8 == 0 and co_true % 8 == 0 else "f32_tiles")
         if body != want_body:
@@ -2215,6 +2385,9 @@ def run_train(torch, work: Path):
     # and the 48^3 x 16 convs (fwd, dx, dw) on the dense Hopper bodies
     launches["conv3_dense"] = _mid_counters()["conv3_dense"].count
     launches["conv3_dense_dw"] = _mid_counters()["conv3_dense_dw"].count
+    # and the 24^3 x 32 and L = 64 weight gradients on the pairs and pieces bodies
+    launches["conv3_dense_pairs_dw"] = _mid_counters()["conv3_dense_pairs_dw"].count
+    launches["conv3_phase_pieces_dw"] = _mid_counters()["conv3_phase_pieces_dw"].count
     for rec in result.history:
         print(f"  epoch {rec['epoch']}: train_loss {rec['train_loss']:.5f} val_loss "
               f"{rec['val_loss']:.5f} val_dice {rec['val_dice']:.5f} "
@@ -2250,7 +2423,11 @@ def run_train(torch, work: Path):
             "conv3_phase_dw": FLAGSHIP_PHASE_DW, "conv3_phase": FLAGSHIP_PHASE_FWD,
             "conv3_dense": 2 * FLAGSHIP_DENSE,
             "conv3_dense_dw": FLAGSHIP_DENSE * (TRAIN_BATCH * 48 ** 3
-                                                >= fused_conv.DENSE_DW_MIN_POSITIONS[16])}
+                                                >= fused_conv.DENSE_DW_MIN_POSITIONS[16]),
+            "conv3_dense_pairs_dw": FLAGSHIP_PAIRS_DW * (TRAIN_BATCH * 24 ** 3
+                                                         >= fused_conv.DENSE_PAIRS_MIN_POSITIONS),
+            "conv3_phase_pieces_dw": FLAGSHIP_PIECES_DW * (
+                TRAIN_BATCH * 48 ** 3 >= fused_conv.PHASE_PIECES_MIN_POSITIONS)}
     print(f"  deep- and mid-channel bodies and the phase and dense Hopper bodies, one step: "
           f"{_launches(deep)} (expected {want})")
     if _launches(deep) != want:
@@ -2935,16 +3112,16 @@ def run_cross_validate(torch, work: Path):
 ARCHS = {
     "segresnet": {"train": {"arch": "segresnet"}, "create": {"arch": "segresnet"},
                   "convs": 25, "phase_convs": 0, "input": "fused_conv", "phase_dice": False,
-                  "deep": (8, 0), "mid": (6, 0), "dense": (10, 10)},
+                  "deep": (8, 0), "mid": (6, 0), "dense": (10, 10), "pairs_dw": 6},
     "unetr": {"train": {"arch": "unetr", "spatial_size": TRAIN_PATCH,
                         "val_roi_size": TRAIN_PATCH},
               "create": {"arch": "unetr", "spatial_size": TRAIN_PATCH}, "convs": 14,
               "phase_convs": 8, "input": "phase_conv", "phase_dice": True, "deep": (10, 4),
-              "mid": (7, 4), "phase_dw": 7, "phase_fwd": 2},
+              "mid": (7, 4), "phase_dw": 7, "phase_fwd": 2, "pairs_dw": 2},
     # UNETR(pack=False), launch counts only: [unetr-pack]'s A/B builds it
     # from the packed model's weights
     "unetr-unpacked": {"convs": 22, "phase_convs": 0, "input": "fused_conv",
-                       "phase_dice": False, "deep": (10, 4), "dense": (2, 2)},
+                       "phase_dice": False, "deep": (10, 4), "dense": (2, 2), "pairs_dw": 5},
 }
 # (architecture, stored x shape at the training batch, CO, launches of the
 # shape a forward): every stride-1 3^3 conv shape of the two on kernel 1 that
@@ -3069,10 +3246,14 @@ def check_arch_kernels(torch):
         deep_dw = c >= 64 and co >= 128
         mid_dw = fused_conv.dw_body(x, c, co) == "mid_channels"
         dense_dw = dense_rule(x, c, co, dw=True)
-        if (fused_conv.dw_body(x, c, co) == "dense_rows") != dense_dw:
+        pairs_dw = pairs_rule(x, c, co)
+        if (fused_conv.dw_body(x, c, co) == "dense_rows") != dense_dw or \
+                (fused_conv.dw_body(x, c, co) == "dense_pairs") != pairs_dw:
             _fail(f"fused_conv_dw {label}: the rule between the dense and other bodies")
         if fused_conv.dense_eligible(c, co, shape[3]):
             dense_dw_beside(torch, f"fused_conv_dw {label}", x, dy, dense_dw)
+        elif fused_conv.dense_pairs_eligible(c, co, shape[3]):
+            pairs_dw_beside(torch, f"fused_conv_dw {label}", x, dy, pairs_dw)
         elif deep_dw or mid_dw:
             print(f"    the tensor-core body (conv3_dw_mma.cuh) on the same tensors: "
                   f"{tensor_core_dw_ms(torch, x, dy):.4f} ms")
@@ -3090,7 +3271,8 @@ def check_arch_kernels(torch):
             if rel > 1e-3:
                 _fail(f"fused_conv_dw {label}: the mid-channel body disagrees")
         bodies = (("fused_conv_dw_wgmma",) if deep_dw else ("conv3_mid_dw",) if mid_dw else
-                  ("conv3_dense_dw",) if dense_dw else ())
+                  ("conv3_dense_dw",) if dense_dw else
+                  ("conv3_dense_pairs_dw",) if pairs_dw else ())
         for name in ("fused_conv_dw",) + bodies:
             _record(launched, name, err=err, ms=ms, plain_ms=pms,
                     nbytes=_nbytes(x, dy, got), ops=2 * 27 * c * co * (x.numel() // c),
@@ -3116,7 +3298,9 @@ def arch_launches(spec):
     too; ``phase_dw`` the weight gradients a step on the phase dw's Hopper
     body; ``phase_fwd`` the convs a forward on the phase forward's Hopper
     body (their input gradients too); ``dense`` each dense Hopper body's
-    (convs a forward, their input gradients too; weight gradients a step)."""
+    (convs a forward, their input gradients too; weight gradients a step);
+    ``pairs_dw`` the weight gradients a step on the dense pairs body (24^3 and
+    48^3 x 32 at batch 8)."""
     deep, deep_dw = spec["deep"]
     mid, mid_dw = spec.get("mid", (0, 0))
     dense, dense_dw = spec.get("dense", (0, 0))
@@ -3131,7 +3315,8 @@ def arch_launches(spec):
                 "conv3_mid": 2 * mid, "conv3_mid_dw": mid_dw,
                 "conv3_phase_dw": spec.get("phase_dw", 0),
                 "conv3_phase": 2 * spec.get("phase_fwd", 0), "conv3_dense": 2 * dense,
-                "conv3_dense_dw": dense_dw}
+                "conv3_dense_dw": dense_dw, "conv3_dense_pairs_dw": spec.get("pairs_dw", 0),
+                "conv3_phase_pieces_dw": 0}
     if spec["input"] is not None:
         per_step[spec["input"]] -= 1
     return per_fwd, per_step
@@ -3286,12 +3471,13 @@ def run_arch(torch, arch: str, data: Path, work: Path):
 
 
 # [arch-parity]: (create() keywords, patch) of each architecture's f32 step
-# against the f64 CPU step, at full width and batch 1: the f64 CPU step took
-# 8.7 s (SegResNet) and 16.1 s (UNETR) on the card's host, under the minute
-# beyond which SegResNet would take a 64^3 patch and UNETR 4 layers
+# against the f64 CPU step, at full width and batch 1, on a 64^3 patch: at
+# 96^3 the phase took 69 s of the smoke's 1200 s (the CPU's f32 and f64
+# steps), and the checks are the same at either size
+PARITY_PATCH = (64, 64, 64)
 ARCH_PARITY = {
-    "segresnet": ({"arch": "segresnet"}, TRAIN_PATCH),
-    "unetr": ({"arch": "unetr", "spatial_size": TRAIN_PATCH}, TRAIN_PATCH),
+    "segresnet": ({"arch": "segresnet"}, PARITY_PATCH),
+    "unetr": ({"arch": "unetr", "spatial_size": PARITY_PATCH}, PARITY_PATCH),
 }
 
 
@@ -3552,7 +3738,9 @@ def unetr_pack_ab(torch):
                     "conv3_mid_dw": ARCHS["unetr"]["mid"][1],
                     "conv3_phase_dw": ARCHS["unetr"]["phase_dw"],
                     "conv3_phase": 2 * ARCHS["unetr"]["phase_fwd"],
-                    "conv3_dense": 0, "conv3_dense_dw": 0}
+                    "conv3_dense": 0, "conv3_dense_dw": 0,
+                    "conv3_dense_pairs_dw": ARCHS["unetr"]["pairs_dw"],
+                    "conv3_phase_pieces_dw": 0}
             if mids != want:
                 _fail(f"the packed UNETR step's mid-channel and phase Hopper launches {mids}, "
                       f"expected {want}")
@@ -5538,10 +5726,21 @@ def check_local_kernels(torch):
             xc.permute(0, 4, 1, 2, 3), (cot, c, 3, 3, 3), dyc.permute(0, 4, 1, 2, 3),
             padding=1))
         hop = not dense and phase_dw_rule(x, c, cot)
+        pairs = dense and pairs_rule(x, c, cot)
+        pieces = not dense and pieces_rule(x, c, cot)
+        body = fused_conv.dw_body(x, c, cot, not dense)
+        if any((body == k) != v for k, v in (("phase_blocks", hop), ("dense_pairs", pairs),
+                                             ("phase_pieces", pieces))):
+            _fail(f"[local-kernels] {name} {x_shape}->{co}: the rule sends it to {body}")
         print(f"  {name} x{x_shape}->{co}: max|d| {err:.3e}; kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms (CUDA graph replay)"
-              + ("; the phase Hopper body" if hop else ""))
-        for rec in (name,) + (("conv3_phase_dw",) if hop else ()):
+              f"{pms:.4f} ms, cuDNN bf16 wgrad {cms:.4f} ms (CUDA graph replay); {body}")
+        if pairs:
+            pairs_dw_beside(torch, f"[local-kernels] {name} {x_shape}", x, dy, True)
+        if pieces:
+            phase_dw_beside(torch, f"[local-kernels] {name} {x_shape}", x, dy, False, True)
+        bodies = (("conv3_phase_dw",) if hop else ("conv3_dense_pairs_dw",) if pairs
+                  else ("conv3_phase_pieces_dw",) if pieces else ())
+        for rec in (name,) + bodies:
             _record(results, rec, err=err, ms=ms, plain_ms=pms, nbytes=_nbytes(x, dy, got),
                     ops=2 * 27 * c * cot * (xc.numel() // c), peak=PEAK_BF16, library_ms=cms,
                     echo=rec == name)
@@ -6053,6 +6252,11 @@ def main(argv=None) -> None:
     run_t0 = t0 = time.perf_counter()
     lib = _cuda.build()
     print(f"[build] {lib.name}: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    log = lib.with_name(lib.stem + ".log")
+    units = re.findall(r"^== (\S+) \(([\d.]+) s\)", log.read_text() if log.exists() else "",
+                       re.M)
+    print("  units, seconds from the build's start to each unit's end: "
+          + ", ".join(f"{name} {sec}" for name, sec in sorted(units, key=lambda u: -float(u[1]))))
     report_conv_build(lib)
     report_kernel_build(lib, "blend_kernel")
     report_kernel_build(lib, "shear_group_kernel")

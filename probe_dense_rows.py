@@ -30,6 +30,18 @@ every instantiation of the two bodies and its notes on their wgmma, then:
    producer arrives without copying), without the forward's stores, and the
    forward's warpgroups issuing without taking turns.
 
+``python3 probe_dense_rows.py --pairs [--small] [--variants]`` probes the
+dense pairs dw body (``csrc/conv3_dense_pairs_dw.cuh``, C = CO = 32) instead:
+ragged shapes under the plan and other rings and grids, each against
+``conv3d_dw_plain`` and repeated bit for bit with sentinels past the
+workspace and the output; the 24^3 x 32 rows at batch 8, 4 and 2 and UNETR's
+12^3 and 48^3 x 32 at batch 8 beside the tensor-core body, cuDNN's bf16 wgrad
+and the bound; ``--small`` the volumes around
+``fused_conv.DENSE_PAIRS_MIN_POSITIONS``; ``--variants`` patched copies
+(``build/probe/dense_pairs/``, each ``fused_conv_dw_pairs.cu`` alone) without
+its wgmma, without its staging, without the reduce launch after it, without
+the partials' stores.
+
 Every time is printed beside ``nvidia-smi --query-gpu=name,power.limit``.
 """
 
@@ -262,6 +274,124 @@ def row(dims, c, name, variants: dict) -> None:
             print(f"      variant {vname}: {chip_smoke._graph_ms(torch, vrun):.4f} ms", flush=True)
 
 
+_PAIRS = "conv3_dense_pairs_dw.cuh"
+PAIRS_VARIANTS = {
+    "no wgmma": [("        wgmma_ss_n64_mn(acc[ty], da0",
+                  "        if (k < 0) wgmma_ss_n64_mn(acc[ty], da0")],
+    "no staging": [("        mbar_expect_tx(bar(s), 2 * DENSE_HALO * DENSE_HALO * 128 + "
+                    "2 * DENSE_PAIRS_DY_BYTES);", "        mbar_arrive(bar(s));"),
+                   ("        for (int v = 0; v < 2; ++v) {  // lanes from voxel v - 1 of row j",
+                    "        for (int v = 0; v < 0; ++v) {  // lanes from voxel v - 1 of row j")],
+    "no second launch": [("  const long long n = 27LL * 32 * 32;\n",
+                          "  const long long n = 27LL * 32 * 32;\n"
+                          "  if (n > 0) return static_cast<int>(cudaGetLastError());\n")],
+    "no partial stores": [("        *reinterpret_cast<float2*>(part +",
+                           "        if (acc[ty][0] == 1234.5f) *reinterpret_cast<float2*>(part +")],
+}
+PAIRS_ROWS = [((8, 24, 24, 24), "24^3 x 32 B8"), ((4, 24, 24, 24), "24^3 x 32 B4 (a rank)"),
+              ((2, 24, 24, 24), "24^3 x 32 B2"), ((8, 12, 12, 12), "12^3 x 32 B8"),
+              ((8, 48, 48, 48), "48^3 x 32 B8")]
+PAIRS_SMALL = [((1, 24, 24, 24), "24^3 x 32 B1"), ((4, 12, 12, 12), "12^3 x 32 B4"),
+               ((2, 16, 16, 16), "16^3 x 32 B2"), ((1, 32, 32, 32), "32^3 x 32 B1")]
+# (dims, stages, grid_x): the plan's, short rings, a few blocks walking many
+# bricks, D and H no multiple of 8, lines of one row
+PAIRS_RAGGED = [((1, 10, 9, 8), None, None), ((2, 7, 12, 6), 2, 3), ((1, 3, 17, 4), 3, 5),
+                ((3, 9, 2, 2), 2, 1), ((2, 18, 20, 12), 5, 7), ((1, 40, 33, 64), None, None),
+                ((2, 16, 24, 32), 4, 20)]
+
+
+def build_pairs_variants() -> dict:
+    root = ROOT / "build" / "probe" / "dense_pairs"
+    procs = {}
+    for name, edits in PAIRS_VARIANTS.items():
+        d = root / name.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_cuda._CSRC, d)
+        text = (d / _PAIRS).read_text()
+        for old, new in edits:
+            if old not in text:
+                sys.exit(f"variant {name}: {old[:60]!r} is not in {_PAIRS}")
+            text = text.replace(old, new)
+        (d / _PAIRS).write_text(text)
+        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+               str(d / "fused_conv_dw_pairs.cu")]
+        procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (d, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"variant {name}: nvcc failed\n{out[-2000:]}")
+        fn = ctypes.CDLL(str(d / "lib.so")).segk_fused_conv3_dw_pairs
+        fn.argtypes = _cuda._SIGNATURES["segk_fused_conv3_dw_pairs"]
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def pairs_run(x, dy, stages=None, grid_x=None, fn=None):
+    """A closure launching the pairs body through its C entry point (the
+    plan's ring and grid unless given), and its output tensor."""
+    b, d, h, w_, c = x.shape
+    p = fused_conv.dense_pairs_plan((b, d, h, w_), c, c)
+    stages = stages or p.stages
+    grid_x = min(grid_x or p.grid_x, p.nbricks)
+    nws = grid_x * 27 * c * c
+    ws_all = torch.full((nws + 4096,), 1232.0, dtype=torch.float32, device="cuda")
+    out_all = torch.full((27 * c * c + 4096,), 1232.0, dtype=torch.float32, device="cuda")
+    ws, out = ws_all[:nws], out_all[:27 * c * c].view(3, 3, 3, c, c)
+    SENTINELS.extend([ws_all[nws:], out_all[27 * c * c:]])
+    args = (x.data_ptr(), dy.data_ptr(), ws.data_ptr(), out.data_ptr(), b, d, h, w_, c, c,
+            grid_x, stages, fused_conv.dense_pairs_smem_bytes(stages))
+
+    def run(keep=(ws_all, out_all)):
+        if fn is None:
+            _cuda.launch("segk_fused_conv3_dw_pairs", *args)
+        elif fn(*args, torch.cuda.current_stream().cuda_stream):
+            sys.exit("probe: a variant failed to launch")
+    return run, out
+
+
+def pairs_main(card: str) -> None:
+    lib = _cuda.build()
+    for line in lib.with_name(lib.stem + ".log").read_text().splitlines():
+        if "C75" in line and "pairs" in line:  # ptxas' notes about its wgmma
+            print(f"  {line.strip()[:300]}")
+    for line, regs, stack, spill in chip_smoke._ptxas_reports(lib, "conv3_dense_pairs_kernel"):
+        print(f"  ptxas conv3_dense_pairs_kernel: {regs} registers, stack {stack}, "
+              f"spill bytes {spill}")
+    variants = build_pairs_variants() if "--variants" in sys.argv else {}
+    print("[ragged] the pairs body against the plain version:")
+    for k, (dims, stages, grid_x) in enumerate(PAIRS_RAGGED):
+        g = torch.Generator(device="cuda").manual_seed(70 + k)
+        x = torch.randn(dims + (32,), generator=g, device="cuda").to(torch.bfloat16)
+        dy = torch.randn(dims + (32,), generator=g, device="cuda").to(torch.bfloat16)
+        run, out = pairs_run(x, dy, stages, grid_x)
+        check(f"dw {dims} C 32, ring {stages or 'plan'}, {grid_x or 'plan'} blocks", run, out,
+              fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    print(f"[rows] bf16, CUDA-graph replay, L2 warm ({card}):")
+    rows = PAIRS_ROWS + (PAIRS_SMALL if "--small" in sys.argv else [])
+    for k, (dims, name) in enumerate(rows):
+        g = torch.Generator(device="cuda").manual_seed(90 + k)
+        x = torch.randn(dims + (32,), generator=g, device="cuda").to(torch.bfloat16)
+        dy = torch.randn(dims + (32,), generator=g, device="cuda").to(torch.bfloat16)
+        q = fused_conv.dense_pairs_plan(dims, 32, 32)
+        run, out = pairs_run(x, dy)
+        check(f"{name}: {q.grid_x} blocks, ring {q.stages}, {q.nbricks} bricks", run, out,
+              fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+        ms = chip_smoke._graph_ms(torch, run)
+        tms = chip_smoke.tensor_core_dw_ms(torch, x, dy)
+        lms = chip_smoke._graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            x.permute(0, 4, 1, 2, 3), (32, 32, 3, 3, 3), dy.permute(0, 4, 1, 2, 3), padding=1))
+        bound = bound_ms(x, 32)
+        print(f"    pairs dw body {ms:.4f} ms, tensor-core dw body {tms:.4f} ms, cuDNN bf16 "
+              f"wgrad {lms:.4f} ms, bound {bound:.4f} ms; body / bound {ms / bound:.2f}, "
+              f"tensor-core / body {tms / ms:.2f}", flush=True)
+        for vname, fn in variants.items():
+            vrun, _ = pairs_run(x, dy, fn=fn)
+            print(f"      variant {vname}: {chip_smoke._graph_ms(torch, vrun):.4f} ms", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("probe_dense_rows: CUDA is not available")
@@ -269,6 +399,12 @@ def main() -> None:
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}")
     torch.backends.cudnn.allow_tf32 = False  # the plain versions in full f32
+    if "--pairs" in sys.argv:
+        pairs_main(card)
+        print(f"card: {card}")
+        if FAILED:
+            sys.exit(f"probe: {len(FAILED)} checks failed: {FAILED}")
+        return
     lib = _cuda.build()
     log = lib.with_name(lib.stem + ".log").read_text().splitlines()
     for line in log:  # ptxas' notes about the bodies' wgmma (C75xx)

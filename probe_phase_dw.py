@@ -26,6 +26,18 @@ every instantiation of the body, then:
    staging (the producer arrives without copying), and with the staging
    alone (neither loads nor wgmma).
 
+``python3 probe_phase_dw.py --pieces [--small] [--plans] [--variants]``
+probes the phase pieces body (``csrc/conv3_phase_pieces_dw.cuh``, Ci = Co = 8)
+instead: ragged shapes under the plan and other bricks, splits and rings, each
+against ``phase_conv_dw_plain`` and repeated bit for bit with sentinels past
+the workspace and the output; the flagship's L = 64 at batch 8 and a rank's
+batch 4 beside the tensor-core body, the phase Hopper body at Ci = 8, cuDNN's
+bf16 wgrad and the bound; ``--small`` the block volumes around
+``fused_conv.PHASE_PIECES_MIN_POSITIONS``; ``--plans`` other bricks at the
+rows; ``--variants`` patched copies (``build/probe/phase_pieces/``, each
+``phase_conv_dw_pieces.cu`` alone) without its wgmma, without its ldmatrix
+loads, without its staging.
+
 Every time is printed beside ``nvidia-smi --query-gpu=name,power.limit``.
 """
 
@@ -184,6 +196,153 @@ def inputs(dims, c, co, seed):
     return p_in, g_in
 
 
+_PIECES_HDR = "conv3_phase_pieces_dw.cuh"
+PIECES_VARIANTS = {
+    "no wgmma": [("      wgmma_rs_n32_mn(acc[i & 1], f[i], desc_b128(",
+                  "      if (ks < 0) wgmma_rs_n32_mn(acc[i & 1], f[i], desc_b128(")],
+    "no ldmatrix": [("      ldsm_x4_trans(gbase + hr * 128",
+                     "      f[i][0] = f[i][1] = f[i][2] = f[i][3] = hr;\n"
+                     "      if (hr < -1000000) ldsm_x4_trans(gbase + hr * 128")],
+    "no staging": [("        mbar_expect_tx(bar(s), (uint32_t)(P + halo_rows) * 128);",
+                    "        mbar_arrive(bar(s));"),
+                   ("        tma_load_5d(slot, &tmp,", "        if (k < 0) tma_load_5d(slot, &tmp,"),
+                   ("        tma_load_5d(slot + p_plane, &tmg,",
+                    "        if (k < 0) tma_load_5d(slot + p_plane, &tmg,")],
+}
+# the flagship's L = 64 (96^3 x 8) at batch 8 and a rank's batch 4; --small
+# the block volumes around the rule's least
+PIECES_ROWS = [((8, 96, 96, 96), "flagship L = 64 B8"), ((4, 96, 96, 96), "L = 64 B4 (a rank)")]
+PIECES_SMALL = [((2, 96, 96, 96), "L = 64 B2"), ((1, 96, 96, 96), "L = 64 B1"),
+                ((2, 64, 64, 64), "64^3 B2"), ((1, 64, 64, 64), "64^3 B1"),
+                ((2, 48, 48, 48), "48^3 B2"), ((1, 48, 48, 48), "48^3 B1"),
+                ((1, 32, 32, 32), "32^3 B1")]
+# (dims, (td, th, tw), splits, stages): the plan's, short rings, a few blocks
+# walking many bricks, ragged block grids
+PIECES_RAGGED = [((2, 4, 6, 22), None, None, None), ((1, 6, 10, 18), (2, 2, 8), 3, 2),
+                 ((3, 2, 2, 2), (1, 2, 16), 2, 3), ((1, 10, 4, 6), (2, 4, 4), 1, 4),
+                 ((2, 18, 30, 34), (2, 4, 16), 7, 3), ((1, 40, 24, 64), None, None, None)]
+
+
+def build_pieces_variants() -> dict:
+    """{name: C entry point} of the pieces body's patched copies, built in
+    parallel."""
+    root = ROOT / "build" / "probe" / "phase_pieces"
+    procs = {}
+    for name, edits in PIECES_VARIANTS.items():
+        d = root / name.replace(" ", "_")
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_cuda._CSRC, d)
+        text = (d / _PIECES_HDR).read_text()
+        for old, new in edits:
+            if old not in text:
+                sys.exit(f"variant {name}: {old[:50]!r} is not in the header")
+            text = text.replace(old, new)
+        (d / _PIECES_HDR).write_text(text)
+        cmd = [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+               str(d / "phase_conv_dw_pieces.cu")]
+        procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (d, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"variant {name}: nvcc failed\n{out[-2000:]}")
+        fn = ctypes.CDLL(str(d / "lib.so")).segk_phase_conv3_dw_pieces
+        fn.argtypes = _cuda._SIGNATURES["segk_phase_conv3_dw_pieces"]
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def pieces_run(p_in, g_in, dims, plan, fn=None):
+    """A closure launching the pieces body with ``plan`` (through ``fn``, a
+    variant's entry point, where given) and its output tensor."""
+    b, d, h, w = dims
+    ws_all = torch.full((plan.workspace + 4096,), 1234.5, dtype=torch.float32, device="cuda")
+    out_all = torch.full((27 * 64 + 4096,), 1234.5, dtype=torch.float32, device="cuda")
+    ws, out = ws_all[:plan.workspace], out_all[:27 * 64].view(3, 3, 3, 8, 8)
+    SENTINELS.append((ws_all[plan.workspace:], out_all[27 * 64:]))
+    args = (p_in.data_ptr(), g_in.data_ptr(), ws.data_ptr(), out.data_ptr(), b, d, h, w, 8, 8,
+            plan.td, plan.th, plan.tw, plan.splits, plan.stages, plan.smem_bytes)
+
+    def run(keep=(ws_all, out_all)):
+        if fn is None:
+            _cuda.launch("segk_phase_conv3_dw_pieces", *args)
+        elif fn(*args, torch.cuda.current_stream().cuda_stream):
+            sys.exit("probe: a variant failed to launch")
+    return run, out
+
+
+def _pieces_plan(dims, brick, splits, stages, sms):
+    plan = fused_conv.phase_pieces_plan(dims, 8, 8, sms)
+    if brick is None:
+        return plan
+    td, th, tw = brick
+    b, d, h, w = dims[0], dims[1] // 2, dims[2] // 2, dims[3] // 2
+    nb = b * -(-d // td) * -(-h // th) * -(-w // tw)
+    splits = min(splits, nb)
+    return dataclasses.replace(plan, td=td, th=th, tw=tw, splits=splits, stages=stages,
+                               smem_bytes=fused_conv.phase_pieces_smem_bytes(td, th, tw, stages),
+                               workspace=4 * splits * 27 * 64, nbricks=nb)
+
+
+def pieces_main(card: str, sms: int) -> None:
+    lib = _cuda.build()
+    for line in lib.with_name(lib.stem + ".log").read_text().splitlines():
+        if "C75" in line and "pieces" in line:  # ptxas' notes about its wgmma
+            print(f"  {line.strip()[:300]}")
+    for line, regs, stack, spill in chip_smoke._ptxas_reports(lib, "conv3_phase_pieces_kernel"):
+        print(f"  ptxas conv3_phase_pieces_kernel: {regs} registers, stack {stack}, "
+              f"spill bytes {spill}")
+    variants = build_pieces_variants() if "--variants" in sys.argv else {}
+    print("[ragged] the pieces body against the plain version:")
+    for k, (dims, brick, splits, stages) in enumerate(PIECES_RAGGED):
+        p_in, g_in = inputs(dims, 8, 8, 200 + k)
+        want = phase_conv.phase_conv_dw_plain(p_in, g_in)
+        plan = _pieces_plan(dims, brick, splits, stages, sms)
+        run, out = pieces_run(p_in, g_in, dims, plan)
+        check(f"{dims}: brick {plan.td}x{plan.th}x{plan.tw}, {plan.splits} splits, ring "
+              f"{plan.stages}", run, out, want)
+    print(f"[rows] bf16, CUDA-graph replay, L2 warm ({card}):")
+    rows = PIECES_ROWS + (PIECES_SMALL if "--small" in sys.argv else [])
+    for k, (dims, name) in enumerate(rows):
+        p_in, g_in = inputs(dims, 8, 8, 300 + k)
+        want = phase_conv.phase_conv_dw_plain(p_in, g_in)
+        plan = fused_conv.phase_pieces_plan(dims, 8, 8, sms)
+        run, out = pieces_run(p_in, g_in, dims, plan)
+        check(f"{name}: brick {plan.td}x{plan.th}x{plan.tw}, {plan.splits} splits, ring "
+              f"{plan.stages}, {plan.nbricks} bricks", run, out, want)
+        ms = chip_smoke._graph_ms(torch, run)
+        trun, _ = tensor_core_run(p_in, g_in, dims, 8, 8)
+        tms = chip_smoke._graph_ms(torch, trun)
+        hrun, _ = body_run(p_in, g_in, dims, 8, 8, fused_conv.phase_dw_plan(dims, 8, 8, sms))
+        hms = chip_smoke._graph_ms(torch, hrun)
+        xf, gf = depth_to_space(p_in, 8), depth_to_space(g_in, 8)
+        lms = chip_smoke._graph_ms(torch, lambda: torch.nn.grad.conv3d_weight(
+            xf.permute(0, 4, 1, 2, 3), (8, 8, 3, 3, 3), gf.permute(0, 4, 1, 2, 3), padding=1))
+        nbytes = (p_in.numel() + g_in.numel()) * 2 + out.numel() * 4
+        ops = 2 * 27 * 64 * (p_in.numel() // 8)
+        bound = max(nbytes / chip_smoke.HBM_BYTES_PER_S, ops / chip_smoke.PEAK_BF16) * 1e3
+        print(f"    pieces body {ms:.4f} ms, tensor-core body {tms:.4f} ms, phase Hopper "
+              f"body {hms:.4f} ms, cuDNN bf16 wgrad {lms:.4f} ms, bound {bound:.4f} ms; "
+              f"pieces / bound {ms / bound:.2f}, tensor-core / pieces {tms / ms:.2f}", flush=True)
+        for vname, fn in variants.items():
+            vrun, _ = pieces_run(p_in, g_in, dims, plan, fn)
+            print(f"      variant {vname}: {chip_smoke._graph_ms(torch, vrun):.4f} ms", flush=True)
+        if "--plans" in sys.argv:
+            cands = sorted(fused_conv._phase_pieces_candidates(dims, sms), key=lambda kp: kp[0])
+            for key, q in cands[:8]:
+                if q == plan:
+                    continue
+                qrun, qout = pieces_run(p_in, g_in, dims, q)
+                qrun()
+                torch.cuda.synchronize()
+                err = ((qout - want).abs().max() / want.abs().max()).item()
+                qms = chip_smoke._graph_ms(torch, qrun)
+                print(f"      brick {q.td}x{q.th}x{q.tw} ring {q.stages}: {qms:.4f} ms (cost "
+                      f"{key[2]:.0f}, err {err:.1e})", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("probe_phase_dw: CUDA is not available")
@@ -200,6 +359,12 @@ def main() -> None:
         inst = line.split("conv3_phase_dw_kernel")[1].split("EEv")[0]
         print(f"  ptxas {inst}: {regs} registers, stack {stack}, spill bytes {spill}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if "--pieces" in sys.argv:
+        pieces_main(card, sms)
+        print(f"card: {card}")
+        if FAILED:
+            sys.exit(f"probe: {len(FAILED)} checks failed: {FAILED}")
+        return
     variants = build_variants() if "--variants" in sys.argv else {}
 
     print("[ragged] the body at every instance against the plain version:")

@@ -48,7 +48,7 @@ GROUPS = [
     ("dw kernels (fused_conv_dw, phase_conv_dw)",
      ("conv3_f32_dw_kernel", "conv3_dw_mma_kernel", "conv3_dw_wgmma_kernel",
       "conv3_fewc_dw_kernel", "conv3_mid_dw_kernel", "conv3_phase_dw_kernel",
-      "conv3_dense_dw_kernel")),
+      "conv3_dense_dw_kernel", "conv3_dense_pairs_kernel", "conv3_phase_pieces_kernel")),
     ("dw reduce", ("dw_reduce_kernel", "dw_reduce_lanes_kernel")),
     ("conv kernels fwd+dx (fused_conv, phase_conv)",
      ("conv3_f32_kernel", "conv3_mma_kernel", "conv3_wgmma_kernel", "conv3_fewc_kernel",

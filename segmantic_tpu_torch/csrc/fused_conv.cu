@@ -39,44 +39,11 @@
 // dense Hopper body of conv3_dense.cuh (segk_fused_conv3_rows): 128-byte rows
 // of 64 / C voxels by TMA, M = rows, N = the row's 64 output lanes, both
 // operands of its wgmma by descriptor.
+// The entry points of the tensor-core (mma.sync), few-channel and f32 bodies
+// live in fused_conv_tc.cu, a unit of their own so that nvcc builds both at once.
 #include "conv3_dense.cuh"
-#include "conv3_f32.cuh"
-#include "conv3_fewc.cuh"
 #include "conv3_mid.cuh"
 #include "conv3_wgmma.cuh"
-
-extern "C" int segk_fused_conv3_f32(const void* x, const void* w, const float* scale,
-                                    const float* shift, const float* alpha, int relu_mode,
-                                    void* out, float* ws, int B, int D, int H, int W, int C,
-                                    int CO, int in_bf16, int out_bf16, int td, int th, int tw,
-                                    int nt, int ck, int splits, int stages, int smem_bytes,
-                                    void* stream) {
-  return segk::launch_conv3_f32<segk::DenseLayout>(x, w, scale, shift, alpha, relu_mode, out,
-                                                   ws, B, D, H, W, C, CO, in_bf16, out_bf16, td,
-                                                   th, tw, nt, ck, splits, stages, smem_bytes,
-                                                   stream);
-}
-
-extern "C" int segk_fused_conv3_mma(const void* x, const void* wp, const float* scale,
-                                    const float* shift, const float* alpha, int relu_mode,
-                                    void* out, int B, int D, int H, int W, int C, int CO,
-                                    int out_bf16, int td, int th, int tw, int warps, int nt,
-                                    int ck, int stages, int resident, int grid_x,
-                                    int smem_bytes, void* stream) {
-  return segk::launch_conv3_mma<segk::DenseLayout>(
-      x, wp, scale, shift, alpha, relu_mode, out, B, D, H, W, C, CO, out_bf16, td, th, tw,
-      warps, nt, ck, stages, resident, grid_x, smem_bytes, stream);
-}
-
-extern "C" int segk_fused_conv3_fewc(const void* x, const void* wp, const float* scale,
-                                     const float* shift, const float* alpha, int relu_mode,
-                                     void* out, int B, int D, int H, int W, int C, int CO,
-                                     int out_bf16, int th, int tw, int seg, int nt, int grid_x,
-                                     int smem_bytes, int vec, void* stream) {
-  return segk::launch_conv3_fewc<segk::DenseLayout>(x, wp, scale, shift, alpha, relu_mode, out,
-                                                    B, D, H, W, C, CO, out_bf16, th, tw, seg, nt,
-                                                    grid_x, smem_bytes, vec, stream);
-}
 
 extern "C" int segk_fused_conv3_wgmma(const void* x, const void* wp, const float* scale,
                                       const float* shift, const float* alpha, int relu_mode,

@@ -29,39 +29,11 @@
 // (conv3_dense_dw.cuh: 128-byte rows of x and dy by TMA, M = 64 lanes of a
 // window of x, N = dy's 64 lanes, K = positions, both operands MN-major by
 // descriptor; a partial a block summed by a second pass in a fixed order).
+// The entry points of the tensor-core (mma.sync), few-channel and f32 bodies
+// live in fused_conv_dw_tc.cu, a unit of their own so that nvcc builds both at once.
 #include "conv3_dense_dw.cuh"
-#include "conv3_dw_mma.cuh"
 #include "conv3_dw_wgmma.cuh"
-#include "conv3_f32_dw.cuh"
-#include "conv3_fewc_dw.cuh"
 #include "conv3_mid_dw.cuh"
-
-extern "C" int segk_fused_conv3_dw_f32(const void* x, const void* dy, float* ws, float* out,
-                                       int B, int D, int H, int W, int C, int CO, int in_bf16,
-                                       int td, int th, int tw, int taps, int ci, int nt, int npg,
-                                       int splits, int stages, int smem_bytes, void* stream) {
-  return segk::launch_conv3_f32_dw<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO,
-                                                      in_bf16, td, th, tw, taps, ci, nt, npg,
-                                                      splits, stages, smem_bytes, stream);
-}
-
-extern "C" int segk_fused_conv3_dw_mma(const void* x, const void* dy, float* ws, float* out,
-                                       int B, int D, int H, int W, int C, int CO, int td,
-                                       int th, int tw, int ck, int nt, int splits, int stages,
-                                       int smem_bytes, void* stream) {
-  return segk::launch_conv3_dw_mma<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, td,
-                                                      th, tw, ck, nt, splits, stages,
-                                                      smem_bytes, stream);
-}
-
-extern "C" int segk_fused_conv3_dw_fewc(const void* x, const void* dy, float* ws, float* out,
-                                        int B, int D, int H, int W, int C, int CO, int th,
-                                        int tw, int seg, int nt, int splits, int smem_bytes,
-                                        int vec_x, int vec_dy, void* stream) {
-  return segk::launch_conv3_dw_fewc<segk::DenseLayout>(x, dy, ws, out, B, D, H, W, C, CO, th,
-                                                       tw, seg, nt, splits, smem_bytes, vec_x,
-                                                       vec_dy, stream);
-}
 
 extern "C" int segk_fused_conv3_dw_wgmma(const void* x, const void* dy, float* ws, float* out,
                                          int B, int D, int H, int W, int C, int CO, int td,

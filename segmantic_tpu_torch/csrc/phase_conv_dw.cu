@@ -37,37 +37,9 @@
 //   27 taps x 16 outputs, the position bricks split over ~264 blocks.
 // Every body with position splits writes one partial a block and sums them
 // in a fixed order in a second pass: a repeated launch is bit-equal.
-#include "conv3_dw_mma.cuh"
-#include "conv3_f32_dw.cuh"
-#include "conv3_fewc_dw.cuh"
+// The entry points of the tensor-core (mma.sync), few-channel and f32 bodies
+// live in phase_conv_dw_tc.cu, a unit of their own so that nvcc builds both at once.
 #include "conv3_phase_dw.cuh"
-
-extern "C" int segk_phase_conv3_dw_f32(const void* p, const void* g, float* ws, float* out,
-                                       int B, int D2, int H2, int W2, int C, int CO, int in_bf16,
-                                       int td, int th, int tw, int taps, int ci, int nt, int npg,
-                                       int splits, int stages, int smem_bytes, void* stream) {
-  return segk::launch_conv3_f32_dw<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO,
-                                                      in_bf16, td, th, tw, taps, ci, nt, npg,
-                                                      splits, stages, smem_bytes, stream);
-}
-
-extern "C" int segk_phase_conv3_dw_mma(const void* p, const void* g, float* ws, float* out,
-                                       int B, int D2, int H2, int W2, int C, int CO, int td,
-                                       int th, int tw, int ck, int nt, int splits, int stages,
-                                       int smem_bytes, void* stream) {
-  return segk::launch_conv3_dw_mma<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO, td,
-                                                      th, tw, ck, nt, splits, stages,
-                                                      smem_bytes, stream);
-}
-
-extern "C" int segk_phase_conv3_dw_fewc(const void* p, const void* g, float* ws, float* out,
-                                        int B, int D2, int H2, int W2, int C, int CO, int th,
-                                        int tw, int seg, int nt, int splits, int smem_bytes,
-                                        int vec_x, int vec_dy, void* stream) {
-  return segk::launch_conv3_dw_fewc<segk::PhaseLayout>(p, g, ws, out, B, D2, H2, W2, C, CO, th,
-                                                       tw, seg, nt, splits, smem_bytes, vec_x,
-                                                       vec_dy, stream);
-}
 
 extern "C" int segk_phase_conv3_dw_wgmma(const void* p, const void* g, float* ws, float* out,
                                          int B, int D2, int H2, int W2, int C, int CO, int td,

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -56,9 +57,11 @@ _SIGNATURES = {
     "segk_fused_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 15 + [_P],
     "segk_fused_conv3_dw_mid": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_fused_conv3_dw_rows": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "segk_fused_conv3_dw_pairs": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "segk_fused_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_dw_f32": [_P, _P, _P, _P] + [_I] * 17 + [_P],
     "segk_phase_conv3_dw_wgmma": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    "segk_phase_conv3_dw_pieces": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     "segk_fused_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_phase_conv3_dw_fewc": [_P, _P, _P, _P] + [_I] * 14 + [_P],
     "segk_shear_group": [_P] * 6 + [_I] * 14 + [_P],
@@ -120,16 +123,26 @@ def build() -> Path:
     work = BUILD_DIR / f"{lib.stem}.tmp{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.perf_counter()
     for src in cu:
         obj = work / f"{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        # each unit's report to a file of its own: through a pipe, a unit
+        # whose report outgrew the pipe waited for the units read before it
+        with open(work / f"{src.stem}.log", "w") as out:
+            procs.append((src, obj, subprocess.Popen(cmd, stdout=out,
+                                                     stderr=subprocess.STDOUT)))
+    ended = {}
+    while len(ended) < len(procs):
+        for src, _, proc in procs:
+            if src.name not in ended and proc.poll() is not None:
+                ended[src.name] = time.perf_counter() - t0
+        time.sleep(0.05)
     log = []
     failed = []
     for src, _, proc in procs:
-        out, _ = proc.communicate()
-        log.append(f"== {src.name}\n{out}")
+        out = (work / f"{src.stem}.log").read_text()
+        log.append(f"== {src.name} ({ended[src.name]:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
     (BUILD_DIR / f"{lib.stem}.log").write_text("\n".join(log))

@@ -15,7 +15,7 @@ the ``torch.autograd.Function`` over both: forward and input gradient on the
 conv kernel (the input gradient of a SAME stride-1 conv is the same conv with
 spatially flipped, in/out-swapped weights), weight gradient on the dw kernel.
 
-The conv kernel has seven bodies, the dw kernel seven. The conv kernel's,
+The conv kernel has seven bodies, the dw kernel nine. The conv kernel's,
 named by :func:`conv_body` from the input's type, layout and channel counts:
 bf16 input in the dense layout with C = CO = 8 or 16, W * C a multiple of 64
 and at least ``DENSE_MIN_POSITIONS[C]`` positions runs the dense Hopper body
@@ -51,6 +51,11 @@ TF32 would not; bf16 input with any other channel count takes it too. Either
 way the wrapper launches its kernel or raises.
 
 The dw kernel's, named by :func:`dw_body`: bf16 input in the dense layout with
+C = CO = 32, W even and at least ``DENSE_PAIRS_MIN_POSITIONS`` positions runs
+the dense pairs body (``csrc/conv3_dense_pairs_dw.cuh``: K = (position, voxel
+of the row), windows of x from voxel v - 1 against dy's lanes from voxel v -
+1, ``wgmma`` m64n64 with both operands MN-major by descriptor) with the
+geometry of :func:`dense_pairs_plan`; bf16 input in the dense layout with
 C = CO = 8 or 16, W * C a multiple of 64 and at least
 ``DENSE_DW_MIN_POSITIONS[C]`` positions runs the dense Hopper dw body
 (``csrc/conv3_dense_dw.cuh``: windows of x against the halves of dy's rows,
@@ -68,6 +73,11 @@ geometry of :func:`mid_dw_plan`; bf16 input in the phase layout with C in
 (``csrc/conv3_phase_dw.cuh``: TMA bricks of p and of g with its halo, K =
 (block voxel, a'z, a'y), ``wgmma`` with g's fragments by ``ldmatrix`` and p's
 (a'x, ci) runs by descriptor) with the geometry of :func:`phase_dw_plan`;
+bf16 input in the phase layout with C = CO = 8 and at least
+``PHASE_PIECES_MIN_POSITIONS`` block voxels the phase pieces body
+(``csrc/conv3_phase_pieces_dw.cuh``: the y and x pieces of g in the rows of
+a tile, p's (a'y, a'x, ci) lanes of a'z by descriptor) with the geometry of
+:func:`phase_pieces_plan`;
 other bf16 input with C % 8 == 0 and CO % 8 == 0 the tensor-core body (``csrc/conv3_dw_mma.cuh``: ``mma.sync`` on
 ``ldmatrix.trans`` operands, one staged halo brick of x and brick of dy per
 step) with the launch geometry of :func:`dw_plan`; bf16 input with C = 1..7 and
@@ -103,6 +113,8 @@ __all__ = [
     "phase_fwd_counter", "PhaseFwdPlan", "phase_fwd_plan", "phase_fwd_eligible",
     "pack_weights_phase", "dense_counter", "dense_dw_counter", "DenseFwdPlan",
     "dense_fwd_plan", "DenseDwPlan", "dense_dw_plan", "dense_eligible", "pack_weights_dense",
+    "dense_pairs_counter", "DensePairsPlan", "dense_pairs_plan", "dense_pairs_eligible",
+    "phase_pieces_counter", "PhasePiecesPlan", "phase_pieces_plan", "phase_pieces_eligible",
 ]
 
 RELU_MODES = {"none": 0, "relu": 1, "prelu": 2}
@@ -129,6 +141,12 @@ phase_fwd_counter = _cuda.LaunchCounter("conv3_phase")
 # counter and dw_counter
 dense_counter = _cuda.LaunchCounter("conv3_dense")
 dense_dw_counter = _cuda.LaunchCounter("conv3_dense_dw")
+# the dense pairs dw body's launches (kernel 2 at C = CO = 32), also counted
+# by dw_counter
+dense_pairs_counter = _cuda.LaunchCounter("conv3_dense_pairs_dw")
+# the phase pieces dw body's launches (kernel 5 at Ci = Co = 8), also counted
+# by phase_conv.dw_counter
+phase_pieces_counter = _cuda.LaunchCounter("conv3_phase_pieces_dw")
 
 
 def at_least_f32(t: torch.Tensor) -> torch.Tensor:
@@ -255,6 +273,18 @@ PHASE_FWD_MIN_POSITIONS = 4096
 # (9-13%: its per-block sums and the reduce over 132 partials).
 DENSE_MIN_POSITIONS = {8: 110592, 16: 27648}
 DENSE_DW_MIN_POSITIONS = {8: 442368, 16: 110592}
+# The dense pairs dw body's least positions (C = CO = 32), set from the rows
+# timed on an H100 beside the tensor-core body (PERF.md): faster at 24^3 x 32
+# at batch 8 (1.25x) and 48^3 x 32 at batch 8 (1.9x), a hair faster at 24^3
+# at batch 4 (55296 positions; 1.02-1.03x in two runs), slower at 24^3 at
+# batch 2 and 32^3 at batch 1 (its partial a block, 110 KB, and their
+# reduce cost ~13 us whatever the volume).
+DENSE_PAIRS_MIN_POSITIONS = 55296
+# The phase pieces dw body's least block voxels (Ci = Co = 8): faster than the
+# tensor-core body at every L = 64 row timed from 48^3 x 8 at batch 1 (13824
+# block voxels; 1.15x) to the flagship's batch 8 (1.57x), slower at 32^3 at
+# batch 1 (4096; 0.89x).
+PHASE_PIECES_MIN_POSITIONS = 13824
 
 
 def _dense(x: torch.Tensor, c: int, co: int, phase: bool, least: dict) -> bool:
@@ -981,7 +1011,12 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
     ``PHASE_DW_MIN_C`` and at least ``PHASE_DW_MIN_POSITIONS`` block voxels,
     ``"dense_rows"`` (``csrc/conv3_dense_dw.cuh``) for bf16 input in the
     dense layout with c = co = 8 or 16, W * c a multiple of 64 and at least
-    ``DENSE_DW_MIN_POSITIONS[c]`` positions,
+    ``DENSE_DW_MIN_POSITIONS[c]`` positions, ``"dense_pairs"``
+    (``csrc/conv3_dense_pairs_dw.cuh``) for bf16 input in the dense layout
+    with c = co = 32, W even (:func:`dense_pairs_eligible`) and at least
+    ``DENSE_PAIRS_MIN_POSITIONS`` positions, ``"phase_pieces"``
+    (``csrc/conv3_phase_pieces_dw.cuh``) for bf16 phase-major input with c =
+    co = 8 and at least ``PHASE_PIECES_MIN_POSITIONS`` block voxels,
     ``"tensor_cores"`` for any other bf16 input whose
     two channel vectors are whole numbers of 16-byte pieces (c % 8 == 0 and
     co % 8 == 0), ``"few_channels"`` for bf16 input with c = 1..7 and any co,
@@ -992,8 +1027,13 @@ def dw_body(x: torch.Tensor, c: int, co: int, phase: bool = False) -> str:
             return "deep_channels"
         if _dense(x, c, co, phase, DENSE_DW_MIN_POSITIONS):
             return "dense_rows"
+        positions = x.numel() // max(x.shape[-1], 1)  # (the phase layout: block voxels)
+        if (not phase and x.ndim == 5 and dense_pairs_eligible(c, co, x.shape[3])
+                and positions >= DENSE_PAIRS_MIN_POSITIONS):
+            return "dense_pairs"
+        if phase and phase_pieces_eligible(c, co) and positions >= PHASE_PIECES_MIN_POSITIONS:
+            return "phase_pieces"
         if c % 8 == 0 and co % 8 == 0:
-            positions = x.numel() // max(x.shape[-1], 1)  # (the phase layout: block voxels)
             if (phase and phase_dw_eligible(c, co) and c >= PHASE_DW_MIN_C
                     and positions >= PHASE_DW_MIN_POSITIONS):
                 return "phase_blocks"
@@ -1996,6 +2036,151 @@ def pack_weights_dense(weights: torch.Tensor) -> torch.Tensor:
     return F.pad(weights.reshape(-1), (0, 1))[index]
 
 
+# -- the dense pairs dw body (csrc/conv3_dense_pairs_dw.cuh) --
+
+DENSE_PAIRS_DY_BYTES = 8 * 8 * 128  # DENSE_PAIRS_DY_BYTES: a box of dy, 8 y x 8 z rows
+# DENSE_PAIRS_SLOT_BYTES: x's two windows (10 y x 10 z rows), dy's two boxes
+DENSE_PAIRS_SLOT_BYTES = 2 * DENSE_BOX_BYTES + 2 * DENSE_PAIRS_DY_BYTES
+
+
+def dense_pairs_eligible(c: int, co: int, w: int) -> bool:
+    """Channel counts and widths the dense pairs dw body takes: C = CO = 32 and
+    W even (whole 128-byte rows of two voxels a line)."""
+    return c == co == 32 and w % 2 == 0
+
+
+def dense_pairs_smem_bytes(stages: int) -> int:
+    """``dense_pairs_smem_bytes`` of ``csrc/conv3_dense_pairs_dw.cuh``: 1024
+    bytes to align the base, 1024 of barriers, ``stages`` slots."""
+    return 2048 + stages * DENSE_PAIRS_SLOT_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePairsPlan:
+    """Launch geometry of the dense pairs dw body: ``grid_x`` blocks (three
+    warpgroups: the tz), each walking the bricks ``blockIdx.x + k * grid_x``
+    (8 y x 8 z positions of one 128-byte row j: two voxels) through a ring of
+    ``stages`` slots, then a second launch that sums the ``grid_x`` partials
+    of ``workspace`` floats in a fixed order."""
+
+    stages: int
+    grid_x: int
+    smem_bytes: int
+    nbricks: int
+    nrows: int  # 128-byte rows a line: W / 2
+    workspace: int  # floats: grid_x partials of 27 * 32 * 32
+    fill: float  # real positions / positions walked
+
+
+@functools.lru_cache(maxsize=None)
+def dense_pairs_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                     sms: int = _SMS) -> DensePairsPlan:
+    """The ring and grid of one launch of the dense pairs dw body on a (B, D,
+    H, W) grid: one block a multiprocessor (or one a brick), the ring as deep
+    as fits (five slots of 42 KB)."""
+    b, d, h, w = dims
+    if not dense_pairs_eligible(c, co, w):
+        raise ValueError("the dense pairs dw body needs C = CO = 32 and W even, got "
+                         f"C = {c}, CO = {co}, W = {w}")
+    nrows = w // 2
+    nbricks = b * -(-d // 8) * -(-h // 8) * nrows
+    stages = next((st for st in range(8, 1, -1) if dense_pairs_smem_bytes(st) <= SMEM_LIMIT),
+                  None)
+    if nbricks < 1 or nbricks >= 2 ** 31 or stages is None:
+        raise ValueError(f"no dense pairs dw launch plan for dims {dims}, C = {c}, CO = {co}")
+    grid_x = min(nbricks, sms)
+    return DensePairsPlan(stages=stages, grid_x=grid_x, smem_bytes=dense_pairs_smem_bytes(stages),
+                          nbricks=nbricks, nrows=nrows, workspace=grid_x * 27 * c * co,
+                          fill=b * d * h * nrows / (nbricks * 64))
+
+
+# -- the phase pieces dw body (csrc/conv3_phase_pieces_dw.cuh) --
+
+# bricks of block voxels: an even count of k16 steps (32 | P), at most
+# PHASE_DW_MAX_ROWS (the halo-row table)
+_PHASE_PIECES_BRICKS = [b for b in _PHASE_DW_BRICKS if b[0] * b[1] * b[2] % 32 == 0]
+_PHASE_PIECES_WGMMA_CYCLES = 32  # an m64n32k16 with A from registers, as timed at N = 32
+
+
+def phase_pieces_eligible(c: int, co: int) -> bool:
+    """Channel counts the phase pieces dw body takes: Ci = Co = 8 (L = 64:
+    p's (a'y, a'x, ci) lanes of one a'z are one wgmma N of 32)."""
+    return c == co == 8
+
+
+def phase_pieces_smem_bytes(td: int, th: int, tw: int, stages: int) -> int:
+    """``phase_pieces_smem_bytes`` of ``csrc/conv3_phase_pieces_dw.cuh``: 1024
+    bytes to align the base, 1024 of barriers and the halo-row table,
+    ``stages`` slots of the p brick and the g halo (rounded to 1024)."""
+    return 2048 + stages * (td * th * tw * 128
+                            + _round1024((td + 2) * (th + 2) * (tw + 2) * 128))
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasePiecesPlan:
+    """Launch geometry of the phase pieces dw body, as the C entry point
+    takes it: ``splits`` blocks (three warpgroups: the tz) walk the bricks
+    ``split, split + splits, ...`` of ``td x th x tw`` block voxels through a
+    ring of ``stages``; each writes four partials (a'y, a'x) that a second
+    kernel sums in a fixed order."""
+
+    td: int
+    th: int
+    tw: int
+    splits: int
+    stages: int
+    smem_bytes: int
+    workspace: int  # f32 values: 4 * splits * 27 * 64
+    nbricks: int
+    fill: float  # real block voxels / block voxels walked
+
+
+def _phase_pieces_candidates(dims, sms: int):
+    b, d, h, w = dims
+    d, h, w = d // 2, h // 2, w // 2
+    positions = b * d * h * w
+    for td, th, tw in _PHASE_PIECES_BRICKS:
+        p = td * th * tw
+        nbricks = b * -(-d // td) * -(-h // th) * -(-w // tw)
+        if nbricks >= 2 ** 31:
+            continue
+        fill = positions / (nbricks * p)
+        stages = next((st for st in (4, 3, 2)
+                       if phase_pieces_smem_bytes(td, th, tw, st) <= SMEM_LIMIT), None)
+        if stages is None:
+            continue
+        # a brick of a block, in cycles: its 12 wgmma a k16 step, or its
+        # staging (the p brick and the g halo) from the L2
+        mma = 12 * (p // 16) * _PHASE_PIECES_WGMMA_CYCLES
+        l2 = (p + (td + 2) * (th + 2) * (tw + 2)) * 128 / _L2_BYTES
+        per_brick = max(mma, l2) + _MID_STEP_CYCLES
+        splits = min(nbricks, sms)
+        cycles = -(-nbricks // splits) * per_brick + 2500
+        yield (fill < 0.7, stages < 3, cycles, -fill), PhasePiecesPlan(
+            td=td, th=th, tw=tw, splits=splits, stages=stages,
+            smem_bytes=phase_pieces_smem_bytes(td, th, tw, stages),
+            workspace=4 * splits * 27 * 64, nbricks=nbricks, fill=fill)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_pieces_plan(dims: Tuple[int, int, int, int], c: int, co: int,
+                      sms: int = _SMS) -> PhasePiecesPlan:
+    """The brick, ring and splits of one launch of the phase pieces dw body
+    for a (B, D, H, W) grid of full-resolution positions (p and g hold (B, D
+    / 2, H / 2, W / 2) block voxels): one block a multiprocessor (or one a
+    brick) and, among bricks of 32 to 192 block voxels, the cheapest by a
+    rough count of cycles on the busiest multiprocessor (each brick's wgmma or
+    its staging from the L2), among those whose voxels are at least 70% real
+    where any is, then among those with a ring of three or four slots where
+    any has one. The ring takes as many slots (2-4) as fit."""
+    if not phase_pieces_eligible(c, co):
+        raise ValueError(f"the phase pieces dw body needs C = CO = 8, got C = {c}, CO = {co}")
+    found = min(_phase_pieces_candidates(dims, sms), key=lambda kp: kp[0], default=None)
+    if found is None:
+        raise ValueError(f"no phase pieces dw launch plan for dims {dims}")
+    return found[1]
+
+
 # -- the register-tiled f32 bodies (csrc/conv3_f32.cuh, csrc/conv3_f32_dw.cuh) --
 
 _F32_MAX_THREADS = 256  # F32_MAX_THREADS; __launch_bounds__(256, 2): 128 registers a thread
@@ -2316,7 +2501,11 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
     ``mid_dw_counter`` too), ``entry + "_wgmma"`` (the phase layout's Hopper
     body, :func:`phase_dw_plan`; counted by ``phase_dw_counter`` too), ``entry +
     "_rows"`` (the dense Hopper body, dense only, :func:`dense_dw_plan`;
-    counted by ``dense_dw_counter`` too), ``entry + "_mma"`` (tensor cores,
+    counted by ``dense_dw_counter`` too), ``entry + "_pairs"`` (the dense pairs
+    body, dense only, :func:`dense_pairs_plan`; counted by
+    ``dense_pairs_counter`` too), ``entry + "_pieces"`` (the phase pieces body,
+    phase only, :func:`phase_pieces_plan`; counted by ``phase_pieces_counter``
+    too), ``entry + "_mma"`` (tensor cores,
     :func:`dw_plan`), ``entry + "_fewc"`` (few
     channels, :func:`fewc_dw_plan`) or ``entry + "_f32"`` (f32,
     :func:`f32_dw_plan`; counted by ``f32_dw_counter`` too). With more than
@@ -2376,6 +2565,27 @@ def launch_conv3_dw(entry: str, x, dy, full_dims, c: int, co: int) -> torch.Tens
                      b, d, h, w, c, co, p.grid_x, p.stages, p.smem_bytes)
         dense_dw_counter.count += 1
         return out
+    if body == "dense_pairs":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the dense pairs dw body reads x and dy by TMA: both must be "
+                             "16-byte aligned")
+        p = dense_pairs_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        _cuda.launch(entry + "_pairs", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w, c, co, p.grid_x, p.stages, p.smem_bytes)
+        dense_pairs_counter.count += 1
+        return out
+    if body == "phase_pieces":
+        if not (_aligned(x) and _aligned(dy)):
+            raise ValueError("the phase pieces dw body reads p and g by TMA: both must be "
+                             "16-byte aligned")
+        p = phase_pieces_plan((b, d, h, w), c, co, sms)
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=x.device)
+        _cuda.launch(entry + "_pieces", x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), b, d, h, w, c, co, p.td, p.th, p.tw, p.splits, p.stages,
+                     p.smem_bytes)
+        phase_pieces_counter.count += 1
+        return out
     if body == "phase_blocks":
         if not (_aligned(x) and _aligned(dy)):
             raise ValueError("the phase dw's Hopper body reads p and g by TMA: both must be "
@@ -2412,6 +2622,7 @@ def conv3d_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     dy (B, D, H, W, CO) both f32 or both bf16 (or f64 on the CPU). On a CUDA
     device bf16 input with C >= 64 and CO >= 128 runs the deep-channel body,
     C = CO = 8 or 16 at the rule's volumes the dense Hopper body,
+    C = CO = 32 at the rule's volumes the dense pairs body,
     C and CO multiples of 64 below that at a large enough volume the
     mid-channel body, other bf16 with C % 8 == 0 and CO % 8 == 0 the
     tensor-core body, bf16 with C = 1..7 the few-channel body, anything else

@@ -363,6 +363,103 @@ def _dense_rows(x, c, co, least) -> bool:
             and x.numel() // x.shape[-1] >= least[c])
 
 
+def _pairs(x, c, co) -> bool:
+    """Whether the rule sends bf16 dense x to the dense pairs dw body."""
+    return (fused_conv.dense_pairs_eligible(c, co, x.shape[3])
+            and x.numel() // x.shape[-1] >= fused_conv.DENSE_PAIRS_MIN_POSITIONS)
+
+
+def _pieces(p, c, co) -> bool:
+    """Whether the rule sends bf16 phase-major p to the phase pieces dw body."""
+    return (fused_conv.phase_pieces_eligible(c, co)
+            and p.numel() // p.shape[-1] >= fused_conv.PHASE_PIECES_MIN_POSITIONS)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 24, 24, 24, 32),  # the flagship's, SegResNet's and UNETR's 24^3 x 32 (batch 8)
+    (4, 24, 24, 24, 32),  # a rank's at two ranks
+    (2, 30, 21, 50, 32),  # extents a multiple of no brick
+    (1, 9, 40, 64, 32),  # a few bricks a block
+])
+def test_dense_pairs_dw_body(cuda, shape):
+    g = torch.Generator().manual_seed(19)
+    x = _randn(g, *shape).to(torch.bfloat16)
+    dy = _randn(g, *shape).to(torch.bfloat16)
+    assert fused_conv.dw_body(x, 32, 32) == ("dense_pairs" if _pairs(x, 32, 32)
+                                             else "tensor_cores")
+    fused_conv.dense_pairs_counter.reset()
+    got = fused_conv.conv3d_dw(x, dy)
+    assert fused_conv.dense_pairs_counter.count == int(_pairs(x, 32, 32))
+    _close(got, fused_conv.conv3d_dw_plain(x, dy), 1e-3)
+    assert torch.equal(got, fused_conv.conv3d_dw(x, dy))  # fixed-order sums: bit-equal
+    # the weight gradient through the autograd Function takes the same body
+    w = _randn(g, 3, 3, 3, 32, 32, scale=0.03).to(torch.bfloat16).requires_grad_()
+    fused_conv.dense_pairs_counter.reset()
+    fused_conv.conv3d_grad(x, w).float().sum().backward()
+    assert fused_conv.dense_pairs_counter.count == int(_pairs(x, 32, 32))
+
+
+def test_dense_pairs_launcher_refuses_plans_it_did_not_size(cuda):
+    """The pairs body's launcher refuses a shared-memory sum other than its
+    own, more blocks than bricks and channels other than 32."""
+    from segmantic_tpu_torch.ops.fused_conv import dense_pairs_plan
+
+    x = torch.zeros((1, 8, 8, 16, 32), dtype=torch.bfloat16, device=cuda)
+    q = dense_pairs_plan((1, 8, 8, 16), 32, 32)
+    ws = torch.empty(q.workspace * 2, dtype=torch.float32, device=cuda)
+    out = torch.empty((3, 3, 3, 32, 32), dtype=torch.float32, device=cuda)
+    head = (x.data_ptr(), x.data_ptr(), ws.data_ptr(), out.data_ptr(), 1, 8, 8, 16)
+    _cuda.launch("segk_fused_conv3_dw_pairs", *head, 32, 32, q.grid_x, q.stages, q.smem_bytes)
+    for args in ((32, 32, q.grid_x, q.stages, q.smem_bytes + 1024),
+                 (32, 32, q.nbricks + 1, q.stages, q.smem_bytes),
+                 (16, 16, q.grid_x, q.stages, q.smem_bytes)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _cuda.launch("segk_fused_conv3_dw_pairs", *head, *args)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 48, 48, 48, 64),  # the flagship's L = 64 (96^3 x 8, batch 8)
+    (4, 48, 48, 48, 64),  # a rank's at two ranks
+    (2, 18, 26, 38, 64),  # extents a multiple of no brick
+    (1, 24, 24, 24, 64),  # the least volume
+])
+def test_phase_pieces_dw_body(cuda, shape):
+    g = torch.Generator().manual_seed(21)
+    p = _randn(g, *shape).to(torch.bfloat16)
+    gy = _randn(g, *shape).to(torch.bfloat16)
+    assert fused_conv.dw_body(p, 8, 8, True) == ("phase_pieces" if _pieces(p, 8, 8)
+                                                 else "tensor_cores")
+    fused_conv.phase_pieces_counter.reset()
+    got = phase_conv.phase_conv_dw(p, gy)
+    assert fused_conv.phase_pieces_counter.count == int(_pieces(p, 8, 8))
+    _close(got, phase_conv.phase_conv_dw_plain(p, gy), 1e-3)
+    assert torch.equal(got, phase_conv.phase_conv_dw(p, gy))
+    w = _randn(g, 3, 3, 3, 8, 8, scale=0.07).to(torch.bfloat16).requires_grad_()
+    fused_conv.phase_pieces_counter.reset()
+    phase_conv.phase_conv_grad(p, w).float().sum().backward()
+    assert fused_conv.phase_pieces_counter.count == int(_pieces(p, 8, 8))
+
+
+def test_phase_pieces_launcher_refuses_plans_it_did_not_size(cuda):
+    """The pieces body's launcher refuses a shared-memory sum other than its
+    own, a brick of an odd count of k16 steps and channels other than 8."""
+    from segmantic_tpu_torch.ops.fused_conv import phase_pieces_plan, phase_pieces_smem_bytes
+
+    p = torch.zeros((1, 4, 6, 16, 64), dtype=torch.bfloat16, device=cuda)
+    dims = (1, 8, 12, 32)
+    q = phase_pieces_plan(dims, 8, 8)
+    ws = torch.empty(q.workspace, dtype=torch.float32, device=cuda)
+    out = torch.empty((3, 3, 3, 8, 8), dtype=torch.float32, device=cuda)
+    head = (p.data_ptr(), p.data_ptr(), ws.data_ptr(), out.data_ptr(), *dims)
+    _cuda.launch("segk_phase_conv3_dw_pieces", *head, 8, 8, q.td, q.th, q.tw, q.splits, q.stages,
+                 q.smem_bytes)
+    for args in ((8, 8, q.td, q.th, q.tw, q.splits, q.stages, q.smem_bytes + 1024),
+                 (8, 8, 1, 1, 16, 1, 2, phase_pieces_smem_bytes(1, 1, 16, 2)),
+                 (16, 16, q.td, q.th, q.tw, q.splits, q.stages, q.smem_bytes)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _cuda.launch("segk_phase_conv3_dw_pieces", *head, *args)
+
+
 def _dw_case(layout, shape, co):
     """(module, kernel, plain, full-resolution dims, true C, true CO)."""
     if layout == "dense":
@@ -386,9 +483,13 @@ def test_dw_tensor_core_body(cuda, layout, shape, co):
     # the dense Hopper dw body at C = CO = 8 or 16 (the 48^3 x 16 stage)
     dense = layout == "dense" and _dense_rows(x, c_true, co_true,
                                               fused_conv.DENSE_DW_MIN_POSITIONS)
+    # the dense pairs body at C = CO = 32 (the 24^3 x 32 stage), the phase
+    # pieces body at Ci = Co = 8 (L = 64)
+    pairs = layout == "dense" and _pairs(x, c_true, co_true)
+    pieces = layout == "phase" and _pieces(x, c_true, co_true)
     assert fused_conv.dw_body(x, c_true, co_true, layout == "phase") == (
         "deep_channels" if deep else "phase_blocks" if hop else "dense_rows" if dense
-        else "tensor_cores")
+        else "dense_pairs" if pairs else "phase_pieces" if pieces else "tensor_cores")
     mod.dw_counter.reset()
     got = kernel(x, dy)
     assert mod.dw_counter.count == 1 and got.dtype == torch.float32
@@ -437,6 +538,7 @@ def test_arch_dw_shapes(cuda, shape, co):
         "few_channels" if shape[-1] < 8 else
         "deep_channels" if shape[-1] >= 64 and co >= 128 else
         "dense_rows" if _dense_rows(x, shape[-1], co, fused_conv.DENSE_DW_MIN_POSITIONS) else
+        "dense_pairs" if _pairs(x, shape[-1], co) else
         "mid_channels" if mid else "tensor_cores")
     fused_conv.dw_counter.reset()
     got = fused_conv.conv3d_dw(x, dy)

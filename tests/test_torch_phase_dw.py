@@ -157,8 +157,8 @@ def _probe(dims, c, dtype=torch.bfloat16, phase=True):
 
 @pytest.mark.parametrize("dims,c,co", ROWS + RANK_ROWS)
 def test_the_rows_take_the_phase_body(dims, c, co):
-    want = "phase_blocks" if c >= fused_conv.PHASE_DW_MIN_C else "tensor_cores"
-    assert fused_conv.dw_body(_probe(dims, c), c, co, True) == want  # L = 64: tensor cores
+    want = "phase_blocks" if c >= fused_conv.PHASE_DW_MIN_C else "phase_pieces"
+    assert fused_conv.dw_body(_probe(dims, c), c, co, True) == want  # L = 64: the pieces body
     # f32 keeps the register-tiled body, the dense layout never takes it
     assert fused_conv.dw_body(_probe(dims, c, torch.float32), c, co, True) == "f32_tiles"
     assert fused_conv.dw_body(_probe(dims, c, phase=False), c, co, False) != "phase_blocks"
